@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""Smoke test of loco_asr_tpu_torch on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``loco_asr_tpu_torch/csrc/`` and drives the
+port's main path, SpeechT5-base speech-encoder embedding extraction, at
+full width with random weights made from a seed.  Phases, in order (any
+failure raises and exits non-zero):
+
+1. environment: card name and power limit, torch / CUDA versions, TF32
+   flags (both set False: every comparison here is float32);
+2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
+3. kernel checks: each kernel against its plain PyTorch version on the card
+   at the main path's shapes (B1: [16, 12, 249, 64], L=160, mixed valid
+   lengths, also causal and mask-only, and T=2048; B2: [16, 80000] and an
+   odd length), max abs error against a stated tolerance, CUDA-event
+   medians of kernel, plain version and, where one PyTorch call computes
+   the same function, that call (timed as a yardstick only);
+4. encoder: full-width ``encode_speech`` at B=16 x 5 s with padded rows,
+   kernel path against plain path on valid frames, launch counts of one
+   forward (12 B1, 1 B2), forward ms and RTFx, and the device time of one
+   forward by kernel group (torch.profiler);
+5. pipeline: ``extract_embeddings -m audio`` on a SLURP-format directory of
+   8 seeded wavs of 1-4 s; the launch counts of this run are the main
+   path's counts;
+6. summary: one ``{"kernels": [...]}`` line, then last
+   ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+
+import numpy as np
+
+# H100 SXM data-sheet peaks used for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+B1_TOL = 1e-4
+B2_TOL = 1e-4
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def time_ms(fn, reps: int = 10, inner: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``inner`` back-to-back
+    calls, divided by ``inner``; after warm-up."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
+    ("flash_rel_fwd", "B1 flash_rel"),
+    ("conv_stats", "B2 conv_frontend"), ("conv_out", "B2 conv_frontend"),
+    ("convolve", "cuDNN conv"), ("fprop", "cuDNN conv"), ("conv", "cuDNN conv"),
+    ("gemm", "GEMM"), ("Kernel2", "GEMM"), ("cutlass", "GEMM"),
+    ("layer_norm", "layer norm"), ("softmax", "softmax"), ("reduce", "reductions"),
+    ("elementwise", "elementwise"), ("copy", "copies"), ("gather", "gather/index"),
+    ("index", "gather/index"),
+)
+
+
+def device_breakdown(fn) -> dict:
+    """Device time of one ``fn()`` by kernel group (torch.profiler, CUDA
+    activity; summed kernel durations), and the device-busy share of the
+    profiled window: the union of kernel intervals over its wall time
+    (cuDNN may run kernels concurrently, so the group sums can exceed it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    top = []
+    for e in prof.key_averages():
+        us = e.device_time_total
+        if us <= 0:
+            continue
+        name = e.key
+        group = next((g for pat, g in KERNEL_GROUPS if pat in name), "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        top.append((us / 1e3, e.count, name[:90]))
+    top.sort(reverse=True)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return dict(kernel_ms_sum=sum(groups.values()), busy_ms=busy_us / 1e3,
+                wall_ms=wall_ms, busy_share=busy_us / 1e3 / wall_ms,
+                groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                top_kernels=[dict(ms=ms, count=n, name=k) for ms, n, k in top[:12]])
+
+
+def b1_work(q, k, pe, vl, causal):
+    """Bytes moved (q, k, v, out, pe, lse, valid_len once each) and FLOP
+    this run's data needs: q.k^T and p.v over the keys each row may see,
+    plus q.pe^T over the distinct table rows those keys reach (row i sees
+    keys 0..jmax, so offsets i-jmax..i, clipped to [-L, L-1])."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    half = pe.shape[0] // 2
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + pe.numel() + b * h * tq + b)
+    i = np.arange(tq)
+    keys = pe_cols = 0
+    for n in vl.tolist():
+        n = min(n, tk) if n > 0 else tk
+        jmax = np.minimum(i, n - 1) if causal else np.full(tq, n - 1)
+        keys += int((jmax + 1).sum())
+        pe_cols += int((np.clip(i, -half, half - 1)
+                        - np.clip(i - jmax, -half, half - 1) + 1).sum())
+    flops = h * 2 * d * (2 * keys + pe_cols)
+    return nbytes, flops
+
+
+def b2_work(wav, c, k, f):
+    b = wav.shape[0]
+    nbytes = 4 * (wav.numel() + c * k + 2 * c + b * c * f)
+    # conv (2K), folded affine (2) and GELU (~4) per output, tap statistics
+    flops = b * c * f * (2 * k + 6) + 2 * b * f * (k + k * (k + 1) // 2)
+    return nbytes, flops
+
+
+def write_slurp(root: str, n: int, seed: int) -> list:
+    """SLURP layout: dataset/slurp/train.jsonl + audio/slurp_real/*.wav."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "dataset", "slurp"))
+    audio_dir = os.path.join(root, "audio", "slurp_real")
+    os.makedirs(audio_dir)
+    intents = ["alarm_set", "play_music", "weather_query", "iot_coffee"]
+    lengths = []
+    with open(os.path.join(root, "dataset", "slurp", "train.jsonl"), "w") as f:
+        for i in range(n):
+            samples = int(rng.integers(16000, 64001))
+            pcm = (rng.standard_normal(samples) * 3000).astype(np.int16)
+            name = f"utt_{i}.wav"
+            with wave.open(os.path.join(audio_dir, name), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(pcm.tobytes())
+            f.write(json.dumps({"slurp_id": 1000 + i, "sentence": f"utterance {i}",
+                                "intent": intents[i % len(intents)],
+                                "recordings": [{"file": name}]}) + "\n")
+            lengths.append(samples)
+    return lengths
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+
+    from loco_asr_tpu_torch.data.embedding_store import EmbeddingStore
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.ops.cuda import _build
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.pipelines import extract_embeddings
+
+    # -- 1. environment ---------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"[env] nvidia-smi: {smi}")
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
+    print(f"[env] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    # -- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    print(f"[build] {os.path.relpath(path)} in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped: cached'})")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"[build] {line.strip()}")
+
+    # -- 3. kernel checks -------------------------------------------------
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape, sc=0.3):
+        return (torch.randn(*shape, generator=g) * sc).to(dev)
+
+    checks = []
+    b1_cases = [
+        ("rel_padded", 16, 249, 160, False,
+         [249] * 10 + [230, 200, 180, 120, 60, 17]),
+        ("rel_causal", 16, 249, 160, True, [249] * 14 + [200, 100]),
+        ("mask_only", 16, 249, 1, False, [249] * 12 + [200, 150, 99, 40]),
+        ("rel_long", 2, 2048, 160, False, [2048, 1500]),
+    ]
+    for name, b, t, L, causal, vls in b1_cases:
+        q, k, v = randn(b, 12, t, 64), randn(b, 12, t, 64), randn(b, 12, t, 64)
+        pe = randn(2 * L, 64) if L > 1 else torch.zeros(2, 64, device=dev)
+        vl = torch.tensor(vls, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, scale=1.0)
+        out, lse = fa.flash_rel_forward(q, k, v, pe, vl, **kw)
+        torch.cuda.synchronize()
+        pout, plse = fa.flash_rel_forward_plain(q, k, v, pe, vl, **kw)
+        err = max((out - pout).abs().max().item(), (lse - plse).abs().max().item())
+        check(bool(torch.isfinite(out).all()), f"B1 {name}: non-finite output")
+        check(err <= B1_TOL, f"B1 {name}: max abs err {err} > {B1_TOL}")
+        lib_ms = None
+        if L == 1:   # one PyTorch call computes the mask-only variant
+            keep = (torch.arange(t, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
+        nbytes, flops = b1_work(q, k, pe, vl, causal)
+        bms, by = bound(nbytes, flops)
+        rec = dict(kernel="B1", case=name, shape=[b, 12, t, 64], two_l=2 * L,
+                   max_abs_err=err, tol=B1_TOL,
+                   ms=time_ms(lambda: fa.flash_rel_forward(q, k, v, pe, vl, **kw)),
+                   plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, pe, vl, **kw)),
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        checks.append(rec)
+        print(f"[kernels] {json.dumps(rec)}")
+        del q, k, v, out, pout
+
+    for name, b, t in (("main", 16, 80000), ("odd", 3, 23457)):
+        wav = randn(b, t, sc=0.1)
+        w, sc, bi = randn(512, 1, 10), randn(512, sc=0.2) + 1.0, randn(512, sc=0.1)
+        out = cf.conv1_instance_norm_gelu(wav, w, sc, bi)
+        torch.cuda.synchronize()
+        pout = cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi)
+        f = (t - 10) // 5 + 1
+        check(tuple(out.shape) == (b, 512, f), f"B2 {name}: shape {tuple(out.shape)}")
+        err = (out - pout).abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"B2 {name}: non-finite output")
+        check(err <= B2_TOL, f"B2 {name}: max abs err {err} > {B2_TOL}")
+        nbytes, flops = b2_work(wav, 512, 10, f)
+        bms, by = bound(nbytes, flops)
+        rec = dict(kernel="B2", case=name, shape=[b, t], max_abs_err=err, tol=B2_TOL,
+                   ms=time_ms(lambda: cf.conv1_instance_norm_gelu(wav, w, sc, bi)),
+                   plain_ms=time_ms(lambda: cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi)),
+                   library_ms=None, bound_ms=bms, bound_by=by)
+        checks.append(rec)
+        print(f"[kernels] {json.dumps(rec)}")
+        del out, pout
+
+    # -- 4. encoder -------------------------------------------------------
+    cfg = SpeechT5Config()
+    model = st5.asr_init(cfg, seed=0, device=dev)
+    batch, seconds = 16, 5.0
+    lengths = [80000] * 12 + [72000, 56000, 40000, 17000]
+    rng = np.random.default_rng(0)
+    wav = np.zeros((batch, int(16000 * seconds)), np.float32)
+    mask = np.zeros(wav.shape, np.int32)
+    for i, n in enumerate(lengths):
+        wav[i, :n] = rng.standard_normal(n).astype(np.float32) * 0.1
+        mask[i, :n] = 1
+    fa.flash_rel_forward.launches = cf.conv1_instance_norm_gelu.launches = 0
+    hid, fmask = st5.encode_speech(model, wav, mask)
+    torch.cuda.synchronize()
+    per_forward = (fa.flash_rel_forward.launches, cf.conv1_instance_norm_gelu.launches)
+    check(per_forward == (cfg.encoder_layers, 1),
+          f"one forward launched B1 {per_forward[0]}x, B2 {per_forward[1]}x")
+    phid, pmask = st5.encode_speech(model, wav, mask, use_kernels=False)
+    valid = fmask.bool()
+    check(torch.equal(fmask, pmask), "frame masks differ")
+    check(tuple(hid.shape) == (batch, cfg.feat_extract_output_length(wav.shape[1]), 768),
+          f"encoder output shape {tuple(hid.shape)}")
+    check(bool(torch.isfinite(hid[valid]).all()), "non-finite embeddings")
+    diff = (hid - phid).abs()[valid]
+    enc_max, enc_mean = diff.max().item(), diff.mean().item()
+    check(enc_max <= 1e-3 and enc_mean <= 1e-4,
+          f"kernel vs plain encoder: max {enc_max}, mean {enc_mean}")
+    wav_t = torch.from_numpy(wav).to(dev)
+    mask_t = torch.from_numpy(mask).to(dev)
+    fwd_ms = time_ms(lambda: st5.encode_speech(model, wav_t, mask_t), reps=5, inner=2)
+    plain_fwd_ms = time_ms(lambda: st5.encode_speech(model, wav_t, mask_t, use_kernels=False),
+                           reps=5, inner=2)
+    audio_s = sum(lengths) / 16000.0
+    enc = dict(batch=batch, seconds=seconds, frames=hid.shape[1], max_abs=enc_max,
+               mean_abs=enc_mean, launches_per_forward={"B1": per_forward[0], "B2": per_forward[1]},
+               forward_ms=fwd_ms, plain_forward_ms=plain_fwd_ms,
+               rtfx=audio_s / (fwd_ms / 1e3), card=smi)
+    print(f"[encoder] {json.dumps(enc)}")
+    prof = device_breakdown(lambda: st5.encode_speech(model, wav_t, mask_t))
+    print(f"[encoder] device breakdown of one forward: {json.dumps(prof)}")
+    del model, hid, phid
+
+    # -- 5. pipeline (the main path through its user entry point) ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "slurp")
+        utt_lengths = write_slurp(root, 8, seed=1)
+        out_dir = os.path.join(tmp, "emb")
+        fa.flash_rel_forward.launches = cf.conv1_instance_norm_gelu.launches = 0
+        t0 = time.perf_counter()
+        rc = extract_embeddings.main(["-m", "audio", "-s", "train", "--data_path", root,
+                                      "--out_dir", out_dir, "--batch_size", "4"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"B1": fa.flash_rel_forward.launches,
+                    "B2": cf.conv1_instance_norm_gelu.launches}
+        check(rc == 0, f"extract_embeddings returned {rc}")
+        n_batches = -(-len(utt_lengths) // 4)
+        check(launches == {"B1": cfg.encoder_layers * n_batches, "B2": n_batches},
+              f"{n_batches} batches launched {launches}")
+        store = EmbeddingStore(out_dir)
+        check(len(store) == len(utt_lengths), f"{len(store)} records")
+        for i, n in enumerate(utt_lengths):
+            _, emb, _ = store[i]
+            check(emb.shape == (cfg.feat_extract_output_length(n), 768),
+                  f"record {i}: shape {emb.shape}")
+            check(bool(np.isfinite(emb).all()), f"record {i}: non-finite")
+        print(f"[pipeline] {json.dumps(dict(records=len(store), launches=launches, wall_s=wall, audio_s=sum(utt_lengths) / 16000.0))}")
+
+    # -- 6. summary -------------------------------------------------------
+    def entry(name, source, replaces, tpu_kernel, kernel, case, n):
+        main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    tpu_kernel=tpu_kernel, launches=n,
+                    max_abs_err=max(c["max_abs_err"] for c in checks if c["kernel"] == kernel),
+                    ms=main_rec["ms"], kernel_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
+                    bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
+                    library_ms=main_rec["library_ms"])
+
+    kernels = [
+        entry("flash_rel_forward", "loco_asr_tpu_torch/csrc/flash_rel.cu",
+              "loco_asr_tpu/ops/pallas/flash_attention.py:518",
+              "flash_attention.py::_flash_rel_kernel", "B1", "rel_padded", launches["B1"]),
+        entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
+              "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
+              "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
+    ]
+    print(f"[summary] card: {smi}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

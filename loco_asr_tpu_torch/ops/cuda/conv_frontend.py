@@ -1,0 +1,89 @@
+"""Kernel B2: the feature encoder's first layer, conv k=2*stride (1 -> C,
+no bias) + instance norm over all frames + erf-GELU, as one CUDA wrapper
+(``csrc/conv_frontend.cu``) beside its plain PyTorch version.
+
+Counterpart of ``loco_asr_tpu/ops/pallas/conv_frontend.py``
+(``conv1_instance_norm_gelu``) and of the XLA gram form
+``prenets.conv1_instance_norm_gelu_gram``: all three compute the same
+function.  The instance norm runs over every frame of the (padded) row,
+zero tail included, with the ``E[y^2] - mean^2`` variance.
+
+:func:`conv1_instance_norm_gelu` launches the kernel for a CUDA tensor
+and takes the plain version only for a CPU tensor; ``launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..layers import gelu
+from . import _build
+
+EPS = 1e-5
+
+
+def _check_geometry(weight: torch.Tensor, stride: int) -> int:
+    k = weight.shape[2]
+    if k != 2 * stride:
+        raise ValueError(f"kernel {k} must equal 2*stride {stride} "
+                         "(wav2vec2 first-layer geometry)")
+    return k
+
+
+def conv1_instance_norm_gelu_plain(wav: torch.Tensor, weight: torch.Tensor,
+                                   scale: torch.Tensor, bias: torch.Tensor, *,
+                                   stride: int = 5) -> torch.Tensor:
+    """Plain PyTorch version: [B, T] wave -> [B, C, (T-K)//stride + 1]."""
+    _check_geometry(weight, stride)
+    y = F.conv1d(wav[:, None, :], weight, stride=stride)        # [B, C, F]
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y * y).mean(dim=-1, keepdim=True) - mean * mean
+    z = (y - mean) * torch.rsqrt(var + EPS)
+    return gelu(z * scale[None, :, None] + bias[None, :, None])
+
+
+def conv1_instance_norm_gelu(wav: torch.Tensor, weight: torch.Tensor,
+                             scale: torch.Tensor, bias: torch.Tensor, *,
+                             stride: int = 5) -> torch.Tensor:
+    """[B, T] float32 waveform, [C, 1, K] conv weight (K == 2*stride),
+    [C] norm scale/bias -> [B, C, (T-K)//stride + 1] activations."""
+    if wav.device.type == "cpu":
+        return conv1_instance_norm_gelu_plain(wav, weight, scale, bias,
+                                              stride=stride)
+    k = _check_geometry(weight, stride)
+    if wav.device.type != "cuda":
+        raise ValueError(f"unsupported device {wav.device}")
+    if k != 10:
+        raise ValueError(f"the CUDA kernel is built for k=10/stride 5, got k={k}")
+    for name, t in (("wav", wav), ("weight", weight), ("scale", scale),
+                    ("bias", bias)):
+        if t.dtype != torch.float32 or t.device != wav.device:
+            raise ValueError(f"{name} must be float32 on {wav.device}, "
+                             f"got {t.dtype} on {t.device}")
+    b, t = wav.shape
+    c = weight.shape[0]
+    if weight.shape[1] != 1 or scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"bad shapes: weight {tuple(weight.shape)}, "
+                         f"scale {tuple(scale.shape)}, bias {tuple(bias.shape)}")
+    f = (t - k) // stride + 1
+    if f < 1:
+        raise ValueError(f"waveform of {t} samples is shorter than the kernel")
+    wav, weight = wav.contiguous(), weight.contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    gain_off = torch.empty((b, 2, c), dtype=torch.float32, device=wav.device)
+    out = torch.empty((b, c, f), dtype=torch.float32, device=wav.device)
+    lib = _build.library()
+    with torch.cuda.device(wav.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.loco_conv_frontend(
+            wav.data_ptr(), weight.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), gain_off.data_ptr(), out.data_ptr(),
+            b, t, c, k, stride, f, EPS, stream)
+    _build.check(code, "conv_frontend")
+    conv1_instance_norm_gelu.launches += 1
+    return out
+
+
+conv1_instance_norm_gelu.launches = 0

@@ -1,0 +1,40 @@
+"""Shared pipeline utilities: batch rounding and SpeechT5 weight loading."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..models.speecht5 import convert
+from ..models.speecht5 import model as st5
+from ..models.speecht5.config import SpeechT5Config
+
+
+def round_up(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+def load_speecht5_params(checkpoint: Optional[str], cfg: SpeechT5Config, *,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> st5.SpeechEncoder:
+    """The speech encoder on ``device`` (default CUDA), from:
+
+      * None   -> seeded random init (smoke/benchmark mode)
+      * *.npz  -> a checkpoint of the JAX package (``utils.checkpoint.save_npz``),
+                  through ``convert.from_jax_params``
+
+    Other formats (HF / fairseq torch files, training directories) are not
+    supported by this package yet and raise.
+    """
+    model = st5.asr_init(cfg, device=device)
+    if checkpoint is None:
+        return model
+    if not checkpoint.endswith(".npz"):
+        raise ValueError(f"{checkpoint}: only .npz checkpoints of the JAX "
+                         "package load in this package so far")
+    with np.load(checkpoint, allow_pickle=False) as z:
+        state = convert.from_jax_params({k: z[k] for k in z.files}, cfg)
+    model.load_state_dict(state, strict=True)
+    return model
