@@ -4,27 +4,43 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``loco_asr_tpu_torch/csrc/`` and drives the
-port's main path, SpeechT5-base speech-encoder embedding extraction, at
-full width with random weights made from a seed.  Phases, in order (any
-failure raises and exits non-zero):
+port's two main paths at full width with random weights made from a seed:
+SpeechT5-base speech-encoder embedding extraction, and GPT-2 perplexity
+scoring (``eval_ppl --attn_impl flash``).  Phases, in order (any failure
+raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
 2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
-3. kernel checks: each kernel against its plain PyTorch version on the card
-   at the main path's shapes (B1: [16, 12, 249, 64], L=160, mixed valid
-   lengths, also causal and mask-only, and T=2048; B2: [16, 80000] and an
-   odd length), max abs error against a stated tolerance, CUDA-event
-   medians of kernel, plain version and, where one PyTorch call computes
-   the same function, that call (timed as a yardstick only);
+3. kernel checks, after ~0.5 s of warm-up GEMMs: each kernel against its
+   plain PyTorch version on the card at the main path's shapes (B1:
+   [16, 12, 249, 64], L=160, mixed valid lengths, also causal and
+   mask-only, and T=2048; B2: [16, 80000] and an odd length; B6: views of
+   a qkv projection at [8, 1024, 12, 64] and [128, 27, 12, 64], causal;
+   B5: [8, 25, 1024, 64] causal, [2, 12, 384, 64] non-causal, [2, 4, 100, 8]
+   against 160 keys causal), max abs error
+   against a stated tolerance, CUDA-event medians of kernel, plain version
+   and, where one PyTorch call computes the same function, that call
+   (timed as a yardstick only);
 4. encoder: full-width ``encode_speech`` at B=16 x 5 s with padded rows,
    kernel path against plain path on valid frames, launch counts of one
    forward (12 B1, 1 B2), forward ms and RTFx, and the device time of one
    forward by kernel group (torch.profiler);
 5. pipeline: ``extract_embeddings -m audio`` on a SLURP-format directory of
-   8 seeded wavs of 1-4 s; the launch counts of this run are the main
-   path's counts;
-6. summary: one ``{"kernels": [...]}`` line, then last
+   8 seeded wavs of 1-4 s; the launch counts of this run are the B1/B2
+   main path's counts;
+6. GPT-2: ``score_tokens`` of gpt2 (768 wide, 12 layers, vocab 50257) at
+   [8, 1024] seeded ids, flash against dense (NLL within 1e-4), launch
+   counts of one forward (12 B6, 0 B5), forward ms and tokens/s, the device
+   time by kernel group; a right-padded batch under flash (kernel B1)
+   against dense; then gpt2-xl widths (1600, 25 heads, weights drawn on the
+   card), flash against dense with n_layer B5 launches;
+7. LM-scoring pipeline: ``eval_ppl --model gpt2 --context_type max_len
+   --bsize 8`` on the committed ``exp/loco/lm_corpus/dev.txt`` under flash
+   (60 B6 launches) and dense (none), PPLs within rtol 1e-4; an ``indep``
+   run under flash; a gpt2-xl ``max_len`` run under flash (B5's main-path
+   launches);
+8. summary: one ``{"kernels": [...]}`` line, then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -49,6 +65,10 @@ F32_FLOP_PER_S = 67e12
 
 B1_TOL = 1e-4
 B2_TOL = 1e-4
+B56_TOL = 1e-4
+NLL_TOL = 1e-4
+PPL_RTOL = 1e-4
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -84,7 +104,7 @@ def bound(nbytes: float, flops: float):
 
 
 KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
-    ("flash_rel_fwd", "B1 flash_rel"),
+    ("flash_rel_fwd", "B1 flash_rel"), ("flash_causal_fwd", "B5/B6 flash_causal"),
     ("conv_stats", "B2 conv_frontend"), ("conv_out", "B2 conv_frontend"),
     ("convolve", "cuDNN conv"), ("fprop", "cuDNN conv"), ("conv", "cuDNN conv"),
     ("gemm", "GEMM"), ("Kernel2", "GEMM"), ("cutlass", "GEMM"),
@@ -163,6 +183,14 @@ def b2_work(wav, c, k, f):
     return nbytes, flops
 
 
+def causal_work(b, h, tq, tk, d, causal):
+    """Bytes moved (q, k, v, out, lse once each) and FLOP of q.k^T and p.v
+    over the key pairs each row may see (row i sees keys 0..i if causal)."""
+    pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
+    nbytes = 4 * (2 * b * h * tq * d + 2 * b * h * tk * d + b * h * tq)
+    return nbytes, 4 * b * h * d * pairs
+
+
 def write_slurp(root: str, n: int, seed: int) -> list:
     """SLURP layout: dataset/slurp/train.jsonl + audio/slurp_real/*.wav."""
     rng = np.random.default_rng(seed)
@@ -195,13 +223,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
+    from loco_asr_tpu_torch.data import lm_datasets
     from loco_asr_tpu_torch.data.embedding_store import EmbeddingStore
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
     from loco_asr_tpu_torch.models.speecht5 import model as st5
     from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
     from loco_asr_tpu_torch.ops.cuda import _build
     from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
     from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
-    from loco_asr_tpu_torch.pipelines import extract_embeddings
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+    from loco_asr_tpu_torch.pipelines import eval_ppl, extract_embeddings
 
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -227,6 +258,13 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     # -- 3. kernel checks -------------------------------------------------
+    # ~0.5 s of f32 GEMMs first, so that the first timed case does not
+    # meet a card that is still clocking up
+    warm = torch.ones(4096, 4096, device=dev)
+    for _ in range(200):
+        torch.mm(warm, warm)
+    torch.cuda.synchronize()
+    del warm
     g = torch.Generator().manual_seed(0)
 
     def randn(*shape, sc=0.3):
@@ -287,6 +325,56 @@ def main() -> int:
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del out, pout
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tr = lambda x: x.transpose(1, 2)   # [B, T, H, D] <-> [B, H, T, D] view
+
+    def qkv_views(b, t, h, d):
+        """q, k, v as [B, T, H, D] column views of one qkv projection
+        output, as a GPT-2 layer hands them to the kernel."""
+        x = randn(b, t, 3 * h * d, sc=0.5)
+        return [y.reshape(b, t, h, d) for y in x.split(h * d, dim=-1)]
+
+    # (kernel, case, B, H, Tq, Tk, D, causal); B6 and the gpt2-xl B5 case
+    # read strided views of a qkv projection, as on the scoring path
+    b56_cases = [
+        ("B6", "gpt2_max_len", 8, 12, 1024, 1024, 64, True),
+        ("B6", "gpt2_indep", 128, 12, 27, 27, 64, True),
+        ("B5", "gpt2xl", 8, 25, 1024, 1024, 64, True),
+        ("B5", "noncausal_384", 2, 12, 384, 384, 64, False),
+        ("B5", "tq_ne_tk", 2, 4, 100, 160, 8, True),
+    ]
+    for kern, name, b, h, tq, tk, d, causal in b56_cases:
+        if tq == tk:
+            q, k, v = qkv_views(b, tq, h, d)        # [B, T, H, D]
+            if kern == "B5":
+                q, k, v = tr(q), tr(k), tr(v)       # [B, H, T, D] views
+        else:
+            q = randn(b, h, tq, d, sc=0.5)
+            k, v = randn(b, h, tk, d, sc=0.5), randn(b, h, tk, d, sc=0.5)
+        kw = dict(causal=causal, scale=d ** -0.5)
+        fn, plain = ((fc.flash_forward_nhd, fc.flash_forward_nhd_plain) if kern == "B6"
+                     else (fc.flash_forward, fc.flash_forward_plain))
+        out, lse = fn(q, k, v, **kw)
+        torch.cuda.synchronize()
+        pout, plse = plain(q, k, v, **kw)
+        err = max((out - pout).abs().max().item(), (lse - plse).abs().max().item())
+        check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+              f"{kern} {name}: non-finite output")
+        check(err <= B56_TOL, f"{kern} {name}: max abs err {err} > {B56_TOL}")
+        qs, ks, vs = (tr(x) for x in (q, k, v)) if kern == "B6" else (q, k, v)
+        nbytes, flops = causal_work(b, h, tq, tk, d, causal)
+        bms, by = bound(nbytes, flops)
+        rec = dict(kernel=kern, case=name, shape_bhtd=[b, h, tq, d], tk=tk, causal=causal,
+                   max_abs_err=err, tol=B56_TOL,
+                   ms=time_ms(lambda: fn(q, k, v, **kw)),
+                   plain_ms=time_ms(lambda: plain(q, k, v, **kw)),
+                   library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal,
+                                                   scale=kw["scale"])),
+                   bound_ms=bms, bound_by=by)
+        checks.append(rec)
+        print(f"[kernels] {json.dumps(rec)}")
+        del q, k, v, qs, ks, vs, out, pout
 
     # -- 4. encoder -------------------------------------------------------
     cfg = SpeechT5Config()
@@ -356,7 +444,116 @@ def main() -> int:
             check(bool(np.isfinite(emb).all()), f"record {i}: non-finite")
         print(f"[pipeline] {json.dumps(dict(records=len(store), launches=launches, wall_s=wall, audio_s=sum(utt_lengths) / 16000.0))}")
 
-    # -- 6. summary -------------------------------------------------------
+    # -- 6. GPT-2 scoring -------------------------------------------------
+    def b56_launches():
+        return {"B5": fc.flash_forward.launches, "B6": fc.flash_forward_nhd.launches}
+
+    def reset_b56():
+        fc.flash_forward.launches = fc.flash_forward_nhd.launches = 0
+
+    batch, seq = 8, 1024
+    ids = torch.randint(0, 50257, (batch, seq), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    n_tokens = batch * seq
+    for preset, kern in (("gpt2", "B6"), ("gpt2-xl", "B5")):
+        cfg = gm.PRESETS[preset]
+        lm = gm.gpt2_init(cfg, seed=0, device=dev)   # drawn on the card
+        with torch.inference_mode():
+            reset_b56()
+            nll = gm.score_tokens(lm, ids, attn_impl="flash")
+            torch.cuda.synchronize()
+            per_forward = b56_launches()
+            want = {"B5": 0, "B6": 0, kern: cfg.n_layer}
+            check(per_forward == want, f"{preset}: one forward launched {per_forward}, "
+                                       f"expected {want}")
+            nll_dense = gm.score_tokens(lm, ids, attn_impl="dense")
+            check(tuple(nll.shape) == (batch, seq - 1), f"{preset}: NLL shape {tuple(nll.shape)}")
+            check(bool(torch.isfinite(nll).all() and torch.isfinite(nll_dense).all()),
+                  f"{preset}: non-finite NLL")
+            nll_err = (nll - nll_dense).abs().max().item()
+            check(nll_err <= NLL_TOL, f"{preset}: flash vs dense NLL max abs {nll_err}")
+            reps = 5 if preset == "gpt2" else 3
+            fwd_ms = time_ms(lambda: gm.score_tokens(lm, ids, attn_impl="flash"),
+                             reps=reps, inner=1)
+            dense_ms = time_ms(lambda: gm.score_tokens(lm, ids, attn_impl="dense"),
+                               reps=reps, inner=1)
+            rec = dict(model=preset, n_embd=cfg.n_embd, n_layer=cfg.n_layer,
+                       n_head=cfg.n_head, vocab=cfg.vocab_size, batch=batch, seq=seq,
+                       launches_per_forward=per_forward, nll_max_abs=nll_err,
+                       mean_nll=nll.mean().item(), forward_ms=fwd_ms,
+                       tokens_per_s=n_tokens / (fwd_ms / 1e3), dense_forward_ms=dense_ms,
+                       dense_tokens_per_s=n_tokens / (dense_ms / 1e3), card=smi)
+            print(f"[gpt2] {json.dumps(rec)}")
+            if preset == "gpt2":
+                prof = device_breakdown(lambda: gm.score_tokens(lm, ids, attn_impl="flash"))
+                print(f"[gpt2] device breakdown of one flash scoring forward: {json.dumps(prof)}")
+                # a right-padded batch under flash runs kernel B1 (causal,
+                # valid-key counts) in every layer
+                lens = torch.tensor([seq] * 6 + [700, 301], device=dev)
+                mask = (torch.arange(seq, device=dev)[None, :] < lens[:, None]).int()
+                fa.flash_rel_forward.launches = 0
+                pad_flash = gm.score_tokens(lm, ids, attention_mask=mask, attn_impl="flash")
+                check(fa.flash_rel_forward.launches == cfg.n_layer,
+                      f"padded gpt2 forward launched B1 {fa.flash_rel_forward.launches}x")
+                pad_dense = gm.score_tokens(lm, ids, attention_mask=mask)
+                scored = mask[:, 1:].bool()
+                pad_err = (pad_flash - pad_dense).abs()[scored].max().item()
+                check(pad_err <= NLL_TOL, f"padded gpt2: flash vs dense NLL max abs {pad_err}")
+                print(f"[gpt2] {json.dumps(dict(padded_rows=[700, 301], b1_launches=cfg.n_layer, nll_max_abs=pad_err))}")
+        del lm, nll, nll_dense
+
+    # -- 7. LM-scoring pipeline (the B5/B6 main path) ---------------------
+    dev_text = os.path.join(ROOT, "exp", "loco", "lm_corpus", "dev.txt")
+    n_recs = len({u.split("-")[0] for u in lm_datasets.load_key_text(dev_text)})
+    n_utts = len(lm_datasets.load_key_text(dev_text))
+
+    def run_eval_ppl(tmp, tag, *flags):
+        out = os.path.join(tmp, tag)
+        reset_b56()
+        t0 = time.perf_counter()
+        rc = eval_ppl.main(["-i", dev_text, "-o", out, *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"eval_ppl {tag} returned {rc}")
+        with open(os.path.join(out, "rec_id2ppl.json")) as f:
+            ppl = json.load(f)
+        check(len(ppl) == n_recs and all(np.isfinite(list(ppl.values()))),
+              f"eval_ppl {tag}: {len(ppl)} recordings or non-finite PPL")
+        rec = dict(run=tag, launches=b56_launches(), wall_s=wall, recordings=len(ppl),
+                   mean_ppl=float(np.mean(list(ppl.values()))))
+        print(f"[lm_pipeline] {json.dumps(rec)}")
+        return rec, ppl
+
+    max_len_flags = ["--model", "gpt2", "--context_type", "max_len", "--bsize", "8"]
+    n_windows = -(-n_recs // 8)   # every recording is shorter than 1024 tokens
+    with tempfile.TemporaryDirectory() as tmp:
+        flash_run, flash_ppl = run_eval_ppl(tmp, "gpt2_max_len_flash", *max_len_flags,
+                                            "--attn_impl", "flash")
+        lm_launches = dict(flash_run["launches"])
+        check(lm_launches == {"B5": 0, "B6": 12 * n_windows},
+              f"gpt2 max_len flash run launched {lm_launches}")
+        dense_run, dense_ppl = run_eval_ppl(tmp, "gpt2_max_len_dense", *max_len_flags,
+                                            "--attn_impl", "dense")
+        check(dense_run["launches"] == {"B5": 0, "B6": 0},
+              f"dense run launched {dense_run['launches']}")
+        check(list(flash_ppl) == list(dense_ppl), "flash and dense recordings differ")
+        ppl_rel = max(abs(flash_ppl[r] - dense_ppl[r]) / dense_ppl[r] for r in dense_ppl)
+        check(ppl_rel <= PPL_RTOL, f"flash vs dense PPL rel diff {ppl_rel}")
+        print(f"[lm_pipeline] {json.dumps(dict(ppl_max_rel_diff=ppl_rel, rtol=PPL_RTOL))}")
+        indep_run, _ = run_eval_ppl(tmp, "gpt2_indep_flash", "--model", "gpt2",
+                                    "--context_type", "indep", "--bsize", "128",
+                                    "--attn_impl", "flash")
+        check(indep_run["launches"] == {"B5": 0, "B6": 12 * -(-n_utts // 128)},
+              f"indep run launched {indep_run['launches']}")
+        xl_run, _ = run_eval_ppl(tmp, "gpt2xl_max_len_flash", "--model", "gpt2-xl",
+                                 "--context_type", "max_len", "--bsize", "8",
+                                 "--attn_impl", "flash")
+        xl_layers = gm.PRESETS["gpt2-xl"].n_layer
+        check(xl_run["launches"] == {"B5": xl_layers * n_windows, "B6": 0},
+              f"gpt2-xl max_len flash run launched {xl_run['launches']}")
+        lm_launches["B5"] = xl_run["launches"]["B5"]
+
+    # -- 8. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -373,6 +570,13 @@ def main() -> int:
         entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
               "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
               "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
+        entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
+              "loco_asr_tpu/ops/pallas/flash_attention.py:40",
+              "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
+        entry("flash_forward_nhd", "loco_asr_tpu_torch/csrc/flash_causal.cu",
+              "loco_asr_tpu/ops/pallas/flash_attention.py:168",
+              "flash_attention.py::_flash_pair_kernel", "B6", "gpt2_max_len",
+              lm_launches["B6"]),
     ]
     print(f"[summary] card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -7,13 +7,21 @@ ported path is a hand-written CUDA kernel under ``csrc/``, built with
 ``nvcc`` at first use and bound through ``ctypes`` (``ops/cuda/``).  This
 package imports neither ``jax`` nor ``loco_asr_tpu``.
 
+Ported paths: SpeechT5-base speech-encoder embedding extraction (kernels
+B1, B2) and GPT-2 perplexity scoring (kernels B5/B6, one strided kernel).
+
 Layout:
   ops/        -- layers, attention, audio decode; ops/cuda: kernel wrappers
   csrc/       -- CUDA C++ kernel sources (sm_90a)
-  models/     -- SpeechT5 speech encoder, JAX weight bridge
-  data/       -- SLURP adapter, embedding store
-  pipelines/  -- CLI entry points (extract_embeddings)
-  utils/      -- device resolution, metrics
+  models/     -- SpeechT5 speech encoder; GPT-2 (gpt2 .. gpt2-xl); JAX and
+                 HF weight bridges
+  data/       -- SLURP adapter, embedding store, tokenizers, LM datasets
+  pipelines/  -- CLI entry points (extract_embeddings, eval_ppl)
+  utils/      -- device resolution, metrics, file logger
+
+The CPU tests (``tests/test_torch_*.py``) run the plain PyTorch versions
+against the JAX package; ``chip_smoke.py`` builds and checks the kernels
+and drives both paths on the GPU.
 """
 
 __version__ = "0.1.0"

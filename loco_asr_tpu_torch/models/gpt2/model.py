@@ -1,0 +1,265 @@
+"""GPT-2 language model: the full-sequence forward and token scoring of
+``loco_asr_tpu.models.gpt2.model`` (the reference's LM-evaluation model
+family, gpt2 .. gpt2-xl).
+
+Parameter names follow HF ``GPT2Model``, as the JAX tree does: ``wte``,
+``wpe``, ``h.<i>.{ln_1, attn.c_attn, attn.c_proj, ln_2, mlp.c_fc,
+mlp.c_proj}``, ``ln_f``.  The dense layers are HF ``Conv1D``s, whose
+``weight`` is ``[in, out]`` like the JAX ``kernel``; a norm ``weight`` is
+the JAX ``scale``.  The lm head is tied to ``wte``.
+
+``attn_impl``:
+
+* ``"dense"``: [B, H, T, T] scores with the additive causal (and padding)
+  bias of -1e9 and a softmax;
+* ``"flash"``: without ``attention_mask``, kernel B6 reads q/k/v in place
+  from the qkv projection (``flash_causal.flash_attention_nhd``; kernel B5
+  when D != 64 or the head count is odd); with ``attention_mask``, kernel
+  B1 with per-row valid-key counts (right padding) and ``causal=True``.
+
+Not ported yet, and refused with an error: the incremental KV-cache mode
+(``kv_caches`` / ``cache_index``, with shallow fusion) and the
+sequence-parallel ``ring`` / ``ulysses`` attention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...ops import layers
+from ...ops.cuda import flash_attention, flash_causal
+from ...utils.device import resolve_device
+
+NEG_INF = -1e9   # additive mask of the dense path
+ATTN_IMPLS = ("dense", "flash")
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_epsilon: float = 1e-5
+    activation: str = "gelu_new"
+    embd_pdrop: float = 0.1
+    attn_pdrop: float = 0.1
+    resid_pdrop: float = 0.1
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+
+def tiny_gpt2_config(**over) -> GPT2Config:
+    base = dict(vocab_size=61, n_positions=32, n_embd=16, n_layer=2, n_head=2)
+    base.update(over)
+    return GPT2Config(**base)
+
+
+# the public GPT-2 family (the reference's --model choices)
+PRESETS = {
+    "gpt2": GPT2Config(),
+    "gpt2-medium": GPT2Config(n_embd=1024, n_layer=24, n_head=16),
+    "gpt2-large": GPT2Config(n_embd=1280, n_layer=36, n_head=20),
+    "gpt2-xl": GPT2Config(n_embd=1600, n_layer=48, n_head=25),
+}
+
+
+class Conv1D(nn.Module):
+    """HF GPT-2's dense layer: ``y = x @ weight + bias``, weight [in, out]."""
+
+    def __init__(self, n_in: int, n_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_in, n_out))
+        self.bias = nn.Parameter(torch.empty(n_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.addmm(self.bias, x.reshape(-1, x.shape[-1]), self.weight)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.c_attn = Conv1D(d, 3 * d)
+        self.c_proj = Conv1D(d, d)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.c_fc = Conv1D(d, 4 * d)
+        self.c_proj = Conv1D(4 * d, d)
+
+
+class Block(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.ln_1 = layers.Norm(d)
+        self.attn = Attention(d)
+        self.ln_2 = layers.Norm(d)
+        self.mlp = MLP(d)
+
+
+class GPT2Model(nn.Module):
+    """Token and position tables, ``n_layer`` pre-LN blocks, final norm."""
+
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd,
+                                _weight=torch.empty(cfg.vocab_size, cfg.n_embd))
+        self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd,
+                                _weight=torch.empty(cfg.n_positions, cfg.n_embd))
+        self.h = nn.ModuleList(Block(cfg.n_embd) for _ in range(cfg.n_layer))
+        self.ln_f = layers.Norm(cfg.n_embd)
+
+
+def gpt2_init(cfg: GPT2Config, *, seed: int = 0,
+              device: Optional[Union[str, torch.device]] = None) -> GPT2Model:
+    """Seeded random init with the JAX ``gpt2_init`` distributions (dense
+    weights uniform in +-1/sqrt(in), zero biases, unit norms, ``wte`` ~
+    N(0, 0.02), ``wpe`` ~ N(0, 0.01); the numbers differ), drawn on
+    ``device`` (default CUDA; raises when no GPU is present) by a
+    generator of that device, in eval mode."""
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = GPT2Model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.h:
+            for lin in (blk.attn.c_attn, blk.attn.c_proj, blk.mlp.c_fc, blk.mlp.c_proj):
+                bound = lin.weight.shape[0] ** -0.5
+                lin.weight.uniform_(-bound, bound, generator=gen)
+                lin.bias.zero_()
+        model.wte.weight.normal_(0.0, 0.02, generator=gen)
+        model.wpe.weight.normal_(0.0, 0.01, generator=gen)
+    return model.eval()
+
+
+ArrayLike = Union[torch.Tensor, np.ndarray]
+
+
+def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
+               bias: Optional[torch.Tensor], attn_impl: str,
+               kv_valid_len: Optional[torch.Tensor]) -> torch.Tensor:
+    b, t, _ = h.shape
+    q, k, v = (x.reshape(b, t, cfg.n_head, cfg.head_dim)
+               for x in blk.attn.c_attn(h).split(cfg.n_embd, dim=-1))
+    scale = cfg.head_dim ** -0.5
+    if attn_impl == "flash" and kv_valid_len is None:
+        # [B, T, H, D] views of the qkv projection, read in place
+        attn = flash_causal.flash_attention_nhd(q, k, v, causal=True, scale=scale)
+    elif attn_impl == "flash":
+        attn = flash_attention.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+            scale=scale, kv_valid_len=kv_valid_len).transpose(1, 2)
+    else:
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / cfg.head_dim ** 0.5
+        probs = torch.softmax(scores + bias, dim=-1)
+        attn = torch.matmul(probs, v).transpose(1, 2)
+    return blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd))
+
+
+def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
+                 attention_mask: Optional[ArrayLike] = None,
+                 kv_caches=None, cache_index=None,
+                 deterministic: bool = True, attn_impl: str = "dense"
+                 ) -> Tuple[torch.Tensor, None]:
+    """Token ids [B, T] -> (hidden [B, T, D], None), on the model's device.
+
+    ``attention_mask`` [B, T] marks valid tokens; padding must be on the
+    right (the data layer's only form).  No dropout is applied (the JAX
+    forward without a ``dropout_rng``); ``attn_impl="flash"`` outside
+    ``deterministic`` still refuses ``attn_pdrop > 0`` as the JAX one does.
+    """
+    cfg = model.cfg
+    if kv_caches is not None or cache_index is not None:
+        raise NotImplementedError("the incremental KV-cache mode of gpt2_forward "
+                                  "is not ported yet")
+    if attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(f"attn_impl={attn_impl!r} (sequence parallel) "
+                                  "is not ported yet")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
+    dev = model.wte.weight.device
+    ids = torch.as_tensor(input_ids, device=dev).long()
+    b, t = ids.shape
+    if t > cfg.n_positions:
+        raise ValueError(f"sequence length {t} exceeds n_positions {cfg.n_positions}")
+    if attn_impl == "flash" and not deterministic and cfg.attn_pdrop > 0.0:
+        raise ValueError(
+            f"attn_impl={attn_impl!r} drops attention-prob dropout "
+            f"(attn_pdrop={cfg.attn_pdrop}); train with "
+            f"attn_pdrop=0.0 or attn_impl='dense'")
+
+    x = model.wte(ids) + model.wpe.weight[:t][None]
+    mask = None if attention_mask is None else torch.as_tensor(attention_mask, device=dev)
+    bias = kv_valid_len = None
+    if attn_impl == "flash":
+        if mask is not None:
+            kv_valid_len = mask.to(torch.int32).sum(-1)
+    else:
+        pos = torch.arange(t, device=dev)
+        bias = torch.where(pos[None, :] <= pos[:, None], 0.0, NEG_INF)[None, None]
+        if mask is not None:
+            bias = bias + torch.where(mask.bool(), 0.0, NEG_INF)[:, None, None, :]
+
+    act = layers.ACTIVATIONS[cfg.activation]
+    eps = cfg.layer_norm_epsilon
+    for blk in model.h:
+        h = layers.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias, eps=eps)
+        x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len)
+        h = layers.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias, eps=eps)
+        x = x + blk.mlp.c_proj(act(blk.mlp.c_fc(h)))
+    return layers.layer_norm(x, model.ln_f.weight, model.ln_f.bias, eps=eps), None
+
+
+def gpt2_logits(model: GPT2Model, input_ids: ArrayLike, **kw
+                ) -> Tuple[torch.Tensor, None]:
+    """Forward + tied lm head -> (logits [B, T, V], None)."""
+    hidden, caches = gpt2_forward(model, input_ids, **kw)
+    return torch.matmul(hidden, model.wte.weight.t()), caches
+
+
+def token_nll_from_hidden(wte_weight: torch.Tensor, hidden: torch.Tensor,
+                          targets: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """Per-token NLL [B, T-1] straight from the final hidden states, the
+    numbers of ``token_nll(logits, targets)`` without the [B, T, V] logits:
+    the time axis is scored ``chunk`` steps at a time (logsumexp minus the
+    target's logit, in float32)."""
+    b, t, _ = hidden.shape
+    n = t - 1
+    chunk = max(1, min(chunk, n))
+    hid, tgt = hidden[:, :-1], targets[:, 1:].to(hidden.device).long()
+    out = []
+    for s in range(0, n, chunk):
+        logits = torch.matmul(hid[:, s:s + chunk].float(), wte_weight.float().t())
+        picked = logits.gather(-1, tgt[:, s:s + chunk, None])[..., 0]
+        out.append(torch.logsumexp(logits, dim=-1) - picked)
+    return torch.cat(out, dim=1) if out else hidden.new_zeros((b, 0))
+
+
+def score_tokens(model: GPT2Model, input_ids: ArrayLike, *, chunk: int = 256,
+                 **kw) -> torch.Tensor:
+    """Forward + per-token NLL [B, T-1] through the chunked lm head (the
+    eval_ppl hot path; the numbers of ``token_nll(gpt2_logits(...))``)."""
+    ids = torch.as_tensor(input_ids, device=model.wte.weight.device).long()
+    hidden, _ = gpt2_forward(model, ids, **kw)
+    return token_nll_from_hidden(model.wte.weight, hidden, ids, chunk=chunk)
+
+
+def token_nll(logits: torch.Tensor, targets: ArrayLike) -> torch.Tensor:
+    """Per-token NLL [B, T-1] of ``targets`` under shifted ``logits`` (the
+    reference's CrossEntropyLoss(reduction='none'))."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = torch.as_tensor(targets, device=logits.device).long()[:, 1:]
+    return -logp.gather(-1, tgt[..., None])[..., 0]

@@ -13,7 +13,9 @@ mask-only variant.
 
 :func:`flash_rel_forward` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors; ``launches`` counts kernel
-launches.
+launches.  :func:`flash_attention` is the JAX package's public dispatch:
+B1 when ``rel_pe`` or ``kv_valid_len`` is given, else kernel B5
+(``flash_causal.flash_forward``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, flash_causal
 
 NEG_INF = -1e30
 HEAD_DIM = 64
@@ -124,9 +126,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_valid_len: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """[B, H, T, D] q/k/v -> [B, H, Tq, D], as the JAX package's
-    ``flash_attention`` with ``causal`` and ``scale`` given: without
-    ``rel_pe`` a zero 2-row table makes it the mask-only kernel; without
-    ``kv_valid_len`` every key is valid."""
+    ``flash_attention`` with ``causal`` and ``scale`` given: with neither
+    ``rel_pe`` nor ``kv_valid_len`` it is kernel B5
+    (``flash_causal.flash_forward``); otherwise kernel B1, where a missing
+    ``rel_pe`` becomes a zero 2-row table (the mask-only variant) and a
+    missing ``kv_valid_len`` makes every key valid."""
+    if rel_pe is None and kv_valid_len is None:
+        out, _ = flash_causal.flash_forward(q, k, v, causal=causal, scale=scale)
+        return out
     if kv_valid_len is None:
         kv_valid_len = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32,
                                   device=q.device)

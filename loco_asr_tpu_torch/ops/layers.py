@@ -53,6 +53,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.erf(x * _SQRT_HALF))
 
 
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approx GELU (HF "gelu_new", GPT-2's activation):
+    ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))``, in one pass."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"gelu": gelu, "gelu_new": gelu_new}
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ weight.T + bias`` with an ``nn.Linear``-layout ``[out, in]``

@@ -1,6 +1,8 @@
 """loco_asr_tpu_torch imports neither jax nor loco_asr_tpu: every module of
 the package imports with jax blocked, loads no loco_asr_tpu module, and no
-source of the port (or chip_smoke.py) names either."""
+source of the port (or chip_smoke.py) names either.  Packages the GPU
+machine lacks (regex, safetensors, transformers) are blocked as well: the
+port may import them only inside the function that needs them."""
 
 import os
 import re
@@ -16,7 +18,8 @@ PKG = os.path.join(ROOT, "loco_asr_tpu_torch")
 
 _PROBE = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
+for name in ("jax", "regex", "safetensors", "transformers"):
+    sys.modules[name] = None
 import loco_asr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(loco_asr_tpu_torch.__path__,
                                                "loco_asr_tpu_torch.")]

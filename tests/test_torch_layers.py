@@ -32,6 +32,13 @@ def test_gelu():
                                np.asarray(jl.gelu(jnp.asarray(x))), **TOL)
 
 
+def test_gelu_new():
+    x = (_rng(7).standard_normal((4, 257)) * 4).astype(np.float32)
+    assert tl.ACTIVATIONS["gelu_new"] is tl.gelu_new and tl.ACTIVATIONS["gelu"] is tl.gelu
+    np.testing.assert_allclose(tl.gelu_new(torch.from_numpy(x)).numpy(),
+                               np.asarray(jl.gelu_new(jnp.asarray(x))), **TOL)
+
+
 def test_dense():
     r = _rng(1)
     x = r.standard_normal((3, 5, 16)).astype(np.float32)
