@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``loco_asr_tpu_torch/csrc/`` and drives the
-port's two main paths at full width with random weights made from a seed:
-SpeechT5-base speech-encoder embedding extraction, and GPT-2 perplexity
-scoring (``eval_ppl --attn_impl flash``).  Phases, in order (any failure
-raises and exits non-zero):
+port's three main paths at full width with random weights made from a
+seed: SpeechT5-base speech-encoder embedding extraction, GPT-2 perplexity
+scoring (``eval_ppl --attn_impl flash``) and SpeechT5-base ASR fine-tuning
+(``train_asr --attn_impl flash``).  Phases, in order (any failure raises
+and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
@@ -21,7 +22,14 @@ raises and exits non-zero):
    against 160 keys causal), max abs error
    against a stated tolerance, CUDA-event medians of kernel, plain version
    and, where one PyTorch call computes the same function, that call
-   (timed as a yardstick only);
+   (timed as a yardstick only); the backward: B3 + B4 against their plain
+   version for dq, dk, dv, dpe at the encoder's [8, 12, 500, 64], L=160,
+   two rows padded, non-causal and causal, and the cross-attention's
+   mask-only [8, 12, 160, 500] (each kernel's device time from the
+   profiler, the library column SDPA forward + backward minus forward);
+   B5's blockwise backward against autograd through its plain version at
+   the decoder's [8, 12, 160, 64] causal; on CUDA tensors that require
+   grad, B1/B5/B6 outputs carry a grad_fn and B2 raises;
 4. encoder: full-width ``encode_speech`` at B=16 x 5 s with padded rows,
    kernel path against plain path on valid frames, launch counts of one
    forward (12 B1, 1 B2), forward ms and RTFx, and the device time of one
@@ -40,7 +48,23 @@ raises and exits non-zero):
    (60 B6 launches) and dense (none), PPLs within rtol 1e-4; an ``indep``
    run under flash; a gpt2-xl ``max_len`` run under flash (B5's main-path
    launches);
-8. summary: one ``{"kernels": [...]}`` line, then last
+8. ASR train step at full width (SpeechT5Config(vocab_size=256)) on a
+   batch of 8 conversation windows of <= 10 s from the committed corpus,
+   dropout and SpecAugment off: kernels + flash against plain + dense
+   (loss rtol 1e-5, grad_norm rtol 1e-3, every gradient atol 1e-4 / rtol
+   1e-3); launch counts of one ``make_asr_train_step`` (18 B1, 18 B3/B4,
+   6 B5, 0 B2) and of one with the feature encoder frozen (1 B2);
+9. training throughput: 30 steps at B=8 windows, AdamW lr 1e-4 without
+   warmup, dropout on; loss finite and falling (mean of the last 5 below
+   the first 5), median step ms, audio-s per wall-s, peak memory, and one
+   profiled step's device time by kernel group with its busy share;
+10. ASR training pipeline: ``train_asr --attn_impl flash
+   --conversation_seconds 10 --batch_size 8 --steps 8 --save_every 4
+   --eval_every 8 --eval_batches 2`` on the committed corpus (metrics.jsonl,
+   step_8.npz, status.json, finite dev loss and WER), then ``--resume
+   --steps 12``; the launch counts of the first run are B3/B4's main-path
+   counts;
+11. summary: one ``{"kernels": [...]}`` line, then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -48,6 +72,8 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -66,7 +92,12 @@ F32_FLOP_PER_S = 67e12
 B1_TOL = 1e-4
 B2_TOL = 1e-4
 B56_TOL = 1e-4
+B34_TOL = 1e-4        # dq, dk, dv; dpe (a sum over B*H*Tq rows) relative to its max
+B56_BWD_TOL = 1e-4
 NLL_TOL = 1e-4
+LOSS_RTOL = 1e-5      # full-width train step, kernels + flash vs plain + dense
+GNORM_RTOL = 1e-3
+GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3
 PPL_RTOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -105,8 +136,11 @@ def bound(nbytes: float, flops: float):
 
 KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
     ("flash_rel_fwd", "B1 flash_rel"), ("flash_causal_fwd", "B5/B6 flash_causal"),
+    ("flash_rel_bwd_dq", "B3 flash_rel_bwd_dq"), ("flash_rel_bwd_dkv", "B4 flash_rel_bwd_dkv"),
+    ("multi_tensor_apply", "optimizer (foreach)"),
     ("conv_stats", "B2 conv_frontend"), ("conv_out", "B2 conv_frontend"),
-    ("convolve", "cuDNN conv"), ("fprop", "cuDNN conv"), ("conv", "cuDNN conv"),
+    ("convolve", "cuDNN conv"), ("fprop", "cuDNN conv"), ("dgrad", "cuDNN conv"),
+    ("wgrad", "cuDNN conv"), ("conv", "cuDNN conv"),
     ("gemm", "GEMM"), ("Kernel2", "GEMM"), ("cutlass", "GEMM"),
     ("layer_norm", "layer norm"), ("softmax", "softmax"), ("reduce", "reductions"),
     ("elementwise", "elementwise"), ("copy", "copies"), ("gather", "gather/index"),
@@ -154,15 +188,11 @@ def device_breakdown(fn) -> dict:
                 top_kernels=[dict(ms=ms, count=n, name=k) for ms, n, k in top[:12]])
 
 
-def b1_work(q, k, pe, vl, causal):
-    """Bytes moved (q, k, v, out, pe, lse, valid_len once each) and FLOP
-    this run's data needs: q.k^T and p.v over the keys each row may see,
-    plus q.pe^T over the distinct table rows those keys reach (row i sees
-    keys 0..jmax, so offsets i-jmax..i, clipped to [-L, L-1])."""
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    half = pe.shape[0] // 2
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + pe.numel() + b * h * tq + b)
+def visible(tq, tk, two_l, vl, causal):
+    """(query-key pairs, distinct rel-table cells) one head of the batch
+    needs: row i sees keys 0..jmax and reaches offsets i-jmax..i of the
+    table, clipped to [-L, L-1]."""
+    half = two_l // 2
     i = np.arange(tq)
     keys = pe_cols = 0
     for n in vl.tolist():
@@ -171,8 +201,69 @@ def b1_work(q, k, pe, vl, causal):
         keys += int((jmax + 1).sum())
         pe_cols += int((np.clip(i, -half, half - 1)
                         - np.clip(i - jmax, -half, half - 1) + 1).sum())
-    flops = h * 2 * d * (2 * keys + pe_cols)
-    return nbytes, flops
+    return keys, pe_cols
+
+
+def b1_work(q, k, pe, vl, causal):
+    """Bytes moved (q, k, v, out, pe, lse, valid_len once each) and FLOP
+    this run's data needs: q.k^T and p.v over the keys each row may see,
+    plus q.pe^T over the distinct table cells those keys reach."""
+    b, h, tq, d = q.shape
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + pe.numel() + b * h * tq + b)
+    keys, pe_cols = visible(tq, k.shape[2], pe.shape[0], vl, causal)
+    return nbytes, h * 2 * d * (2 * keys + pe_cols)
+
+
+def b34_work(q, k, pe, vl, causal):
+    """Bounds of B3 and B4 from this run's data.  Both read q, g, k, v, pe,
+    lse, delta and valid_len once.  B3 writes dq and the band gradient
+    dqpe [B, H, Tq, 2L] and needs s, dp and ds.k over the visible pairs plus
+    q.pe^T over the reached cells; B4 writes dk, dv and needs s, dp, p^T.g
+    and ds^T.q over the pairs plus the same band product."""
+    b, h, tq, d = q.shape
+    reads = 4 * (2 * q.numel() + 2 * k.numel() + pe.numel() + 2 * b * h * tq + b)
+    keys, pe_cols = visible(tq, k.shape[2], pe.shape[0], vl, causal)
+    b3 = (reads + 4 * (q.numel() + b * h * tq * pe.shape[0]), h * 2 * d * (3 * keys + pe_cols))
+    b4 = (reads + 4 * 2 * k.numel(), h * 2 * d * (4 * keys + pe_cols))
+    return b3, b4
+
+
+def kernel_device_ms(fn, patterns, n: int = 5) -> dict:
+    """Mean device time per ``fn()`` of the kernels whose names contain each
+    pattern (torch.profiler over ``n`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {p: 0.0 for p in patterns}
+    for e in prof.key_averages():
+        for p in patterns:
+            if p in e.key:
+                out[p] += e.device_time_total / 1e3 / n
+    return out
+
+
+def relocate_corpus(dst: str) -> dict:
+    """Copies of the committed Kaldi dirs (exp/loco/asr_corpus/{train,dev})
+    whose wav.scp points at this checkout's wav files."""
+    out = {}
+    for split in ("train", "dev"):
+        src, d = os.path.join(ROOT, "exp", "loco", "asr_corpus", split), os.path.join(dst, split)
+        os.makedirs(d)
+        for name in ("text", "segments"):
+            with open(os.path.join(src, name), "rb") as f, open(os.path.join(d, name), "wb") as g:
+                g.write(f.read())
+        with open(os.path.join(src, "wav.scp")) as f, open(os.path.join(d, "wav.scp"), "w") as g:
+            for line in f:
+                key, path = line.split(None, 1)
+                g.write(f"{key} {os.path.join(src, 'wav', os.path.basename(path.strip()))}\n")
+        out[split] = d
+    return out
 
 
 def b2_work(wav, c, k, f):
@@ -224,6 +315,8 @@ def main() -> int:
         return 1
 
     from loco_asr_tpu_torch.data import lm_datasets
+    from loco_asr_tpu_torch.data.asr_dataset import ConversationAsrDataset
+    from loco_asr_tpu_torch.data.tokenizer import load_tokenizer
     from loco_asr_tpu_torch.data.embedding_store import EmbeddingStore
     from loco_asr_tpu_torch.models.gpt2 import model as gm
     from loco_asr_tpu_torch.models.speecht5 import model as st5
@@ -232,7 +325,8 @@ def main() -> int:
     from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
     from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
     from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
-    from loco_asr_tpu_torch.pipelines import eval_ppl, extract_embeddings
+    from loco_asr_tpu_torch.parallel import train
+    from loco_asr_tpu_torch.pipelines import eval_ppl, extract_embeddings, train_asr
 
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -375,6 +469,116 @@ def main() -> int:
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del q, k, v, qs, ks, vs, out, pout
+
+    # the gradient of B1: B3 + B4 (and the band's matmuls) against the plain
+    # version, at the encoder's and the cross-attention's training shapes
+    def rel_bwd_plain(q, k, v, pe, vl, out, lse, gg, causal):
+        dq, dk, dv, dqpe = fa.flash_rel_backward_plain(q, k, v, pe, vl, out, lse, gg,
+                                                       causal=causal, scale=1.0)
+        return (dq + dqpe @ pe, dk, dv, torch.einsum("bhim,bhid->md", dqpe, q))
+
+    def sdpa_bwd_ms(q, k, v, gg, mask):
+        """SDPA forward + backward minus its forward, f32 with a key mask."""
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+        def fb():
+            o = sdpa(*leaves, attn_mask=mask, scale=1.0)
+            torch.autograd.grad(o, leaves, gg)
+
+        def f():
+            with torch.no_grad():
+                sdpa(q, k, v, attn_mask=mask, scale=1.0)
+        return time_ms(fb) - time_ms(f)
+
+    bwd_cases = [("enc_padded", 8, 500, 500, 160, False),
+                 ("enc_causal", 8, 500, 500, 160, True),
+                 ("cross_mask_only", 8, 160, 500, 1, False)]
+    for name, b, tq, tk, L, causal in bwd_cases:
+        q, k, v = randn(b, 12, tq, 64), randn(b, 12, tk, 64), randn(b, 12, tk, 64)
+        pe = randn(2 * L, 64) if L > 1 else torch.zeros(2, 64, device=dev)
+        vl = torch.tensor([tk] * (b - 2) + [tk - 70, tk - 190], dtype=torch.int32,
+                          device=dev)
+        out, lse = fa.flash_rel_forward(q, k, v, pe, vl, causal=causal, scale=1.0)
+        gg = randn(b, 12, tq, 64, sc=1.0)
+        kw = dict(causal=causal, scale=1.0, need_dpe=L > 1)
+        got = fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw)
+        torch.cuda.synchronize()
+        want = rel_bwd_plain(q, k, v, pe, vl, out, lse, gg, causal)
+        errs = {n: (a - w).abs().max().item() for n, a, w in zip("q k v".split(), got, want)}
+        if L > 1:
+            errs["pe"] = (got[3] - want[3]).abs().max().item() / want[3].abs().max().item()
+        check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
+              f"B3/B4 {name}: non-finite gradient")
+        check(max(errs.values()) <= B34_TOL,
+              f"B3/B4 {name}: errors {errs} > {B34_TOL} (dpe relative to its max)")
+        lib_ms = None
+        if L == 1 or causal:
+            keep = (torch.arange(tk, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+            if causal:
+                keep = keep & (torch.arange(tk, device=dev)[None, :]
+                               <= torch.arange(tq, device=dev)[:, None])
+            lib_ms = sdpa_bwd_ms(q, k, v, gg, keep)
+        split = kernel_device_ms(lambda: fa.flash_rel_backward(q, k, v, pe, vl, out, lse,
+                                                               gg, **kw),
+                                 ("flash_rel_bwd_dq", "flash_rel_bwd_dkv"))
+        (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, causal)
+        rec = dict(kernel="B3/B4", case=name, shape=[b, 12, tq, 64], tk=tk, two_l=2 * L,
+                   causal=causal, max_abs_err=max(errs.values()), errs=errs, tol=B34_TOL,
+                   ms=time_ms(lambda: fa.flash_rel_backward(q, k, v, pe, vl, out, lse,
+                                                            gg, **kw)),
+                   plain_ms=time_ms(lambda: rel_bwd_plain(q, k, v, pe, vl, out, lse,
+                                                          gg, causal)),
+                   library_ms=lib_ms, b3_ms=split["flash_rel_bwd_dq"],
+                   b4_ms=split["flash_rel_bwd_dkv"],
+                   b3_bound=bound(b3b, b3f), b4_bound=bound(b4b, b4f))
+        checks.append(rec)
+        print(f"[kernels] {json.dumps(rec)}")
+        del q, k, v, out, gg, got, want
+
+    # B5's backward (blockwise PyTorch, the counterpart of the JAX XLA
+    # backward) against autograd through B5's plain version, decoder shape
+    q, k, v = randn(8, 12, 160, 64, sc=0.5), randn(8, 12, 160, 64, sc=0.5), randn(8, 12, 160, 64, sc=0.5)
+    gg = randn(8, 12, 160, 64, sc=1.0)
+    kw = dict(causal=True, scale=0.125)
+    out, lse = fc.flash_forward(q, k, v, **kw)
+    got = fc.flash_backward(q, k, v, out, lse, gg, t_axis=2, **kw)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def plain_fb():
+        o, _ = fc.flash_forward_plain(*leaves, **kw)
+        return torch.autograd.grad(o, leaves, gg)
+
+    want = plain_fb()
+    err = max((a - w).abs().max().item() for a, w in zip(got, want))
+    check(err <= B56_BWD_TOL, f"B5 backward: max abs err {err} > {B56_BWD_TOL}")
+    with torch.no_grad():
+        plain_f_ms = time_ms(lambda: fc.flash_forward_plain(q, k, v, **kw))
+    mask = torch.ones(160, 160, dtype=torch.bool, device=dev).tril()
+    b5_bwd = dict(kernel="B5/B6 backward", case="decoder_causal", shape=[8, 12, 160, 64],
+                  max_abs_err=err, tol=B56_BWD_TOL,
+                  ms=time_ms(lambda: fc.flash_backward(q, k, v, out, lse, gg, t_axis=2, **kw)),
+                  plain_ms=time_ms(plain_fb) - plain_f_ms,
+                  library_ms=sdpa_bwd_ms(q * 0.125, k, v, gg, mask))
+    print(f"[kernels] {json.dumps(b5_bwd)}")
+
+    # on CUDA tensors that require grad, every flash output keeps the graph
+    # and kernel B2 (no backward) refuses
+    x = randn(2, 12, 40, 64).requires_grad_()
+    y = randn(2, 12, 40, 64)
+    outs = {"B1": fa.flash_attention(x, y, y, causal=False, scale=1.0, rel_pe=randn(8, 64),
+                                     kv_valid_len=torch.tensor([40, 30], device=dev)),
+            "B5": fc.flash_forward(x, y, y, causal=True, scale=1.0)[0],
+            "B6": fc.flash_forward_nhd(tr(x), tr(y), tr(y), causal=True, scale=1.0)[0]}
+    for kname, o in outs.items():
+        check(o.grad_fn is not None, f"{kname}: CUDA output has no grad_fn")
+    try:
+        cf.conv1_instance_norm_gelu(randn(2, 4000), randn(512, 1, 10).requires_grad_(),
+                                    randn(512) + 1.0, randn(512))
+        raise RuntimeError("check failed: B2 returned an output under grad")
+    except RuntimeError as e:
+        check("no backward" in str(e), f"B2 under grad raised {e}")
+    print("[kernels] autograd: B1/B5/B6 CUDA outputs carry grad_fn; B2 raises under grad")
+    del x, y, outs, q, k, v, gg, got, want, leaves
 
     # -- 4. encoder -------------------------------------------------------
     cfg = SpeechT5Config()
@@ -553,7 +757,160 @@ def main() -> int:
               f"gpt2-xl max_len flash run launched {xl_run['launches']}")
         lm_launches["B5"] = xl_run["launches"]["B5"]
 
-    # -- 8. summary -------------------------------------------------------
+    # -- 8. ASR train step: kernels + flash against plain + dense -----------
+    def counts():
+        return {"B1": fa.flash_rel_forward.launches, "B2": cf.conv1_instance_norm_gelu.launches,
+                "B3/B4": fa.flash_rel_backward.launches, "B5": fc.flash_forward.launches,
+                "B5_bwd": fc.flash_backward.launches}
+
+    def reset_counts():
+        fa.flash_rel_forward.launches = cf.conv1_instance_norm_gelu.launches = 0
+        fa.flash_rel_backward.launches = fc.flash_forward.launches = 0
+        fc.flash_backward.launches = 0
+
+    tmp_corpus = tempfile.TemporaryDirectory()
+    corpus = relocate_corpus(tmp_corpus.name)
+    tok = load_tokenizer("char")
+    tok.vocab_size = 256
+    cfg = SpeechT5Config(vocab_size=256)
+    train_ds = ConversationAsrDataset(corpus["train"], window_seconds=10)
+    host_batches = list(itertools.islice(itertools.chain.from_iterable(
+        train_ds.batches(tok, 8, max_seconds=10, max_label_len=160, shuffle=True,
+                         seed=e, eos_id=cfg.eos_token_id) for e in range(3)), 31))
+
+    def to_dev(hb):
+        return {k: torch.as_tensor(hb[k], device=dev)
+                for k in ("input_values", "attention_mask", "labels")}
+
+    quiet = dataclasses.replace(cfg, positional_dropout=0.0, hidden_dropout=0.0,
+                                attention_dropout=0.0, activation_dropout=0.0,
+                                apply_spec_augment=False)
+    model = st5.asr_model_init(quiet, seed=0, device=dev).train()
+    b0 = to_dev(host_batches[0])
+    runs = {}
+    for impl in ("flash", "dense"):
+        for p in model.parameters():
+            p.grad = None
+        reset_counts()
+        loss, aux = st5.asr_loss(model, b0["input_values"], b0["attention_mask"],
+                                 b0["labels"], attn_impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+        runs[impl] = (loss.item(), train.global_norm(list(grads.values())).item(), grads,
+                      counts())
+    (fl, fg, fgr, fcnt), (dl, dg, dgr, dcnt) = runs["flash"], runs["dense"]
+    check(np.isfinite(fl) and np.isfinite(fg), f"train step: loss {fl}, grad_norm {fg}")
+    check(abs(fl - dl) <= LOSS_RTOL * abs(dl), f"train step: loss flash {fl} dense {dl}")
+    check(abs(fg - dg) <= GNORM_RTOL * abs(dg), f"train step: grad_norm flash {fg} dense {dg}")
+    check(fgr.keys() == dgr.keys(), "train step: different parameters got gradients")
+    worst, worst_name, grad_max_abs = 0.0, "", 0.0
+    for k in dgr:
+        diff = (fgr[k] - dgr[k]).abs()
+        excess = (diff - GRAD_RTOL * dgr[k].abs()).max().item()
+        grad_max_abs = max(grad_max_abs, diff.max().item())
+        if excess > worst:
+            worst, worst_name = excess, k
+    check(worst <= GRAD_ATOL, f"train step: gradient {worst_name} off by {worst} beyond "
+                              f"rtol {GRAD_RTOL} (atol {GRAD_ATOL})")
+    check(dcnt == {"B1": 0, "B2": 0, "B3/B4": 0, "B5": 0, "B5_bwd": 0},
+          f"dense train pass launched {dcnt}")
+    del runs, fgr, dgr
+    step_counts = {}
+    for frozen in (False, True):
+        tx = train.adamw(1e-4)
+        opt = tx.init(train.trainable_params(model, frozen))
+        step = train.make_asr_train_step(quiet, tx, attn_impl="flash",
+                                         freeze_feature_encoder=frozen)
+        reset_counts()
+        m = step(model, opt, b0)
+        torch.cuda.synchronize()
+        step_counts["frozen" if frozen else "trained"] = counts()
+        check(np.isfinite(m["loss"].item()), "train step: non-finite loss")
+        del opt
+    n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
+    want = {"B1": n_enc + n_dec, "B2": 0, "B3/B4": n_enc + n_dec, "B5": n_dec, "B5_bwd": n_dec}
+    check(step_counts["trained"] == want, f"train step launched {step_counts['trained']}, "
+                                          f"expected {want}")
+    check(step_counts["frozen"] == dict(want, B2=1),
+          f"frozen-feature-encoder step launched {step_counts['frozen']}")
+    step_rec = dict(batch=list(b0["input_values"].shape), labels=list(b0["labels"].shape),
+                    loss_flash=fl, loss_dense=dl, grad_norm_flash=fg, grad_norm_dense=dg,
+                    grad_max_abs_diff=grad_max_abs, grad_worst_excess=worst,
+                    grad_worst=worst_name, launches_loss_backward=fcnt,
+                    launches_per_step=step_counts)
+    print(f"[train_step] {json.dumps(step_rec)}")
+    del model
+
+    # -- 9. training throughput ------------------------------------------
+    model = st5.asr_model_init(cfg, seed=0, device=dev)
+    tx = train.adamw(1e-4)                      # constant rate, no warmup
+    opt = tx.init(train.trainable_params(model))
+    step = train.make_asr_train_step(cfg, tx, attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dev_batches = [to_dev(hb) for hb in host_batches[1:]]
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, audio_s = [], [], 0.0
+    for i, bt in enumerate(dev_batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, opt, bt, gen)
+        losses.append(m["loss"].item())           # syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i >= 3:
+            audio_s += bt["attention_mask"].sum().item() / 16000.0
+    check(all(np.isfinite(losses)), f"training losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"loss did not fall: first 5 {first}, last 5 {last}")
+    timed = step_ms[3:]
+    tput = dict(steps=len(losses), batch=8, window_s=10, losses=losses,
+                loss_first5=first, loss_last5=last, median_step_ms=statistics.median(timed),
+                audio_s_per_wall_s=audio_s / (sum(timed) / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+    print(f"[train] {json.dumps(tput)}")
+    prof = device_breakdown(lambda: step(model, opt, dev_batches[0], gen))
+    print(f"[train] device breakdown of one step: {json.dumps(prof)}")
+    del model, opt, dev_batches
+
+    # -- 10. ASR training pipeline (the B3/B4 main path) --------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "asr")
+        flags = ["--train_dir", corpus["train"], "--dev_dir", corpus["dev"],
+                 "--out_dir", out_dir, "--attn_impl", "flash",
+                 "--conversation_seconds", "10", "--batch_size", "8",
+                 "--save_every", "4", "--eval_every", "8", "--eval_batches", "2"]
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = train_asr.main([*flags, "--steps", "8"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        asr_launches = counts()
+        check(rc == 0, f"train_asr returned {rc}")
+        ckpt = os.path.join(out_dir, "ckpt")
+        with open(os.path.join(ckpt, "status.json")) as f:
+            check(json.load(f)["latest"] == 8, "status.json does not name step 8")
+        check(all(os.path.exists(os.path.join(ckpt, f"step_{n}.npz")) for n in (4, 8)),
+              "missing step_4.npz / step_8.npz")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            evals = [json.loads(line) for line in f if "dev_wer" in line]
+        check(evals and all(np.isfinite(r["dev_loss"]) and np.isfinite(r["dev_wer"])
+                            for r in evals), f"dev metrics {evals}")
+        check(asr_launches["B3/B4"] == 8 * (n_enc + n_dec) and asr_launches["B5_bwd"] == 8 * n_dec,
+              f"8 training steps launched {asr_launches}")
+        check(asr_launches["B1"] > asr_launches["B3/B4"] and asr_launches["B2"] > 0,
+              f"pipeline launches {asr_launches}")
+        t0 = time.perf_counter()
+        rc = train_asr.main([*flags, "--steps", "12", "--resume"])
+        resume_wall = time.perf_counter() - t0
+        check(rc == 0, f"train_asr --resume returned {rc}")
+        with open(os.path.join(ckpt, "status.json")) as f:
+            check(json.load(f)["latest"] == 12, "resume did not reach step 12")
+        with np.load(os.path.join(ckpt, "step_12.npz")) as z:
+            check(int(z["opt_state.count"]) == 12, "optimizer count after resume")
+        print(f"[asr_pipeline] {json.dumps(dict(launches=asr_launches, wall_s=wall, dev=evals[-1], resume_wall_s=resume_wall))}")
+    tmp_corpus.cleanup()
+
+    # -- 11. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -562,6 +919,21 @@ def main() -> int:
                     ms=main_rec["ms"], kernel_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
                     bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
                     library_ms=main_rec["library_ms"])
+
+    def bwd_entry(name, replaces, tpu_kernel, which):
+        """B3 or B4 at the encoder's padded case: its own device time; the
+        plain column is the whole plain backward (one function computes dq,
+        dk, dv and dpe together).  No PyTorch call computes the rel-band
+        backward, so the library column is null here; the mask-only and
+        causal cases above carry SDPA's."""
+        main_rec = next(c for c in checks if c["kernel"] == "B3/B4" and c["case"] == "enc_padded")
+        bms, by = main_rec[f"{which}_bound"]
+        return dict(name=name, route="cuda", source="loco_asr_tpu_torch/csrc/flash_rel_bwd.cu",
+                    replaces=replaces, tpu_kernel=tpu_kernel, launches=asr_launches["B3/B4"],
+                    max_abs_err=max(c["max_abs_err"] for c in checks if c["kernel"] == "B3/B4"),
+                    ms=main_rec[f"{which}_ms"], kernel_ms=main_rec[f"{which}_ms"],
+                    wrapper_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
+                    bound_ms=bms, bound_by=by, library_ms=main_rec["library_ms"])
 
     kernels = [
         entry("flash_rel_forward", "loco_asr_tpu_torch/csrc/flash_rel.cu",
@@ -573,6 +945,10 @@ def main() -> int:
         entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
               "loco_asr_tpu/ops/pallas/flash_attention.py:40",
               "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
+        bwd_entry("flash_rel_backward (B3)", "loco_asr_tpu/ops/pallas/flash_attention.py:799",
+                  "flash_attention.py::_rel_bwd_dq_kernel", "b3"),
+        bwd_entry("flash_rel_backward (B4)", "loco_asr_tpu/ops/pallas/flash_attention.py:902",
+                  "flash_attention.py::_rel_bwd_dkv_kernel", "b4"),
         entry("flash_forward_nhd", "loco_asr_tpu_torch/csrc/flash_causal.cu",
               "loco_asr_tpu/ops/pallas/flash_attention.py:168",
               "flash_attention.py::_flash_pair_kernel", "B6", "gpt2_max_len",

@@ -8,20 +8,25 @@ ported path is a hand-written CUDA kernel under ``csrc/``, built with
 package imports neither ``jax`` nor ``loco_asr_tpu``.
 
 Ported paths: SpeechT5-base speech-encoder embedding extraction (kernels
-B1, B2) and GPT-2 perplexity scoring (kernels B5/B6, one strided kernel).
+B1, B2), GPT-2 perplexity scoring (kernels B5/B6, one strided kernel) and
+SpeechT5-base ASR fine-tuning (kernels B3/B4, the backward of B1; every
+flash wrapper is a ``torch.autograd.Function``).
 
 Layout:
   ops/        -- layers, attention, audio decode; ops/cuda: kernel wrappers
   csrc/       -- CUDA C++ kernel sources (sm_90a)
-  models/     -- SpeechT5 speech encoder; GPT-2 (gpt2 .. gpt2-xl); JAX and
-                 HF weight bridges
-  data/       -- SLURP adapter, embedding store, tokenizers, LM datasets
-  pipelines/  -- CLI entry points (extract_embeddings, eval_ppl)
-  utils/      -- device resolution, metrics, file logger
+  models/     -- SpeechT5 ASR (speech encoder, text decoder); GPT-2 (gpt2 ..
+                 gpt2-xl); JAX and HF weight bridges
+  data/       -- SLURP adapter, embedding store, tokenizers, LM datasets,
+                 Kaldi IO and ASR (conversation-window) datasets
+  decode/     -- greedy decoding over the KV cache
+  parallel/   -- AdamW and the one-device ASR train step
+  pipelines/  -- CLI entry points (extract_embeddings, eval_ppl, train_asr)
+  utils/      -- device resolution, metrics, file logger, checkpoints, WER
 
 The CPU tests (``tests/test_torch_*.py``) run the plain PyTorch versions
 against the JAX package; ``chip_smoke.py`` builds and checks the kernels
-and drives both paths on the GPU.
+and drives the three paths on the GPU.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""SpeechT5 speech encoder (prenet + relative-position transformer)."""
+"""SpeechT5 ASR: speech encoder (prenet + relative-position transformer),
+text decoder and vocabulary head."""
 
 from .config import SpeechT5Config, tiny_config
 

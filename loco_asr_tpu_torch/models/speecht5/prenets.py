@@ -1,24 +1,33 @@
-"""SpeechT5 speech encoder prenet: conv feature encoder, feature projection,
-weight-normed grouped positional conv and sinusoidal positions, as in
-``loco_asr_tpu.models.speecht5.prenets`` (deterministic forward; the
-training-time SpecAugment is not ported yet).
+"""SpeechT5 pre- and post-nets of the ASR model, as in
+``loco_asr_tpu.models.speecht5.prenets``: the speech encoder prenet (conv
+feature encoder, feature projection, SpecAugment when training,
+weight-normed grouped positional conv, sinusoidal positions), the text
+decoder prenet (token embedding + sinusoidal positions from the non-pad
+mask) and the text decoder postnet (the vocabulary head).
 
 Layer 0 of the feature encoder (conv k=10/s=5 + instance norm + GELU) runs
-through kernel B2 (``ops/cuda/conv_frontend.py``) and emits channel-major
-[B, C, F], so layers 1-6 run as ``F.conv1d`` directly.  Parameter names
-follow the JAX tree (``feature_encoder.conv_layers.{i}.conv.weight`` ...)
-so the weight bridge is a mechanical rename.
+through kernel B2 (``ops/cuda/conv_frontend.py``) when no gradient is
+wanted (inference, or a frozen feature encoder), and through the
+differentiable gram form :func:`conv1_instance_norm_gelu_gram` when its
+parameters train -- the route the JAX package's training takes too (its
+Pallas kernel has no VJP).  Either way it emits channel-major [B, C, F],
+so layers 1-6 run as ``F.conv1d`` directly.  Parameter names follow the
+JAX tree (``feature_encoder.conv_layers.{i}.conv.weight`` ...) so the
+weight bridge is a mechanical rename.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import math
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ...ops import layers
+from ...ops.audio import compute_mask_indices
 from ...ops.cuda import conv_frontend
 from .config import SpeechT5Config
 
@@ -53,6 +62,31 @@ def _check_frontend(cfg: SpeechT5Config) -> None:
             f"kernel {cfg.conv_kernel[0]}, stride {cfg.conv_stride[0]}")
 
 
+def conv1_instance_norm_gelu_gram(wav: torch.Tensor, weight: torch.Tensor,
+                                  scale: torch.Tensor, bias: torch.Tensor, *,
+                                  stride: int = 5, eps: float = conv_frontend.EPS
+                                  ) -> torch.Tensor:
+    """Differentiable first feature-encoder layer, the port's counterpart of
+    the JAX ``conv1_instance_norm_gelu_gram``: the same function as kernel
+    B2, with the per-channel statistics taken from the [K, K] gram matrix of
+    the K = 2*stride taps (``mean_c = E[taps].W_c``,
+    ``E[y^2]_c = W_c^T E[taps taps^T] W_c``), so autograd runs through small
+    products.  [B, T] -> [B, C, F]."""
+    b, t = wav.shape
+    k = conv_frontend._check_geometry(weight, stride)
+    f = (t - k) // stride + 1
+    r = wav[:, :stride * (f + 1)].reshape(b, f + 1, stride)
+    taps = torch.cat([r[:, :f], r[:, 1:f + 1]], dim=-1)           # [B, F, K]
+    w = weight[:, 0, :].t()                                       # [K, C]
+    mean = taps.mean(dim=1) @ w                                   # [B, C]
+    gram = torch.matmul(taps.transpose(1, 2), taps) / f           # [B, K, K]
+    ysq = torch.einsum("ic,bij,jc->bc", w, gram, w)               # E[y^2]
+    gain = torch.rsqrt(ysq - mean * mean + eps) * scale[None, :]
+    off = bias[None, :] - mean * gain
+    y = torch.matmul(taps, w).transpose(1, 2)                     # [B, C, F]
+    return layers.gelu(y * gain[:, :, None] + off[:, :, None])
+
+
 class FeatureEncoder(nn.Module):
     """wav2vec2-style conv stack: [B, T] waveform -> [B, frames, C]."""
 
@@ -66,8 +100,12 @@ class FeatureEncoder(nn.Module):
     def forward(self, wav: torch.Tensor, *, use_kernels: bool = True) -> torch.Tensor:
         cfg = self.cfg
         c0 = self.conv_layers[0]
-        first = (conv_frontend.conv1_instance_norm_gelu if use_kernels
-                 else conv_frontend.conv1_instance_norm_gelu_plain)
+        if torch.is_grad_enabled() and any(p.requires_grad for p in c0.parameters()):
+            first = conv1_instance_norm_gelu_gram
+        elif use_kernels:
+            first = conv_frontend.conv1_instance_norm_gelu
+        else:
+            first = conv_frontend.conv1_instance_norm_gelu_plain
         x = first(wav, c0.conv.weight, c0.layer_norm.weight, c0.layer_norm.bias,
                   stride=cfg.conv_stride[0])                        # [B, C, F]
         for i in range(1, len(cfg.conv_dim)):
@@ -133,7 +171,7 @@ class SpeechPrenet(nn.Module):
         self.feature_projection = FeatureProjection(cfg, generator)
         self.pos_conv_embed = PosConvEmbed(cfg, generator)
         if cfg.mask_time_prob > 0.0 or cfg.mask_feature_prob > 0.0:
-            # SpecAugment's mask vector: loaded, unused until training lands
+            # SpecAugment's mask vector
             self.masked_spec_embed = nn.Parameter(
                 torch.rand(cfg.hidden_size, generator=generator))
         # sinusoidal rows do not depend on the table's length, so one table
@@ -143,18 +181,31 @@ class SpeechPrenet(nn.Module):
                              persistent=False)
 
     def forward(self, wav: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
-                *, use_kernels: bool = True
+                *, use_kernels: bool = True,
+                generator: Optional[torch.Generator] = None,
+                freeze_feature_encoder: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return speech_prenet(self, wav, attention_mask, use_kernels=use_kernels)
+        return speech_prenet(self, wav, attention_mask, use_kernels=use_kernels,
+                             generator=generator,
+                             freeze_feature_encoder=freeze_feature_encoder)
 
 
 def speech_prenet(prenet: SpeechPrenet, wav: torch.Tensor,
                   attention_mask: Optional[torch.Tensor] = None, *,
-                  use_kernels: bool = True
+                  use_kernels: bool = True,
+                  generator: Optional[torch.Generator] = None,
+                  freeze_feature_encoder: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """[B, T] waveform -> ([B, frames, H] hidden, [B, frames] frame mask)."""
+    """[B, T] waveform -> ([B, frames, H] hidden, [B, frames] frame mask).
+
+    In training mode with a ``generator``, SpecAugment masks time spans
+    with ``masked_spec_embed`` (and feature spans with 0) after the
+    projection.  ``freeze_feature_encoder`` runs the conv stack under
+    ``torch.no_grad()`` (the JAX ``stop_gradient``): its parameters get no
+    gradient and layer 0 runs kernel B2."""
     cfg = prenet.cfg
-    feats = prenet.feature_encoder(wav, use_kernels=use_kernels)
+    with torch.no_grad() if freeze_feature_encoder else contextlib.nullcontext():
+        feats = prenet.feature_encoder(wav, use_kernels=use_kernels)
     if attention_mask is not None:
         attention_mask = reduce_attention_mask(cfg, feats.shape[1], attention_mask)
 
@@ -162,6 +213,21 @@ def speech_prenet(prenet: SpeechPrenet, wav: torch.Tensor,
     hidden = layers.layer_norm(feats, fp.layer_norm.weight, fp.layer_norm.bias,
                                eps=cfg.layer_norm_eps)
     hidden = fp.projection(hidden)
+
+    if prenet.training and cfg.apply_spec_augment and generator is not None:
+        b, t, h = hidden.shape
+        if cfg.mask_time_prob > 0:
+            lengths = None if attention_mask is None else attention_mask.sum(-1)
+            m = compute_mask_indices(generator, (b, t), cfg.mask_time_prob,
+                                     cfg.mask_time_length, lengths,
+                                     cfg.mask_time_min_masks, device=hidden.device)
+            hidden = torch.where(m[..., None], prenet.masked_spec_embed.to(hidden.dtype),
+                                 hidden)
+        if cfg.mask_feature_prob > 0:
+            m = compute_mask_indices(generator, (b, h), cfg.mask_feature_prob,
+                                     cfg.mask_feature_length, None,
+                                     cfg.mask_feature_min_masks, device=hidden.device)
+            hidden = hidden.masked_fill(m[:, None, :], 0.0)
 
     conv = prenet.pos_conv_embed.conv
     w = layers.weight_norm_conv1d_weight(conv.weight_g, conv.weight_v)
@@ -179,3 +245,54 @@ def speech_prenet(prenet: SpeechPrenet, wav: torch.Tensor,
              else torch.ones(hidden.shape[:2], dtype=torch.int32, device=hidden.device))
     pos_ids = layers.positions_from_padding(valid, cfg.pad_token_id)
     return hidden + table[pos_ids], attention_mask
+
+
+def sinusoidal_text_table(cfg: SpeechT5Config, min_positions: int = 0) -> np.ndarray:
+    num = max(cfg.max_text_positions, min_positions) + cfg.pad_token_id + 1 + 2
+    return layers.sinusoidal_table(num, cfg.hidden_size, padding_idx=cfg.pad_token_id)
+
+
+class TextDecoderPrenet(nn.Module):
+    """Token embedding (N(0, 1), pad row zeroed at init) + sinusoidal
+    positions."""
+
+    def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = layers.embedding_init(cfg.vocab_size, cfg.hidden_size,
+                                                  generator, cfg.pad_token_id)
+        self.register_buffer("sinusoidal_table",
+                             torch.from_numpy(sinusoidal_text_table(cfg)),
+                             persistent=False)
+
+
+def text_decoder_prenet(prenet: TextDecoderPrenet, input_ids: torch.Tensor, *,
+                        past_length: Union[int, torch.Tensor] = 0) -> torch.Tensor:
+    """[B, L] token ids -> [B, L, H]: embedding (times sqrt(H) with
+    ``scale_embedding``) plus the sinusoidal row of each position, where
+    positions count the non-pad tokens from ``past_length`` (int, or [B]
+    per-row offsets in decoding), HF's TextDecoderPrenet."""
+    cfg = prenet.cfg
+    table = prenet.sinusoidal_table
+    if input_ids.shape[1] > cfg.max_text_positions:
+        table = torch.from_numpy(sinusoidal_text_table(cfg, input_ids.shape[1]))
+    table = table.to(input_ids.device)
+    if isinstance(past_length, torch.Tensor) and past_length.dim() == 1:
+        past_length = past_length[:, None]
+    valid = input_ids != cfg.pad_token_id
+    pos_ids = layers.positions_from_padding(valid, cfg.pad_token_id, past_length)
+    pos_ids = torch.clamp(pos_ids, max=table.shape[0] - 1)
+    scale = math.sqrt(cfg.hidden_size) if cfg.scale_embedding else 1.0
+    emb = prenet.embed_tokens(input_ids) * scale
+    return emb + table[pos_ids].to(emb.dtype)
+
+
+class TextDecoderPostnet(nn.Module):
+    """Vocabulary head: bias-free ``lm_head`` (JAX ``dense_init``)."""
+
+    def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        with torch.no_grad():
+            self.lm_head.weight.copy_(layers.uniform_param(
+                self.lm_head.weight.shape, cfg.hidden_size, generator))

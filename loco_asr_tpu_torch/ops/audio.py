@@ -1,6 +1,8 @@
 """Host-side audio decode and resampling (numpy): WAV and NIST SPHERE
 (pcm, mu-law, A-law) readers and a polyphase windowed-sinc resampler, the
-same functions as ``loco_asr_tpu.ops.audio``.
+same functions as ``loco_asr_tpu.ops.audio``; and SpecAugment span masks
+(:func:`compute_mask_indices`), drawn on the device from a
+``torch.Generator``.
 
 Shorten-coded SPHERE raises ``NotImplementedError``: its decoder is not
 ported yet.
@@ -13,6 +15,7 @@ import wave
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 _ULAW_BIAS = 0x84
 
@@ -148,3 +151,36 @@ def resample(x: np.ndarray, sr_in: int, sr_out: int, *, zeros: int = 32,
     y[::up] = x * up
     y = np.convolve(y, kernel.astype(np.float32), mode="same")
     return y[::down].astype(np.float32)
+
+
+def compute_mask_indices(generator: Optional[torch.Generator],
+                         shape: Tuple[int, int], mask_prob: float,
+                         mask_length: int,
+                         lengths: Optional[torch.Tensor] = None,
+                         min_masks: int = 0, *,
+                         device: Optional[torch.device] = None) -> torch.Tensor:
+    """SpecAugment span masks, [B, T] bool, with the rules of the JAX
+    ``compute_mask_indices``: row b gets
+    ``max(int(mask_prob * len_b / mask_length + u_b), min_masks)`` spans
+    (``u_b`` uniform in [0, 1)) of ``mask_length`` steps, each starting at
+    ``int(u * max(len_b - mask_length, 1))``, spans clipped to the row's
+    valid length.  The random numbers come from ``generator``, so they
+    differ from JAX's; the counts and bounds do not."""
+    b, t = shape
+    if lengths is None:
+        lengths = torch.full((b,), t, device=device)
+    lengths = lengths.to(torch.int64)
+    dev = lengths.device
+    u = torch.rand(b, generator=generator, device=dev)
+    num_spans = torch.clamp(
+        (mask_prob * lengths.to(torch.float32) / mask_length + u).to(torch.int64),
+        min=min_masks)
+    max_spans = int(mask_prob * t / mask_length + 1) + min_masks
+    span_max = torch.clamp(lengths - mask_length, min=1)[:, None]
+    starts = (torch.rand(b, max_spans, generator=generator, device=dev)
+              * span_max).to(torch.int64)
+    active = torch.arange(max_spans, device=dev)[None, :] < num_spans[:, None]
+    pos = torch.arange(t, device=dev)[None, None, :]
+    in_span = (pos >= starts[..., None]) & (pos < (starts + mask_length)[..., None])
+    mask = torch.any(in_span & active[..., None], dim=1)
+    return mask & (torch.arange(t, device=dev)[None, :] < lengths[:, None])

@@ -10,7 +10,9 @@ zero tail included, with the ``E[y^2] - mean^2`` variance.
 
 :func:`conv1_instance_norm_gelu` launches the kernel for a CUDA tensor
 and takes the plain version only for a CPU tensor; ``launches`` counts
-kernel launches.
+kernel launches.  The kernel has no backward, as the Pallas one has none:
+on CUDA with an input that requires grad the wrapper raises rather than
+return a detached output.
 """
 
 from __future__ import annotations
@@ -55,6 +57,14 @@ def conv1_instance_norm_gelu(wav: torch.Tensor, weight: torch.Tensor,
     k = _check_geometry(weight, stride)
     if wav.device.type != "cuda":
         raise ValueError(f"unsupported device {wav.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (wav, weight, scale, bias)):
+        # the kernel has no backward (nor has the Pallas kernel): trainable
+        # callers take prenets.conv1_instance_norm_gelu_gram, as JAX does
+        raise RuntimeError(
+            "conv1_instance_norm_gelu: kernel B2 has no backward; call it "
+            "under torch.no_grad() or use the differentiable gram form "
+            "(models/speecht5/prenets.conv1_instance_norm_gelu_gram)")
     if k != 10:
         raise ValueError(f"the CUDA kernel is built for k=10/stride 5, got k={k}")
     for name, t in (("wav", wav), ("weight", weight), ("scale", scale),

@@ -1,19 +1,27 @@
-"""Kernel B1: relative-position + key-padding flash attention, forward, as
-one CUDA wrapper (``csrc/flash_rel.cu``) beside its plain PyTorch version.
+"""Kernel B1 (relative-position + key-padding flash attention, forward,
+``csrc/flash_rel.cu``) and its gradient, kernels B3 and B4
+(``csrc/flash_rel_bwd.cu``), each beside its plain PyTorch version.
 
 Counterpart of ``loco_asr_tpu/ops/pallas/flash_attention.py``
-(``_flash_rel_forward`` / ``flash_attention(rel_pe=, kv_valid_len=)``):
+(``_flash_rel_forward``, ``_flash_rel_backward_pallas`` and the custom VJP
+``_flash_attention_rel`` behind ``flash_attention(rel_pe=, kv_valid_len=)``):
 
     s[i, j] = scale * q_i . k_j + scale * q_i . pe[clip(i - j, -L, L-1) + L]
 
 keys ``j >= valid_len[b]`` and, when causal, ``j > i`` are masked with
 -1e30; ``out = softmax(s) v`` and ``lse = logsumexp(s)`` per query row,
 with the row sum clamped at 1e-30.  A zero 2-row ``pe`` gives the
-mask-only variant.
+mask-only variant.  The backward recomputes ``p = exp(s - lse)`` with
+masked entries set to exactly 0 (so a row with no valid key gets zero
+gradients, not NaN) and ``ds = p * (g.v^T - rowsum(g * out))``.
 
-:func:`flash_rel_forward` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors; ``launches`` counts kernel
-launches.  :func:`flash_attention` is the JAX package's public dispatch:
+:func:`flash_rel_forward` is differentiable through one
+``torch.autograd.Function``: its forward is B1, its backward
+:func:`flash_rel_backward` (B3 + B4 and two ``torch.matmul`` for the
+band's share of dq and dpe).  CUDA tensors launch the kernels; CPU
+tensors take the plain versions, forward and backward.  ``launches``
+on each wrapper counts kernel launches (one per B3 + B4 pair for the
+backward).  :func:`flash_attention` is the JAX package's public dispatch:
 B1 when ``rel_pe`` or ``kv_valid_len`` is given, else kernel B5
 (``flash_causal.flash_forward``).
 """
@@ -31,47 +39,55 @@ HEAD_DIM = 64
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 
 
+def band_index(tq: int, tk: int, two_l: int, device) -> torch.Tensor:
+    """[Tq, Tk] column ``clip(i - j, -L, L-1) + L`` of the rel-pos table."""
+    half = two_l // 2
+    i = torch.arange(tq, device=device)[:, None]
+    j = torch.arange(tk, device=device)[None, :]
+    return torch.clamp(i - j, -half, half - 1) + half
+
+
 def relative_position_scores(qpe: torch.Tensor, tk: int) -> torch.Tensor:
     """Band-gather ``qpe`` [..., Tq, 2L] (= q . pe^T) into the [..., Tq, Tk]
     relative-position term: column ``clip(i - j, -L, L-1) + L`` of row i."""
-    tq, two_l = qpe.shape[-2], qpe.shape[-1]
-    half = two_l // 2
-    i = torch.arange(tq, device=qpe.device)[:, None]
-    j = torch.arange(tk, device=qpe.device)[None, :]
-    idx = torch.clamp(i - j, -half, half - 1) + half
+    idx = band_index(qpe.shape[-2], tk, qpe.shape[-1], qpe.device)
     return torch.gather(qpe, -1, idx.expand(*qpe.shape[:-1], tk))
+
+
+def _masked(valid_len: torch.Tensor, tq: int, tk: int, causal: bool,
+            device) -> torch.Tensor:
+    """[B, 1, Tq | 1, Tk] True where a key is masked."""
+    j = torch.arange(tk, device=device)
+    vl = torch.clamp(valid_len.to(device, torch.int64), max=tk)
+    masked = j[None, None, None, :] >= vl[:, None, None, None]
+    if causal:
+        i = torch.arange(tq, device=device)
+        masked = masked | (j[None, :] > i[:, None])[None, None]
+    return masked
+
+
+def _scores(q, k, pe, scale):
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    return s + relative_position_scores(torch.matmul(q, pe.t()) * scale, k.shape[2])
 
 
 def flash_rel_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             pe: torch.Tensor, valid_len: torch.Tensor, *,
                             causal: bool, scale: float
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: dense scores with a clipped band gather."""
+    """Plain PyTorch version of B1: dense scores with a clipped band gather."""
     tq, tk = q.shape[2], k.shape[2]
-    qf, kf, vf = q.float(), k.float(), v.float()
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    s = s + relative_position_scores(torch.matmul(qf, pe.float().t()) * scale, tk)
-    j = torch.arange(tk, device=q.device)
-    vl = torch.clamp(valid_len.to(q.device, torch.int64), max=tk)
-    masked = j[None, None, None, :] >= vl[:, None, None, None]
-    if causal:
-        i = torch.arange(tq, device=q.device)
-        masked = masked | (j[None, :] > i[:, None])[None, None]
-    s = torch.where(masked, torch.full_like(s, NEG_INF), s)
+    s = _scores(q.float(), k.float(), pe.float(), scale)
+    s = s.masked_fill(_masked(valid_len, tq, tk, causal, q.device), NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.matmul(p, vf) / denom
+    out = torch.matmul(p, v.float()) / denom
     lse = (m + torch.log(denom))[..., 0]
     return out.to(q.dtype), lse
 
 
-def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      pe: torch.Tensor, valid_len: torch.Tensor, *,
-                      causal: bool, scale: float
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [B,H,Tq,64], k/v [B,H,Tk,64], pe [2L,64], valid_len [B] int ->
-    (out [B,H,Tq,64], lse [B,H,Tq] float32)."""
+def _check(q, k, v, pe, valid_len):
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != k.shape:
@@ -81,28 +97,40 @@ def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"pe must be [2L, {d}] with L >= 1, got {tuple(pe.shape)}")
     if valid_len.shape != (b,):
         raise ValueError(f"valid_len must be [{b}], got {tuple(valid_len.shape)}")
-    if q.device.type == "cpu":
-        return flash_rel_forward_plain(q, k, v, pe, valid_len,
-                                       causal=causal, scale=scale)
+
+
+def _cuda_operands(what: str, smem_fn: str, tensors):
+    """Check the float32 CUDA operands of a kernel and make them contiguous."""
+    q = tensors[0][1]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if d != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel needs head dim {HEAD_DIM}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("pe", pe)):
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{what}: the CUDA kernel needs head dim {HEAD_DIM}, "
+                         f"got {q.shape[-1]}")
+    out = []
+    for name, t in tensors:
         if t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"{name} must be float32 on {q.device}, "
+            raise ValueError(f"{what}: {name} must be float32 on {q.device}, "
                              f"got {t.dtype} on {t.device}")
-    lib = _build.library()
-    two_l = pe.shape[0]
-    smem = lib.loco_flash_rel_smem_bytes(two_l)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a rel-pos table of {two_l} rows needs {smem} B of "
-                         f"shared memory, more than the {SMEM_LIMIT} B a "
-                         "block may use")
-    q, k, v, pe = (t.contiguous() for t in (q, k, v, pe))
-    for name, t in (("q", q), ("k", k), ("v", v), ("pe", pe)):
+        t = t.contiguous()
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+        out.append(t)
+    lib = _build.library()
+    two_l = tensors[3][1].shape[0]
+    smem = getattr(lib, smem_fn)(two_l)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: a rel-pos table of {two_l} rows needs {smem} B "
+                         f"of shared memory, more than the {SMEM_LIMIT} B a "
+                         "block may use")
+    return lib, out
+
+
+def _launch_forward(q, k, v, pe, valid_len, causal, scale):
+    lib, (q, k, v, pe) = _cuda_operands(
+        "flash_rel_forward", "loco_flash_rel_smem_bytes",
+        (("q", q), ("k", k), ("v", v), ("pe", pe)))
+    b, h, tq, _ = q.shape
     vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -111,10 +139,126 @@ def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = lib.loco_flash_rel_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
             vl.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, h, tq, tk, two_l, int(causal), float(scale), stream)
+            b, h, tq, k.shape[2], pe.shape[0], int(causal), float(scale), stream)
     _build.check(code, "flash_rel_forward")
     flash_rel_forward.launches += 1
     return out, lse
+
+
+def flash_rel_backward_plain(q, k, v, pe, valid_len, out, lse, g, *,
+                             causal: bool, scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain PyTorch version of B3 + B4: dense recompute of ``p`` from
+    ``lse``, then dq, dk, dv and the band gradient ``dqpe`` by
+    ``scatter_add`` of ds into the band columns.  Returns (dq_content, dk,
+    dv, dqpe) -- dq without the band's share, as the kernels do."""
+    tq, tk, two_l = q.shape[2], k.shape[2], pe.shape[0]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    s = _scores(qf, kf, pe.float(), scale)
+    masked = _masked(valid_len, tq, tk, causal, q.device)
+    p = torch.exp(s - lse[..., None]).masked_fill(masked, 0.0)
+    delta = (gf * out.float()).sum(dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    idx = band_index(tq, tk, two_l, q.device).expand_as(ds)
+    dqpe = torch.zeros(*ds.shape[:-1], two_l, dtype=ds.dtype, device=ds.device)
+    dqpe.scatter_add_(-1, idx, ds)
+    return dq, dk, dv, dqpe
+
+
+def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale):
+    lib, (q, k, v, pe, lse, delta, g) = _cuda_operands(
+        "flash_rel_backward", "loco_flash_rel_bwd_smem_bytes",
+        (("q", q), ("k", k), ("v", v), ("pe", pe), ("lse", lse),
+         ("delta", delta), ("g", g)))
+    b, h, tq, _ = q.shape
+    tk, two_l = k.shape[2], pe.shape[0]
+    vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
+    dq = torch.empty_like(q)
+    dqpe = torch.zeros((b, h, tq, two_l), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.loco_flash_rel_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
+            vl.data_ptr(), lse.data_ptr(), delta.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, tq, tk, two_l, int(causal), float(scale), stream)
+    _build.check(code, "flash_rel_backward")
+    flash_rel_backward.launches += 1
+    return dq, dk, dv, dqpe
+
+
+def flash_rel_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pe: torch.Tensor, valid_len: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                       causal: bool, scale: float, need_dpe: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  Optional[torch.Tensor]]:
+    """Gradient of :func:`flash_rel_forward`'s ``out`` under cotangent ``g``
+    -> (dq, dk, dv, dpe or None).  Kernels B3 + B4 for CUDA tensors, the
+    plain version for CPU tensors; the band's share of dq
+    (``scale * dqpe . pe``) and ``dpe = scale * sum dqpe^T . q`` are
+    ``torch.matmul`` either way, skipped for dpe unless ``need_dpe``."""
+    _check(q, k, v, pe, valid_len)
+    if q.device.type == "cpu":
+        dq, dk, dv, dqpe = flash_rel_backward_plain(
+            q, k, v, pe, valid_len, out, lse, g, causal=causal, scale=scale)
+    else:
+        delta = (g.float() * out.float()).sum(dim=-1)
+        dq, dk, dv, dqpe = _launch_backward(q, k, v, pe, valid_len, lse, delta,
+                                            g, causal, scale)
+    pef = pe.float()
+    dq = dq + torch.matmul(dqpe, pef) * scale
+    dpe = None
+    if need_dpe:
+        dpe = torch.einsum("bhim,bhid->md", dqpe, q.float()) * scale
+        dpe = dpe.to(pe.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dpe
+
+
+flash_rel_backward.launches = 0
+
+
+class _FlashRel(torch.autograd.Function):
+    """B1 forward, B3 + B4 backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pe, valid_len, causal, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_rel_forward_plain(q, k, v, pe, valid_len,
+                                               causal=causal, scale=scale)
+        else:
+            out, lse = _launch_forward(q, k, v, pe, valid_len, causal, scale)
+        ctx.save_for_backward(q, k, v, pe, valid_len, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, pe, valid_len, out, lse = ctx.saved_tensors
+        dq, dk, dv, dpe = flash_rel_backward(
+            q, k, v, pe, valid_len, out, lse, g.contiguous(), causal=ctx.causal,
+            scale=ctx.scale, need_dpe=ctx.needs_input_grad[3])
+        return dq, dk, dv, dpe, None, None, None
+
+
+def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pe: torch.Tensor, valid_len: torch.Tensor, *,
+                      causal: bool, scale: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [B,H,Tq,64], k/v [B,H,Tk,64], pe [2L,64], valid_len [B] int ->
+    (out [B,H,Tq,64], lse [B,H,Tq] float32).  ``out`` is differentiable in
+    q, k, v and pe (``lse`` is not)."""
+    _check(q, k, v, pe, valid_len)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return _FlashRel.apply(q, k, v, pe, valid_len, causal, scale)
 
 
 flash_rel_forward.launches = 0
@@ -130,7 +274,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``rel_pe`` nor ``kv_valid_len`` it is kernel B5
     (``flash_causal.flash_forward``); otherwise kernel B1, where a missing
     ``rel_pe`` becomes a zero 2-row table (the mask-only variant) and a
-    missing ``kv_valid_len`` makes every key valid."""
+    missing ``kv_valid_len`` makes every key valid.  Differentiable either
+    way."""
     if rel_pe is None and kv_valid_len is None:
         out, _ = flash_causal.flash_forward(q, k, v, causal=causal, scale=scale)
         return out

@@ -25,6 +25,11 @@ with a contiguous head dim, so neither layout, nor the column slices of a
 fused qkv projection, is copied before the launch.  Both wrappers launch
 it for CUDA tensors and take their plain version only for CPU tensors;
 each counts its own launches in ``launches``.
+
+Both are differentiable through one ``torch.autograd.Function`` whose
+backward is :func:`flash_backward_blockwise`, the counterpart of the JAX
+package's XLA ``_flash_backward`` (there is no Pallas backward to port);
+``flash_backward.launches`` counts its calls on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
+BLOCK_K = 512                      # key block of the blockwise backward
 HEAD_DIMS = (8, 16, 32, 64, 128)   # instantiated in csrc/flash_causal.cu
 
 
@@ -119,17 +125,90 @@ def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
     return out, lse
 
 
+def flash_backward_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                             causal: bool, scale: float, block_k: int = BLOCK_K
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient of :func:`flash_forward` ([B, H, T, D] operands): the
+    flash-attention-2 backward over key blocks, the counterpart of the JAX
+    package's ``_flash_backward`` (XLA there, not a Pallas kernel).  Memory
+    is O(Tq * block_k); ``delta = rowsum(g * out)`` and every sum are float32.
+    Under ``causal`` a key block only meets the query rows at or below its
+    first key, so the rows above are skipped."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    delta = (gf * out.float()).sum(dim=-1)                      # [B,H,Tq]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for k0 in range(0, tk, block_k):
+        k1 = min(k0 + block_k, tk)
+        r0 = k0 if causal else 0
+        if r0 >= tq:
+            break
+        kj, vj = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        qi, gi = qf[:, :, r0:], gf[:, :, r0:]
+        s = torch.matmul(qi, kj.transpose(-1, -2)) * scale
+        if causal:
+            i = torch.arange(r0, tq, device=q.device)[:, None]
+            j = torch.arange(k0, k1, device=q.device)[None, :]
+            s = s.masked_fill(j > i, NEG_INF)
+        p = torch.exp(s - lse[:, :, r0:, None])
+        dv[:, :, k0:k1] = torch.matmul(p.transpose(-1, -2), gi)
+        ds = p * (torch.matmul(gi, vj.transpose(-1, -2)) - delta[:, :, r0:, None])
+        dq[:, :, r0:] += torch.matmul(ds, kj) * scale
+        dk[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qi) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float, t_axis: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of B5 (``t_axis=2``) or B6 (``t_axis=1``, [B, T, H, D]
+    operands, run on transposed views as the JAX ``_nhd_bwd`` does).
+    ``launches`` counts its calls on CUDA tensors."""
+    tr = (lambda x: x) if t_axis == 2 else (lambda x: x.transpose(1, 2))
+    grads = flash_backward_blockwise(tr(q), tr(k), tr(v), tr(out), lse, tr(g),
+                                     causal=causal, scale=scale)
+    if q.device.type == "cuda":
+        flash_backward.launches += 1
+    return tuple(tr(x) for x in grads)
+
+
+flash_backward.launches = 0
+
+
+class _FlashCausal(torch.autograd.Function):
+    """B5/B6 forward, blockwise PyTorch backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dims, t_axis, causal, scale, what):
+        if q.device.type == "cpu":
+            plain = flash_forward_plain if t_axis == 2 else flash_forward_nhd_plain
+            out, lse = plain(q, k, v, causal=causal, scale=scale)
+        else:
+            out, lse = _launch(q, k, v, dims, t_axis=t_axis, causal=causal,
+                               scale=scale, what=what)
+            (flash_forward if t_axis == 2 else flash_forward_nhd).launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.t_axis = causal, scale, t_axis
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, causal=ctx.causal,
+                                    scale=ctx.scale, t_axis=ctx.t_axis)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B5: q [B,H,Tq,D], k/v [B,H,Tk,D] -> (out [B,H,Tq,D],
-    lse [B,H,Tq] float32)."""
+    lse [B,H,Tq] float32); ``out`` is differentiable (``lse`` is not)."""
     dims = _check_shapes(q, k, v, t_axis=2)
-    if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, causal=causal, scale=scale)
-    out, lse = _launch(q, k, v, dims, t_axis=2, causal=causal, scale=scale,
-                       what="flash_forward")
-    flash_forward.launches += 1
-    return out, lse
+    return _FlashCausal.apply(q, k, v, dims, 2, causal, scale, "flash_forward")
 
 
 flash_forward.launches = 0
@@ -138,14 +217,9 @@ flash_forward.launches = 0
 def flash_forward_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B6: q [B,Tq,H,D], k/v [B,Tk,H,D], read in place ->
-    (out [B,Tq,H,D], lse [B,H,Tq] float32)."""
+    (out [B,Tq,H,D], lse [B,H,Tq] float32); ``out`` is differentiable."""
     dims = _check_shapes(q, k, v, t_axis=1)
-    if q.device.type == "cpu":
-        return flash_forward_nhd_plain(q, k, v, causal=causal, scale=scale)
-    out, lse = _launch(q, k, v, dims, t_axis=1, causal=causal, scale=scale,
-                       what="flash_forward_nhd")
-    flash_forward_nhd.launches += 1
-    return out, lse
+    return _FlashCausal.apply(q, k, v, dims, 1, causal, scale, "flash_forward_nhd")
 
 
 flash_forward_nhd.launches = 0

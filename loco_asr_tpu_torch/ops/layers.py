@@ -118,6 +118,31 @@ def sinusoidal_table(num_embeddings: int, dim: int,
     return table
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """Inverted dropout (``x / (1-p)`` on kept entries), as the JAX
+    ``layers.dropout``: a no-op unless ``training`` with ``p > 0`` and a
+    ``generator`` (on ``x``'s device) to draw the mask from."""
+    if not training or p == 0.0 or generator is None:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def embedding_init(num: int, dim: int, generator: Optional[torch.Generator],
+                   padding_idx: Optional[int] = None) -> nn.Embedding:
+    """``nn.Embedding`` drawn N(0, 1) with the ``padding_idx`` row zeroed
+    (JAX ``embedding_init``).  The row is zero at init only: as in the JAX
+    package, training may move it."""
+    emb = nn.Embedding(num, dim)
+    with torch.no_grad():
+        emb.weight.copy_(torch.randn(num, dim, generator=generator))
+        if padding_idx is not None:
+            emb.weight[padding_idx] = 0.0
+    return emb
+
+
 def positions_from_padding(valid_mask: torch.Tensor, padding_idx: int,
                            past_length: int = 0) -> torch.Tensor:
     """Position ids ``padding_idx+1, padding_idx+2, ...`` on valid steps,
