@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``loco_asr_tpu_torch/csrc/`` and drives the
-port's three main paths at full width with random weights made from a
+port's four main paths at full width with random weights made from a
 seed: SpeechT5-base speech-encoder embedding extraction, GPT-2 perplexity
-scoring (``eval_ppl --attn_impl flash``) and SpeechT5-base ASR fine-tuning
-(``train_asr --attn_impl flash``).  Phases, in order (any failure raises
-and exits non-zero):
+scoring (``eval_ppl --attn_impl flash``), SpeechT5-base ASR fine-tuning
+(``train_asr --attn_impl flash``) and SpeechT5 TTS / voice conversion with
+the HiFi-GAN vocoder and the log-mel front end.  Phases, in order (any
+failure raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
@@ -19,7 +20,10 @@ and exits non-zero):
    mask-only, and T=2048; B2: [16, 80000] and an odd length; B6: views of
    a qkv projection at [8, 1024, 12, 64] and [128, 27, 12, 64], causal;
    B5: [8, 25, 1024, 64] causal, [2, 12, 384, 64] non-causal, [2, 4, 100, 8]
-   against 160 keys causal), max abs error
+   against 160 keys causal; B7: a batch of 8 corpus windows of <= 10 s,
+   [8, 160000], and [3, 16001], [2, 300] (numpy's repeated reflection),
+   [2, 3, 8000], held to atol + rtol |plain| of 2e-4 each, and entries at
+   the mel floor exactly; both also against a float64 log-mel), max abs error
    against a stated tolerance, CUDA-event medians of kernel, plain version
    and, where one PyTorch call computes the same function, that call
    (timed as a yardstick only); the backward: B3 + B4 against their plain
@@ -64,7 +68,19 @@ and exits non-zero):
    step_8.npz, status.json, finite dev loss and WER), then ``--resume
    --steps 12``; the launch counts of the first run are B3/B4's main-path
    counts;
-11. summary: one ``{"kernels": [...]}`` line, then last
+11. TTS / voice conversion at full width (``SpeechT5Config(vocab_size=256)``,
+   ``HifiGanConfig()``), seeded speaker embeddings, the corpus windows'
+   transcripts through the char tokenizer: (a) teacher-forced
+   ``tts_forward`` and ``s2s_forward`` on ``shift_spectrograms_right`` of
+   the windows' B7 log-mels, kernel path against plain path (``mel_after``
+   and ``stop_logits`` max abs 1e-3), launch counts (1 B7, 12 B1, 1 B2) and
+   forward ms; (b) ``tts_generate`` of 4 transcripts of ~100 characters at
+   ``minlenratio = maxlenratio = 4`` (~200 decoder steps), then ``hifigan``:
+   finite, |wav| <= 1, ms per step, vocoder ms, synthesis RTFx, and the
+   device time of a 25-step synthesis + vocoder by kernel group; once more
+   at the default threshold (lengths multiples of r, <= maxlen r); (c)
+   copy synthesis ``hifigan(fused_log_mel(wav))`` of the 8 windows;
+12. summary: one ``{"kernels": [...]}`` line, then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -99,6 +115,8 @@ LOSS_RTOL = 1e-5      # full-width train step, kernels + flash vs plain + dense
 GNORM_RTOL = 1e-3
 GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3
 PPL_RTOL = 1e-4
+B7_TOL = 2e-4         # atol and rtol, the JAX package's own fused_log_mel test
+TTS_TOL = 1e-3        # teacher-forced mels / stop logits, kernel vs plain path
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -137,7 +155,7 @@ def bound(nbytes: float, flops: float):
 KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
     ("flash_rel_fwd", "B1 flash_rel"), ("flash_causal_fwd", "B5/B6 flash_causal"),
     ("flash_rel_bwd_dq", "B3 flash_rel_bwd_dq"), ("flash_rel_bwd_dkv", "B4 flash_rel_bwd_dkv"),
-    ("multi_tensor_apply", "optimizer (foreach)"),
+    ("logmel_kernel", "B7 logmel"), ("multi_tensor_apply", "optimizer (foreach)"),
     ("conv_stats", "B2 conv_frontend"), ("conv_out", "B2 conv_frontend"),
     ("convolve", "cuDNN conv"), ("fprop", "cuDNN conv"), ("dgrad", "cuDNN conv"),
     ("wgrad", "cuDNN conv"), ("conv", "cuDNN conv"),
@@ -282,6 +300,59 @@ def causal_work(b, h, tq, tk, d, causal):
     return nbytes, 4 * b * h * d * pairs
 
 
+def b7_work(rows, t, n_frames, n_mel, consts, frame_length=1024, fft_length=1024):
+    """Bytes (waveform, window, twiddles, sparse bank and log-mel, once
+    each) and the least FLOP of the function for every frame: the window,
+    a fft/2-point complex FFT at the split-radix count 4 m log2 m - 6 m + 8
+    (no multiply where a twiddle is +-1 or +-i), and for each bin the mel
+    bank reads only, the real post-pass (14 flops a bin pair) and the
+    magnitude (4); then 2 nnz - n_mel for the sparse mel sums and a max and
+    a log a mel bin."""
+    window, twiddle, ranges, weights = consts
+    nbytes = 4 * (rows * t + rows * n_frames * n_mel + window.numel() + twiddle.numel()
+                  + ranges.numel() + weights.numel())
+    m = fft_length // 2
+    rg = ranges.cpu().numpy()
+    nnz = int(rg[:, 1].sum())
+    bins = len(set().union(*(range(lo, lo + n) for lo, n in rg)))
+    per_frame = (frame_length + 4 * m * int(np.log2(m)) - 6 * m + 8 + 11 * bins
+                 + 2 * nnz - n_mel + 2 * n_mel)
+    return nbytes, rows * n_frames * per_frame
+
+
+def log_mel_f64(wav):
+    """The log-mel of ``fused_log_mel``'s defaults in float64 on the
+    waveform's device: the yardstick both float32 routes are measured
+    against."""
+    import torch
+    from loco_asr_tpu_torch.ops import audio
+
+    window = torch.from_numpy(audio.hann_window(1024)).to(wav.device)
+    bank = torch.from_numpy(audio.mel_filter_bank(513, 80, 80.0, 7600.0, 16000))
+    mag = torch.fft.rfft(audio.frame_signal(wav.double(), 1024, 256) * window, dim=-1).abs()
+    return torch.log10(torch.clamp(mag @ bank.double().to(wav.device), min=1e-10))
+
+
+def corpus_windows(data_dir: str, n: int, seconds: float = 10.0):
+    """The first ``n`` conversation windows of <= ``seconds`` of a Kaldi
+    dir: float32 waveforms zero-padded to ``seconds`` [n, T], their valid
+    lengths and transcripts."""
+    from loco_asr_tpu_torch.data.asr_dataset import ConversationAsrDataset
+
+    ds = ConversationAsrDataset(data_dir, window_seconds=seconds)
+    t = int(16000 * seconds)
+    wav, lengths, texts = np.zeros((n, t), np.float32), [], []
+    for win in ds.windows:
+        x = ds.load_window_waveform(win)[:t]
+        if len(texts) == n:
+            break
+        wav[len(texts), :len(x)] = x
+        lengths.append(len(x))
+        texts.append(win.text)
+    check(len(texts) == n, f"{len(texts)} windows in {data_dir}")
+    return wav, lengths, texts
+
+
 def write_slurp(root: str, n: int, seed: int) -> list:
     """SLURP layout: dataset/slurp/train.jsonl + audio/slurp_real/*.wav."""
     rng = np.random.default_rng(seed)
@@ -325,6 +396,8 @@ def main() -> int:
     from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
     from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
     from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+    from loco_asr_tpu_torch.ops.cuda import logmel
+    from loco_asr_tpu_torch.models.speecht5 import vocoder
     from loco_asr_tpu_torch.parallel import train
     from loco_asr_tpu_torch.pipelines import eval_ppl, extract_embeddings, train_asr
 
@@ -350,6 +423,11 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
+
+    # the committed ASR corpus, with its wav.scp pointing into this checkout
+    tmp_corpus = tempfile.TemporaryDirectory()
+    corpus = relocate_corpus(tmp_corpus.name)
+    win_wav, win_lengths, win_texts = corpus_windows(corpus["train"], 8)
 
     # -- 3. kernel checks -------------------------------------------------
     # ~0.5 s of f32 GEMMs first, so that the first timed case does not
@@ -416,6 +494,41 @@ def main() -> int:
                    ms=time_ms(lambda: cf.conv1_instance_norm_gelu(wav, w, sc, bi)),
                    plain_ms=time_ms(lambda: cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi)),
                    library_ms=None, bound_ms=bms, bound_by=by)
+        checks.append(rec)
+        print(f"[kernels] {json.dumps(rec)}")
+        del out, pout
+
+    b7_cases = [("corpus_10s", torch.from_numpy(win_wav).to(dev)),
+                ("odd", randn(3, 16001, sc=0.1)), ("short_300", randn(2, 300, sc=0.1)),
+                ("lead_dims", randn(2, 3, 8000, sc=0.1))]
+    for name, wav in b7_cases:
+        out = logmel.fused_log_mel(wav)
+        torch.cuda.synchronize()
+        pout = logmel.fused_log_mel_plain(wav)
+        n_frames = 1 + wav.shape[-1] // 256
+        check(tuple(out.shape) == (*wav.shape[:-1], n_frames, 80), f"B7 {name}: shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"B7 {name}: non-finite output")
+        diff = (out - pout).abs()
+        err = diff.max().item()
+        excess = (diff - B7_TOL * (1.0 + pout.abs())).max().item()
+        floor = pout == torch.log10(torch.tensor(1e-10, device=dev))   # all-zero frames
+        check(torch.equal(out[floor], pout[floor]), f"B7 {name}: entries at the mel floor differ")
+        check(excess <= 0.0, f"B7 {name}: |err| exceeds atol + rtol |plain| ({B7_TOL} each) "
+                             f"by {excess}; max abs err {err}")
+        ref = log_mel_f64(wav)
+        vs_f64 = {"kernel": (out - ref).abs().max().item(), "plain": (pout - ref).abs().max().item()}
+        rows = wav.numel() // wav.shape[-1]
+        consts = logmel._constants(dev, 16000, 1024, 1024, 80, 80.0, 7600.0)
+        nbytes, flops = b7_work(rows, wav.shape[-1], n_frames, 80, consts)
+        bms, by = bound(nbytes, flops)
+        ms = time_ms(lambda: logmel.fused_log_mel(wav))
+        rec = dict(kernel="B7", case=name, shape=list(wav.shape), max_abs_err=err,
+                   tol=f"atol {B7_TOL} + rtol {B7_TOL}", worst_excess=excess,
+                   floor_entries=int(floor.sum()), max_abs_err_vs_f64=vs_f64,
+                   ms=ms, plain_ms=time_ms(lambda: logmel.fused_log_mel_plain(wav)),
+                   library_ms=None, bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   flops=flops, ops_ms=flops / F32_FLOP_PER_S * 1e3)
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del out, pout
@@ -768,8 +881,6 @@ def main() -> int:
         fa.flash_rel_backward.launches = fc.flash_forward.launches = 0
         fc.flash_backward.launches = 0
 
-    tmp_corpus = tempfile.TemporaryDirectory()
-    corpus = relocate_corpus(tmp_corpus.name)
     tok = load_tokenizer("char")
     tok.vocab_size = 256
     cfg = SpeechT5Config(vocab_size=256)
@@ -908,9 +1019,125 @@ def main() -> int:
         with np.load(os.path.join(ckpt, "step_12.npz")) as z:
             check(int(z["opt_state.count"]) == 12, "optimizer count after resume")
         print(f"[asr_pipeline] {json.dumps(dict(launches=asr_launches, wall_s=wall, dev=evals[-1], resume_wall_s=resume_wall))}")
+    # -- 11. TTS / voice conversion (the B7 main path) ------------------------
+    cfg = SpeechT5Config(vocab_size=256)
+    tts = st5.tts_init(cfg, seed=0, device=dev)
+    s2s = st5.s2s_init(cfg, seed=1, device=dev)
+    voc = vocoder.hifigan_init(vocoder.HifiGanConfig(), seed=2, device=dev)
+    tok = load_tokenizer("char")
+    tok.vocab_size = 256
+
+    def text_batch(texts):
+        ids = [tok.encode(t) + [cfg.eos_token_id] for t in texts]
+        out = np.full((len(ids), max(map(len, ids))), cfg.pad_token_id, np.int64)
+        for i, row in enumerate(ids):
+            out[i, :len(row)] = row
+        ids = torch.from_numpy(out).to(dev)
+        return ids, (ids != cfg.pad_token_id).to(torch.int32)
+
+    ids, text_mask = text_batch(win_texts)
+    wav = torch.from_numpy(win_wav).to(dev)
+    wav_mask = (torch.arange(wav.shape[1], device=dev)[None, :]
+                < torch.tensor(win_lengths, device=dev)[:, None]).to(torch.int32)
+    spk = torch.randn(8, cfg.speaker_embedding_dim, generator=g).to(dev)
+
+    def b7_b1_b2():
+        return {"B7": logmel.fused_log_mel.launches, "B1": fa.flash_rel_forward.launches,
+                "B2": cf.conv1_instance_norm_gelu.launches, "B5": fc.flash_forward.launches,
+                "B6": fc.flash_forward_nhd.launches}
+
+    def teacher_forced(use_kernels):
+        log_mel = logmel.fused_log_mel if use_kernels else logmel.fused_log_mel_plain
+        dec_in = st5.shift_spectrograms_right(log_mel(wav), cfg.reduction_factor)
+        t_out = st5.tts_forward(tts, ids, dec_in, spk, text_mask)
+        v_out = st5.s2s_forward(s2s, wav, dec_in, spk, wav_mask, use_kernels=use_kernels)
+        return dec_in, t_out, v_out
+
+    with torch.inference_mode():
+        reset_counts()
+        logmel.fused_log_mel.launches = fc.flash_forward_nhd.launches = 0
+        dec_in, t_out, v_out = teacher_forced(True)
+        torch.cuda.synchronize()
+        tf_launches = b7_b1_b2()
+        want = {"B7": 1, "B1": cfg.encoder_layers, "B2": 1, "B5": 0, "B6": 0}
+        check(tf_launches == want, f"teacher-forced TTS + VC launched {tf_launches}, expected {want}")
+        _, pt_out, pv_out = teacher_forced(False)
+        frames = 2 * dec_in.shape[1]
+        tf_err = {}
+        for tag, got, ref in (("tts", t_out, pt_out), ("s2s", v_out, pv_out)):
+            check(tuple(got[1].shape) == (8, frames, 80) and tuple(got[2].shape) == (8, frames),
+                  f"{tag}: mel {tuple(got[1].shape)}, stop {tuple(got[2].shape)}")
+            check(all(bool(torch.isfinite(x).all()) for x in got), f"{tag}: non-finite output")
+            tf_err[tag] = max((got[1] - ref[1]).abs().max().item(),
+                              (got[2] - ref[2]).abs().max().item())
+            check(tf_err[tag] <= TTS_TOL, f"{tag}: kernel vs plain path max abs {tf_err[tag]}")
+        tts_ms = time_ms(lambda: st5.tts_forward(tts, ids, dec_in, spk, text_mask), reps=5, inner=2)
+        s2s_ms = time_ms(lambda: st5.s2s_forward(s2s, wav, dec_in, spk, wav_mask), reps=5, inner=2)
+        s2s_plain_ms = time_ms(lambda: st5.s2s_forward(s2s, wav, dec_in, spk, wav_mask,
+                                                       use_kernels=False), reps=5, inner=2)
+        rec = dict(batch=list(wav.shape), text=list(ids.shape), decoder_frames=dec_in.shape[1],
+                   mel_frames=frames, launches=tf_launches, max_abs=tf_err, tol=TTS_TOL,
+                   tts_forward_ms=tts_ms, s2s_forward_ms=s2s_ms, s2s_plain_forward_ms=s2s_plain_ms,
+                   card=smi)
+        print(f"[tts] teacher-forced {json.dumps(rec)}")
+        del t_out, v_out, pt_out, pv_out
+
+        # (b) synthesis: ~100-character transcripts, a fixed number of steps
+        syn_ids, syn_mask = text_batch([t[:100] for t in win_texts[:4]])
+        r = cfg.reduction_factor
+        st5.tts_generate(tts, syn_ids, spk[:4], syn_mask, minlenratio=0.5, maxlenratio=0.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel, lens = st5.tts_generate(tts, syn_ids, spk[:4], syn_mask, minlenratio=4.0,
+                                     maxlenratio=4.0)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        steps = int(syn_ids.shape[1] * 4.0 / r)
+        check(tuple(mel.shape) == (4, steps * r, 80) and bool((lens == steps * r).all()),
+              f"synthesis: mel {tuple(mel.shape)}, lengths {lens.tolist()}")
+        check(bool(torch.isfinite(mel).all()), "synthesis: non-finite mel")
+        vocoder.hifigan(voc, mel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = vocoder.hifigan(voc, mel)
+        torch.cuda.synchronize()
+        voc_ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(audio.shape) == (4, steps * r * 256), f"vocoder output {tuple(audio.shape)}")
+        check(bool(torch.isfinite(audio).all()) and audio.abs().max().item() <= 1.0,
+              "vocoder: non-finite or out-of-range samples")
+        audio_s = audio.numel() / 16000.0
+        mel_d, lens_d = st5.tts_generate(tts, syn_ids, spk[:4], syn_mask)
+        maxlen = int(syn_ids.shape[1] * 20.0 / r)
+        check(bool((lens_d % r == 0).all() and (lens_d >= r).all() and (lens_d <= maxlen * r).all())
+              and mel_d.shape[1] == maxlen * r,
+              f"default-threshold lengths {lens_d.tolist()} (maxlen {maxlen})")
+        rec = dict(batch=4, text=list(syn_ids.shape), steps=steps, mel=list(mel.shape),
+                   waveform=list(audio.shape), generate_ms=gen_ms, ms_per_step=gen_ms / steps,
+                   vocoder_ms=voc_ms, audio_s=audio_s,
+                   synthesis_rtfx=audio_s / ((gen_ms + voc_ms) / 1e3),
+                   default_threshold_lengths=lens_d.tolist(), card=smi)
+        print(f"[tts] synthesis {json.dumps(rec)}")
+        prof = device_breakdown(lambda: vocoder.hifigan(voc, st5.tts_generate(
+            tts, syn_ids, spk[:4], syn_mask, minlenratio=0.5, maxlenratio=0.5)[0]))
+        print(f"[tts] device breakdown of a {int(syn_ids.shape[1] * 0.5 / r)}-step synthesis "
+              f"+ vocoder: {json.dumps(prof)}")
+        del mel, audio, mel_d
+
+        # (c) copy synthesis of the corpus windows through B7 and the vocoder
+        logmel.fused_log_mel.launches = 0
+        copy = vocoder.hifigan(voc, logmel.fused_log_mel(wav))
+        torch.cuda.synchronize()
+        copy_b7 = logmel.fused_log_mel.launches
+        check(copy_b7 == 1, f"copy synthesis launched B7 {copy_b7}x")
+        n_frames = 1 + wav.shape[1] // 256
+        check(tuple(copy.shape) == (8, 256 * n_frames) and bool(torch.isfinite(copy).all()),
+              f"copy synthesis: {tuple(copy.shape)} or non-finite")
+        print(f"[tts] copy synthesis {json.dumps(dict(waveform=list(copy.shape), b7_launches=copy_b7))}")
+        b7_launches = tf_launches["B7"] + copy_b7
+        del copy, tts, s2s, voc
     tmp_corpus.cleanup()
 
-    # -- 11. summary -------------------------------------------------------
+    # -- 12. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -953,6 +1180,9 @@ def main() -> int:
               "loco_asr_tpu/ops/pallas/flash_attention.py:168",
               "flash_attention.py::_flash_pair_kernel", "B6", "gpt2_max_len",
               lm_launches["B6"]),
+        entry("fused_log_mel", "loco_asr_tpu_torch/csrc/logmel.cu",
+              "loco_asr_tpu/ops/pallas/logmel.py:40",
+              "logmel.py::_logmel_kernel", "B7", "corpus_10s", b7_launches),
     ]
     print(f"[summary] card: {smi}")
     print(json.dumps({"kernels": kernels}))

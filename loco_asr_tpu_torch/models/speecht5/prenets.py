@@ -1,9 +1,12 @@
-"""SpeechT5 pre- and post-nets of the ASR model, as in
+"""SpeechT5 pre- and post-nets, as in
 ``loco_asr_tpu.models.speecht5.prenets``: the speech encoder prenet (conv
 feature encoder, feature projection, SpecAugment when training,
 weight-normed grouped positional conv, sinusoidal positions), the text
 decoder prenet (token embedding + sinusoidal positions from the non-pad
-mask) and the text decoder postnet (the vocabulary head).
+mask) and the text decoder postnet (the vocabulary head) of the ASR model;
+the text encoder prenet, the speech decoder prenet (whole sequence and one
+step) and the speech decoder postnet of the TTS and voice-conversion
+models.
 
 Layer 0 of the feature encoder (conv k=10/s=5 + instance norm + GELU) runs
 through kernel B2 (``ops/cuda/conv_frontend.py``) when no gradient is
@@ -296,3 +299,189 @@ class TextDecoderPostnet(nn.Module):
         with torch.no_grad():
             self.lm_head.weight.copy_(layers.uniform_param(
                 self.lm_head.weight.shape, cfg.hidden_size, generator))
+
+
+# -- TTS side: text encoder prenet, speech decoder pre- and postnet -------
+
+class ScaledPositions(nn.Module):
+    """``alpha``, the learned scale of the interleaved sinusoidal table
+    (HF SpeechT5ScaledPositionalEncoding)."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.ones(()))
+
+
+def _interleaved_table(rows: int, dim: int) -> torch.Tensor:
+    return torch.from_numpy(layers.interleaved_sinusoidal_table(rows, dim))
+
+
+class TextEncoderPrenet(nn.Module):
+    """Token embedding (N(0, 1), pad row zeroed at init) + ``alpha`` times
+    the interleaved table of ``max_text_positions`` rows."""
+
+    def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = layers.embedding_init(cfg.vocab_size, cfg.hidden_size,
+                                                  generator, cfg.pad_token_id)
+        self.encode_positions = ScaledPositions()
+        self.register_buffer("pe", _interleaved_table(cfg.max_text_positions,
+                                                      cfg.hidden_size),
+                             persistent=False)
+
+
+def _rows(pe: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    if n > pe.shape[0]:
+        raise ValueError(f"{n} {what} positions exceed the table's {pe.shape[0]}")
+    return pe[:n]
+
+
+def text_encoder_prenet(prenet: TextEncoderPrenet, input_ids: torch.Tensor) -> torch.Tensor:
+    """[B, L] token ids -> [B, L, H]: embedding + ``alpha`` * table rows
+    0..L-1 (positions count every token, pads included, as in the JAX
+    package)."""
+    emb = prenet.embed_tokens(input_ids)
+    pe = _rows(prenet.pe, input_ids.shape[1], "text")
+    return emb + prenet.encode_positions.alpha * pe.to(emb.dtype)
+
+
+class SpeechDecoderPrenet(nn.Module):
+    """Bottleneck ReLU stack (``layers``), ``final_layer`` to the model
+    width, ``alpha`` * interleaved positions, and the speaker projection
+    ``speaker_embeds_layer`` over [hidden | normalised speaker]."""
+
+    def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.cfg = cfg
+        units = cfg.speech_decoder_prenet_units
+        self.layers = nn.ModuleList(
+            nn.Linear(cfg.num_mel_bins if i == 0 else units, units)
+            for i in range(cfg.speech_decoder_prenet_layers))
+        self.final_layer = nn.Linear(units, cfg.hidden_size)
+        self.encode_positions = ScaledPositions()
+        self.speaker_embeds_layer = nn.Linear(
+            cfg.speaker_embedding_dim + cfg.hidden_size, cfg.hidden_size)
+        for lin in (*self.layers, self.final_layer, self.speaker_embeds_layer):
+            layers.init_dense(lin, generator)
+        self.register_buffer("pe", _interleaved_table(cfg.max_speech_positions,
+                                                      cfg.hidden_size),
+                             persistent=False)
+
+
+def _bottleneck(prenet: SpeechDecoderPrenet, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """ReLU stack + final layer.  With a ``generator`` (on ``x``'s device)
+    each layer's output goes through HF's ``_consistent_dropout``: a mask
+    drawn ``bernoulli(p)`` over ``x.shape[1:]`` is the KEEP mask, shared by
+    the batch, and kept entries are scaled by 1 / (1 - p), in eval mode
+    too.  Without one no dropout applies (the JAX ``rng=None``)."""
+    p = prenet.cfg.speech_decoder_prenet_dropout
+    for lin in prenet.layers:
+        x = torch.relu(lin(x))
+        if generator is not None and p > 0:
+            keep = torch.rand(x.shape[1:], generator=generator, device=x.device) < p
+            x = torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device)) / (1.0 - p)
+    return prenet.final_layer(x)
+
+
+def _add_speaker(prenet: SpeechDecoderPrenet, x: torch.Tensor,
+                 speaker_embeddings: Optional[torch.Tensor]) -> torch.Tensor:
+    if speaker_embeddings is None:
+        return x
+    se = speaker_embeddings / torch.linalg.norm(speaker_embeddings, dim=-1, keepdim=True)
+    se = se.to(x.dtype)
+    if x.dim() == 3:
+        se = se[:, None, :].expand(x.shape[0], x.shape[1], se.shape[-1])
+    return torch.relu(prenet.speaker_embeds_layer(torch.cat([x, se], dim=-1)))
+
+
+def speech_decoder_prenet(prenet: SpeechDecoderPrenet, input_values: torch.Tensor,
+                          speaker_embeddings: Optional[torch.Tensor] = None, *,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """[B, T, mel] decoder input frames (+ [B, spk] speaker embeddings) ->
+    [B, T, H]."""
+    x = _bottleneck(prenet, input_values, generator)
+    pe = _rows(prenet.pe, x.shape[1], "speech")
+    x = x + prenet.encode_positions.alpha * pe.to(x.dtype)
+    return _add_speaker(prenet, x, speaker_embeddings)
+
+
+def speech_decoder_prenet_step(prenet: SpeechDecoderPrenet, frame: torch.Tensor,
+                               idx: int,
+                               speaker_embeddings: Optional[torch.Tensor] = None, *,
+                               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One position: [B, mel] frame at position ``idx`` -> [B, H].  The
+    prenet is position-wise, so this equals :func:`speech_decoder_prenet`
+    over a sequence sliced at ``idx``; a position past the table takes its
+    last row (the JAX gather clamps)."""
+    x = _bottleneck(prenet, frame, generator)
+    pe = prenet.pe[min(idx, prenet.pe.shape[0] - 1)]
+    x = x + prenet.encode_positions.alpha * pe.to(x.dtype)
+    return _add_speaker(prenet, x, speaker_embeddings)
+
+
+BN_EPS = 1e-5
+
+
+class BatchNorm(layers.Norm):
+    """Batch norm in inference form: the affine (``weight``, the JAX
+    ``scale``, and ``bias``) and the running ``mean`` / ``var`` buffers."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim)
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+
+class PostnetLayer(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.conv = Conv(in_ch, out_ch, kernel, bias=False, generator=generator)
+        self.batch_norm = BatchNorm(out_ch)
+
+
+class SpeechDecoderPostnet(nn.Module):
+    """``feat_out`` (H -> mel * r), ``prob_out`` (H -> r) and the residual
+    conv postnet ``layers``."""
+
+    def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.cfg = cfg
+        self.feat_out = nn.Linear(cfg.hidden_size, cfg.num_mel_bins * cfg.reduction_factor)
+        self.prob_out = nn.Linear(cfg.hidden_size, cfg.reduction_factor)
+        layers.init_dense(self.feat_out, generator)
+        layers.init_dense(self.prob_out, generator)
+        n, units = cfg.speech_decoder_postnet_layers, cfg.speech_decoder_postnet_units
+        self.layers = nn.ModuleList(
+            PostnetLayer(cfg.num_mel_bins if i == 0 else units,
+                         cfg.num_mel_bins if i == n - 1 else units,
+                         cfg.speech_decoder_postnet_kernel, generator)
+            for i in range(n))
+
+
+def speech_decoder_postnet_conv(postnet: SpeechDecoderPostnet,
+                                mel: torch.Tensor) -> torch.Tensor:
+    """Residual conv postnet: [B, T, mel] -> refined [B, T, mel] (conv,
+    inference batch norm, tanh on all but the last layer)."""
+    pad = (postnet.cfg.speech_decoder_postnet_kernel - 1) // 2
+    x = mel.transpose(1, 2)
+    for i, lyr in enumerate(postnet.layers):
+        x = layers.conv1d(x, lyr.conv.weight, padding=pad)
+        bn = lyr.batch_norm
+        x = (x - bn.mean[None, :, None]) * torch.rsqrt(bn.var[None, :, None] + BN_EPS)
+        x = x * bn.weight[None, :, None] + bn.bias[None, :, None]
+        if i < len(postnet.layers) - 1:
+            x = torch.tanh(x)
+    return mel + x.transpose(1, 2)
+
+
+def speech_decoder_postnet(postnet: SpeechDecoderPostnet, hidden: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[B, T, H] -> (mel_before [B, T*r, mel], mel_after, stop_logits
+    [B, T*r])."""
+    b = hidden.shape[0]
+    before = postnet.feat_out(hidden).reshape(b, -1, postnet.cfg.num_mel_bins)
+    logits = postnet.prob_out(hidden).reshape(b, -1)
+    return before, speech_decoder_postnet_conv(postnet, before), logits

@@ -44,6 +44,7 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "loco_logmel": ([_P] * 6 + [_I] * 9 + [_F, _P], _I),
     "loco_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -118,6 +118,17 @@ def sinusoidal_table(num_embeddings: int, dim: int,
     return table
 
 
+def interleaved_sinusoidal_table(max_len: int, dim: int) -> np.ndarray:
+    """Interleaved sin/cos table (``pe[:, 0::2] = sin``, ``pe[:, 1::2] =
+    cos``), HF SpeechT5ScaledPositionalEncoding's, computed in float64."""
+    pe = np.zeros((max_len, dim), np.float32)
+    pos = np.arange(max_len, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, dim, 2, dtype=np.float64) * -(math.log(10000.0) / dim))
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe
+
+
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
             training: bool) -> torch.Tensor:
     """Inverted dropout (``x / (1-p)`` on kept entries), as the JAX

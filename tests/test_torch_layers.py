@@ -99,6 +99,12 @@ def test_sinusoidal_table(n, dim, pad):
                                   jl.sinusoidal_table(n, dim, padding_idx=pad))
 
 
+@pytest.mark.parametrize("n,dim", [(4000, 768), (450, 768), (64, 24)])
+def test_interleaved_sinusoidal_table(n, dim):
+    np.testing.assert_array_equal(tl.interleaved_sinusoidal_table(n, dim),
+                                  jl.interleaved_sinusoidal_table(n, dim))
+
+
 def test_positions_from_padding():
     m = np.array([[1, 1, 1, 1, 0, 0], [1, 1, 1, 1, 1, 1], [1, 0, 0, 0, 0, 0]], np.int32)
     want = np.asarray(jl.positions_from_padding(jnp.asarray(m), 1))
