@@ -20,20 +20,24 @@ failure raises and exits non-zero):
    mask-only, and T=2048; B2: [16, 80000] and an odd length; B6: views of
    a qkv projection at [8, 1024, 12, 64] and [128, 27, 12, 64], causal;
    B5: [8, 25, 1024, 64] causal, [2, 12, 384, 64] non-causal, [2, 4, 100, 8]
-   against 160 keys causal; B7: a batch of 8 corpus windows of <= 10 s,
-   [8, 160000], and [3, 16001], [2, 300] (numpy's repeated reflection),
-   [2, 3, 8000], held to atol + rtol |plain| of 2e-4 each, and entries at
-   the mel floor exactly; both also against a float64 log-mel), max abs error
-   against a stated tolerance, CUDA-event medians of kernel, plain version
-   and, where one PyTorch call computes the same function, that call
-   (timed as a yardstick only); the backward: B3 + B4 against their plain
-   version for dq, dk, dv, dpe at the encoder's [8, 12, 500, 64], L=160,
-   two rows padded, non-causal and causal, and the cross-attention's
-   mask-only [8, 12, 160, 500] (each kernel's device time from the
-   profiler, the library column SDPA forward + backward minus forward);
-   B5's blockwise backward against autograd through its plain version at
-   the decoder's [8, 12, 160, 64] causal; on CUDA tensors that require
-   grad, B1/B5/B6 outputs carry a grad_fn and B2 raises;
+   against 160 keys causal, the ASR decoder's [8, 12, 160, 64] causal; B7:
+   a batch of 8 corpus windows of <= 10 s, [8, 160000], and [3, 16001],
+   [2, 300] (numpy's repeated reflection), [2, 3, 8000], held to atol +
+   rtol |plain| of 2e-4 each, and entries at the mel floor exactly; both
+   also against a float64 log-mel), max abs error against a stated
+   tolerance, CUDA-event medians of kernel, plain version and, where one
+   PyTorch call computes the same function, that call (timed as a
+   yardstick only; B5/B6 also the kernel's profiler device time), and the
+   bound: bytes over 3.35 TB/s or operations over their peak, matrix
+   products (B1, B3-B6) at 3 flops / 495 TFLOP/s (f32 accuracy from three
+   TF32 passes) with the 67 TFLOP/s term beside it; the backward: B3 + B4
+   against their plain version for dq, dk, dv, dpe at the encoder's
+   [8, 12, 500, 64], L=160, two rows padded, non-causal and causal, and
+   the cross-attention's mask-only [8, 12, 160, 500] (each kernel's device
+   time from the profiler, the library column SDPA forward + backward
+   minus forward); B5's blockwise backward against autograd through its
+   plain version at the decoder's [8, 12, 160, 64] causal; on CUDA tensors
+   that require grad, B1/B5/B6 outputs carry a grad_fn and B2 raises;
 4. encoder: full-width ``encode_speech`` at B=16 x 5 s with padded rows,
    kernel path against plain path on valid frames, launch counts of one
    forward (12 B1, 1 B2), forward ms and RTFx, and the device time of one
@@ -103,7 +107,8 @@ import numpy as np
 
 # H100 SXM data-sheet peaks used for the bounds
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+F32_FLOP_PER_S = 67e12       # CUDA cores
+TF32_FLOP_PER_S = 495e12     # tensor cores, dense
 
 B1_TOL = 1e-4
 B2_TOL = 1e-4
@@ -146,10 +151,21 @@ def time_ms(fn, reps: int = 10, inner: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, products: bool = False):
+    """(least ms, what binds it): the bytes over the memory rate, or the
+    operations over the peak rate for them.  With ``products`` the flops are
+    matrix products, whose least time at f32 accuracy is three TF32 passes
+    on the tensor cores, 3 flops / 495 TFLOP/s (six bf16 passes at 989 give
+    the same); other flops run on the CUDA cores at 67 TFLOP/s."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = (3 * flops / TF32_FLOP_PER_S if products else flops / F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cores_ms(flops: float) -> float:
+    """The flops on the CUDA cores at 67 TFLOP/s, printed beside a products
+    bound."""
+    return flops / F32_FLOP_PER_S * 1e3
 
 
 KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
@@ -421,7 +437,7 @@ def main() -> int:
     print(f"[build] {os.path.relpath(path)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped: cached'})")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print(f"[build] {line.strip()}")
 
     # the committed ASR corpus, with its wav.scp pointing into this checkout
@@ -467,12 +483,13 @@ def main() -> int:
             sdpa = torch.nn.functional.scaled_dot_product_attention
             lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
         nbytes, flops = b1_work(q, k, pe, vl, causal)
-        bms, by = bound(nbytes, flops)
+        bms, by = bound(nbytes, flops, products=True)
+        ms = time_ms(lambda: fa.flash_rel_forward(q, k, v, pe, vl, **kw))
         rec = dict(kernel="B1", case=name, shape=[b, 12, t, 64], two_l=2 * L,
-                   max_abs_err=err, tol=B1_TOL,
-                   ms=time_ms(lambda: fa.flash_rel_forward(q, k, v, pe, vl, **kw)),
+                   max_abs_err=err, tol=B1_TOL, ms=ms,
                    plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, pe, vl, **kw)),
-                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   ops_ms_f32_cores=cores_ms(flops))
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del q, k, v, out, pout
@@ -550,9 +567,12 @@ def main() -> int:
         ("B5", "gpt2xl", 8, 25, 1024, 1024, 64, True),
         ("B5", "noncausal_384", 2, 12, 384, 384, 64, False),
         ("B5", "tq_ne_tk", 2, 4, 100, 160, 8, True),
+        ("B5", "decoder_train", 8, 12, 160, 160, 64, True),
     ]
     for kern, name, b, h, tq, tk, d, causal in b56_cases:
-        if tq == tk:
+        if name == "decoder_train":   # the ASR decoder's self-attention, [B, H, T, D]
+            q, k, v = randn(b, h, tq, d, sc=0.5), randn(b, h, tk, d, sc=0.5), randn(b, h, tk, d, sc=0.5)
+        elif tq == tk:
             q, k, v = qkv_views(b, tq, h, d)        # [B, T, H, D]
             if kern == "B5":
                 q, k, v = tr(q), tr(k), tr(v)       # [B, H, T, D] views
@@ -571,14 +591,17 @@ def main() -> int:
         check(err <= B56_TOL, f"{kern} {name}: max abs err {err} > {B56_TOL}")
         qs, ks, vs = (tr(x) for x in (q, k, v)) if kern == "B6" else (q, k, v)
         nbytes, flops = causal_work(b, h, tq, tk, d, causal)
-        bms, by = bound(nbytes, flops)
+        bms, by = bound(nbytes, flops, products=True)
+        ms = time_ms(lambda: fn(q, k, v, **kw))
         rec = dict(kernel=kern, case=name, shape_bhtd=[b, h, tq, d], tk=tk, causal=causal,
-                   max_abs_err=err, tol=B56_TOL,
-                   ms=time_ms(lambda: fn(q, k, v, **kw)),
+                   max_abs_err=err, tol=B56_TOL, ms=ms,
                    plain_ms=time_ms(lambda: plain(q, k, v, **kw)),
                    library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal,
                                                    scale=kw["scale"])),
-                   bound_ms=bms, bound_by=by)
+                   device_ms=kernel_device_ms(lambda: fn(q, k, v, **kw),
+                                              ("flash_causal_fwd",))["flash_causal_fwd"],
+                   bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   ops_ms_f32_cores=cores_ms(flops), bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del q, k, v, qs, ks, vs, out, pout
@@ -643,7 +666,8 @@ def main() -> int:
                                                           gg, causal)),
                    library_ms=lib_ms, b3_ms=split["flash_rel_bwd_dq"],
                    b4_ms=split["flash_rel_bwd_dkv"],
-                   b3_bound=bound(b3b, b3f), b4_bound=bound(b4b, b4f))
+                   b3_bound=bound(b3b, b3f, products=True), b4_bound=bound(b4b, b4f, products=True),
+                   b3_ops_ms_f32_cores=cores_ms(b3f), b4_ops_ms_f32_cores=cores_ms(b4f))
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del q, k, v, out, gg, got, want

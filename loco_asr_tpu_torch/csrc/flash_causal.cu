@@ -14,211 +14,358 @@
 // column slices of a fused qkv projection in place; the head dim is
 // contiguous.
 //
-// What bounds it on an H100: arithmetic.  The port runs float32 with TF32
-// off, so q.k^T and p.v run on the CUDA cores (67 TFLOP/s); at the GPT-2
-// scoring shape ([8, 1024] tokens, 12 heads of 64, causal) it is 12.9
-// GFLOP against 25 MB of q, k, v, out and lse, so ~500 FLOP per byte.
+// What bounds it on an H100: arithmetic.  At the GPT-2 scoring shape
+// ([8, 1024] tokens, 12 heads of 64, causal) q.k^T and p.v are 12.9 GFLOP
+// against 25 MB of q, k, v, out and lse, ~500 FLOP per byte.  The port's
+// contract is f32 accuracy, which the CUDA cores give at 67 TFLOP/s.  This
+// kernel runs the products on the tensor cores instead, each as three TF32
+// products (x = big + small, a.b = small.big + big.small +
+// big.big in f32), which keeps f32 accuracy at 3x the TF32 work: 495/3 =
+// 165 TFLOP/s of f32-accurate products.  The split runs on the CUDA cores
+// for every fragment value read (3 instructions each); the q fragments are
+// split once a block, k and v ones once a warp as they are read.  The JAX
+// reference does the same on the TPU (precision="float32": multi-pass bf16
+// on the MXU), and PyTorch's f32 memory-efficient attention does the same
+// on this card.
 //
-// Design: one block of 256 threads per (b*h, 64-query tile), walking
-// 64-key tiles with an online softmax.  Each thread owns a 4x4 register
-// micro-tile of the scores (rows ty+16a, columns tx+16b) and D/16 output
-// columns of its 4 rows; row reductions are shuffles within 16 lanes and
-// shared rows are padded to an odd stride so both products read shared
-// memory without bank conflicts.  With causal, key tiles wholly above the
-// diagonal are never loaded, so the work done is the bound's count plus
-// the diagonal tiles' upper halves; blocks take the query tiles in
-// reverse order so the longest ones start first.  Keys past Tk (the ragged last tile) get
+// Design (flash-attention-2 layout): one block of 4 warps per (b*h, 64-query
+// tile); each warp owns 16 query rows, so the row max and sum are shuffles
+// within a quad of lanes and no warp waits on another's softmax.
+//  - q: each warp loads its rows' m16n8k8 A fragments from device memory
+//    once and keeps them split (big, small) in registers.
+//  - k, v: 64-key tiles, double-buffered in shared memory by 16-byte
+//    cp.async, the next tile's copy in flight while the current one is
+//    multiplied.  Rows are D + 4 floats: 16-byte aligned, and the fragment
+//    reads of K (row g, col t) and V (rows 2t and 2t + 1, col g) fall in
+//    32 distinct banks for every D in {8, 16, 32, 64, 128} (the stride is
+//    4, 12 or 20 words mod 32: 4g + t, 12g + t and 20g + t mod 32, and
+//    8t + g, 24t + g, 8t + g plus 4, 12 or 20 for the odd row, cover 0..31).
+//  - p stays in registers: the C fragment of a score block holds keys
+//    {2t, 2t + 1} of rows {g, g + 8}, the A fragment of p.v wants columns
+//    {t, t + 4}.  The sum over keys does not depend on their order, so
+//    p.v reads its 8 keys permuted (column t is key 2t, column t + 4 is
+//    key 2t + 1) and takes V's B fragment from the same rows: (c0, c2,
+//    c1, c3) is the A fragment as it stands.
+//  - softmax on the accumulator fragments in base 2 (scale * log2 e in one
+//    multiply, exp2f); the causal mask only on tiles that cross the
+//    diagonal, the Tk mask only on the ragged last tile; lse back in
+//    natural log.
+// With causal, key tiles wholly above the diagonal are never loaded.  Block
+// (x, y) is (b*h, the y-th longest query tile): blocks are dispatched x
+// fastest, so every head's longest tile starts first.  Keys past Tk get
 // -inf and rows past Tq are not stored.  The head dim is a template
-// parameter (8, 16, 32, 64, 128).  Simple first; wgmma/TMA and bf16
-// operands are later work.
+// parameter (8, 16, 32, 64, 128).  At D = 128 the q fragments alone take
+// 128 of the 255 registers a thread may hold; no main path runs it.  wgmma
+// and TMA are later work: TF32 wgmma takes both operands K-major, so p.v
+// would need V transposed in shared memory, while mma.sync reads any layout.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // key rows per tile
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int LDP = BK + 1;    // padded stride of the probability tile
-constexpr float NEG_INF = -1e30f;
+// Three-pass TF32 products.  A float x is split into big = x rounded to
+// TF32 (to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds a
+// finite value) and small = x - big, which is exact in f32; the mma reads
+// only the top 19 bits of each TF32 operand, so it truncates small.  a.b is
+// then small_a.big_b + big_a.small_b + big_a.big_b, accumulated in f32: the
+// dropped small.small term and the truncated bits of small are ~2^-21 of
+// the product, so the result is as accurate as an f32 product to within a
+// few ulp, while one TF32 product keeps only ~2^-11.  This is CUTLASS's
+// OpMultiplyAddFastF32 split, which PyTorch's f32 memory-efficient
+// attention uses; rounding big with two integer ops and leaving small raw
+// costs 3 instructions a value, fewer than two cvt.rna.tf32.f32, which
+// sm_90 runs as instruction sequences.
+//
+// m16n8k8 fragments (PTX ISA, "Matrix fragments for mma.m16n8k8", .tf32),
+// with g = lane / 4 and t = lane % 4:
+//   A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B (8 x 8, col):  b0 (t, g), b1 (t + 4, g)
+//   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+
+// x -> (big, small) as mma operands; x finite
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a.b, one m16n8k8 TF32 product with f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in f32 accuracy: the two cross terms first, then big.big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&a_big)[4],
+                                           const unsigned (&a_small)[4],
+                                           const unsigned (&b_big)[2],
+                                           const unsigned (&b_small)[2]) {
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid (src
+// must still be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>   // wait until at most N committed groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+constexpr int WARPS = 4;
+constexpr int BQ = 16 * WARPS;   // query rows per block
+constexpr int BK = 64;           // key rows per tile
+constexpr int THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// the -1e30 causal mask in base 2; also the running max before any key, as
+// in the plain version a row that saw only masked keys weighs them equally
+constexpr float NEG = -1e30f * LOG2E;
 
 struct Strides {               // element strides of (batch, head, time)
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
 };
 
 template <int D>
-__host__ __device__ constexpr int ld() { return D + 1; }
+__host__ __device__ constexpr int ld() { return D + 4; }
 
 template <int D>
-__host__ constexpr size_t smem_bytes() {
-  return (size_t)(BQ * ld<D>() + 2 * BK * ld<D>() + BQ * LDP) * sizeof(float);
+__host__ constexpr size_t smem_bytes() {   // two stages of (K, V) tiles
+  return (size_t)2 * 2 * BK * ld<D>() * sizeof(float);
 }
 
-// rows [row0, row0 + 64) of a strided [n, D] matrix -> smem [64][D+1];
-// rows >= n are zero
+// rows [row0, row0 + BK) of a strided [n, D] matrix -> smem [BK][D + 4],
+// asynchronously; rows >= n are zero
 template <int D>
-__device__ inline void load_tile(float* dst, const float* __restrict__ src,
-                                 long long row_stride, int row0, int n) {
+__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
+                                                long long row_stride, int row0, int n) {
   constexpr int C4 = D / 4;
+#pragma unroll
   for (int i = threadIdx.x; i < BK * C4; i += THREADS) {
     const int r = i / C4, c4 = i % C4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n)
-      val = reinterpret_cast<const float4*>(src + (row0 + r) * row_stride)[c4];
-    float* d = dst + r * ld<D>() + c4 * 4;
-    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
+    const bool valid = row0 + r < n;
+    const float* s = valid ? src + (row0 + r) * row_stride + c4 * 4 : src;
+    cp_async16(dst + r * ld<D>() + c4 * 4, s, valid);
   }
 }
 
-// reductions over the 16 lanes (tx) that share a row
-__device__ inline float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-__device__ inline float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
+
+// Blocks an SM that the launch bound asks for: two up to D = 64, where
+// shared memory holds two.  Stating the minimum changes ptxas's schedule at
+// D = 64 (210 registers against 177 without it, no spill either way) and
+// makes the kernel faster (PERF.md).  At D = 128 the two stages take 132 KB,
+// so one block fits and the bound asks for one.
+template <int D>
+constexpr int min_blocks() { return D <= 64 ? 2 : 1; }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
 flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ out,
                         float* __restrict__ lse, Strides st, int H, int Tq,
                         int Tk, int causal, float scale) {
   constexpr int LD = ld<D>();
-  constexpr int DC = (D + 15) / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                   // [BQ][LD]
-  float* sK = sQ + BQ * LD;           // [BK][LD]
-  float* sV = sK + BK * LD;           // [BK][LD]
-  float* sP = sV + BK * LD;           // [BQ][LDP] probabilities
+  constexpr int KD = D / 8;     // k-steps of q.k^T, column blocks of p.v
+  constexpr int NB = BK / 8;    // key blocks of a tile
+  extern __shared__ __align__(16) float smem[];   // [2 stages][K, V][BK][LD]
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest blocks first
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;     // this thread's rows
   const float* qb = q + b * st.qb + h * st.qh;
   const float* kb = k + b * st.kb + h * st.kh;
   const float* vb = v + b * st.vb + h * st.vh;
 
-  load_tile<D>(sQ, qb, st.qt, q0, Tq);
-
-  float m_i[4], l_i[4], acc[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_i[a] = NEG_INF;
-    l_i[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-  }
-
   int nk = (Tk + BK - 1) / BK;
   if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);   // tiles above: all masked
+  load_tile_async<D>(smem, kb, st.kt, 0, Tk);
+  load_tile_async<D>(smem + BK * LD, vb, st.vt, 0, Tk);
+  cp_async_commit();
+
+  // q's A fragments, split once
+  unsigned qbig[KD][4], qsmall[KD][4];
+  {
+    const float* q_r0 = qb + r0 * st.qt;
+    const float* q_r1 = qb + r1 * st.qt;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = 8 * kk + t;
+      const float x[4] = {r0 < Tq ? q_r0[c] : 0.f, r1 < Tq ? q_r1[c] : 0.f,
+                          r0 < Tq ? q_r0[c + 4] : 0.f, r1 < Tq ? q_r1[c + 4] : 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(x[e], qbig[kk][e], qsmall[kk][e]);
+    }
+  }
+
+  float o[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG, NEG};         // running max (base 2) of rows r0, r1
+  float l[2] = {0.f, 0.f};             // this thread's share of the row sums
+  const float c2 = scale * LOG2E;
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();                  // sQ loaded / sK, sV, sP consumed
-    load_tile<D>(sK, kb, st.kt, k0, Tk);
-    load_tile<D>(sV, vb, st.vt, k0, Tk);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) s[a][bb] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sQ[(ty + 16 * a) * LD + d];
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) bv[bb] = sK[(tx + 16 * bb) * LD + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) s[a][bb] = fmaf(av[a], bv[bb], s[a][bb]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-      const int i = q0 + r;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int j = k0 + tx + 16 * bb;
-        float val = s[a][bb] * scale;
-        if (causal && j > i) val = NEG_INF;
-        if (j >= Tk) val = -INFINITY;
-        s[a][bb] = val;
-        mx = fmaxf(mx, val);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m_i[a], mx);
-      const float alpha = expf(m_i[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const float p = expf(s[a][bb] - m_new);
-        sP[r * LDP + tx + 16 * bb] = p;
-        sum += p;
-      }
-      sum = row_sum(sum);
-      l_i[a] = alpha * l_i[a] + sum;
-      m_i[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
+    if (kt + 1 < nk) {   // the next tile's copy overlaps this tile's products
+      float* nxt = smem + ((kt + 1) & 1) * 2 * BK * LD;
+      load_tile_async<D>(nxt, kb, st.kt, k0 + BK, Tk);
+      load_tile_async<D>(nxt + BK * LD, vb, st.vt, k0 + BK, Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* sK = smem + (kt & 1) * 2 * BK * LD;
+    const float* sV = sK + BK * LD;
 
-    if (D % 16 == 0 || tx < D) {
-#pragma unroll 8
-      for (int j = 0; j < BK; ++j) {
-        float pv[4], vv[DC];
+    // s = q.k^T: block n holds keys k0 + 8n + {2t, 2t + 1} of rows r0, r1
+    float s[NB][4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) pv[a] = sP[(ty + 16 * a) * LDP + j];
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) vv[c] = sV[j * LD + tx + 16 * c];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+    for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-          for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(pv[a], vv[c], acc[a][c]);
+      for (int n = 0; n < NB; ++n) {
+        const float* kr = sK + (8 * n + g) * LD + 8 * kk + t;
+        unsigned bbig[2], bsmall[2];
+        split_tf32(kr[0], bbig[0], bsmall[0]);
+        split_tf32(kr[4], bbig[1], bsmall[1]);
+        mma_3xtf32(s[n], qbig[kk], qsmall[kk], bbig, bsmall);
       }
     }
+
+    // scale, mask, online softmax in base 2
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= c2;
+    if ((causal && k0 + BK - 1 > q0) || k0 + BK > Tk) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + 8 * n + 2 * t + (e & 1);
+          const int i = e < 2 ? r0 : r1;
+          if (causal && j > i) s[n][e] = NEG;
+          if (j >= Tk) s[n][e] = -INFINITY;
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+
+    // o += p.v over key block kk, keys read in the order (2t, 2t + 1)
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      unsigned abig[4], asmall[4];
+      split_tf32(s[kk][0], abig[0], asmall[0]);
+      split_tf32(s[kk][2], abig[1], asmall[1]);
+      split_tf32(s[kk][1], abig[2], asmall[2]);
+      split_tf32(s[kk][3], abig[3], asmall[3]);
+      const float* vr = sV + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        unsigned bbig[2], bsmall[2];
+        split_tf32(vr[8 * n], bbig[0], bsmall[0]);
+        split_tf32(vr[LD + 8 * n], bbig[1], bsmall[1]);
+        mma_3xtf32(o[n], abig, asmall, bbig, bsmall);
+      }
+    }
+    __syncthreads();   // this stage is refilled two tiles on
   }
 
+  const int rows[2] = {r0, r1};
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= Tq) continue;
-    const float denom = fmaxf(l_i[a], 1e-30f);
-    if (D % 16 == 0 || tx < D) {
-      float* o = out + b * st.ob + h * st.oh + i * st.ot;
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (rows[r] >= Tq) continue;
+    float* orow = out + b * st.ob + h * st.oh + rows[r] * st.ot + 2 * t;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[a][c] / denom;
-    }
-    if (tx == 0) lse[(long long)bh * Tq + i] = m_i[a] + logf(denom);
+    for (int n = 0; n < KD; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    if (t == 0) lse[(long long)bh * Tq + rows[r]] = (m[r] + log2f(denom)) * LN2;
   }
+}
+
+// The dynamic shared-memory limit is raised once per head dim and device.
+template <int D>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};   // one bit per device
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(flash_causal_fwd_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_bytes<D>());
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* lse, const Strides& st, int B, int H, int Tq, int Tk,
                    int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_causal_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t e = allow_smem<D>();
   if (e != cudaSuccess) return e;
-  const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_causal_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  flash_causal_fwd_kernel<D><<<grid, THREADS, smem_bytes<D>(), stream>>>(
       q, k, v, out, lse, st, H, Tq, Tk, causal, scale);
   return cudaGetLastError();
 }
