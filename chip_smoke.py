@@ -14,10 +14,15 @@ failure raises and exits non-zero):
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
 2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
+   for B1's two kernels (rel band and mask-only), their block shapes,
+   registers, spill, shared memory at L=160 and blocks per SM;
 3. kernel checks, after ~0.5 s of warm-up GEMMs: each kernel against its
    plain PyTorch version on the card at the main path's shapes (B1:
-   [16, 12, 249, 64], L=160, mixed valid lengths, also causal and
-   mask-only, and T=2048; B2: [16, 80000] and an odd length; B6: views of
+   [16, 12, 249, 64], L=160, mixed valid lengths, also causal, mask-only
+   (the variant without the band, as ``flash_attention`` runs it), rows
+   with valid length 0, on ``split_heads``-style strided views, and
+   T=2048, and the cross-attention's mask-only 192 x 500, each with its
+   profiler device time and host time; B2: [16, 80000] and an odd length; B6: views of
    a qkv projection at [8, 1024, 12, 64] and [128, 27, 12, 64], causal;
    B5: [8, 25, 1024, 64] causal, [2, 12, 384, 64] non-causal, [2, 4, 100, 8]
    against 160 keys causal, the ASR decoder's [8, 12, 160, 64] causal; B7:
@@ -27,7 +32,8 @@ failure raises and exits non-zero):
    also against a float64 log-mel), max abs error against a stated
    tolerance, CUDA-event medians of kernel, plain version and, where one
    PyTorch call computes the same function, that call (timed as a
-   yardstick only; B5/B6 also the kernel's profiler device time), and the
+   yardstick only; B5/B6 also the kernel's profiler device time and the
+   host time, the CUDA-event time less it), and the
    bound: bytes over 3.35 TB/s or operations over their peak, matrix
    products (B1, B3-B6) at 3 flops / 495 TFLOP/s (f32 accuracy from three
    TF32 passes) with the 67 TFLOP/s term beside it; the backward: B3 + B4
@@ -96,6 +102,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -241,11 +248,13 @@ def visible(tq, tk, two_l, vl, causal):
 def b1_work(q, k, pe, vl, causal):
     """Bytes moved (q, k, v, out, pe, lse, valid_len once each) and FLOP
     this run's data needs: q.k^T and p.v over the keys each row may see,
-    plus q.pe^T over the distinct table cells those keys reach."""
+    plus q.pe^T over the distinct table cells those keys reach (none for
+    the mask-only variant, ``pe`` None)."""
     b, h, tq, d = q.shape
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + pe.numel() + b * h * tq + b)
-    keys, pe_cols = visible(tq, k.shape[2], pe.shape[0], vl, causal)
-    return nbytes, h * 2 * d * (2 * keys + pe_cols)
+    pe_numel = 0 if pe is None else pe.numel()
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + pe_numel + b * h * tq + b)
+    keys, pe_cols = visible(tq, k.shape[2], 2 if pe is None else pe.shape[0], vl, causal)
+    return nbytes, h * 2 * d * (2 * keys + (0 if pe is None else pe_cols))
 
 
 def b34_work(q, k, pe, vl, causal):
@@ -263,23 +272,32 @@ def b34_work(q, k, pe, vl, causal):
 
 
 def kernel_device_ms(fn, patterns, n: int = 5) -> dict:
-    """Mean device time per ``fn()`` of the kernels whose names contain each
-    pattern (torch.profiler over ``n`` calls)."""
+    """Mean device time of one launch of the kernels whose names contain
+    each pattern (torch.profiler over ``n`` calls of ``fn``, which launches
+    each once), divided by the launches the profiler recorded: a window
+    can lose kernel records, and is profiled again (up to 3 times) when it
+    recorded none of a pattern."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {p: 0.0 for p in patterns}
-    for e in prof.key_averages():
-        for p in patterns:
-            if p in e.key:
-                out[p] += e.device_time_total / 1e3 / n
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = {p: 0.0 for p in patterns}
+        count = {p: 0 for p in patterns}
+        for e in prof.key_averages():
+            for p in patterns:
+                if p in e.key and e.device_time_total > 0:
+                    total[p] += e.device_time_total / 1e3
+                    count[p] += e.count
+        if all(count.values()):
+            break
+    check(all(count.values()), f"the profiler recorded no launch of {patterns}")
+    return {p: total[p] / count[p] for p in patterns}
 
 
 def relocate_corpus(dst: str) -> dict:
@@ -298,6 +316,34 @@ def relocate_corpus(dst: str) -> dict:
                 g.write(f"{key} {os.path.join(src, 'wav', os.path.basename(path.strip()))}\n")
         out[split] = d
     return out
+
+
+def b1_build_records(build) -> list:
+    """ptxas registers and spill bytes of B1's two flash_rel_fwd_kernels
+    (rel band, mask-only), with their shared memory at L = 160 and the
+    blocks that fit on one SM of this card (CUDA's occupancy API)."""
+    lib, recs, cur = build.library(), [], None
+    for line in build.build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"flash_rel_fwd_kernelILb([01])E", line)
+            cur = None
+            if m:
+                mask_only = int(m.group(1))
+                cur = dict(mask_only=bool(mask_only),
+                           shape="4 warps, 64-key tiles, 2 stages" if mask_only
+                           else "4 warps, 32-key tiles, 1 stage",
+                           smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only),
+                           blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only))
+                recs.append(cur)
+        elif cur is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    # a cached library was built by another process, whose log is gone
+    check(not build.build_log or len(recs) == 2,
+          f"ptxas log names {len(recs)} flash_rel_fwd_kernels, not 2")
+    return sorted(recs, key=lambda r: r["mask_only"])
 
 
 def b2_work(wav, c, k, f):
@@ -439,6 +485,8 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print(f"[build] {line.strip()}")
+    for rec in b1_build_records(_build):
+        print(f"[build] B1 {json.dumps(rec)}")
 
     # the committed ASR corpus, with its wav.scp pointing into this checkout
     tmp_corpus = tempfile.TemporaryDirectory()
@@ -459,37 +507,56 @@ def main() -> int:
         return (torch.randn(*shape, generator=g) * sc).to(dev)
 
     checks = []
+    # (case, B, Tq, Tk, L (0: the mask-only variant, as flash_attention
+    # runs it without rel_pe), causal, valid lengths, layout); "split_heads"
+    # hands q/k/v over as the encoder does, transposed views of [B, T, 768]
+    # projections, read in place
+    rel_lens = [249] * 10 + [230, 200, 180, 120, 60, 17]
     b1_cases = [
-        ("rel_padded", 16, 249, 160, False,
-         [249] * 10 + [230, 200, 180, 120, 60, 17]),
-        ("rel_causal", 16, 249, 160, True, [249] * 14 + [200, 100]),
-        ("mask_only", 16, 249, 1, False, [249] * 12 + [200, 150, 99, 40]),
-        ("rel_long", 2, 2048, 160, False, [2048, 1500]),
+        ("rel_padded", 16, 249, 249, 160, False, rel_lens, "bhtd"),
+        ("rel_causal", 16, 249, 249, 160, True, [249] * 14 + [200, 100], "bhtd"),
+        ("mask_only", 16, 249, 249, 0, False, [249] * 12 + [200, 150, 99, 40], "bhtd"),
+        ("rel_long", 2, 2048, 2048, 160, False, [2048, 1500], "bhtd"),
+        ("vl0", 16, 249, 249, 160, False, [249] * 12 + [0, 120, 0, 60], "bhtd"),
+        ("cross_mask_only", 8, 192, 500, 0, False, [500] * 6 + [430, 310], "bhtd"),
+        ("rel_strided", 16, 249, 249, 160, False, rel_lens, "split_heads"),
     ]
-    for name, b, t, L, causal, vls in b1_cases:
-        q, k, v = randn(b, 12, t, 64), randn(b, 12, t, 64), randn(b, 12, t, 64)
-        pe = randn(2 * L, 64) if L > 1 else torch.zeros(2, 64, device=dev)
+    for name, b, tq, tk, L, causal, vls, layout in b1_cases:
+        if layout == "split_heads":
+            q, k, v = (randn(b, t, 768).reshape(b, t, 12, 64).transpose(1, 2)
+                       for t in (tq, tk, tk))
+        else:
+            q, k, v = randn(b, 12, tq, 64), randn(b, 12, tk, 64), randn(b, 12, tk, 64)
+        pe = randn(2 * L, 64) if L else None
+        table = pe if L else torch.zeros(2, 64, device=dev)   # the plain version's
         vl = torch.tensor(vls, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, scale=1.0)
-        out, lse = fa.flash_rel_forward(q, k, v, pe, vl, **kw)
+
+        def run():
+            return fa.flash_rel_forward(q, k, v, pe, vl, **kw)
+
+        out, lse = run()
         torch.cuda.synchronize()
-        pout, plse = fa.flash_rel_forward_plain(q, k, v, pe, vl, **kw)
+        pout, plse = fa.flash_rel_forward_plain(q, k, v, table, vl, **kw)
         err = max((out - pout).abs().max().item(), (lse - plse).abs().max().item())
-        check(bool(torch.isfinite(out).all()), f"B1 {name}: non-finite output")
+        check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+              f"B1 {name}: non-finite output")
         check(err <= B1_TOL, f"B1 {name}: max abs err {err} > {B1_TOL}")
         lib_ms = None
-        if L == 1:   # one PyTorch call computes the mask-only variant
-            keep = (torch.arange(t, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+        if not L:   # one PyTorch call computes the mask-only variant
+            keep = (torch.arange(tk, device=dev)[None, :] < vl[:, None])[:, None, None, :]
             sdpa = torch.nn.functional.scaled_dot_product_attention
             lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
         nbytes, flops = b1_work(q, k, pe, vl, causal)
         bms, by = bound(nbytes, flops, products=True)
-        ms = time_ms(lambda: fa.flash_rel_forward(q, k, v, pe, vl, **kw))
-        rec = dict(kernel="B1", case=name, shape=[b, 12, t, 64], two_l=2 * L,
-                   max_abs_err=err, tol=B1_TOL, ms=ms,
-                   plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, pe, vl, **kw)),
+        ms = time_ms(run)
+        dev_ms = kernel_device_ms(run, ("flash_rel_fwd",))["flash_rel_fwd"]
+        rec = dict(kernel="B1", case=name, shape=[b, 12, tq, 64], tk=tk,
+                   two_l=2 * L if L else "mask-only", causal=causal, layout=layout,
+                   max_abs_err=err, tol=B1_TOL, ms=ms, device_ms=dev_ms, host_ms=ms - dev_ms,
+                   plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, table, vl, **kw)),
                    library_ms=lib_ms, bound_ms=bms, bound_by=by, bound_share=bms / ms,
-                   ops_ms_f32_cores=cores_ms(flops))
+                   device_bound_share=bms / dev_ms, ops_ms_f32_cores=cores_ms(flops))
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del q, k, v, out, pout
@@ -593,13 +660,14 @@ def main() -> int:
         nbytes, flops = causal_work(b, h, tq, tk, d, causal)
         bms, by = bound(nbytes, flops, products=True)
         ms = time_ms(lambda: fn(q, k, v, **kw))
+        dev_ms = kernel_device_ms(lambda: fn(q, k, v, **kw),
+                                  ("flash_causal_fwd",))["flash_causal_fwd"]
         rec = dict(kernel=kern, case=name, shape_bhtd=[b, h, tq, d], tk=tk, causal=causal,
                    max_abs_err=err, tol=B56_TOL, ms=ms,
                    plain_ms=time_ms(lambda: plain(q, k, v, **kw)),
                    library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal,
                                                    scale=kw["scale"])),
-                   device_ms=kernel_device_ms(lambda: fn(q, k, v, **kw),
-                                              ("flash_causal_fwd",))["flash_causal_fwd"],
+                   device_ms=dev_ms, host_ms=ms - dev_ms,
                    bound_ms=bms, bound_by=by, bound_share=bms / ms,
                    ops_ms_f32_cores=cores_ms(flops), bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
         checks.append(rec)
@@ -1168,6 +1236,7 @@ def main() -> int:
                     tpu_kernel=tpu_kernel, launches=n,
                     max_abs_err=max(c["max_abs_err"] for c in checks if c["kernel"] == kernel),
                     ms=main_rec["ms"], kernel_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
+                    device_ms=main_rec.get("device_ms"),
                     bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
                     library_ms=main_rec["library_ms"])
 

@@ -62,70 +62,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <atomic>
+#include "tf32_mma.cuh"
 
 namespace {
-
-// Three-pass TF32 products.  A float x is split into big = x rounded to
-// TF32 (to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds a
-// finite value) and small = x - big, which is exact in f32; the mma reads
-// only the top 19 bits of each TF32 operand, so it truncates small.  a.b is
-// then small_a.big_b + big_a.small_b + big_a.big_b, accumulated in f32: the
-// dropped small.small term and the truncated bits of small are ~2^-21 of
-// the product, so the result is as accurate as an f32 product to within a
-// few ulp, while one TF32 product keeps only ~2^-11.  This is CUTLASS's
-// OpMultiplyAddFastF32 split, which PyTorch's f32 memory-efficient
-// attention uses; rounding big with two integer ops and leaving small raw
-// costs 3 instructions a value, fewer than two cvt.rna.tf32.f32, which
-// sm_90 runs as instruction sequences.
-//
-// m16n8k8 fragments (PTX ISA, "Matrix fragments for mma.m16n8k8", .tf32),
-// with g = lane / 4 and t = lane % 4:
-//   A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-//   B (8 x 8, col):  b0 (t, g), b1 (t + 4, g)
-//   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-
-// x -> (big, small) as mma operands; x finite
-__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// c += a.b, one m16n8k8 TF32 product with f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a.b in f32 accuracy: the two cross terms first, then big.big
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&a_big)[4],
-                                           const unsigned (&a_small)[4],
-                                           const unsigned (&b_big)[2],
-                                           const unsigned (&b_small)[2]) {
-  mma_tf32(c, a_small, b_big);
-  mma_tf32(c, a_big, b_small);
-  mma_tf32(c, a_big, b_big);
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid (src
-// must still be a mapped address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>   // wait until at most N committed groups are in flight
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
 
 constexpr int WARPS = 4;
 constexpr int BQ = 16 * WARPS;   // query rows per block
@@ -162,16 +101,6 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
     const float* s = valid ? src + (row0 + r) * row_stride + c4 * 4 : src;
     cp_async16(dst + r * ld<D>() + c4 * 4, s, valid);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Blocks an SM that the launch bound asks for: two up to D = 64, where
@@ -342,27 +271,13 @@ flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// The dynamic shared-memory limit is raised once per head dim and device.
-template <int D>
-cudaError_t allow_smem() {
-  static std::atomic<unsigned long long> done{0};   // one bit per device
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(flash_causal_fwd_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_bytes<D>());
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return e;
-}
-
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* lse, const Strides& st, int B, int H, int Tq, int Tk,
                    int causal, float scale, cudaStream_t stream) {
-  const cudaError_t e = allow_smem<D>();
+  // the dynamic shared-memory limit is raised once per head dim and device
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t e = allow_smem_once(flash_causal_fwd_kernel<D>, (int)smem_bytes<D>(), done);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
   flash_causal_fwd_kernel<D><<<grid, THREADS, smem_bytes<D>(), stream>>>(

@@ -3,245 +3,429 @@
 // Replaces: loco_asr_tpu/ops/pallas/flash_attention.py::_flash_rel_kernel
 // (launched by _flash_rel_forward), the SpeechT5 encoder self-attention:
 //   s[i,j] = scale*q_i.k_j + scale*q_i.pe[clip(i-j, -L, L-1) + L]
-//   keys j >= valid_len[b] masked (-1e30), optional causal mask (-1e30),
-//   online softmax -> out [B,H,Tq,64] and the row logsumexp lse [B,H,Tq].
-// With a zero 2-row pe it is the mask-only kernel.
+//   keys j >= valid_len[b] and, when causal, j > i masked with -1e30 after
+//   the band term is added; keys j >= Tk get -inf, so a row with
+//   valid_len 0 averages v over exactly Tk keys, as the plain version
+//   does; online softmax -> out and the row logsumexp lse [B,H,Tq] (natural
+//   log, the row sum clamped at 1e-30).
+// The mask-only variant (MASK_ONLY, the zero table that flash_attention
+// makes when it has no rel_pe) skips the table and the band.  q, k, v and
+// out are read through (batch, head, time) element strides with a
+// contiguous head dim of 64, as in csrc/flash_causal.cu, so the transposed
+// views of split_heads and the qkv column views of a GPT-2 layer are read
+// in place.
 //
-// What bounds it on an H100: arithmetic.  The port runs float32 with TF32
-// off, so the products run on the CUDA cores (67 TFLOP/s), and at the
-// encoder's shapes (T ~ 250, head dim 64) every byte of q, k, v is reused
-// ~T times from shared memory.  Per (b, h) the work is q.k^T and p.v
-// (2*Tq*Tk*64 FLOP each) plus q.pe^T (2*Tq*2L*64 FLOP).
+// What bounds it on an H100: arithmetic.  At the encoder's shape
+// ([16, 12, 249, 64], L = 160) the products q.k^T, q.pe^T and p.v are
+// ~10 GFLOP against ~24 MB of operands.  As in csrc/flash_causal.cu every
+// product runs on the tensor cores as three TF32 mma.sync passes at f32
+// accuracy (tf32_mma.cuh).
 //
-// Design: one block of 256 threads per (b*h, 64-query tile).  The TPU
-// kernel's reversed-PE table, per-row log-step roll and iota-masked clip
-// columns exist only because Mosaic has no gather; here the block computes
-// qpe = scale * q_tile . pe^T once ([64, 2L] f32 in shared memory, staged
-// through the key buffer 64 pe rows at a time) and indexes the band
-// directly: rel(i, j) = qpe[i][clip(i-j, -L, L-1) + L].  It then walks
-// 64-key tiles with an online softmax; each thread owns a 4x4 register
-// micro-tile (rows ty+16a, columns tx+16b), row reductions are shuffles
-// within 16 lanes, and shared rows are padded to 65 floats so the
-// micro-tile reads are free of bank conflicts.  Tiles past the row's valid
-// length and, when causal, above the diagonal are skipped: they would add
-// exactly zero.  Keys past Tk (the ragged last tile) get -inf, so a row
-// with valid_len 0 averages over exactly Tk keys, as the plain version
-// does.  Simple first; wgmma/TMA is later work.
+// Design (flash-attention-2 layout, helpers shared with B5/B6): a block of
+// WARPS warps per (b*h, 16*WARPS query rows); each warp owns 16 rows, keeps
+// its q fragments split (big, small) in registers, and runs the softmax on
+// its accumulator fragments in base 2 (scale * log2 e folded into one
+// multiply; the band term is stored pre-multiplied by it).  p stays in
+// registers: p.v reads each 8-key step in the order (2t, 2t + 1) that the
+// score fragment holds (csrc/flash_causal.cu's note).
+//  - The band.  The TPU kernel's reversed table and log-step roll exist
+//    because Mosaic has no gather.  Here the block first builds
+//    tab = scale*log2e * q_tile.pe^T in shared memory, with the same mma on
+//    pe tiles streamed in by cp.async, and each score reads
+//    tab[clip(i - j, -L, L-1) + L][row].  The table is stored one band
+//    column per row of stride TS = 16*WARPS + 4 floats (TS = 4 mod 32): the
+//    score fragment's reads at (g, 2t + e) are at column c0 + g - 2t - e,
+//    row r0 + g, so the word address is g*(TS + 1) - 2t*TS + const =
+//    5g - 8t + const mod 32, and 5g covers 0..7 mod 8 while 8t fills the
+//    rest: the 32 lanes hit 32 banks for each e.  The build's stores at
+//    (column 2t + e, row g) are at 8t + g + 4e mod 32, also conflict-free.
+//    Once i - j >= L - 1 (or <= -L) for every pair of a warp's rows and a
+//    key tile, the column is 2L - 1 (or 0) for the whole tile: the warp
+//    adds two registers per row and reads no table.  Where no pair of the
+//    warp's tile is clipped, every read is at a constant offset from one
+//    address; only tiles that cross a clip edge clamp per element.
+//  - The pipeline.  pe tiles, then K/V tiles, go through the same
+//    shared-memory stages by 16-byte cp.async; rows of D + 4 floats make
+//    the K and V fragment reads conflict-free (csrc/flash_causal.cu).
+//  - Key tiles past the row's valid length and, when causal, above the
+//    diagonal are not loaded (they would add exactly zero), unless
+//    valid_len is 0, where every key counts; pe tiles whose columns no row
+//    of the block reaches are not loaded either.
+// Block shapes (ShapeOf), each 4 warps of 64 rows, two blocks an SM:
+//  - with the band, 32-key K/V tiles in one stage: at L = 160 the table
+//    takes 87 KB and the stage 17 KB, so copy and products overlap across
+//    the two blocks of an SM, not within one;
+//  - mask-only, B5's 64-key tiles in two stages (70 KB, no table).
+// PERF.md §6 records why: B5's double-buffered shape with the table (153
+// KB, one block an SM) and one 8-warp block of 128 rows with 32-key tiles
+// were slower with the band; the 64-key stages win without it.  wgmma and
+// TMA are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int D = 64;          // head dim
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // key rows per tile
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int LD = D + 1;      // padded shared row stride
-constexpr float NEG_INF = -1e30f;
+constexpr int KD = D / 8;      // k-steps of q.k^T and q.pe^T, column blocks of p.v
+constexpr int LD = D + 4;      // shared row stride of K, V and pe tiles
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG_NAT = -1e30f;       // the mask of the plain version
+constexpr float NEG = -1e30f * LOG2E;   // the same in base 2
 
-__host__ __device__ inline int qpe_stride(int two_l) {
-  // rows ty and ty+1 of one warp read 16 consecutive band columns each;
-  // a stride of 15 mod 32 puts the two reads on disjoint banks
-  return ((two_l + 31) / 32) * 32 + 15;
+struct Strides {               // element strides of (batch, head, time)
+  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
+};
+
+template <int WARPS_, int BK_, int STAGES_>
+struct Shape {
+  static constexpr int WARPS = WARPS_, BK = BK_, STAGES = STAGES_;
+  static constexpr int BQ = 16 * WARPS;        // query rows per block
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int TS = BQ + 4;            // table stride, = 4 mod 32
+};
+template <bool MASK_ONLY>
+using ShapeOf = std::conditional_t<MASK_ONLY, Shape<4, 64, 2>, Shape<4, 32, 1>>;
+constexpr int MIN_BLOCKS = 2;   // blocks an SM that the launch bound asks for
+
+template <bool MASK_ONLY>
+__host__ size_t smem_bytes(int two_l) {
+  using S = ShapeOf<MASK_ONLY>;
+  return (size_t)(S::STAGES * 2 * S::BK * LD + (MASK_ONLY ? 0 : two_l * S::TS)) *
+         sizeof(float);
 }
 
-__host__ inline size_t smem_bytes(int two_l) {
-  return (size_t)(4 * BQ * LD + BQ * qpe_stride(two_l)) * sizeof(float);
-}
-
-// rows [row0, row0 + 64) of a row-major [n, 64] matrix -> smem [64][LD];
-// rows >= n are zero
-__device__ inline void load_tile(float* dst, const float* __restrict__ src,
-                                 int row0, int n) {
-  for (int i = threadIdx.x; i < BQ * (D / 4); i += THREADS) {
-    const int r = i / (D / 4), c4 = i % (D / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n)
-      val = reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D)[c4];
-    float* d = dst + r * LD + c4 * 4;
-    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
+// rows [row0, row0 + BK) of a strided [n, 64] matrix -> smem [BK][LD],
+// asynchronously; rows >= n are zero
+template <class S>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
+                                                long long row_stride, int row0, int n) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < S::BK * C4; i += S::THREADS) {
+    const int r = i / C4, c4 = i % C4;
+    const bool valid = row0 + r < n;
+    const float* s = valid ? src + (row0 + r) * row_stride + c4 * 4 : src;
+    cp_async16(dst + r * LD + c4 * 4, s, valid);
   }
 }
 
-// s[a][b] = sum_d A[ty+16a][d] * Bm[tx+16b][d]
-__device__ inline void tile_dot(const float* A, const float* Bm, float s[4][4],
-                                int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * LD + d];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = Bm[(tx + 16 * b) * LD + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = fmaf(av[a], bv[b], s[a][b]);
-  }
-}
-
-// reductions over the 16 lanes (tx) that share a row
-__device__ inline float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ inline float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__global__ void __launch_bounds__(THREADS)
+template <bool MASK_ONLY>
+__global__ void __launch_bounds__(ShapeOf<MASK_ONLY>::THREADS, MIN_BLOCKS)
 flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ pe,
                      const int* __restrict__ valid_len, float* __restrict__ out,
-                     float* __restrict__ lse, int H, int Tq, int Tk, int two_l,
-                     int causal, float scale) {
-  extern __shared__ float smem[];
-  float* sQ = smem;                 // [BQ][LD]
-  float* sK = sQ + BQ * LD;         // [BK][LD]; also stages pe rows
-  float* sV = sK + BK * LD;         // [BK][LD]
-  float* sP = sV + BK * LD;         // [BQ][LD] probabilities
-  float* sQPE = sP + BQ * LD;       // [BQ][qs] scaled q.pe^T
-  const int qs = qpe_stride(two_l);
+                     float* __restrict__ lse, Strides st, int H, int Tq, int Tk,
+                     int two_l, int causal, float scale) {
+  using S = ShapeOf<MASK_ONLY>;
+  constexpr int BQ = S::BQ, BK = S::BK, TS = S::TS;
+  constexpr int NB = BK / 8;     // key blocks of a tile
+  constexpr int STAGE = 2 * BK * LD;
+  // [STAGES][K, V][BK][LD], then the table [2L][TS]
+  extern __shared__ __align__(16) float smem[];
+  float* tab = smem + S::STAGES * STAGE;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + g;                       // row in the block
+  const int r0 = q0 + rl, r1 = r0 + 8;                // this thread's rows
   const int L = two_l / 2;
-  const float* qb = q + (size_t)bh * Tq * D;
-  const float* kb = k + (size_t)bh * Tk * D;
-  const float* vb = v + (size_t)bh * Tk * D;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
   const int vl = max(0, min(valid_len[b], Tk));
 
-  load_tile(sQ, qb, q0, Tq);
-  for (int m0 = 0; m0 < two_l; m0 += BK) {
-    __syncthreads();                // sQ loaded / previous chunk consumed
-    load_tile(sK, pe, m0, two_l);
-    __syncthreads();
-    float s[4][4];
-    tile_dot(sQ, sK, s, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int m = m0 + tx + 16 * bb;
-        if (m < two_l) sQPE[(ty + 16 * a) * qs + m] = s[a][bb] * scale;
-      }
-  }
-
-  float m_i[4], l_i[4], acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_i[a] = NEG_INF;
-    l_i[a] = 0.f;
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) acc[a][bb] = 0.f;
-  }
-
   int nk = (Tk + BK - 1) / BK;
-  if (vl > 0) {                     // later tiles would add exactly zero
+  if (vl > 0) {                  // later tiles would add exactly zero
     nk = min(nk, (vl + BK - 1) / BK);
     if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
   }
+  // pe tiles first: those holding the table columns the block's rows reach,
+  // clip(i - j) + L for i in [q0, q0 + BQ) and j up to the last key that a
+  // row of the block may see
+  int pe0 = 0, npe = 0;
+  if (!MASK_ONLY) {
+    const int j_last = vl == 0 ? Tk - 1 : causal ? min(vl - 1, q0 + BQ - 1) : vl - 1;
+    pe0 = (min(max(q0 - j_last, -L), L - 1) + L) / BK;
+    npe = (min(q0 + BQ - 1, L - 1) + L) / BK - pe0 + 1;
+  }
+  const int n_items = npe + nk;
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                // sK/sV/sP free, sQPE complete
-    load_tile(sK, kb, k0, Tk);
-    load_tile(sV, vb, k0, Tk);
-    __syncthreads();
-
-    float s[4][4];
-    tile_dot(sQ, sK, s, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-      const int i = q0 + r;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int j = k0 + tx + 16 * bb;
-        const int m = min(max(i - j, -L), L - 1) + L;
-        float val = fmaf(s[a][bb], scale, sQPE[r * qs + m]);
-        if (j >= vl || (causal && j > i)) val = NEG_INF;
-        if (j >= Tk) val = -INFINITY;
-        s[a][bb] = val;
-        mx = fmaxf(mx, val);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m_i[a], mx);
-      const float alpha = expf(m_i[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const float p = expf(s[a][bb] - m_new);
-        sP[r * LD + tx + 16 * bb] = p;
-        sum += p;
-      }
-      sum = row_sum(sum);
-      l_i[a] = alpha * l_i[a] + sum;
-      m_i[a] = m_new;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) acc[a][bb] *= alpha;
+  auto load_item = [&](int idx) {   // item idx -> its stage, asynchronously
+    float* dst = smem + (S::STAGES == 2 ? (idx & 1) : 0) * STAGE;
+    if (idx < npe) {
+      load_tile_async<S>(dst, pe, D, (pe0 + idx) * BK, two_l);
+    } else {
+      const int k0 = (idx - npe) * BK;
+      load_tile_async<S>(dst, kb, st.kt, k0, Tk);
+      load_tile_async<S>(dst + BK * LD, vb, st.vt, k0, Tk);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  if (S::STAGES == 2) load_item(0);
 
-#pragma unroll 8
-    for (int j = 0; j < BK; ++j) {
-      float pv[4], vv[4];
+  // q's A fragments, split once
+  unsigned qbig[KD][4], qsmall[KD][4];
+  {
+    const float* q_r0 = qb + r0 * st.qt;
+    const float* q_r1 = qb + r1 * st.qt;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pv[a] = sP[(ty + 16 * a) * LD + j];
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = 8 * kk + t;
+      const float x[4] = {r0 < Tq ? q_r0[c] : 0.f, r1 < Tq ? q_r1[c] : 0.f,
+                          r0 < Tq ? q_r0[c + 4] : 0.f, r1 < Tq ? q_r1[c + 4] : 0.f};
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) vv[bb] = sV[j * LD + tx + 16 * bb];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(pv[a], vv[bb], acc[a][bb]);
+      for (int e = 0; e < 4; ++e) split_tf32(x[e], qbig[kk][e], qsmall[kk][e]);
     }
   }
 
+  float o[KD][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= Tq) continue;
-    const float denom = fmaxf(l_i[a], 1e-30f);
-    float* o = out + ((size_t)bh * Tq + i) * D;
+  for (int n = 0; n < KD; ++n)
 #pragma unroll
-    for (int bb = 0; bb < 4; ++bb) o[tx + 16 * bb] = acc[a][bb] / denom;
-    if (tx == 0) lse[(size_t)bh * Tq + i] = m_i[a] + logf(denom);
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG, NEG};       // running max (base 2) of rows r0, r1
+  float l[2] = {0.f, 0.f};       // this thread's share of the row sums
+  float band_lo[2] = {0.f, 0.f}, band_hi[2] = {0.f, 0.f};   // table columns 0, 2L-1
+  const float c2 = scale * LOG2E;
+
+  for (int idx = 0; idx < n_items; ++idx) {
+    if (S::STAGES == 2) {        // the next item's copy overlaps this one's products
+      if (idx + 1 < n_items) {
+        load_item(idx + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      load_item(idx);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = smem + (S::STAGES == 2 ? (idx & 1) : 0) * STAGE;
+    const float* sV = sK + BK * LD;
+
+    // s = q.B^T with B the stage's first tile (pe rows or keys): block n
+    // holds columns 8n + {2t, 2t + 1} of rows r0, r1
+    float s[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        const float* kr = sK + (8 * n + g) * LD + 8 * kk + t;
+        unsigned bbig[2], bsmall[2];
+        split_tf32(kr[0], bbig[0], bsmall[0]);
+        split_tf32(kr[4], bbig[1], bsmall[1]);
+        mma_3xtf32(s[n], qbig[kk], qsmall[kk], bbig, bsmall);
+      }
+    }
+
+    if (!MASK_ONLY && idx < npe) {   // table columns m0 + 8n + 2t + (e & 1)
+      const int m0 = (pe0 + idx) * BK;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = m0 + 8 * n + 2 * t + (e & 1);
+          if (col < two_l) tab[col * TS + rl + 8 * (e >> 1)] = s[n][e] * c2;
+        }
+      __syncthreads();   // the table is complete after the last pe tile
+      continue;
+    }
+
+    const int k0 = (idx - npe) * BK;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= c2;
+    if (!MASK_ONLY) {
+      if (idx == npe) {          // columns 0 and 2L - 1, where they were built
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          band_lo[r] = pe0 == 0 ? tab[rl + 8 * r] : 0.f;
+          band_hi[r] = (pe0 + npe) * BK >= two_l ? tab[(two_l - 1) * TS + rl + 8 * r] : 0.f;
+        }
+      }
+      // i - j over this warp's rows and the tile's keys
+      const int d_min = q0 + 16 * warp - (k0 + BK - 1);
+      const int d_max = q0 + 16 * warp + 15 - k0;
+      if (d_min >= L - 1 || d_max <= -L) {   // one column per row
+        const bool hi = d_min >= L - 1;
+        const float c[2] = {hi ? band_hi[0] : band_lo[0], hi ? band_hi[1] : band_lo[1]};
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] += c[e >> 1];
+      } else if (d_min >= -L && d_max <= L - 1) {   // no clip: column d + L
+        // (g, 2t + e) of block n at column r0 + 8h - k0 - 8n - 2t - e + L,
+        // row rl + 8h (h = e >> 1): constant offsets from one base
+        const float* base = tab + (r0 - k0 - 2 * t + L) * TS + rl;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] += base[(8 * (e >> 1) - 8 * n - (e & 1)) * TS + 8 * (e >> 1)];
+      } else {
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int d = (e < 2 ? r0 : r1) - (k0 + 8 * n + 2 * t + (e & 1));
+            const int col = min(max(d, -L), L - 1) + L;
+            s[n][e] += tab[col * TS + rl + 8 * (e >> 1)];
+          }
+      }
+    }
+    if ((causal && k0 + BK - 1 > q0) || k0 + BK > vl) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + 8 * n + 2 * t + (e & 1);
+          const int i = e < 2 ? r0 : r1;
+          if (j >= vl || (causal && j > i)) s[n][e] = NEG;
+          if (j >= Tk) s[n][e] = -INFINITY;
+        }
+    }
+
+    // online softmax in base 2
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+
+    // o += p.v over key block kk, keys read in the order (2t, 2t + 1)
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      unsigned abig[4], asmall[4];
+      split_tf32(s[kk][0], abig[0], asmall[0]);
+      split_tf32(s[kk][2], abig[1], asmall[1]);
+      split_tf32(s[kk][1], abig[2], asmall[2]);
+      split_tf32(s[kk][3], abig[3], asmall[3]);
+      const float* vr = sV + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        unsigned bbig[2], bsmall[2];
+        split_tf32(vr[8 * n], bbig[0], bsmall[0]);
+        split_tf32(vr[LD + 8 * n], bbig[1], bsmall[1]);
+        mma_3xtf32(o[n], abig, asmall, bbig, bsmall);
+      }
+    }
+    __syncthreads();   // this stage is refilled
   }
+
+  const int rows[2] = {r0, r1};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (rows[r] >= Tq) continue;
+    float* orow = out + b * st.ob + h * st.oh + rows[r] * st.ot + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    // a row that saw only masked keys has the plain version's lse,
+    // -1e30 + log(sum), which -1e30 * log2 e * ln 2 would miss by ulps of 1e30
+    if (t == 0)
+      lse[(long long)bh * Tq + rows[r]] =
+          m[r] == NEG ? NEG_NAT + logf(denom) : (m[r] + log2f(denom)) * LN2;
+  }
+}
+
+// raises the kernel's dynamic shared-memory limit once per device
+template <bool MASK_ONLY>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};
+  return allow_smem_once(flash_rel_fwd_kernel<MASK_ONLY>, 0, done);
+}
+
+template <bool MASK_ONLY>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* pe,
+                   const int* valid_len, float* out, float* lse, const Strides& st,
+                   int B, int H, int Tq, int Tk, int two_l, int causal, float scale,
+                   cudaStream_t stream) {
+  using S = ShapeOf<MASK_ONLY>;
+  const cudaError_t e = allow_smem<MASK_ONLY>();
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * H, (Tq + S::BQ - 1) / S::BQ);
+  flash_rel_fwd_kernel<MASK_ONLY><<<grid, S::THREADS, smem_bytes<MASK_ONLY>(two_l),
+                                    stream>>>(q, k, v, pe, valid_len, out, lse, st, H,
+                                              Tq, Tk, two_l, causal, scale);
+  return cudaGetLastError();
+}
+
+template <bool MASK_ONLY>
+int blocks_per_sm(int two_l) {
+  int blocks = -1;
+  cudaError_t e = allow_smem<MASK_ONLY>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, flash_rel_fwd_kernel<MASK_ONLY>, ShapeOf<MASK_ONLY>::THREADS,
+        smem_bytes<MASK_ONLY>(two_l));
+  return e == cudaSuccess ? blocks : -1;
 }
 
 }  // namespace
 
-extern "C" size_t loco_flash_rel_smem_bytes(int two_l) { return smem_bytes(two_l); }
+// Dynamic shared memory of a launch.
+extern "C" size_t loco_flash_rel_smem_bytes(int two_l, int mask_only) {
+  return mask_only ? smem_bytes<true>(two_l) : smem_bytes<false>(two_l);
+}
 
-// q [B,H,Tq,64], k/v [B,H,Tk,64], pe [two_l,64] (all float32, contiguous,
-// 16-byte aligned), valid_len [B] int32 -> out [B,H,Tq,64], lse [B,H,Tq].
+// Blocks of the kernel that fit on one SM of the current device at this
+// table size (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
+extern "C" int loco_flash_rel_blocks_per_sm(int two_l, int mask_only) {
+  return mask_only ? blocks_per_sm<true>(two_l) : blocks_per_sm<false>(two_l);
+}
+
+// q [.., Tq, 64], k/v [.., Tk, 64], out [.., Tq, 64] (float32, head dim
+// contiguous, 16-byte aligned rows), addressed through strides[12] =
+// (batch, head, time) element strides of q, k, v, out in that order;
+// pe [two_l, 64] contiguous (not read when mask_only), valid_len [B] int32,
+// lse [B,H,Tq] contiguous.
 extern "C" int loco_flash_rel_fwd(const void* q, const void* k, const void* v,
-                                  const void* pe, const void* valid_len,
-                                  void* out, void* lse, int B, int H, int Tq,
-                                  int Tk, int two_l, int causal, float scale,
-                                  void* stream) {
-  const size_t smem = smem_bytes(two_l);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_rel_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_rel_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)pe,
-      (const int*)valid_len, (float*)out, (float*)lse, H, Tq, Tk, two_l,
-      causal, scale);
-  return (int)cudaGetLastError();
+                                  const void* pe, const void* valid_len, void* out,
+                                  void* lse, const long long* strides, int B, int H,
+                                  int Tq, int Tk, int two_l, int causal, int mask_only,
+                                  float scale, void* stream) {
+  const Strides st{strides[0], strides[1], strides[2], strides[3],
+                   strides[4], strides[5], strides[6], strides[7],
+                   strides[8], strides[9], strides[10], strides[11]};
+  const auto go = mask_only ? &launch<true> : &launch<false>;
+  return (int)go((const float*)q, (const float*)k, (const float*)v, (const float*)pe,
+                 (const int*)valid_len, (float*)out, (float*)lse, st, B, H, Tq, Tk, two_l,
+                 causal, scale, (cudaStream_t)stream);
 }

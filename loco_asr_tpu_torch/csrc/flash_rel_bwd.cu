@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"   // allow_smem_once
+
 namespace {
 
 constexpr int D = 64;          // head dim
@@ -394,13 +396,12 @@ extern "C" int loco_flash_rel_bwd(const void* q, const void* k, const void* v,
                                   int two_l, int causal, float scale,
                                   void* stream) {
   const size_t smem_dq = dq_smem_bytes(two_l), smem_dkv = dkv_smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_rel_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_dq);
+  // each kernel's dynamic shared-memory limit is raised to the device's
+  // opt-in maximum once per device
+  static std::atomic<unsigned long long> done_dq{0}, done_dkv{0};
+  cudaError_t e = allow_smem_once(flash_rel_bwd_dq_kernel, 0, done_dq);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(flash_rel_bwd_dkv_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_dkv);
+  e = allow_smem_once(flash_rel_bwd_dkv_kernel, 0, done_dkv);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   flash_rel_bwd_dq_kernel<<<dim3((Tq + BQ - 1) / BQ, B * H), THREADS, smem_dq, s>>>(

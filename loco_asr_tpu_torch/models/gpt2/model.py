@@ -206,7 +206,7 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
     bias = kv_valid_len = None
     if attn_impl == "flash":
         if mask is not None:
-            kv_valid_len = mask.to(torch.int32).sum(-1)
+            kv_valid_len = mask.to(torch.int32).sum(-1, dtype=torch.int32)
     else:
         pos = torch.arange(t, device=dev)
         bias = torch.where(pos[None, :] <= pos[:, None], 0.0, NEG_INF)[None, None]

@@ -2,14 +2,17 @@
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one process
 per source, all started together) and linked into one shared library with
-a plain C interface, which is loaded with ``ctypes``.  The library's file
-name carries a hash of the sources, so an edited source is rebuilt and an
-unchanged one is loaded from ``csrc/build/`` (listed in ``.gitignore``).
+a plain C interface, which is loaded with ``ctypes``.  Headers
+(``csrc/*.cuh``) are included by the sources, never compiled alone.  The
+library's file name carries a hash of the sources and headers, so an
+edited file is rebuilt and an unchanged tree is loaded from
+``csrc/build/`` (listed in ``.gitignore``).
 Nothing here runs at import time: :func:`library` builds on first use.
 
 Each C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launches; :func:`check` turns a
-non-zero code into an exception.
+non-zero code into an exception, and :func:`call_on_stream` calls an entry
+point on a device's current stream.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import tempfile
 import time
 from typing import Optional
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -35,9 +40,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu: (argtypes, restype)
 _SIGNATURES = {
-    "loco_flash_rel_fwd": ([_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _F, _P], _I),
-    "loco_flash_rel_smem_bytes": ([_I], ctypes.c_size_t),
+    "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
+    "loco_flash_rel_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "loco_flash_rel_blocks_per_sm": ([_I, _I], _I),
     "loco_flash_rel_bwd": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
     "loco_flash_rel_bwd_smem_bytes": ([_I], ctypes.c_size_t),
     "loco_conv_frontend": ([_P, _P, _P, _P, _P, _P,
@@ -72,7 +77,7 @@ def _sources():
 
 def library_path() -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libloco_kernels-{h.hexdigest()[:12]}.so")
@@ -123,6 +128,19 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def call_on_stream(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with the raw handle of ``device``'s current
+    CUDA stream, made the current device only when it is not already (a
+    launch goes to the current device).  Called with a CUDA tensor's
+    device, so CUDA is initialised."""
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(code: int, what: str) -> None:

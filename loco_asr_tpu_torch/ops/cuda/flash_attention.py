@@ -10,10 +10,12 @@ Counterpart of ``loco_asr_tpu/ops/pallas/flash_attention.py``
 
 keys ``j >= valid_len[b]`` and, when causal, ``j > i`` are masked with
 -1e30; ``out = softmax(s) v`` and ``lse = logsumexp(s)`` per query row,
-with the row sum clamped at 1e-30.  A zero 2-row ``pe`` gives the
-mask-only variant.  The backward recomputes ``p = exp(s - lse)`` with
-masked entries set to exactly 0 (so a row with no valid key gets zero
-gradients, not NaN) and ``ds = p * (g.v^T - rowsum(g * out))``.
+with the row sum clamped at 1e-30.  ``pe=None`` is the mask-only
+variant: the kernel skips the band, and the plain version and the
+backward take a zero 2-row table in its place.  The backward recomputes
+``p = exp(s - lse)`` with masked entries set to exactly 0 (so a row with
+no valid key gets zero gradients, not NaN) and
+``ds = p * (g.v^T - rowsum(g * out))``.
 
 :func:`flash_rel_forward` is differentiable through one
 ``torch.autograd.Function``: its forward is B1, its backward
@@ -21,13 +23,19 @@ gradients, not NaN) and ``ds = p * (g.v^T - rowsum(g * out))``.
 band's share of dq and dpe).  CUDA tensors launch the kernels; CPU
 tensors take the plain versions, forward and backward.  ``launches``
 on each wrapper counts kernel launches (one per B3 + B4 pair for the
-backward).  :func:`flash_attention` is the JAX package's public dispatch:
-B1 when ``rel_pe`` or ``kv_valid_len`` is given, else kernel B5
-(``flash_causal.flash_forward``).
+backward).  Under ``torch.no_grad`` / ``inference_mode``, or when no
+operand requires grad, the forward launches without the ``Function``.
+The kernel reads q, k and v through their strides (the transposed views of
+``split_heads`` and a GPT-2 layer's qkv column views, in place) and writes
+``out`` into a [B, Tq, H, 64] buffer returned as a [B, H, Tq, 64] view, so
+that merging the heads is a view too.  :func:`flash_attention` is the JAX
+package's public dispatch: B1 when ``rel_pe`` or ``kv_valid_len`` is
+given, else kernel B5 (``flash_causal.flash_forward``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +45,29 @@ from . import _build, flash_causal
 NEG_INF = -1e30
 HEAD_DIM = 64
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
+
+_CONSTANTS: dict = {}   # (kind, device, ...) -> a tensor no caller writes to
+
+
+def _constant(key, make) -> torch.Tensor:
+    """One tensor per key, made outside inference mode so that autograd may
+    save it: the zero table and the all-valid lengths of
+    :func:`flash_attention`, allocated once and not per call."""
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = make()
+    return t
+
+
+def _zero_table(d: int, dtype, device) -> torch.Tensor:
+    return _constant(("pe", d, dtype, device),
+                     lambda: torch.zeros((2, d), dtype=dtype, device=device))
+
+
+def _full_lengths(b: int, tk: int, device) -> torch.Tensor:
+    return _constant(("vl", b, tk, device),
+                     lambda: torch.full((b,), tk, dtype=torch.int32, device=device))
 
 
 def band_index(tq: int, tk: int, two_l: int, device) -> torch.Tensor:
@@ -99,14 +130,31 @@ def _check(q, k, v, pe, valid_len):
         raise ValueError(f"valid_len must be [{b}], got {tuple(valid_len.shape)}")
 
 
-def _cuda_operands(what: str, smem_fn: str, tensors):
-    """Check the float32 CUDA operands of a kernel and make them contiguous."""
-    q = tensors[0][1]
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(fn: str, *args) -> int:
+    return getattr(_build.library(), fn)(*args)
+
+
+def _check_smem(what: str, smem: int, two_l: int) -> None:
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: a rel-pos table of {two_l} rows needs {smem} B "
+                         f"of shared memory, more than the {SMEM_LIMIT} B a "
+                         "block may use")
+
+
+def _check_cuda(what: str, q: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"{what}: the CUDA kernel needs head dim {HEAD_DIM}, "
                          f"got {q.shape[-1]}")
+
+
+def _cuda_operands(what: str, tensors):
+    """Check the float32 CUDA operands of the backward and make them
+    contiguous."""
+    q = tensors[0][1]
+    _check_cuda(what, q)
     out = []
     for name, t in tensors:
         if t.dtype != torch.float32 or t.device != q.device:
@@ -116,31 +164,39 @@ def _cuda_operands(what: str, smem_fn: str, tensors):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
         out.append(t)
-    lib = _build.library()
     two_l = tensors[3][1].shape[0]
-    smem = getattr(lib, smem_fn)(two_l)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{what}: a rel-pos table of {two_l} rows needs {smem} B "
-                         f"of shared memory, more than the {SMEM_LIMIT} B a "
-                         "block may use")
-    return lib, out
+    _check_smem(what, _smem_bytes("loco_flash_rel_bwd_smem_bytes", two_l), two_l)
+    return out
 
 
-def _launch_forward(q, k, v, pe, valid_len, causal, scale):
-    lib, (q, k, v, pe) = _cuda_operands(
-        "flash_rel_forward", "loco_flash_rel_smem_bytes",
-        (("q", q), ("k", k), ("v", v), ("pe", pe)))
-    b, h, tq, _ = q.shape
+def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
+    """B1 on the current stream (counted): q, k, v read through their
+    strides, out written into a [B, Tq, H, 64] buffer and returned as a
+    [B, H, Tq, 64] view."""
+    what = "flash_rel_forward"
+    _check_cuda(what, q)
+    strides = flash_causal.operand_strides((("q", q), ("k", k), ("v", v)), 2, what)
+    if pe.dtype is not torch.float32 or pe.device != q.device:
+        raise ValueError(f"{what}: pe must be float32 on {q.device}, "
+                         f"got {pe.dtype} on {pe.device}")
+    pe = pe.contiguous()
+    if pe.data_ptr() % 16:
+        raise ValueError(f"{what}: pe must be 16-byte aligned")
+    b, h, tq, d = q.shape
+    two_l = pe.shape[0]
+    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only)),
+                two_l)
     vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.loco_flash_rel_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
-            vl.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, h, tq, k.shape[2], pe.shape[0], int(causal), float(scale), stream)
-    _build.check(code, "flash_rel_forward")
+    out = torch.empty_strided((b, h, tq, d), (tq * h * d, d, h * d, 1),
+                              dtype=torch.float32, device=q.device)
+    lse = q.new_empty((b, h, tq))
+    strides += (tq * h * d, d, h * d)
+    code = _build.call_on_stream(
+        _build.library().loco_flash_rel_fwd, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), flash_causal.stride_buffer(tuple(strides)),
+        b, h, tq, k.shape[2], two_l, int(causal), int(mask_only), float(scale))
+    _build.check(code, what)
     flash_rel_forward.launches += 1
     return out, lse
 
@@ -170,8 +226,8 @@ def flash_rel_backward_plain(q, k, v, pe, valid_len, out, lse, g, *,
 
 
 def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale):
-    lib, (q, k, v, pe, lse, delta, g) = _cuda_operands(
-        "flash_rel_backward", "loco_flash_rel_bwd_smem_bytes",
+    q, k, v, pe, lse, delta, g = _cuda_operands(
+        "flash_rel_backward",
         (("q", q), ("k", k), ("v", v), ("pe", pe), ("lse", lse),
          ("delta", delta), ("g", g)))
     b, h, tq, _ = q.shape
@@ -181,13 +237,12 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale):
     dqpe = torch.zeros((b, h, tq, two_l), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.loco_flash_rel_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
-            vl.data_ptr(), lse.data_ptr(), delta.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, tq, tk, two_l, int(causal), float(scale), stream)
+    code = _build.call_on_stream(
+        _build.library().loco_flash_rel_bwd, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
+        vl.data_ptr(), lse.data_ptr(), delta.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, tq, tk, two_l, int(causal), float(scale))
     _build.check(code, "flash_rel_backward")
     flash_rel_backward.launches += 1
     return dq, dk, dv, dqpe
@@ -224,16 +279,19 @@ def flash_rel_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_rel_backward.launches = 0
 
 
+def _forward(q, k, v, pe, valid_len, causal, scale, mask_only):
+    """The plain version for CPU tensors, the kernel for CUDA ones."""
+    if q.device.type == "cpu":
+        return flash_rel_forward_plain(q, k, v, pe, valid_len, causal=causal, scale=scale)
+    return _launch_forward(q, k, v, pe, valid_len, causal, scale, mask_only=mask_only)
+
+
 class _FlashRel(torch.autograd.Function):
     """B1 forward, B3 + B4 backward (plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pe, valid_len, causal, scale):
-        if q.device.type == "cpu":
-            out, lse = flash_rel_forward_plain(q, k, v, pe, valid_len,
-                                               causal=causal, scale=scale)
-        else:
-            out, lse = _launch_forward(q, k, v, pe, valid_len, causal, scale)
+    def forward(ctx, q, k, v, pe, valid_len, causal, scale, mask_only):
+        out, lse = _forward(q, k, v, pe, valid_len, causal, scale, mask_only)
         ctx.save_for_backward(q, k, v, pe, valid_len, out, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.mark_non_differentiable(lse)
@@ -245,20 +303,25 @@ class _FlashRel(torch.autograd.Function):
         dq, dk, dv, dpe = flash_rel_backward(
             q, k, v, pe, valid_len, out, lse, g.contiguous(), causal=ctx.causal,
             scale=ctx.scale, need_dpe=ctx.needs_input_grad[3])
-        return dq, dk, dv, dpe, None, None, None
+        return dq, dk, dv, dpe, None, None, None, None
 
 
 def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      pe: torch.Tensor, valid_len: torch.Tensor, *,
+                      pe: Optional[torch.Tensor], valid_len: torch.Tensor, *,
                       causal: bool, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [B,H,Tq,64], k/v [B,H,Tk,64], pe [2L,64], valid_len [B] int ->
-    (out [B,H,Tq,64], lse [B,H,Tq] float32).  ``out`` is differentiable in
-    q, k, v and pe (``lse`` is not)."""
+    """q [B,H,Tq,64], k/v [B,H,Tk,64], pe [2L,64] or None (mask-only),
+    valid_len [B] int -> (out [B,H,Tq,64], lse [B,H,Tq] float32).  ``out``
+    is differentiable in q, k, v and pe (``lse`` is not)."""
+    mask_only = pe is None
+    if mask_only:
+        pe = _zero_table(q.shape[-1], q.dtype, q.device)
     _check(q, k, v, pe, valid_len)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    return _FlashRel.apply(q, k, v, pe, valid_len, causal, scale)
+    if flash_causal.needs_grad(q, k, v, pe):
+        return _FlashRel.apply(q, k, v, pe, valid_len, causal, scale, mask_only)
+    return _forward(q, k, v, pe, valid_len, causal, scale, mask_only)
 
 
 flash_rel_forward.launches = 0
@@ -272,18 +335,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """[B, H, T, D] q/k/v -> [B, H, Tq, D], as the JAX package's
     ``flash_attention`` with ``causal`` and ``scale`` given: with neither
     ``rel_pe`` nor ``kv_valid_len`` it is kernel B5
-    (``flash_causal.flash_forward``); otherwise kernel B1, where a missing
-    ``rel_pe`` becomes a zero 2-row table (the mask-only variant) and a
-    missing ``kv_valid_len`` makes every key valid.  Differentiable either
-    way."""
+    (``flash_causal.flash_forward``); otherwise kernel B1, its mask-only
+    variant when ``rel_pe`` is missing, with every key valid when
+    ``kv_valid_len`` is missing (lengths made once per shape, not per
+    call).  Differentiable either way."""
     if rel_pe is None and kv_valid_len is None:
         out, _ = flash_causal.flash_forward(q, k, v, causal=causal, scale=scale)
         return out
     if kv_valid_len is None:
-        kv_valid_len = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32,
-                                  device=q.device)
-    if rel_pe is None:
-        rel_pe = torch.zeros((2, q.shape[-1]), dtype=q.dtype, device=q.device)
+        kv_valid_len = _full_lengths(q.shape[0], k.shape[2], q.device)
     out, _ = flash_rel_forward(q, k, v, rel_pe, kv_valid_len, causal=causal,
                                scale=scale)
     return out

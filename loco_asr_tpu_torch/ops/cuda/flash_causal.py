@@ -29,7 +29,9 @@ each counts its own launches in ``launches``.
 Both are differentiable through one ``torch.autograd.Function`` whose
 backward is :func:`flash_backward_blockwise`, the counterpart of the JAX
 package's XLA ``_flash_backward`` (there is no Pallas backward to port);
-``flash_backward.launches`` counts its calls on CUDA tensors.
+``flash_backward.launches`` counts its calls on CUDA tensors.  Under
+``torch.no_grad`` / ``inference_mode``, or when no operand requires grad,
+the wrappers skip the ``Function`` and launch directly.
 """
 
 from __future__ import annotations
@@ -77,34 +79,55 @@ def _check_shapes(q, k, v, t_axis: int):
     """(B, H, Tq, Tk, D) of q/k/v whose time axis is ``t_axis`` (2 for
     [B, H, T, D], 1 for [B, T, H, D])."""
     h_axis = 3 - t_axis
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    b, h, tq, d = q.shape[0], q.shape[h_axis], q.shape[t_axis], q.shape[3]
-    tk = k.shape[t_axis]
-    if k.shape[0] != b or k.shape[h_axis] != h or k.shape[3] != d:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or v.shape != ks:
+        raise ValueError(f"bad shapes q {tuple(qs)} k {tuple(ks)} v {tuple(v.shape)}")
+    b, h, tq, d = qs[0], qs[h_axis], qs[t_axis], qs[3]
+    tk = ks[t_axis]
+    if ks[0] != b or ks[h_axis] != h or ks[3] != d:
+        raise ValueError(f"bad shapes q {tuple(qs)} k {tuple(ks)}")
     if tq == 0 or tk == 0:
         raise ValueError(f"empty time axis: Tq={tq}, Tk={tk}")
     return b, h, tq, tk, d
 
 
-def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
-            what: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check the CUDA operands, allocate out (q's layout, contiguous) and
-    lse, and launch the kernel on the current stream."""
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    b, h, tq, tk, d = dims
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+_STRIDE_BUFS: dict = {}   # 12 strides -> (ctypes array, its address)
+
+
+def stride_buffer(strides: tuple) -> int:
+    """Address of a ctypes ``long long[12]`` holding ``strides``, made once
+    per distinct tuple and kept (a process meets few shapes)."""
+    buf = _STRIDE_BUFS.get(strides)
+    if buf is None:
+        if len(_STRIDE_BUFS) >= 4096:
+            _STRIDE_BUFS.clear()
+        arr = (ctypes.c_longlong * 12)(*strides)
+        buf = _STRIDE_BUFS[strides] = (arr, ctypes.addressof(arr))
+    return buf[1]
+
+
+def operand_strides(operands, t_axis: int, what: str) -> list:
+    """(batch, head, time) element strides of float32 CUDA operands on the
+    first one's device, with a contiguous head dim, strides that are
+    multiples of 4 and 16-byte aligned starts -- or a ValueError naming the
+    operand.  The common case costs one pass of attribute reads; the full
+    check, which also allows any stride on an axis of size 1 (never
+    stepped), runs only when that pass fails."""
     h_axis = 3 - t_axis
+    dev = operands[0][1].device
     strides = []
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"{what}: {name} must be float32 on {q.device}, "
+    ok = True
+    for _, t in operands:
+        s = t.stride()
+        strides += (s[0], s[h_axis], s[t_axis])
+        ok = (ok and t.dtype is torch.float32 and t.device == dev and s[3] == 1
+              and t.data_ptr() % 16 == 0)
+    if ok and not any(s % 4 for s in strides):
+        return strides
+    strides = []
+    for name, t in operands:
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{what}: {name} must be float32 on {dev}, "
                              f"got {t.dtype} on {t.device}")
         # a stride of a size-1 axis is never stepped; it may be anything
         st = tuple(0 if t.shape[a] == 1 else t.stride(a) for a in (0, h_axis, t_axis))
@@ -113,14 +136,30 @@ def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
                              f"that are multiples of 4 and a 16-byte aligned "
                              f"start, got strides {tuple(t.stride())}")
         strides.extend(st)
-    lib = _build.library()
-    c_strides = (ctypes.c_longlong * 12)(*strides)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.loco_flash_causal_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), ctypes.addressof(c_strides), b, h, tq, tk, d,
-            int(causal), float(scale), stream)
+    return strides
+
+
+def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
+            what: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the CUDA operands, allocate out (q's layout, and q's strides
+    where q is dense: a transposed view of a contiguous tensor gets the
+    same transposed layout, so merging its heads is a view) and lse, and
+    launch the kernel on the current stream."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    b, h, tq, tk, d = dims
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
+    strides = operand_strides((("q", q), ("k", k), ("v", v)), t_axis, what)
+    out = torch.empty_like(q)
+    lse = q.new_empty((b, h, tq))
+    so = out.stride()
+    strides += (so[0], so[3 - t_axis], so[t_axis])
+    code = _build.call_on_stream(
+        _build.library().loco_flash_causal_fwd, dev,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        stride_buffer(tuple(strides)), b, h, tq, tk, d, int(causal), float(scale))
     _build.check(code, what)
     return out, lse
 
@@ -178,18 +217,30 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float, t_axis: 
 flash_backward.launches = 0
 
 
+def _forward(q, k, v, dims, t_axis, causal, scale, what):
+    """The plain version for CPU tensors, the kernel (counted) for CUDA ones."""
+    if q.device.type == "cpu":
+        plain = flash_forward_plain if t_axis == 2 else flash_forward_nhd_plain
+        return plain(q, k, v, causal=causal, scale=scale)
+    out, lse = _launch(q, k, v, dims, t_axis=t_axis, causal=causal, scale=scale,
+                       what=what)
+    (flash_forward if t_axis == 2 else flash_forward_nhd).launches += 1
+    return out, lse
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd must record a call on ``tensors``: grad mode is on
+    and one of them requires grad.  Otherwise the wrappers launch directly
+    and skip the ``torch.autograd.Function``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _FlashCausal(torch.autograd.Function):
     """B5/B6 forward, blockwise PyTorch backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, dims, t_axis, causal, scale, what):
-        if q.device.type == "cpu":
-            plain = flash_forward_plain if t_axis == 2 else flash_forward_nhd_plain
-            out, lse = plain(q, k, v, causal=causal, scale=scale)
-        else:
-            out, lse = _launch(q, k, v, dims, t_axis=t_axis, causal=causal,
-                               scale=scale, what=what)
-            (flash_forward if t_axis == 2 else flash_forward_nhd).launches += 1
+        out, lse = _forward(q, k, v, dims, t_axis, causal, scale, what)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.t_axis = causal, scale, t_axis
         ctx.mark_non_differentiable(lse)
@@ -203,12 +254,18 @@ class _FlashCausal(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _dispatch(q, k, v, t_axis, causal, scale, what):
+    dims = _check_shapes(q, k, v, t_axis=t_axis)
+    if needs_grad(q, k, v):
+        return _FlashCausal.apply(q, k, v, dims, t_axis, causal, scale, what)
+    return _forward(q, k, v, dims, t_axis, causal, scale, what)
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B5: q [B,H,Tq,D], k/v [B,H,Tk,D] -> (out [B,H,Tq,D],
     lse [B,H,Tq] float32); ``out`` is differentiable (``lse`` is not)."""
-    dims = _check_shapes(q, k, v, t_axis=2)
-    return _FlashCausal.apply(q, k, v, dims, 2, causal, scale, "flash_forward")
+    return _dispatch(q, k, v, 2, causal, scale, "flash_forward")
 
 
 flash_forward.launches = 0
@@ -218,8 +275,7 @@ def flash_forward_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B6: q [B,Tq,H,D], k/v [B,Tk,H,D], read in place ->
     (out [B,Tq,H,D], lse [B,H,Tq] float32); ``out`` is differentiable."""
-    dims = _check_shapes(q, k, v, t_axis=1)
-    return _FlashCausal.apply(q, k, v, dims, 1, causal, scale, "flash_forward_nhd")
+    return _dispatch(q, k, v, 1, causal, scale, "flash_forward_nhd")
 
 
 flash_forward_nhd.launches = 0

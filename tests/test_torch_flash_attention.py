@@ -96,6 +96,62 @@ def test_wrapper_rejects_table_without_two_l_rows(rows):
                               causal=False, scale=1.0)
 
 
+def test_zero_valid_len_row_averages_over_exactly_tk():
+    """A row with valid_len 0: the port's plain version (and its kernel)
+    weighs all Tk keys equally, as the JAX dense multi_head_attention does
+    (every score -1e9), within 1e-5.  The JAX Pallas kernel pads k/v with
+    zeros to its key block (Tk 20 -> 24) and masks the padding like the
+    rest, so its empty row averages v over 24 keys: 20/24 of the port's
+    answer (loco_asr_tpu/ops/pallas/flash_attention.py:582, :619-628).
+    The port keeps the answer that depends on the inputs alone."""
+    b, h, t, d, L = 2, 2, 20, 64, 4
+    rng = np.random.default_rng(20)
+    x = (rng.standard_normal((b, t, h * d)) * 0.3).astype(np.float32)
+    w_v = (rng.standard_normal((h * d, h * d)) * (h * d) ** -0.5).astype(np.float32)
+    pe = (rng.standard_normal((2 * L, d)) * 0.3).astype(np.float32)
+    eye, zero = jnp.eye(h * d), jnp.zeros(h * d)
+    params = {"q_proj": {"kernel": eye, "bias": zero}, "k_proj": {"kernel": eye, "bias": zero},
+              "v_proj": {"kernel": jnp.asarray(w_v), "bias": zero},
+              "out_proj": {"kernel": eye, "bias": zero}}
+    vl = np.asarray([t, 0], np.int32)
+    want, _ = jattn.multi_head_attention(params, jnp.asarray(x), num_heads=h,
+                                         rel_pe=jnp.asarray(pe), rel_max=L,
+                                         kv_valid_len=jnp.asarray(vl), attn_impl="dense")
+    split = lambda y: y.reshape(b, t, h, d).transpose(0, 2, 1, 3)
+    q, k, v = split(x) * np.float32(d ** -0.5), split(x), split(x @ w_v)
+    out, _ = tfa.flash_rel_forward_plain(*map(torch.from_numpy, (q, k, v, pe, vl)),
+                                         causal=False, scale=1.0)
+    got = out.numpy().transpose(0, 2, 1, 3).reshape(b, t, h * d)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    uniform = v[1].mean(axis=1).reshape(1, h * d)   # every key weighs 1/Tk
+    np.testing.assert_allclose(got[1], np.broadcast_to(uniform, got[1].shape), **TOL)
+    jout, _ = _flash_rel_forward(*map(jnp.asarray, (q, k, v, pe, vl)), causal=False,
+                                 scale=1.0, block_q=256, block_k=128, interpret=True)
+    jout = np.asarray(jout)
+    np.testing.assert_allclose(jout[0], out.numpy()[0], **TOL)
+    np.testing.assert_allclose(jout[1], out.numpy()[1] * (20 / 24), **TOL)
+    assert np.abs(jout[1] - out.numpy()[1]).max() > 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_zero_valid_len_matches_plain():
+    """The kernel keeps the plain version's answer on rows with valid_len
+    0, with the rel band and mask-only, causal or not (lse included:
+    -1e30 + log Tk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    for L, causal in ((160, False), (160, True), (1, False), (1, True)):
+        q, k, v, pe = (torch.from_numpy(x).to(dev) for x in _qkv(90, L, seed=L))
+        vl = torch.tensor([0, 61], dtype=torch.int32, device=dev)
+        table = pe if L > 1 else None
+        with torch.no_grad():
+            out, lse = tfa.flash_rel_forward(q, k, v, table, vl, causal=causal, scale=0.125)
+        pout, plse = tfa.flash_rel_forward_plain(q, k, v, pe, vl, causal=causal, scale=0.125)
+        err = max((out - pout).abs().max().item(), (lse - plse).abs().max().item())
+        assert err <= 1e-4, f"L {L}, causal {causal}: {err}"
+
+
 def _mha_pair(d=48, heads=4, seed=0):
     rng = np.random.default_rng(seed)
     jp, module = {}, tattn.MultiHeadAttention(d, heads)
