@@ -14,8 +14,9 @@ failure raises and exits non-zero):
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
 2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
-   for B1's two kernels (rel band and mask-only), their block shapes,
-   registers, spill, shared memory at L=160 and blocks per SM;
+   for B1's two kernels and B3's and B4's two each (rel band and
+   mask-only), their block shapes, registers, spill, shared memory at
+   L=160 and blocks per SM;
 3. kernel checks, after ~0.5 s of warm-up GEMMs: each kernel against its
    plain PyTorch version on the card at the main path's shapes (B1:
    [16, 12, 249, 64], L=160, mixed valid lengths, also causal, mask-only
@@ -38,10 +39,13 @@ failure raises and exits non-zero):
    products (B1, B3-B6) at 3 flops / 495 TFLOP/s (f32 accuracy from three
    TF32 passes) with the 67 TFLOP/s term beside it; the backward: B3 + B4
    against their plain version for dq, dk, dv, dpe at the encoder's
-   [8, 12, 500, 64], L=160, two rows padded, non-causal and causal, and
-   the cross-attention's mask-only [8, 12, 160, 500] (each kernel's device
-   time from the profiler, the library column SDPA forward + backward
-   minus forward); B5's blockwise backward against autograd through its
+   [8, 12, 500, 64], L=160, two rows padded, non-causal and causal, on
+   ``split_heads`` views, with rows of valid length 0, at 160 queries x
+   500 keys with the band, and the cross-attention's mask-only
+   [8, 12, 160, 500] (each kernel's device time from the profiler, the
+   wrapper's host time at the padded and mask-only cases, dq/dk/dv checked
+   to be [B, H, T, 64] views of [B, T, H, 64] buffers, the library column
+   SDPA forward + backward minus forward); B5's blockwise backward against autograd through its
    plain version at the decoder's [8, 12, 160, 64] causal; on CUDA tensors
    that require grad, B1/B5/B6 outputs carry a grad_fn and B2 raises;
 4. encoder: full-width ``encode_speech`` at B=16 x 5 s with padded rows,
@@ -318,22 +322,17 @@ def relocate_corpus(dst: str) -> dict:
     return out
 
 
-def b1_build_records(build) -> list:
-    """ptxas registers and spill bytes of B1's two flash_rel_fwd_kernels
-    (rel band, mask-only), with their shared memory at L = 160 and the
-    blocks that fit on one SM of this card (CUDA's occupancy API)."""
-    lib, recs, cur = build.library(), [], None
+def kernel_build_records(build, pattern: str, describe, n: int) -> list:
+    """ptxas registers and spill bytes of the ``n`` kernels whose mangled
+    names match ``pattern``, each with ``describe(match)`` (its block
+    shape, shared memory and blocks an SM)."""
+    recs, cur = [], None
     for line in build.build_log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"flash_rel_fwd_kernelILb([01])E", line)
+            m = re.search(pattern, line)
             cur = None
             if m:
-                mask_only = int(m.group(1))
-                cur = dict(mask_only=bool(mask_only),
-                           shape="4 warps, 64-key tiles, 2 stages" if mask_only
-                           else "4 warps, 32-key tiles, 1 stage",
-                           smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only),
-                           blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only))
+                cur = describe(m)
                 recs.append(cur)
         elif cur is not None and "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -341,9 +340,43 @@ def b1_build_records(build) -> list:
         elif cur is not None and "Used" in line and "registers" in line:
             cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
     # a cached library was built by another process, whose log is gone
-    check(not build.build_log or len(recs) == 2,
-          f"ptxas log names {len(recs)} flash_rel_fwd_kernels, not 2")
-    return sorted(recs, key=lambda r: r["mask_only"])
+    check(not build.build_log or len(recs) == n,
+          f"ptxas log names {len(recs)} kernels matching {pattern}, not {n}")
+    return recs
+
+
+def b1_build_records(build) -> list:
+    """B1's two flash_rel_fwd_kernels (rel band, mask-only), with their
+    shared memory at L = 160 and the blocks that fit on one SM of this card
+    (CUDA's occupancy API)."""
+    lib = build.library()
+
+    def describe(m):
+        mask_only = int(m.group(1))
+        return dict(kernel="B1", mask_only=bool(mask_only),
+                    shape="4 warps, 64-key tiles, 2 stages" if mask_only
+                    else "4 warps, 32-key tiles, 1 stage",
+                    smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only),
+                    blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only))
+    return kernel_build_records(build, r"flash_rel_fwd_kernelILb([01])E", describe, 2)
+
+
+def b34_build_records(build) -> list:
+    """The same for B3's and B4's kernels (flash_rel_bwd_dq_kernel,
+    flash_rel_bwd_dkv_kernel), rel band and mask-only."""
+    lib = build.library()
+    b3 = "4 warps of 16 query rows, 32-key tiles, K double-buffered, V single"
+    b4 = "4 warps of 16 keys, 32-query tiles double-buffered, v in shared memory"
+
+    def describe(m):
+        kernel, mask_only = int(m.group(1) == "dkv"), int(m.group(2))
+        return dict(kernel=("B3", "B4")[kernel], mask_only=bool(mask_only),
+                    shape=(b3, b4)[kernel] + ("" if mask_only else
+                                              (", the q.pe table", ", the pe band")[kernel]),
+                    smem_bytes_l160=lib.loco_flash_rel_bwd_smem_bytes(320, mask_only, kernel),
+                    blocks_per_sm_l160=lib.loco_flash_rel_bwd_blocks_per_sm(320, mask_only,
+                                                                            kernel))
+    return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelILb([01])E", describe, 4)
 
 
 def b2_work(wav, c, k, f):
@@ -485,8 +518,8 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print(f"[build] {line.strip()}")
-    for rec in b1_build_records(_build):
-        print(f"[build] B1 {json.dumps(rec)}")
+    for rec in b1_build_records(_build) + b34_build_records(_build):
+        print(f"[build] {rec['kernel']} {json.dumps(rec)}")
 
     # the committed ASR corpus, with its wav.scp pointing into this checkout
     tmp_corpus = tempfile.TemporaryDirectory()
@@ -694,48 +727,70 @@ def main() -> int:
                 sdpa(q, k, v, attn_mask=mask, scale=1.0)
         return time_ms(fb) - time_ms(f)
 
-    bwd_cases = [("enc_padded", 8, 500, 500, 160, False),
-                 ("enc_causal", 8, 500, 500, 160, True),
-                 ("cross_mask_only", 8, 160, 500, 1, False)]
-    for name, b, tq, tk, L, causal in bwd_cases:
-        q, k, v = randn(b, 12, tq, 64), randn(b, 12, tk, 64), randn(b, 12, tk, 64)
-        pe = randn(2 * L, 64) if L > 1 else torch.zeros(2, 64, device=dev)
-        vl = torch.tensor([tk] * (b - 2) + [tk - 70, tk - 190], dtype=torch.int32,
-                          device=dev)
-        out, lse = fa.flash_rel_forward(q, k, v, pe, vl, causal=causal, scale=1.0)
-        gg = randn(b, 12, tq, 64, sc=1.0)
-        kw = dict(causal=causal, scale=1.0, need_dpe=L > 1)
-        got = fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw)
+    # (case, B, Tq, Tk, L (0: mask-only, as flash_attention runs the
+    # cross-attention), causal, valid lengths (None: all but two rows full),
+    # layout); "split_heads" hands q/k/v and the cotangent over as training
+    # does, views of [B, T, 768] buffers, read in place
+    bwd_cases = [("enc_padded", 8, 500, 500, 160, False, None, "bhtd"),
+                 ("enc_causal", 8, 500, 500, 160, True, None, "bhtd"),
+                 ("cross_mask_only", 8, 160, 500, 0, False, None, "bhtd"),
+                 ("strided", 8, 500, 500, 160, False, None, "split_heads"),
+                 ("vl0", 8, 500, 500, 160, False, [500] * 5 + [0, 310, 0], "bhtd"),
+                 ("tq_ne_tk", 8, 160, 500, 160, False, None, "bhtd")]
+    for name, b, tq, tk, L, causal, vls, layout in bwd_cases:
+        if layout == "split_heads":
+            q, k, v, gg = (randn(b, t, 768, sc=sc).reshape(b, t, 12, 64).transpose(1, 2)
+                           for t, sc in ((tq, 0.3), (tk, 0.3), (tk, 0.3), (tq, 1.0)))
+        else:
+            q, k, v = randn(b, 12, tq, 64), randn(b, 12, tk, 64), randn(b, 12, tk, 64)
+            gg = randn(b, 12, tq, 64, sc=1.0)
+        mask_only = L == 0
+        pe = torch.zeros(2, 64, device=dev) if mask_only else randn(2 * L, 64)
+        if vls is None:
+            vls = [tk] * (b - 2) + [tk - 70, tk - 190]
+        vl = torch.tensor(vls, dtype=torch.int32, device=dev)
+        out, lse = fa.flash_rel_forward(q, k, v, None if mask_only else pe, vl,
+                                        causal=causal, scale=1.0)
+        kw = dict(causal=causal, scale=1.0, need_dpe=not mask_only, mask_only=mask_only)
+
+        def run():
+            return fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw)
+
+        got = run()
         torch.cuda.synchronize()
         want = rel_bwd_plain(q, k, v, pe, vl, out, lse, gg, causal)
         errs = {n: (a - w).abs().max().item() for n, a, w in zip("q k v".split(), got, want)}
-        if L > 1:
+        if not mask_only:
             errs["pe"] = (got[3] - want[3]).abs().max().item() / want[3].abs().max().item()
         check(all(bool(torch.isfinite(t).all()) for t in got if t is not None),
               f"B3/B4 {name}: non-finite gradient")
         check(max(errs.values()) <= B34_TOL,
               f"B3/B4 {name}: errors {errs} > {B34_TOL} (dpe relative to its max)")
+        check(all(x.transpose(1, 2).is_contiguous() for x in got[:3]),
+              f"B3/B4 {name}: dq/dk/dv are not views of [B, T, H, 64] buffers")
+        check(mask_only == (got[3] is None), f"B3/B4 {name}: dpe {got[3] is None}")
         lib_ms = None
-        if L == 1 or causal:
+        if mask_only or causal:
             keep = (torch.arange(tk, device=dev)[None, :] < vl[:, None])[:, None, None, :]
             if causal:
                 keep = keep & (torch.arange(tk, device=dev)[None, :]
                                <= torch.arange(tq, device=dev)[:, None])
             lib_ms = sdpa_bwd_ms(q, k, v, gg, keep)
-        split = kernel_device_ms(lambda: fa.flash_rel_backward(q, k, v, pe, vl, out, lse,
-                                                               gg, **kw),
-                                 ("flash_rel_bwd_dq", "flash_rel_bwd_dkv"))
+        split = kernel_device_ms(run, ("flash_rel_bwd_dq", "flash_rel_bwd_dkv"))
         (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, causal)
-        rec = dict(kernel="B3/B4", case=name, shape=[b, 12, tq, 64], tk=tk, two_l=2 * L,
-                   causal=causal, max_abs_err=max(errs.values()), errs=errs, tol=B34_TOL,
-                   ms=time_ms(lambda: fa.flash_rel_backward(q, k, v, pe, vl, out, lse,
-                                                            gg, **kw)),
+        ms = time_ms(run)
+        rec = dict(kernel="B3/B4", case=name, shape=[b, 12, tq, 64], tk=tk,
+                   two_l=2 * L if L else "mask-only", causal=causal, layout=layout,
+                   max_abs_err=max(errs.values()), errs=errs, tol=B34_TOL, ms=ms,
                    plain_ms=time_ms(lambda: rel_bwd_plain(q, k, v, pe, vl, out, lse,
                                                           gg, causal)),
                    library_ms=lib_ms, b3_ms=split["flash_rel_bwd_dq"],
                    b4_ms=split["flash_rel_bwd_dkv"],
                    b3_bound=bound(b3b, b3f, products=True), b4_bound=bound(b4b, b4f, products=True),
                    b3_ops_ms_f32_cores=cores_ms(b3f), b4_ops_ms_f32_cores=cores_ms(b4f))
+        if name in ("enc_padded", "cross_mask_only"):   # B3, B4, delta, band matmuls
+            rec["device_ms"] = device_breakdown(run)["kernel_ms_sum"]
+            rec["host_ms"] = ms - rec["device_ms"]
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
         del q, k, v, out, gg, got, want

@@ -1,7 +1,8 @@
 // Helpers shared by the tensor-core flash kernels (csrc/flash_causal.cu,
-// csrc/flash_rel.cu): three-pass TF32 products on mma.sync, 16-byte
-// cp.async copies, quad reductions, and the once-per-device shared-memory
-// attribute.  Included, never compiled on its own.
+// csrc/flash_rel.cu, csrc/flash_rel_bwd.cu): three-pass TF32 products on
+// mma.sync, 16- and 4-byte cp.async copies, quad reductions, and the
+// once-per-device shared-memory attribute.  Included, never compiled on its
+// own.
 //
 // Three-pass TF32 products.  A float x is split into big = x rounded to
 // TF32 (to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds a
@@ -61,6 +62,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
                :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zero when !valid (for rows of
+// floats whose starts are not 16-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

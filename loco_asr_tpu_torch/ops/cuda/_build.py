@@ -43,8 +43,9 @@ _SIGNATURES = {
     "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
     "loco_flash_rel_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "loco_flash_rel_blocks_per_sm": ([_I, _I], _I),
-    "loco_flash_rel_bwd": ([_P] * 12 + [_I] * 6 + [_F, _P], _I),
-    "loco_flash_rel_bwd_smem_bytes": ([_I], ctypes.c_size_t),
+    "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
+    "loco_flash_rel_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "loco_flash_rel_bwd_blocks_per_sm": ([_I, _I, _I], _I),
     "loco_conv_frontend": ([_P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,

@@ -25,12 +25,15 @@ tensors take the plain versions, forward and backward.  ``launches``
 on each wrapper counts kernel launches (one per B3 + B4 pair for the
 backward).  Under ``torch.no_grad`` / ``inference_mode``, or when no
 operand requires grad, the forward launches without the ``Function``.
-The kernel reads q, k and v through their strides (the transposed views of
-``split_heads`` and a GPT-2 layer's qkv column views, in place) and writes
-``out`` into a [B, Tq, H, 64] buffer returned as a [B, H, Tq, 64] view, so
-that merging the heads is a view too.  :func:`flash_attention` is the JAX
-package's public dispatch: B1 when ``rel_pe`` or ``kv_valid_len`` is
-given, else kernel B5 (``flash_causal.flash_forward``).
+The kernels read q, k, v (and, backward, the cotangent) through their
+strides (the transposed views of ``split_heads`` and a GPT-2 layer's qkv
+column views, in place) and write ``out``, dq, dk and dv into [B, T, H, 64]
+buffers returned as [B, H, T, 64] views, so that merging the heads and the
+gradient of splitting them are views too.  A mask-only forward's backward
+runs the mask-only B3 + B4 and has no band gradient.
+:func:`flash_attention` is the JAX package's public dispatch: B1 when
+``rel_pe`` or ``kv_valid_len`` is given, else kernel B5
+(``flash_causal.flash_forward``).
 """
 
 from __future__ import annotations
@@ -150,23 +153,22 @@ def _check_cuda(what: str, q: torch.Tensor) -> None:
                          f"got {q.shape[-1]}")
 
 
-def _cuda_operands(what: str, tensors):
-    """Check the float32 CUDA operands of the backward and make them
-    contiguous."""
-    q = tensors[0][1]
-    _check_cuda(what, q)
-    out = []
-    for name, t in tensors:
-        if t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"{what}: {name} must be float32 on {q.device}, "
-                             f"got {t.dtype} on {t.device}")
-        t = t.contiguous()
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must be 16-byte aligned")
-        out.append(t)
-    two_l = tensors[3][1].shape[0]
-    _check_smem(what, _smem_bytes("loco_flash_rel_bwd_smem_bytes", two_l), two_l)
-    return out
+def _contiguous_f32(what: str, name: str, t: torch.Tensor, dev) -> torch.Tensor:
+    """``t`` as a contiguous, 16-byte aligned float32 tensor on ``dev``."""
+    if t.dtype is not torch.float32 or t.device != dev:
+        raise ValueError(f"{what}: {name} must be float32 on {dev}, "
+                         f"got {t.dtype} on {t.device}")
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    return t
+
+
+def _heads_view_buffer(b: int, h: int, t: int, d: int, device) -> torch.Tensor:
+    """[B, H, T, d] view of a new [B, T, H, d] buffer: the layout of
+    ``split_heads``, so merging the heads of an output, or the gradient of
+    splitting them, is a view."""
+    return torch.empty((b, t, h, d), dtype=torch.float32, device=device).transpose(1, 2)
 
 
 def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
@@ -176,21 +178,15 @@ def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
     what = "flash_rel_forward"
     _check_cuda(what, q)
     strides = flash_causal.operand_strides((("q", q), ("k", k), ("v", v)), 2, what)
-    if pe.dtype is not torch.float32 or pe.device != q.device:
-        raise ValueError(f"{what}: pe must be float32 on {q.device}, "
-                         f"got {pe.dtype} on {pe.device}")
-    pe = pe.contiguous()
-    if pe.data_ptr() % 16:
-        raise ValueError(f"{what}: pe must be 16-byte aligned")
+    pe = _contiguous_f32(what, "pe", pe, q.device)
     b, h, tq, d = q.shape
     two_l = pe.shape[0]
     _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only)),
                 two_l)
     vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_strided((b, h, tq, d), (tq * h * d, d, h * d, 1),
-                              dtype=torch.float32, device=q.device)
+    out = _heads_view_buffer(b, h, tq, d, q.device)
     lse = q.new_empty((b, h, tq))
-    strides += (tq * h * d, d, h * d)
+    strides += out.stride()[:3]
     code = _build.call_on_stream(
         _build.library().loco_flash_rel_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
@@ -225,25 +221,39 @@ def flash_rel_backward_plain(q, k, v, pe, valid_len, out, lse, g, *,
     return dq, dk, dv, dqpe
 
 
-def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale):
-    q, k, v, pe, lse, delta, g = _cuda_operands(
-        "flash_rel_backward",
-        (("q", q), ("k", k), ("v", v), ("pe", pe), ("lse", lse),
-         ("delta", delta), ("g", g)))
-    b, h, tq, _ = q.shape
+def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
+                     mask_only: bool):
+    """B3 + B4 on the current stream (counted): q, k, v and g read through
+    their strides, dq, dk, dv written into [B, T, H, 64] buffers and
+    returned as [B, H, T, 64] views, dqpe [B, H, Tq, 2L] (None when
+    ``mask_only``) written whole by B3."""
+    what = "flash_rel_backward"
+    _check_cuda(what, q)
+    strides = flash_causal.operand_strides(
+        (("q", q), ("k", k), ("v", v), ("g", g)), 2, what)
+    dev = q.device
+    pe, lse, delta = (_contiguous_f32(what, n, t, dev)
+                      for n, t in (("pe", pe), ("lse", lse), ("delta", delta)))
+    b, h, tq, d = q.shape
     tk, two_l = k.shape[2], pe.shape[0]
-    vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-    dq = torch.empty_like(q)
-    dqpe = torch.zeros((b, h, tq, two_l), dtype=torch.float32, device=q.device)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    _check_smem(what, max(_smem_bytes("loco_flash_rel_bwd_smem_bytes", two_l,
+                                      int(mask_only), kernel) for kernel in (0, 1)), two_l)
+    vl = valid_len.to(device=dev, dtype=torch.int32).contiguous()
+    dq = _heads_view_buffer(b, h, tq, d, dev)
+    dk = _heads_view_buffer(b, h, tk, d, dev)
+    dv = _heads_view_buffer(b, h, tk, d, dev)
+    dqpe = None if mask_only else torch.empty((b, h, tq, two_l), dtype=torch.float32,
+                                              device=dev)
+    for x in (dq, dk, dv):
+        strides += x.stride()[:3]
     code = _build.call_on_stream(
-        _build.library().loco_flash_rel_bwd, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
-        vl.data_ptr(), lse.data_ptr(), delta.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, tq, tk, two_l, int(causal), float(scale))
-    _build.check(code, "flash_rel_backward")
+        _build.library().loco_flash_rel_bwd, dev,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), g.data_ptr(), dq.data_ptr(),
+        0 if dqpe is None else dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        flash_causal.stride_buffer(tuple(strides)), b, h, tq, tk, two_l, int(causal),
+        int(mask_only), float(scale))
+    _build.check(code, what)
     flash_rel_backward.launches += 1
     return dq, dk, dv, dqpe
 
@@ -251,14 +261,19 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale):
 def flash_rel_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        pe: torch.Tensor, valid_len: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
-                       causal: bool, scale: float, need_dpe: bool = True
+                       causal: bool, scale: float, need_dpe: bool = True,
+                       mask_only: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                   Optional[torch.Tensor]]:
     """Gradient of :func:`flash_rel_forward`'s ``out`` under cotangent ``g``
     -> (dq, dk, dv, dpe or None).  Kernels B3 + B4 for CUDA tensors, the
     plain version for CPU tensors; the band's share of dq
     (``scale * dqpe . pe``) and ``dpe = scale * sum dqpe^T . q`` are
-    ``torch.matmul`` either way, skipped for dpe unless ``need_dpe``."""
+    ``torch.matmul`` either way, skipped for dpe unless ``need_dpe``.  With
+    ``mask_only`` (the forward ran without a table; ``pe`` is the zero
+    table) the kernels skip the band and neither matmul runs: dpe is None.
+    On the card q, k, v and g are read in place and dq, dk, dv are
+    [B, H, T, 64] views of [B, T, H, 64] buffers."""
     _check(q, k, v, pe, valid_len)
     if q.device.type == "cpu":
         dq, dk, dv, dqpe = flash_rel_backward_plain(
@@ -266,13 +281,13 @@ def flash_rel_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         delta = (g.float() * out.float()).sum(dim=-1)
         dq, dk, dv, dqpe = _launch_backward(q, k, v, pe, valid_len, lse, delta,
-                                            g, causal, scale)
-    pef = pe.float()
-    dq = dq + torch.matmul(dqpe, pef) * scale
+                                            g, causal, scale, mask_only=mask_only)
     dpe = None
-    if need_dpe:
-        dpe = torch.einsum("bhim,bhid->md", dqpe, q.float()) * scale
-        dpe = dpe.to(pe.dtype)
+    if not mask_only:
+        dq = dq.add_(torch.matmul(dqpe, pe.float()).mul_(scale))
+        if need_dpe:
+            dpe = torch.einsum("bhim,bhid->md", dqpe, q.float()) * scale
+            dpe = dpe.to(pe.dtype)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dpe
 
 
@@ -293,7 +308,7 @@ class _FlashRel(torch.autograd.Function):
     def forward(ctx, q, k, v, pe, valid_len, causal, scale, mask_only):
         out, lse = _forward(q, k, v, pe, valid_len, causal, scale, mask_only)
         ctx.save_for_backward(q, k, v, pe, valid_len, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.mask_only = causal, scale, mask_only
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -301,9 +316,20 @@ class _FlashRel(torch.autograd.Function):
     def backward(ctx, g, _g_lse):
         q, k, v, pe, valid_len, out, lse = ctx.saved_tensors
         dq, dk, dv, dpe = flash_rel_backward(
-            q, k, v, pe, valid_len, out, lse, g.contiguous(), causal=ctx.causal,
-            scale=ctx.scale, need_dpe=ctx.needs_input_grad[3])
+            q, k, v, pe, valid_len, out, lse, _kernel_layout(g), causal=ctx.causal,
+            scale=ctx.scale, need_dpe=ctx.needs_input_grad[3], mask_only=ctx.mask_only)
         return dq, dk, dv, dpe, None, None, None, None
+
+
+def _kernel_layout(g: torch.Tensor) -> torch.Tensor:
+    """The cotangent as it came when B3 + B4 can read it in place (a
+    contiguous head dim, strides that are multiples of 4, a 16-byte aligned
+    start: the [B, T, H, 64] layout that ``merge_heads`` hands back), else
+    a contiguous copy (e.g. of the stride-0 expansion of ``out.sum()``'s
+    gradient)."""
+    if g.stride(-1) == 1 and g.data_ptr() % 16 == 0 and not any(s % 4 for s in g.stride()[:-1]):
+        return g
+    return g.contiguous()
 
 
 def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

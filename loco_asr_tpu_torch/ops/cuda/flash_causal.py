@@ -91,17 +91,17 @@ def _check_shapes(q, k, v, t_axis: int):
     return b, h, tq, tk, d
 
 
-_STRIDE_BUFS: dict = {}   # 12 strides -> (ctypes array, its address)
+_STRIDE_BUFS: dict = {}   # strides -> (ctypes array, its address)
 
 
 def stride_buffer(strides: tuple) -> int:
-    """Address of a ctypes ``long long[12]`` holding ``strides``, made once
+    """Address of a ctypes ``long long`` array holding ``strides``, made once
     per distinct tuple and kept (a process meets few shapes)."""
     buf = _STRIDE_BUFS.get(strides)
     if buf is None:
         if len(_STRIDE_BUFS) >= 4096:
             _STRIDE_BUFS.clear()
-        arr = (ctypes.c_longlong * 12)(*strides)
+        arr = (ctypes.c_longlong * len(strides))(*strides)
         buf = _STRIDE_BUFS[strides] = (arr, ctypes.addressof(arr))
     return buf[1]
 
