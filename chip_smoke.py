@@ -16,21 +16,26 @@ failure raises and exits non-zero):
 2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
    for B1's two kernels and B3's and B4's two each (rel band and
    mask-only), their block shapes, registers, spill, shared memory at
-   L=160 and blocks per SM;
+   L=160 and blocks per SM; the same for B2's two kernels and B7's warp
+   kernels, with their static SASS counts where cuobjdump exists;
 3. kernel checks, after ~0.5 s of warm-up GEMMs: each kernel against its
    plain PyTorch version on the card at the main path's shapes (B1:
    [16, 12, 249, 64], L=160, mixed valid lengths, also causal, mask-only
    (the variant without the band, as ``flash_attention`` runs it), rows
    with valid length 0, on ``split_heads``-style strided views, and
    T=2048, and the cross-attention's mask-only 192 x 500, each with its
-   profiler device time and host time; B2: [16, 80000] and an odd length; B6: views of
+   profiler device time and host time; B2: [16, 80000], [8, 160000],
+   [4, 64000] and an odd length, its device time by launch (counter
+   memset, statistics, output), and ``F.conv1d`` alone (cuDNN, TF32 off)
+   as ``partial_library_ms``; B6: views of
    a qkv projection at [8, 1024, 12, 64] and [128, 27, 12, 64], causal;
    B5: [8, 25, 1024, 64] causal, [2, 12, 384, 64] non-causal, [2, 4, 100, 8]
    against 160 keys causal, the ASR decoder's [8, 12, 160, 64] causal; B7:
    a batch of 8 corpus windows of <= 10 s, [8, 160000], and [3, 16001],
    [2, 300] (numpy's repeated reflection), [2, 3, 8000], held to atol +
    rtol |plain| of 2e-4 each, and entries at the mel floor exactly; both
-   also against a float64 log-mel), max abs error against a stated
+   also against a float64 log-mel; device and host time, and
+   ``torch.stft`` alone as ``partial_library_ms``), max abs error against a stated
    tolerance, CUDA-event medians of kernel, plain version and, where one
    PyTorch call computes the same function, that call (timed as a
    yardstick only; B5/B6 also the kernel's profiler device time and the
@@ -98,6 +103,13 @@ failure raises and exits non-zero):
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
+
+    python3 chip_smoke.py --kernel-cases
+
+runs only the build and phase 3's B2 and B7 cases, and ends with one
+``{"kernel_cases": [...]}`` line.  Copied to the root of another checkout
+(an earlier commit unpacked with ``git archive``), it runs that
+checkout's B2 and B7 through the same cases and inputs.
 """
 
 from __future__ import annotations
@@ -182,8 +194,9 @@ def cores_ms(flops: float) -> float:
 KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
     ("flash_rel_fwd", "B1 flash_rel"), ("flash_causal_fwd", "B5/B6 flash_causal"),
     ("flash_rel_bwd_dq", "B3 flash_rel_bwd_dq"), ("flash_rel_bwd_dkv", "B4 flash_rel_bwd_dkv"),
-    ("logmel_kernel", "B7 logmel"), ("multi_tensor_apply", "optimizer (foreach)"),
-    ("conv_stats", "B2 conv_frontend"), ("conv_out", "B2 conv_frontend"),
+    ("logmel_", "B7 logmel"), ("multi_tensor_apply", "optimizer (foreach)"),
+    ("conv_stats_kernel", "B2 conv_frontend"), ("conv_out_kernel", "B2 conv_frontend"),
+    ("Memset", "memset"),
     ("convolve", "cuDNN conv"), ("fprop", "cuDNN conv"), ("dgrad", "cuDNN conv"),
     ("wgrad", "cuDNN conv"), ("conv", "cuDNN conv"),
     ("gemm", "GEMM"), ("Kernel2", "GEMM"), ("cutlass", "GEMM"),
@@ -275,12 +288,14 @@ def b34_work(q, k, pe, vl, causal):
     return b3, b4
 
 
-def kernel_device_ms(fn, patterns, n: int = 5) -> dict:
+def kernel_device_ms(fn, patterns, n: int = 5, optional=()) -> dict:
     """Mean device time of one launch of the kernels whose names contain
     each pattern (torch.profiler over ``n`` calls of ``fn``, which launches
     each once), divided by the launches the profiler recorded: a window
     can lose kernel records, and is profiled again (up to 3 times) when it
-    recorded none of a pattern."""
+    recorded none of a pattern.  A pattern of ``optional`` may match
+    nothing, and then counts 0."""
+    patterns = tuple(patterns) + tuple(optional)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -298,10 +313,22 @@ def kernel_device_ms(fn, patterns, n: int = 5) -> dict:
                 if p in e.key and e.device_time_total > 0:
                     total[p] += e.device_time_total / 1e3
                     count[p] += e.count
-        if all(count.values()):
+        required = [count[p] for p in patterns if p not in optional]
+        if all(required):
             break
-    check(all(count.values()), f"the profiler recorded no launch of {patterns}")
-    return {p: total[p] / count[p] for p in patterns}
+    check(all(required), f"the profiler recorded no launch of {patterns}")
+    return {p: total[p] / count[p] if count[p] else 0.0 for p in patterns}
+
+
+def warm_up(dev) -> None:
+    """~0.5 s of f32 GEMMs, so that the first timed case does not meet a
+    card that is still clocking up."""
+    import torch
+
+    warm = torch.ones(4096, 4096, device=dev)
+    for _ in range(200):
+        torch.mm(warm, warm)
+    torch.cuda.synchronize()
 
 
 def relocate_corpus(dst: str) -> dict:
@@ -323,9 +350,9 @@ def relocate_corpus(dst: str) -> dict:
 
 
 def kernel_build_records(build, pattern: str, describe, n: int) -> list:
-    """ptxas registers and spill bytes of the ``n`` kernels whose mangled
-    names match ``pattern``, each with ``describe(match)`` (its block
-    shape, shared memory and blocks an SM)."""
+    """ptxas registers, spill bytes and static shared memory of the ``n``
+    kernels whose mangled names match ``pattern``, each with
+    ``describe(match)`` (its block shape, shared memory and blocks an SM)."""
     recs, cur = [], None
     for line in build.build_log.splitlines():
         if "Compiling entry" in line:
@@ -339,6 +366,9 @@ def kernel_build_records(build, pattern: str, describe, n: int) -> list:
             cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
         elif cur is not None and "Used" in line and "registers" in line:
             cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                cur["static_smem_bytes"] = int(smem.group(1))
     # a cached library was built by another process, whose log is gone
     check(not build.build_log or len(recs) == n,
           f"ptxas log names {len(recs)} kernels matching {pattern}, not {n}")
@@ -379,12 +409,129 @@ def b34_build_records(build) -> list:
     return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelILb([01])E", describe, 4)
 
 
+def sass_counts(lib_path: str, patterns) -> dict:
+    """Static SASS instruction count of each function whose name holds one
+    of ``patterns`` (``cuobjdump -sass`` of the built library); empty where
+    the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        for pat in patterns:
+            if pat in name:
+                out[name] = len(re.findall(r"/\*[0-9a-f]{4,6}\*/\s+\S", fn))
+    return out
+
+
+def b2_b7_build_records(build) -> list:
+    """B2's two kernels and B7's warp kernels: registers and spill (ptxas),
+    shared memory and blocks an SM at the main path's shapes (CUDA's
+    occupancy API; B2's statistics at [16, 80000]'s 1024-frame chunk, B7 at
+    80 mel bins of stride 25), no clusters, and the static SASS count: for
+    B2's output kernel over the 2 x 64 outputs of a thread's two unrolled
+    bodies (full tile, edge tile; prologue included), for B7 a whole kernel."""
+    import torch
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import logmel
+
+    lib = build.library()
+    chunk = cf.stat_chunk(16, 15999, torch.cuda.get_device_properties(0).multi_processor_count)
+    stride = logmel._host_constants(16000, 1024, 1024, 80, 80.0, 7600.0)[3].shape[1]
+
+    def b2(m):
+        phase = int(m.group(1) == "out")
+        return dict(kernel="B2", phase=("statistics", "output")[phase],
+                    shape=(f"256 threads, {chunk}-frame chunks at [16, 80000]",
+                           "8 warps x 16 channels x 4 frames a thread, 128-frame tiles")[phase],
+                    dynamic_smem_bytes=((chunk * 5 + 5) * 4, 0)[phase], cluster=None,
+                    blocks_per_sm=lib.loco_conv_frontend_blocks_per_sm(phase, chunk))
+
+    def b7(m):
+        log2_m = int(m.group(1))
+        return dict(kernel="B7", m=1 << log2_m, shape="8 warps, a warp a frame, persistent",
+                    smem_bytes_80_mels=lib.loco_logmel_smem_bytes(log2_m, 80, stride),
+                    blocks_per_sm_80_mels=lib.loco_logmel_blocks_per_sm(log2_m, 80, stride),
+                    cluster=None)
+
+    recs = (kernel_build_records(build, r"conv_(stats|out)_kernel", b2, 2)
+            + kernel_build_records(build, r"logmel_warp_kernelILi(\d)E", b7, 5))
+    sass = sass_counts(build.library_path(), ("conv_out_kernel", "logmel_warp_kernelILi9E"))
+    for name, n in sass.items():
+        if "conv_out_kernel" in name:
+            recs.append(dict(kernel="B2", sass_instructions_output_kernel=n,
+                             sass_per_output=n / 128))
+        else:
+            recs.append(dict(kernel="B7", sass_instructions_m512=n))
+    return recs
+
+
 def b2_work(wav, c, k, f):
     b = wav.shape[0]
     nbytes = 4 * (wav.numel() + c * k + 2 * c + b * c * f)
     # conv (2K), folded affine (2) and GELU (~4) per output, tap statistics
     flops = b * c * f * (2 * k + 6) + 2 * b * f * (k + k * (k + 1) // 2)
     return nbytes, flops
+
+
+B2_CASES = (("main", 16, 80000), ("s2s", 8, 160000), ("pipeline", 4, 64000),
+            ("odd", 3, 23457))
+
+
+def b2_case_checks(cf, smi: str) -> list:
+    """B2 (module ``cf``) at the encoder's [16, 80000], s2s_forward's
+    [8, 160000], the extraction pipeline's --batch_size 4 and an odd length
+    (inputs from their own seed), each against its plain version;
+    CUDA-event time, and device time as the sum of its launches (statistics,
+    output and, where the wrapper zeroes a counter first, the memset),
+    beside ``F.conv1d`` alone."""
+    import torch
+
+    g = torch.Generator().manual_seed(2)
+
+    def randn(*shape, sc=0.3):
+        return (torch.randn(*shape, generator=g) * sc).cuda()
+
+    conv1d = torch.nn.functional.conv1d
+    recs = []
+    for name, b, t in B2_CASES:
+        wav = randn(b, t, sc=0.1)
+        w, sc, bi = randn(512, 1, 10), randn(512, sc=0.2) + 1.0, randn(512, sc=0.1)
+
+        def run():
+            return cf.conv1_instance_norm_gelu(wav, w, sc, bi)
+
+        out = run()
+        torch.cuda.synchronize()
+        pout = cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi)
+        f = (t - 10) // 5 + 1
+        check(tuple(out.shape) == (b, 512, f), f"B2 {name}: shape {tuple(out.shape)}")
+        err = (out - pout).abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"B2 {name}: non-finite output")
+        check(err <= B2_TOL, f"B2 {name}: max abs err {err} > {B2_TOL}")
+        del out, pout
+        nbytes, flops = b2_work(wav, 512, 10, f)
+        bms, by = bound(nbytes, flops)
+        ms = time_ms(run)
+        split = kernel_device_ms(run, ("conv_stats", "conv_out"), optional=("Memset",))
+        dev_ms = sum(split.values())
+        recs.append(dict(
+            kernel="B2", case=name, shape=[b, t], max_abs_err=err, tol=B2_TOL, ms=ms,
+            device_ms=dev_ms, host_ms=ms - dev_ms, memset_ms=split["Memset"],
+            stats_ms=split["conv_stats"], out_ms=split["conv_out"],
+            plain_ms=time_ms(lambda: cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi)),
+            library_ms=None,
+            partial_library_ms=time_ms(lambda: conv1d(wav[:, None], w, stride=5)),
+            bound_ms=bms, bound_by=by, bound_share=bms / ms, device_bound_share=bms / dev_ms,
+            card=smi))
+        del wav
+    return recs
 
 
 def causal_work(b, h, tq, tk, d, causal):
@@ -426,6 +573,91 @@ def log_mel_f64(wav):
     bank = torch.from_numpy(audio.mel_filter_bank(513, 80, 80.0, 7600.0, 16000))
     mag = torch.fft.rfft(audio.frame_signal(wav.double(), 1024, 256) * window, dim=-1).abs()
     return torch.log10(torch.clamp(mag @ bank.double().to(wav.device), min=1e-10))
+
+
+def f64_error(out, ref) -> dict:
+    """Max and mean abs error of a float32 log-mel against the float64 one,
+    and the worst entry: where it lies ([.., frame, mel bin]), its float64
+    value, the error in ulps of the float32 output there, and the mel
+    energy (10 ** value)."""
+    diff = (out.double() - ref).abs()
+    flat = int(diff.argmax())
+    where = [int(x) for x in np.unravel_index(flat, tuple(diff.shape))]
+    val = ref.reshape(-1)[flat].item()
+    return dict(max=diff.max().item(), mean=diff.mean().item(), at=where, ref=val,
+                ulps=diff.max().item() / float(np.spacing(np.float32(abs(val)))),
+                energy=10.0 ** val)
+
+
+def b7_case_checks(logmel, win_wav, smi: str) -> list:
+    """B7 (module ``logmel``) on 8 corpus windows [8, 160000], an odd length,
+    rows shorter than the reflect pad and leading dims (inputs from their own
+    seed): against its plain version (atol + rtol |plain| of 2e-4, entries at
+    the mel floor exactly) and, with the plain version beside it, against a
+    float64 log-mel (:func:`f64_error`); CUDA-event, device and host time,
+    beside ``torch.stft`` alone."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=g) * 0.1).to(dev)
+
+    recs = []
+    b7_cases = [("corpus_10s", torch.from_numpy(win_wav).to(dev)),
+                ("odd", randn(3, 16001)), ("short_300", randn(2, 300)),
+                ("lead_dims", randn(2, 3, 8000))]
+    for name, wav in b7_cases:
+        out = logmel.fused_log_mel(wav)
+        torch.cuda.synchronize()
+        pout = logmel.fused_log_mel_plain(wav)
+        n_frames = 1 + wav.shape[-1] // 256
+        check(tuple(out.shape) == (*wav.shape[:-1], n_frames, 80), f"B7 {name}: shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"B7 {name}: non-finite output")
+        diff = (out - pout).abs()
+        err = diff.max().item()
+        excess = (diff - B7_TOL * (1.0 + pout.abs())).max().item()
+        floor = pout == torch.log10(torch.tensor(1e-10, device=dev))   # all-zero frames
+        check(torch.equal(out[floor], pout[floor]), f"B7 {name}: entries at the mel floor differ")
+        check(excess <= 0.0, f"B7 {name}: |err| exceeds atol + rtol |plain| ({B7_TOL} each) "
+                             f"by {excess}; max abs err {err}")
+        ref = log_mel_f64(wav)
+        vs_f64 = {"kernel": f64_error(out, ref), "plain": f64_error(pout, ref)}
+        rows = wav.numel() // wav.shape[-1]
+        consts = logmel._constants(dev, 16000, 1024, 1024, 80, 80.0, 7600.0)
+        nbytes, flops = b7_work(rows, wav.shape[-1], n_frames, 80, consts)
+        bms, by = bound(nbytes, flops)
+        ms = time_ms(lambda: logmel.fused_log_mel(wav))
+        dev_ms = kernel_device_ms(lambda: logmel.fused_log_mel(wav), ("logmel_",))["logmel_"]
+        # torch.stft alone (cuFFT with its reflect pad and window), a part
+        # of B7's function, on the same frames; it refuses a reflect pad
+        # longer than the row
+        stft_ms = stft_dev_ms = None
+        if wav.shape[-1] > 512:
+            rows2d = wav.reshape(-1, wav.shape[-1])
+            hann = torch.hann_window(1024, periodic=True, device=dev)
+
+            def stft():
+                return torch.stft(rows2d, 1024, 256, window=hann, center=True,
+                                  pad_mode="reflect", return_complex=True)
+            stft_ms = time_ms(stft)
+            stft_dev_ms = device_breakdown(stft)["kernel_ms_sum"]
+        rec = dict(kernel="B7", case=name, shape=list(wav.shape), max_abs_err=err,
+                   tol=f"atol {B7_TOL} + rtol {B7_TOL}", worst_excess=excess,
+                   floor_entries=int(floor.sum()), vs_f64=vs_f64,
+                   ms=ms, device_ms=dev_ms, host_ms=ms - dev_ms,
+                   plain_ms=time_ms(lambda: logmel.fused_log_mel_plain(wav)),
+                   library_ms=None, partial_library_ms=stft_ms,
+                   partial_library_device_ms=stft_dev_ms,
+                   bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   device_bound_share=bms / dev_ms,
+                   bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   flops=flops, ops_ms=flops / F32_FLOP_PER_S * 1e3, card=smi)
+        recs.append(rec)
+        del out, pout
+    return recs
+
 
 
 def corpus_windows(data_dir: str, n: int, seconds: float = 10.0):
@@ -518,7 +750,8 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print(f"[build] {line.strip()}")
-    for rec in b1_build_records(_build) + b34_build_records(_build):
+    for rec in (b1_build_records(_build) + b34_build_records(_build)
+                + b2_b7_build_records(_build)):
         print(f"[build] {rec['kernel']} {json.dumps(rec)}")
 
     # the committed ASR corpus, with its wav.scp pointing into this checkout
@@ -527,13 +760,7 @@ def main() -> int:
     win_wav, win_lengths, win_texts = corpus_windows(corpus["train"], 8)
 
     # -- 3. kernel checks -------------------------------------------------
-    # ~0.5 s of f32 GEMMs first, so that the first timed case does not
-    # meet a card that is still clocking up
-    warm = torch.ones(4096, 4096, device=dev)
-    for _ in range(200):
-        torch.mm(warm, warm)
-    torch.cuda.synchronize()
-    del warm
+    warm_up(dev)
     g = torch.Generator().manual_seed(0)
 
     def randn(*shape, sc=0.3):
@@ -594,61 +821,13 @@ def main() -> int:
         print(f"[kernels] {json.dumps(rec)}")
         del q, k, v, out, pout
 
-    for name, b, t in (("main", 16, 80000), ("odd", 3, 23457)):
-        wav = randn(b, t, sc=0.1)
-        w, sc, bi = randn(512, 1, 10), randn(512, sc=0.2) + 1.0, randn(512, sc=0.1)
-        out = cf.conv1_instance_norm_gelu(wav, w, sc, bi)
-        torch.cuda.synchronize()
-        pout = cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi)
-        f = (t - 10) // 5 + 1
-        check(tuple(out.shape) == (b, 512, f), f"B2 {name}: shape {tuple(out.shape)}")
-        err = (out - pout).abs().max().item()
-        check(bool(torch.isfinite(out).all()), f"B2 {name}: non-finite output")
-        check(err <= B2_TOL, f"B2 {name}: max abs err {err} > {B2_TOL}")
-        nbytes, flops = b2_work(wav, 512, 10, f)
-        bms, by = bound(nbytes, flops)
-        rec = dict(kernel="B2", case=name, shape=[b, t], max_abs_err=err, tol=B2_TOL,
-                   ms=time_ms(lambda: cf.conv1_instance_norm_gelu(wav, w, sc, bi)),
-                   plain_ms=time_ms(lambda: cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi)),
-                   library_ms=None, bound_ms=bms, bound_by=by)
+    for rec in b2_case_checks(cf, smi):
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
-        del out, pout
 
-    b7_cases = [("corpus_10s", torch.from_numpy(win_wav).to(dev)),
-                ("odd", randn(3, 16001, sc=0.1)), ("short_300", randn(2, 300, sc=0.1)),
-                ("lead_dims", randn(2, 3, 8000, sc=0.1))]
-    for name, wav in b7_cases:
-        out = logmel.fused_log_mel(wav)
-        torch.cuda.synchronize()
-        pout = logmel.fused_log_mel_plain(wav)
-        n_frames = 1 + wav.shape[-1] // 256
-        check(tuple(out.shape) == (*wav.shape[:-1], n_frames, 80), f"B7 {name}: shape {tuple(out.shape)}")
-        check(bool(torch.isfinite(out).all()), f"B7 {name}: non-finite output")
-        diff = (out - pout).abs()
-        err = diff.max().item()
-        excess = (diff - B7_TOL * (1.0 + pout.abs())).max().item()
-        floor = pout == torch.log10(torch.tensor(1e-10, device=dev))   # all-zero frames
-        check(torch.equal(out[floor], pout[floor]), f"B7 {name}: entries at the mel floor differ")
-        check(excess <= 0.0, f"B7 {name}: |err| exceeds atol + rtol |plain| ({B7_TOL} each) "
-                             f"by {excess}; max abs err {err}")
-        ref = log_mel_f64(wav)
-        vs_f64 = {"kernel": (out - ref).abs().max().item(), "plain": (pout - ref).abs().max().item()}
-        rows = wav.numel() // wav.shape[-1]
-        consts = logmel._constants(dev, 16000, 1024, 1024, 80, 80.0, 7600.0)
-        nbytes, flops = b7_work(rows, wav.shape[-1], n_frames, 80, consts)
-        bms, by = bound(nbytes, flops)
-        ms = time_ms(lambda: logmel.fused_log_mel(wav))
-        rec = dict(kernel="B7", case=name, shape=list(wav.shape), max_abs_err=err,
-                   tol=f"atol {B7_TOL} + rtol {B7_TOL}", worst_excess=excess,
-                   floor_entries=int(floor.sum()), max_abs_err_vs_f64=vs_f64,
-                   ms=ms, plain_ms=time_ms(lambda: logmel.fused_log_mel_plain(wav)),
-                   library_ms=None, bound_ms=bms, bound_by=by, bound_share=bms / ms,
-                   bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                   flops=flops, ops_ms=flops / F32_FLOP_PER_S * 1e3)
+    for rec in b7_case_checks(logmel, win_wav, smi):
         checks.append(rec)
         print(f"[kernels] {json.dumps(rec)}")
-        del out, pout
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     tr = lambda x: x.transpose(1, 2)   # [B, T, H, D] <-> [B, H, T, D] view
@@ -1293,7 +1472,8 @@ def main() -> int:
                     ms=main_rec["ms"], kernel_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
                     device_ms=main_rec.get("device_ms"),
                     bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
-                    library_ms=main_rec["library_ms"])
+                    library_ms=main_rec["library_ms"],
+                    partial_library_ms=main_rec.get("partial_library_ms"))
 
     def bwd_entry(name, replaces, tpu_kernel, which):
         """B3 or B4 at the encoder's padded case: its own device time; the
@@ -1340,5 +1520,37 @@ def main() -> int:
     return 0
 
 
+def kernel_cases_main() -> int:
+    """``--kernel-cases``: the build, then phase 3's B2 and B7 cases alone
+    (:func:`b2_case_checks`, :func:`b7_case_checks`) with the
+    ``loco_asr_tpu_torch`` beside this file.  A copy of this file placed at
+    the root of another checkout runs that checkout's B2 and B7 through the
+    same cases and inputs (their wrappers' signatures are unchanged)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from loco_asr_tpu_torch.ops.cuda import _build
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import logmel
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[env] nvidia-smi: {smi}; kernels of {os.path.relpath(cf.__file__)}")
+    _build.build()
+    _build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        win_wav = corpus_windows(relocate_corpus(tmp)["train"], 8)[0]
+    warm_up(torch.device("cuda"))
+    recs = b2_case_checks(cf, smi) + b7_case_checks(logmel, win_wav, smi)
+    for rec in recs:
+        print(f"[kernels] {json.dumps(rec)}")
+    print(json.dumps({"kernel_cases": recs}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(kernel_cases_main() if sys.argv[1:] == ["--kernel-cases"] else main())

@@ -46,11 +46,13 @@ _SIGNATURES = {
     "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
     "loco_flash_rel_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "loco_flash_rel_bwd_blocks_per_sm": ([_I, _I, _I], _I),
-    "loco_conv_frontend": ([_P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
+    "loco_conv_frontend_blocks_per_sm": ([_I, _I], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _P], _I),
-    "loco_logmel": ([_P] * 6 + [_I] * 9 + [_F, _P], _I),
+    "loco_logmel": ([_P] * 6 + [_I] * 12 + [_F, _P], _I),
+    "loco_logmel_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "loco_logmel_blocks_per_sm": ([_I, _I, _I], _I),
     "loco_error_string": ([_I], ctypes.c_char_p),
 }
 

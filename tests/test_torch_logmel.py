@@ -92,9 +92,18 @@ def test_kernel_constants_rebuild_the_dense_bank(num_mel_bins, fft_length):
         rebuilt[lo:lo + n, j] = weights[j, :n]
         assert not weights[j, n:].any()
     np.testing.assert_array_equal(rebuilt, dense)
-    k = np.arange(fft_length // 2 + 1)
-    w = np.exp(-2j * np.pi * k / fft_length)
-    np.testing.assert_array_equal(twiddle, np.stack([w.real, w.imag], -1).astype(np.float32))
+    # the twiddle table: each FFT pass (r, p) holds W_{rp}^{s k} at
+    # p - 1 + (s - 1) p + k, then the post-pass's W_N^k, k = 0..N/2, at N/2 - 1
+    m = fft_length // 2
+    assert twiddle.shape == (2 * m, 2)
+    for r, p in lm.fft_plan(m):
+        s_, k = np.meshgrid(np.arange(1, r), np.arange(p), indexing="ij")
+        w = np.exp(-2j * np.pi * s_ * k / (r * p)).ravel()
+        np.testing.assert_array_equal(twiddle[p - 1:p - 1 + (r - 1) * p],
+                                      np.stack([w.real, w.imag], -1).astype(np.float32))
+    w = np.exp(-2j * np.pi * np.arange(m + 1) / fft_length)
+    np.testing.assert_array_equal(twiddle[m - 1:],
+                                  np.stack([w.real, w.imag], -1).astype(np.float32))
     np.testing.assert_array_equal(window, jaudio.hann_window(fft_length).astype(np.float32))
     assert ranges[:, 1].sum() <= 2 * (fft_length // 2 + 1)   # a bin lies in <= 2 triangles
 
