@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``loco_asr_tpu_torch/csrc/`` and drives the
-port's four main paths at full width with random weights made from a
+port's five main paths at full width with random weights made from a
 seed: SpeechT5-base speech-encoder embedding extraction, GPT-2 perplexity
 scoring (``eval_ppl --attn_impl flash``), SpeechT5-base ASR fine-tuning
-(``train_asr --attn_impl flash``) and SpeechT5 TTS / voice conversion with
-the HiFi-GAN vocoder and the log-mel front end.  Phases, in order (any
-failure raises and exits non-zero):
+(``train_asr --attn_impl flash``), SpeechT5 TTS / voice conversion with
+the HiFi-GAN vocoder and the log-mel front end, and ASR decoding with
+GPT-2 shallow fusion and conversation carry-over (``decode_asr``).
+Phases, in order (any failure raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
@@ -99,7 +100,30 @@ failure raises and exits non-zero):
    device time of a 25-step synthesis + vocoder by kernel group; once more
    at the default threshold (lengths multiples of r, <= maxlen r); (c)
    copy synthesis ``hifigan(fused_log_mel(wav))`` of the 8 windows;
-12. summary: one ``{"kernels": [...]}`` line, then last
+12. ASR decoding (``SpeechT5Config(vocab_size=256)`` and GPT-2 at gpt2
+   widths with vocabulary 256, fusion weight 0.3): (a) ``greedy_decode``
+   and ``beam_search`` (K = 5, 200 steps) of the 8 corpus windows, kernel
+   path against plain path: launch counts of one encode + decode (12 B1,
+   1 B2, none else), encoder outputs within 1e-3 (max) and 1e-4 (mean),
+   greedy tokens equal, each beam row's step-by-step choices equal with
+   scores within 1e-4 (atol + rtol) or parting at a near-tie (the two
+   candidates within 1e-3 of each other in the plain path's own scores,
+   and within 1e-3 between the paths; listed), ms per step and RTFx, the
+   device time by kernel group and busy share of 25-step greedy and beam
+   windows, peak memory; one dev recording of 10 utterances through
+   ``ConversationContext`` (``max_positions=256``, two or more
+   refreshes), kernel path against plain path; (b) ``encode_speech`` of
+   dev utterances at the pipeline's batch shapes ([8, 16000] and the
+   batcher's admission buckets [4 | 2 | 1, 16000]), kernel path against
+   plain path within 1e-3 (max) and 1e-4 (mean); ``decode_asr`` on the
+   dev corpus (12 recordings, 120 utterances of <= 1 s, ``--max_seconds
+   1`` so that static batches and the batcher pad alike) with a seeded
+   gpt2-width LM ``.npz``, in six modes (static greedy and beam 5, ``--continuous`` greedy and beam 5,
+   ``--continuous --conversation`` greedy and beam 5): 120 hyp.text lines,
+   a finite wer.json, continuous hypotheses equal to static ones, B1/B2
+   launches, RTFx and wall seconds per mode;
+13. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+   ``decode_launches`` of phase 12), then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -114,6 +138,7 @@ checkout's B2 and B7 through the same cases and inputs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -145,6 +170,9 @@ GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3
 PPL_RTOL = 1e-4
 B7_TOL = 2e-4         # atol and rtol, the JAX package's own fused_log_mel test
 TTS_TOL = 1e-3        # teacher-forced mels / stop logits, kernel vs plain path
+DECODE_SCORE_TOL = 1e-4   # beam scores, kernel path vs plain path (atol and rtol)
+DECODE_TIE_ATOL = 1e-3    # a beam near-tie: the parting candidates' gap and drift
+ENC_MAX_TOL, ENC_MEAN_TOL = 1e-3, 1e-4   # encoder output, kernel path vs plain path
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -705,6 +733,353 @@ def write_slurp(root: str, n: int, seed: int) -> list:
     return lengths
 
 
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+    from loco_asr_tpu_torch.ops.cuda import logmel
+
+    return {"B1": fa.flash_rel_forward.launches, "B2": cf.conv1_instance_norm_gelu.launches,
+            "B3/B4": fa.flash_rel_backward.launches, "B5": fc.flash_forward.launches,
+            "B5_bwd": fc.flash_backward.launches, "B6": fc.flash_forward_nhd.launches,
+            "B7": logmel.fused_log_mel.launches}
+
+
+def reset_all_launches() -> None:
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+    from loco_asr_tpu_torch.ops.cuda import logmel
+
+    for fn in (fa.flash_rel_forward, cf.conv1_instance_norm_gelu, fa.flash_rel_backward,
+               fc.flash_forward, fc.flash_backward, fc.flash_forward_nhd,
+               logmel.fused_log_mel):
+        fn.launches = 0
+
+
+def save_gpt2_npz(model, path: str) -> None:
+    """The GPT-2 weights as a flat .npz in the JAX package's key layout
+    (dense ``kernel``, norm ``scale``), which ``decode_asr --lm_checkpoint``
+    reads through the weight bridge."""
+    flat = {}
+    for key, value in model.state_dict().items():
+        parts = key.split(".")
+        if parts[-1] == "weight" and parts[0] not in ("wte", "wpe"):
+            parts[-1] = "scale" if parts[-2].startswith("ln_") else "kernel"
+        flat[".".join(parts)] = value.cpu().numpy()
+    np.savez(path, **flat)
+
+
+@contextlib.contextmanager
+def counted_decode_steps():
+    """Count the ASR decoder steps that the decode loops run inside (their
+    calls of ``asr_decode_step``)."""
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+
+    steps, step = [], st5.asr_decode_step
+    st5.asr_decode_step = lambda *a, **kw: steps.append(1) or step(*a, **kw)
+    try:
+        yield steps
+    finally:
+        st5.asr_decode_step = step
+
+
+def same_tokens(a, b, what: str) -> None:
+    a, b = np.asarray(a), np.asarray(b)
+    if not np.array_equal(a, b):
+        first = np.argwhere(a != b)[0].tolist()
+        raise RuntimeError(f"check failed: {what}: kernel and plain paths' tokens differ "
+                           f"first at {first} ({a[tuple(first)]} vs {b[tuple(first)]})")
+
+
+@contextlib.contextmanager
+def beam_trace():
+    """Record, for every step of the beam searches run inside, the top K+1
+    candidate scores and flat indices ([B, K+1] each, left on the device).
+    The search's own top-k is the first K of the same sort, so its result
+    is unchanged."""
+    from loco_asr_tpu_torch.decode import beam as beam_mod
+
+    trace, top_k = [], beam_mod.top_k_lower_first
+
+    def recording(x, k):
+        vals, idx = top_k(x, k + 1)
+        trace.append((vals, idx))
+        return vals[..., :k], idx[..., :k]
+
+    beam_mod.top_k_lower_first = recording
+    try:
+        yield trace
+    finally:
+        beam_mod.top_k_lower_first = top_k
+
+
+def beam_agreement(kern: dict, plain: dict):
+    """The kernel path's beam search against the plain path's, row by row,
+    over the top K+1 candidates traced at every step.  Until a row's K
+    chosen candidates first differ (or to the end), their scores agree
+    within DECODE_SCORE_TOL (atol + rtol |plain|: the sums reach ~1e3,
+    where float32's spacing is 6e-5), and a row that never parts gives the
+    same hypotheses and lengths, and final scores within that tolerance.
+    A row that parts at step t must part at a near-tie: the candidate that
+    the kernel path ranks j lies within DECODE_TIE_ATOL below the plain
+    path's rank-j candidate in the plain path's own scores, and every
+    candidate traced on both paths at step t differs by at most
+    DECODE_TIE_ATOL between them.  Returns ([[row, step, rank, gap,
+    drift]], the largest score difference over the compared steps)."""
+    import torch
+
+    k = kern["hyp"].scores.shape[1]
+    kt = [(vals.cpu(), idx.cpu()) for vals, idx in kern["trace"]]
+    pt = [(vals.cpu(), idx.cpu()) for vals, idx in plain["trace"]]
+    ties, score_err = [], 0.0
+    for b in range(kern["hyp"].scores.shape[0]):
+        step = None
+        for t in range(min(len(kt), len(pt))):
+            (kv, ki), (pv, pi) = kt[t], pt[t]
+            if not torch.equal(ki[b, :k], pi[b, :k]):
+                step = t
+                break
+            err = (kv[b, :k] - pv[b, :k]).abs()
+            check(bool((err <= DECODE_SCORE_TOL * (1 + pv[b, :k].abs())).all()),
+                  f"beam row {b} step {t} scores: kernel vs plain max abs {err.max().item()}")
+            score_err = max(score_err, err.max().item())
+        if step is None:
+            for name in ("tokens", "lengths"):
+                same_tokens(getattr(kern["hyp"], name)[b].cpu(),
+                            getattr(plain["hyp"], name)[b].cpu(), f"beam row {b} {name}")
+            got, ref = kern["hyp"].scores[b].cpu(), plain["hyp"].scores[b].cpu()
+            err = (got - ref).abs()
+            check(bool((err <= DECODE_SCORE_TOL * (1 + ref.abs())).all()),
+                  f"beam row {b} scores: kernel vs plain max abs {err.max().item()}")
+            score_err = max(score_err, err.max().item())
+            continue
+        (kv, ki), (pv, pi) = kt[step], pt[step]
+        rank = next(j for j in range(k) if ki[b, j] != pi[b, j])
+        at = (pi[b] == ki[b, rank]).nonzero()
+        check(len(at) == 1, f"beam row {b} parts from the plain path at step {step} rank "
+              f"{rank} on a candidate outside the plain path's top {k + 1}")
+        gap = (pv[b, rank] - pv[b, int(at[0])]).item()
+        drift = max(abs(kv[b, j].item() - pv[b, int((pi[b] == ki[b, j]).nonzero()[0])].item())
+                    for j in range(k + 1) if bool((pi[b] == ki[b, j]).any()))
+        check(gap <= DECODE_TIE_ATOL and drift <= DECODE_TIE_ATOL,
+              f"beam row {b} parts from the plain path at step {step} rank {rank} where the "
+              f"plain path's candidates lie {gap} apart and the paths' scores {drift}: "
+              f"not a near-tie")
+        ties.append([b, step, rank, gap, drift])
+    return ties, score_err
+
+
+def encoder_error(hid, ref, frame_mask, what: str):
+    """(max, mean) abs difference of two encoder outputs over valid frames,
+    checked against ENC_MAX_TOL / ENC_MEAN_TOL."""
+    diff = (hid - ref).abs()[frame_mask.bool()]
+    err = (diff.max().item(), diff.mean().item())
+    check(err[0] <= ENC_MAX_TOL and err[1] <= ENC_MEAN_TOL,
+          f"{what}: kernel vs plain encoder max {err[0]}, mean {err[1]}")
+    return err
+
+
+def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
+    """Phase 12: ASR decoding with GPT-2 shallow fusion and carry-over.
+    Returns the B1/B2 launches of the ``decode_asr`` runs."""
+    import torch
+
+    from loco_asr_tpu_torch.data.asr_dataset import KaldiAsrDataset
+    from loco_asr_tpu_torch.decode import ConversationContext, FusionLM, beam_search, greedy_decode
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.pipelines import decode_asr
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SpeechT5Config(vocab_size=256)
+    model = st5.asr_model_init(cfg, seed=0, device=dev)
+    lm_model = gm.gpt2_init(dataclasses.replace(gm.PRESETS["gpt2"], vocab_size=256), seed=1,
+                            device=dev)
+    lm = FusionLM(lm_model, weight=0.3)
+    wav = torch.from_numpy(win_wav).to(dev)
+    mask = (torch.arange(wav.shape[1], device=dev)[None, :]
+            < torch.tensor(win_lengths, device=dev)[:, None]).to(torch.int32)
+    audio_s = sum(win_lengths) / 16000.0
+    k, max_len = 5, 200
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # (a) direct decode of the 8 corpus windows, kernel path against plain path
+    with torch.inference_mode():
+        enc, enc_mask = st5.encode_speech(model, wav, mask)
+        greedy_decode(model, enc, enc_mask, max_len=4, fusion=lm)        # warm-up
+        beam_search(model, enc, enc_mask, beam_size=k, max_len=4, fusion=lm)
+        runs = {}
+        for use_kernels in (True, False):
+            reset_all_launches()
+            (enc, enc_mask), enc_ms = timed(lambda: st5.encode_speech(
+                model, wav, mask, use_kernels=use_kernels))
+            with counted_decode_steps() as greedy_steps:
+                (toks, lens), greedy_ms = timed(lambda: greedy_decode(
+                    model, enc, enc_mask, max_len=max_len, fusion=lm))
+            with beam_trace() as trace, counted_decode_steps() as beam_steps:
+                hyp, beam_ms = timed(lambda: beam_search(model, enc, enc_mask, beam_size=k,
+                                                         max_len=max_len, fusion=lm))
+            torch.cuda.synchronize()
+            runs[use_kernels] = dict(launches=all_launches(), enc=enc, enc_mask=enc_mask,
+                                     toks=toks.cpu().numpy(), hyp=hyp, trace=trace,
+                                     greedy_steps=len(greedy_steps),
+                                     beam_steps=len(beam_steps),
+                                     enc_ms=enc_ms, greedy_ms=greedy_ms, beam_ms=beam_ms)
+        kern, plain = runs[True], runs[False]
+        want = {"B1": cfg.encoder_layers, "B2": 1, "B3/B4": 0, "B5": 0, "B5_bwd": 0, "B6": 0,
+                "B7": 0}
+        check(kern["launches"] == want, f"decode: encode + greedy + beam launched "
+              f"{kern['launches']}, expected {want}")
+        check(not any(plain["launches"].values()), f"plain path launched {plain['launches']}")
+        check(torch.equal(kern["enc_mask"], plain["enc_mask"]), "decode: frame masks differ")
+        enc_err = encoder_error(kern["enc"], plain["enc"], kern["enc_mask"], "decode windows")
+        same_tokens(kern["toks"], plain["toks"], "greedy")
+        ties, score_err = beam_agreement(kern, plain)
+        toks_np = kern["toks"]
+        greedy_steps, beam_steps = kern["greedy_steps"], kern["beam_steps"]
+        rec = dict(batch=list(wav.shape), audio_s=audio_s, beam=k, max_len=max_len,
+                   lm="gpt2 widths, vocab 256, weight 0.3", launches=kern["launches"],
+                   encoder_max_abs=enc_err[0], encoder_mean_abs=enc_err[1],
+                   beam_score_max_abs=score_err, beam_near_ties=ties,
+                   score_tol=DECODE_SCORE_TOL, tie_atol=DECODE_TIE_ATOL, encode_ms=kern["enc_ms"],
+                   plain_encode_ms=plain["enc_ms"],
+                   greedy=dict(steps=greedy_steps, ms=kern["greedy_ms"],
+                               ms_per_step=kern["greedy_ms"] / greedy_steps,
+                               rtfx=audio_s / ((kern["enc_ms"] + kern["greedy_ms"]) / 1e3),
+                               lengths=[int(x) for x in (toks_np != cfg.pad_token_id).sum(1)]),
+                   beam_search=dict(steps=beam_steps, ms=kern["beam_ms"],
+                                    ms_per_step=kern["beam_ms"] / beam_steps,
+                                    rtfx=audio_s / ((kern["enc_ms"] + kern["beam_ms"]) / 1e3),
+                                    best_lengths=kern["hyp"].lengths[:, 0].tolist()),
+                   card=smi)
+        print(f"[decode] direct {json.dumps(rec)}")
+        enc, enc_mask = kern["enc"], kern["enc_mask"]
+        del runs, kern, plain
+        for name, fn in (("greedy", lambda: greedy_decode(model, enc, enc_mask, max_len=25,
+                                                          fusion=lm)),
+                         ("beam", lambda: beam_search(model, enc, enc_mask, beam_size=k,
+                                                      max_len=25, fusion=lm))):
+            prof = device_breakdown(fn)
+            print(f"[decode] device breakdown of a 25-step {name} window: {json.dumps(prof)}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # (a) carry-over: one recording of 10 utterances through ConversationContext
+        ds = KaldiAsrDataset(corpus["dev"])
+        rec_id = sorted(ds.examples, key=lambda e: e.utt_id)[0].utt_id.split("-")[0]
+        utts = sorted((e for e in ds.examples if e.utt_id.split("-")[0] == rec_id),
+                      key=lambda e: e.utt_id)
+        check(len(utts) == 10, f"recording {rec_id}: {len(utts)} utterances")
+        carry = {}
+        for use_kernels in (True, False):
+            ctx = ConversationContext(lm, batch=1, max_positions=256)
+            refreshes = []
+            refresh = ctx._refresh
+            ctx._refresh = lambda: refreshes.append(ctx.history_len) or refresh()
+            outs, t0 = [], time.perf_counter()
+            for ex in utts:
+                x = ds.load_waveform(ex)
+                w, m = np.zeros((1, 16000), np.float32), np.zeros((1, 16000), np.int32)
+                w[0, :len(x)], m[0, :len(x)] = x, 1
+                e, em = st5.encode_speech(model, w, m, use_kernels=use_kernels)
+                cache, start = ctx.state()
+                t, n, cache = greedy_decode(model, e, em, max_len=64, fusion=lm, lm_cache=cache,
+                                            lm_start=start, return_lm_cache=True)
+                ctx.append(t, n, cache)
+                outs.append(t[0].cpu().numpy())
+            torch.cuda.synchronize()
+            carry[use_kernels] = dict(tokens=outs, refreshes=refreshes,
+                                      wall_s=time.perf_counter() - t0)
+        for u in range(len(utts)):
+            same_tokens(carry[True]["tokens"][u], carry[False]["tokens"][u],
+                        f"carry-over utterance {u}")
+        check(len(carry[True]["refreshes"]) >= 2,
+              f"carry-over refreshed {len(carry[True]['refreshes'])} times")
+        print(f"[decode] carry-over {json.dumps(dict(recording=rec_id, utterances=len(utts), max_positions=256, decode_reserve=128, max_len=64, refreshes_at_history=carry[True]['refreshes'], lengths=[int((t != cfg.pad_token_id).sum()) for t in carry[True]['tokens']], wall_s=carry[True]['wall_s'], plain_wall_s=carry[False]['wall_s'], peak_mem_gb=peak_gb, card=smi))}")
+    del model, lm, lm_model, enc, enc_mask
+
+    # (b) the pipeline's encodes: dev utterances padded to its 1 s bucket at
+    # the static batch (8) and the batcher's admission buckets (4, 2, 1)
+    model = st5.asr_model_init(cfg, seed=0, device=dev)
+    ds = KaldiAsrDataset(corpus["dev"])
+    exs = sorted(ds.examples, key=lambda e: e.utt_id)[:8]
+    w, m = np.zeros((8, 16000), np.float32), np.zeros((8, 16000), np.int32)
+    for r, ex in enumerate(exs):
+        x = ds.load_waveform(ex)[:16000]
+        w[r, :len(x)], m[r, :len(x)] = x, 1
+    enc_cases = []
+    with torch.inference_mode():
+        for rows in (8, 4, 2, 1):
+            reset_all_launches()
+            hid, hmask = st5.encode_speech(model, w[:rows], m[:rows])
+            torch.cuda.synchronize()
+            got = all_launches()
+            check((got["B1"], got["B2"]) == (cfg.encoder_layers, 1),
+                  f"encode [{rows}, 16000] launched {got}")
+            phid, pmask = st5.encode_speech(model, w[:rows], m[:rows], use_kernels=False)
+            check(torch.equal(hmask, pmask), f"encode [{rows}, 16000]: frame masks differ")
+            err = encoder_error(hid, phid, hmask, f"encode [{rows}, 16000]")
+            enc_cases.append(dict(shape=[rows, 16000], max_abs=err[0], mean_abs=err[1]))
+    print(f"[decode_asr] encoder at the pipeline's shapes, kernel vs plain "
+          f"(max {ENC_MAX_TOL}, mean {ENC_MEAN_TOL}): {json.dumps(enc_cases)}")
+    del model, hid, phid
+
+    # (b) the decode_asr pipeline on the dev corpus in six modes
+    results, launches = {}, {"B1": 0, "B2": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_path = os.path.join(tmp, "gpt2_vocab256.npz")
+        save_gpt2_npz(gm.gpt2_init(dataclasses.replace(gm.PRESETS["gpt2"], vocab_size=256),
+                                   seed=1, device=dev), lm_path)
+        # the corpus's utterances last <= 1 s: static batches and the
+        # batcher's bucket both pad them to 1 s, so both encode the same input
+        common = ["--data_dir", corpus["dev"], "--lm_model", "gpt2", "--lm_checkpoint", lm_path,
+                  "--max_decode_len", "64", "--batch_size", "8", "--max_seconds", "1"]
+        modes = {"static_greedy": ["--beam_size", "1"], "static_beam5": ["--beam_size", "5"],
+                 "continuous_greedy": ["--continuous", "--beam_size", "1"],
+                 "continuous_beam5": ["--continuous", "--beam_size", "5"],
+                 "conversation_greedy": ["--continuous", "--conversation", "--beam_size", "1"],
+                 "conversation_beam5": ["--continuous", "--conversation", "--beam_size", "5"]}
+        for name, flags in modes.items():
+            out_dir = os.path.join(tmp, name)
+            reset_all_launches()
+            t0 = time.perf_counter()
+            rc = decode_asr.main([*common, "--out_dir", out_dir, *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_launches = all_launches()
+            check(rc == 0, f"decode_asr {name} returned {rc}")
+            with open(os.path.join(out_dir, "hyp.text")) as f:
+                lines = f.read().splitlines()
+            with open(os.path.join(out_dir, "wer.json")) as f:
+                details = json.load(f)
+            check(len(lines) == 120, f"{name}: {len(lines)} lines in hyp.text")
+            check(np.isfinite(details["wer"]) and np.isfinite(details["rtfx"]),
+                  f"{name}: wer.json {details}")
+            check(run_launches["B1"] > 0 and run_launches["B2"] > 0
+                  and run_launches["B1"] == cfg.encoder_layers * run_launches["B2"]
+                  and not any(v for key, v in run_launches.items() if key not in ("B1", "B2")),
+                  f"{name}: launched {run_launches}")
+            for key in launches:
+                launches[key] += run_launches[key]
+            results[name] = dict(lines=lines, wer=details["wer"], rtfx=details["rtfx"],
+                                 wall_s=wall, launches=run_launches)
+            print(f"[decode_asr] {json.dumps(dict(mode=name, wer=details['wer'], rtfx=details['rtfx'], wall_s=wall, launches=run_launches, card=smi))}")
+        for beam in ("greedy", "beam5"):
+            static, cont = results[f"static_{beam}"]["lines"], results[f"continuous_{beam}"]["lines"]
+            differ = [i for i, (a, b) in enumerate(zip(static, cont)) if a != b]
+            check(not differ, f"continuous {beam} differs from static at lines {differ[:5]}: "
+                  f"{[(static[i], cont[i]) for i in differ[:2]]}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1042,10 +1417,7 @@ def main() -> int:
     check(tuple(hid.shape) == (batch, cfg.feat_extract_output_length(wav.shape[1]), 768),
           f"encoder output shape {tuple(hid.shape)}")
     check(bool(torch.isfinite(hid[valid]).all()), "non-finite embeddings")
-    diff = (hid - phid).abs()[valid]
-    enc_max, enc_mean = diff.max().item(), diff.mean().item()
-    check(enc_max <= 1e-3 and enc_mean <= 1e-4,
-          f"kernel vs plain encoder: max {enc_max}, mean {enc_mean}")
+    enc_max, enc_mean = encoder_error(hid, phid, fmask, "encoder")
     wav_t = torch.from_numpy(wav).to(dev)
     mask_t = torch.from_numpy(mask).to(dev)
     fwd_ms = time_ms(lambda: st5.encode_speech(model, wav_t, mask_t), reps=5, inner=2)
@@ -1461,9 +1833,12 @@ def main() -> int:
         print(f"[tts] copy synthesis {json.dumps(dict(waveform=list(copy.shape), b7_launches=copy_b7))}")
         b7_launches = tf_launches["B7"] + copy_b7
         del copy, tts, s2s, voc
+
+    # -- 12. ASR decoding with GPT-2 fusion and carry-over ------------------
+    decode_launches = decode_phase(corpus, win_wav, win_lengths, smi, dev)
     tmp_corpus.cleanup()
 
-    # -- 12. summary -------------------------------------------------------
+    # -- 13. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1490,13 +1865,16 @@ def main() -> int:
                     wrapper_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
                     bound_ms=bms, bound_by=by, library_ms=main_rec["library_ms"])
 
+    # B1's and B2's launches on the decode path: phase 12's six decode_asr runs
     kernels = [
-        entry("flash_rel_forward", "loco_asr_tpu_torch/csrc/flash_rel.cu",
-              "loco_asr_tpu/ops/pallas/flash_attention.py:518",
-              "flash_attention.py::_flash_rel_kernel", "B1", "rel_padded", launches["B1"]),
-        entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
-              "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
-              "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
+        dict(entry("flash_rel_forward", "loco_asr_tpu_torch/csrc/flash_rel.cu",
+                   "loco_asr_tpu/ops/pallas/flash_attention.py:518",
+                   "flash_attention.py::_flash_rel_kernel", "B1", "rel_padded", launches["B1"]),
+             decode_launches=decode_launches["B1"]),
+        dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
+                   "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
+                   "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
+             decode_launches=decode_launches["B2"]),
         entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
               "loco_asr_tpu/ops/pallas/flash_attention.py:40",
               "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),

@@ -8,9 +8,11 @@ ported path is a hand-written CUDA kernel under ``csrc/``, built with
 package imports neither ``jax`` nor ``loco_asr_tpu``.
 
 Ported paths: SpeechT5-base speech-encoder embedding extraction (kernels
-B1, B2), GPT-2 perplexity scoring (kernels B5/B6, one strided kernel) and
+B1, B2), GPT-2 perplexity scoring (kernels B5/B6, one strided kernel),
 SpeechT5-base ASR fine-tuning (kernels B3/B4, the backward of B1; every
-flash wrapper is a ``torch.autograd.Function``).
+flash wrapper is a ``torch.autograd.Function``), SpeechT5 TTS / voice
+conversion (kernel B7) and ASR decoding with GPT-2 shallow fusion and
+conversation carry-over (B1, B2 in each encode).
 
 Layout:
   ops/        -- layers, attention, audio decode; ops/cuda: kernel wrappers
@@ -19,14 +21,16 @@ Layout:
                  gpt2-xl); JAX and HF weight bridges
   data/       -- SLURP adapter, embedding store, tokenizers, LM datasets,
                  Kaldi IO and ASR (conversation-window) datasets
-  decode/     -- greedy decoding over the KV cache
+  decode/     -- greedy / beam decoding with LM fusion, conversation
+                 carry-over, continuous batching
   parallel/   -- AdamW and the one-device ASR train step
-  pipelines/  -- CLI entry points (extract_embeddings, eval_ppl, train_asr)
+  pipelines/  -- CLI entry points (extract_embeddings, eval_ppl, train_asr,
+                 decode_asr)
   utils/      -- device resolution, metrics, file logger, checkpoints, WER
 
 The CPU tests (``tests/test_torch_*.py``) run the plain PyTorch versions
 against the JAX package; ``chip_smoke.py`` builds and checks the kernels
-and drives the three paths on the GPU.
+and drives the paths on the GPU.
 """
 
 __version__ = "0.1.0"

@@ -17,21 +17,26 @@ the JAX ``scale``.  The lm head is tied to ``wte``.
   when D != 64 or the head count is odd); with ``attention_mask``, kernel
   B1 with per-row valid-key counts (right padding) and ``causal=True``.
 
-Not ported yet, and refused with an error: the incremental KV-cache mode
-(``kv_caches`` / ``cache_index``, with shallow fusion) and the
-sequence-parallel ``ring`` / ``ulysses`` attention.
+Incremental mode (``kv_caches`` from :func:`init_kv_cache`, ``cache_index``
+an int or a [B] tensor of per-row offsets) attends densely over the cache,
+as the JAX one does, and writes the new keys and values into it in place
+where the JAX one returns a new cache.  The LM of shallow fusion
+(``decode/fusion.py``) runs in this mode.
+
+Not ported yet, and refused with an error: the sequence-parallel ``ring``
+/ ``ulysses`` attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ...ops import layers
+from ...ops import attention, layers
 from ...ops.cuda import flash_attention, flash_causal
 from ...utils.device import resolve_device
 
@@ -145,46 +150,87 @@ def gpt2_init(cfg: GPT2Config, *, seed: int = 0,
 
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
+KVCache = Dict[str, Dict[str, torch.Tensor]]
+
+
+def init_kv_cache(model: GPT2Model, batch: int, max_len: int,
+                  dtype=torch.float32) -> KVCache:
+    """Zeroed incremental-mode cache on the model's device: {layer: {"k",
+    "v"}} of [B, n_head, max_len, head_dim]."""
+    cfg = model.cfg
+    shape = (batch, cfg.n_head, max_len, cfg.head_dim)
+    dev = model.wte.weight.device
+    return {str(i): {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for i in range(cfg.n_layer)}
 
 
 def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
                bias: Optional[torch.Tensor], attn_impl: str,
-               kv_valid_len: Optional[torch.Tensor]) -> torch.Tensor:
+               kv_valid_len: Optional[torch.Tensor],
+               kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+               cache_index=None, write_mask=None) -> torch.Tensor:
     b, t, _ = h.shape
     q, k, v = (x.reshape(b, t, cfg.n_head, cfg.head_dim)
                for x in blk.attn.c_attn(h).split(cfg.n_embd, dim=-1))
     scale = cfg.head_dim ** -0.5
-    if attn_impl == "flash" and kv_valid_len is None:
+    if kv_cache is None and attn_impl == "flash" and kv_valid_len is None:
         # [B, T, H, D] views of the qkv projection, read in place
         attn = flash_causal.flash_attention_nhd(q, k, v, causal=True, scale=scale)
-    elif attn_impl == "flash":
+    elif kv_cache is None and attn_impl == "flash":
         attn = flash_attention.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
             scale=scale, kv_valid_len=kv_valid_len).transpose(1, 2)
     else:
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        if kv_cache is not None:
+            attention._write_cache(kv_cache, k, v, cache_index, write_mask)
+            k, v = kv_cache["k"], kv_cache["v"]
         scores = torch.matmul(q, k.transpose(-1, -2)) / cfg.head_dim ** 0.5
         probs = torch.softmax(scores + bias, dim=-1)
         attn = torch.matmul(probs, v).transpose(1, 2)
     return blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd))
 
 
+def _causal_bias(past, t: int, k_len: int, dev) -> torch.Tensor:
+    """Additive causal bias of queries at positions ``past + i`` over
+    ``k_len`` keys: [1, 1, T, K] for an int ``past``, [B, 1, T, K] for a [B]
+    tensor of per-row offsets."""
+    kj, qi = torch.arange(k_len, device=dev), torch.arange(t, device=dev)[:, None]
+    if isinstance(past, torch.Tensor):
+        return torch.where(kj <= past[:, None, None] + qi, 0.0, NEG_INF)[:, None]
+    return torch.where(kj <= past + qi, 0.0, NEG_INF)[None, None]
+
+
 def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
                  attention_mask: Optional[ArrayLike] = None,
-                 kv_caches=None, cache_index=None,
+                 kv_caches: Optional[KVCache] = None, cache_index=None,
+                 kv_write_mask: Optional[torch.Tensor] = None,
                  deterministic: bool = True, attn_impl: str = "dense"
-                 ) -> Tuple[torch.Tensor, None]:
-    """Token ids [B, T] -> (hidden [B, T, D], None), on the model's device.
+                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Token ids [B, T] -> (hidden [B, T, D], ``kv_caches``), on the model's
+    device.
 
     ``attention_mask`` [B, T] marks valid tokens; padding must be on the
     right (the data layer's only form).  No dropout is applied (the JAX
     forward without a ``dropout_rng``); ``attn_impl="flash"`` outside
     ``deterministic`` still refuses ``attn_pdrop > 0`` as the JAX one does.
+
+    Incremental mode: ``kv_caches`` (:func:`init_kv_cache`) and
+    ``cache_index``, the number of positions already cached: an int for
+    every row, or a [B] tensor of per-row offsets (ragged conversation
+    histories, ``decode/context.py``).  The tokens take positions
+    ``cache_index + i``, their keys and values are written into the caches
+    in place, and each query attends the cache positions up to its own;
+    ``attention_mask`` is then [B, cache_len] validity over cache positions.
+    ``kv_write_mask`` [B] bool (a [B] ``cache_index``, one token): rows where
+    it is False leave their caches as they were (a finished stream of the
+    conversation batcher).  ``attn_impl`` is ignored there: the attention
+    is dense, as in JAX.
     """
     cfg = model.cfg
-    if kv_caches is not None or cache_index is not None:
-        raise NotImplementedError("the incremental KV-cache mode of gpt2_forward "
-                                  "is not ported yet")
+    if (kv_caches is None) != (cache_index is None):
+        raise ValueError("kv_caches and cache_index go together")
     if attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(f"attn_impl={attn_impl!r} (sequence parallel) "
                                   "is not ported yet")
@@ -201,31 +247,50 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
             f"(attn_pdrop={cfg.attn_pdrop}); train with "
             f"attn_pdrop=0.0 or attn_impl='dense'")
 
-    x = model.wte(ids) + model.wpe.weight[:t][None]
+    past = 0
+    if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+        past = cache_index.to(dev, torch.int64)
+        if t > 1 or not past.is_cuda:   # as _write_cache: a decode step is not read back
+            lo, hi = int(past.min()), int(past.max())
+            if lo < 0 or hi + t > cfg.n_positions:
+                raise ValueError(f"positions {lo}..{hi + t - 1} exceed "
+                                 f"n_positions {cfg.n_positions}")
+        pos_emb = model.wpe.weight[past[:, None] + torch.arange(t, device=dev)]
+    else:
+        if cache_index is not None:
+            past = int(cache_index)
+        if past < 0 or past + t > cfg.n_positions:
+            raise ValueError(f"positions {past}..{past + t - 1} exceed "
+                             f"n_positions {cfg.n_positions}")
+        pos_emb = model.wpe.weight[past:past + t][None]
+    x = model.wte(ids) + pos_emb
     mask = None if attention_mask is None else torch.as_tensor(attention_mask, device=dev)
     bias = kv_valid_len = None
-    if attn_impl == "flash":
+    if kv_caches is not None:
+        bias = _causal_bias(past, t, kv_caches["0"]["k"].shape[2], dev)
+    elif attn_impl == "flash":
         if mask is not None:
             kv_valid_len = mask.to(torch.int32).sum(-1, dtype=torch.int32)
     else:
-        pos = torch.arange(t, device=dev)
-        bias = torch.where(pos[None, :] <= pos[:, None], 0.0, NEG_INF)[None, None]
-        if mask is not None:
-            bias = bias + torch.where(mask.bool(), 0.0, NEG_INF)[:, None, None, :]
+        bias = _causal_bias(0, t, t, dev)
+    if bias is not None and mask is not None:
+        bias = bias + torch.where(mask.bool(), 0.0, NEG_INF)[:, None, None, :]
 
     act = layers.ACTIVATIONS[cfg.activation]
     eps = cfg.layer_norm_epsilon
-    for blk in model.h:
+    for i, blk in enumerate(model.h):
         h = layers.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias, eps=eps)
-        x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len)
+        x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len,
+                           None if kv_caches is None else kv_caches[str(i)],
+                           cache_index, kv_write_mask)
         h = layers.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias, eps=eps)
         x = x + blk.mlp.c_proj(act(blk.mlp.c_fc(h)))
-    return layers.layer_norm(x, model.ln_f.weight, model.ln_f.bias, eps=eps), None
+    return layers.layer_norm(x, model.ln_f.weight, model.ln_f.bias, eps=eps), kv_caches
 
 
 def gpt2_logits(model: GPT2Model, input_ids: ArrayLike, **kw
-                ) -> Tuple[torch.Tensor, None]:
-    """Forward + tied lm head -> (logits [B, T, V], None)."""
+                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Forward + tied lm head -> (logits [B, T, V], ``kv_caches``)."""
     hidden, caches = gpt2_forward(model, input_ids, **kw)
     return torch.matmul(hidden, model.wte.weight.t()), caches
 

@@ -75,23 +75,50 @@ def causal_attention_bias(q_len: int, k_len: int, device=None,
 
 
 def _write_cache(kv_cache: Dict[str, torch.Tensor], k: torch.Tensor,
-                 v: torch.Tensor, cache_index: Union[int, torch.Tensor]) -> None:
-    """Write this step's k/v into the [B, H, Tmax, hd] cache, in place: at
-    ``cache_index`` for every row (int or 0-d tensor), or at row b's own
-    ``cache_index[b]`` (1-D tensor; one token per row)."""
-    if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
-        if k.shape[2] != 1:
-            raise ValueError(
-                f"vector cache_index requires Tq == 1 (one token per stream "
-                f"per step), got Tq={k.shape[2]}")
-        rows = torch.arange(k.shape[0], device=k.device)
+                 v: torch.Tensor, cache_index: Union[int, torch.Tensor],
+                 write_mask: Optional[torch.Tensor] = None) -> None:
+    """Write the T new k/v positions ([B, H, T, hd]) into the [B, H, Tmax, hd]
+    cache, in place: from ``cache_index`` on for every row (int or 0-d
+    tensor), or from row b's own ``cache_index[b]`` (1-D tensor).
+    ``write_mask`` [B] bool (a [B] index and T == 1 only): rows where it is
+    False keep what their cache held at that position.
+
+    A write that would run past the cache's end raises ValueError (the JAX
+    ``dynamic_update_slice`` clamps its start instead).  The check reads the
+    index on the host; a one-token write at a [B] index that lives on the
+    GPU (the decode loops' per-row steps) is not read back, so that a step
+    costs no host sync, and an index past the end fails in the indexing
+    kernel instead."""
+    t, t_max = k.shape[2], kv_cache["k"].shape[2]
+    per_row = isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
+    if write_mask is not None and not (per_row and t == 1):
+        raise ValueError("write_mask needs a [B] cache_index and one new position")
+    if per_row:
         idx = cache_index.to(k.device, torch.int64)
-        kv_cache["k"][rows, :, idx] = k[:, :, 0]
-        kv_cache["v"][rows, :, idx] = v[:, :, 0]
+        if t > 1 or not idx.is_cuda:
+            lo, hi = int(idx.min()), int(idx.max())
+            if lo < 0 or hi + t > t_max:
+                raise ValueError(f"cache write at offsets {lo}..{hi} of {t} "
+                                 f"positions runs past the cache's {t_max}")
+        rows = torch.arange(k.shape[0], device=k.device)
+        if t == 1:
+            for name, new in (("k", k[:, :, 0]), ("v", v[:, :, 0])):
+                if write_mask is not None:
+                    new = torch.where(write_mask[:, None, None], new,
+                                      kv_cache[name][rows, :, idx])
+                kv_cache[name][rows, :, idx] = new
+            return
+        cols = idx[:, None] + torch.arange(t, device=k.device)[None, :]   # [B, T]
+        # advanced indices around a slice put their dims first: [B, T, H, hd]
+        kv_cache["k"][rows[:, None], :, cols] = k.transpose(1, 2)
+        kv_cache["v"][rows[:, None], :, cols] = v.transpose(1, 2)
         return
     i = int(cache_index)
-    kv_cache["k"][:, :, i:i + k.shape[2]] = k
-    kv_cache["v"][:, :, i:i + v.shape[2]] = v
+    if i < 0 or i + t > t_max:
+        raise ValueError(f"cache write at offset {i} of {t} positions runs "
+                         f"past the cache's {t_max}")
+    kv_cache["k"][:, :, i:i + t] = k
+    kv_cache["v"][:, :, i:i + t] = v
 
 
 def multi_head_attention(

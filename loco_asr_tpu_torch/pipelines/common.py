@@ -17,24 +17,31 @@ def round_up(n: int, multiple: int) -> int:
 
 
 def load_speecht5_params(checkpoint: Optional[str], cfg: SpeechT5Config, *,
-                         device: Optional[Union[str, torch.device]] = None
-                         ) -> st5.SpeechEncoder:
-    """The speech encoder on ``device`` (default CUDA), from:
+                         device: Optional[Union[str, torch.device]] = None,
+                         variant: str = "encoder"
+                         ) -> Union[st5.SpeechEncoder, st5.AsrModel]:
+    """The speech encoder (``variant="encoder"``) or the whole ASR model
+    (``"asr"``: encoder, text decoder and vocabulary head) on ``device``
+    (default CUDA), from:
 
       * None   -> seeded random init (smoke/benchmark mode)
       * *.npz  -> a checkpoint of the JAX package (``utils.checkpoint.save_npz``),
-                  through ``convert.from_jax_params``
+                  through ``convert.from_jax_params`` / ``asr_from_jax_params``
 
     Other formats (HF / fairseq torch files, training directories) are not
     supported by this package yet and raise.
     """
-    model = st5.asr_init(cfg, device=device)
+    if variant not in ("encoder", "asr"):
+        raise ValueError(f"variant {variant!r}: expected 'encoder' or 'asr'")
+    init = st5.asr_init if variant == "encoder" else st5.asr_model_init
+    model = init(cfg, device=device)
     if checkpoint is None:
         return model
     if not checkpoint.endswith(".npz"):
         raise ValueError(f"{checkpoint}: only .npz checkpoints of the JAX "
                          "package load in this package so far")
+    bridge = convert.from_jax_params if variant == "encoder" else convert.asr_from_jax_params
     with np.load(checkpoint, allow_pickle=False) as z:
-        state = convert.from_jax_params({k: z[k] for k in z.files}, cfg)
+        state = bridge({k: z[k] for k in z.files}, cfg)
     model.load_state_dict(state, strict=True)
     return model

@@ -149,15 +149,6 @@ def build_config(args):
     return cfg
 
 
-def _load_jax_npz(model, path: str) -> None:
-    """Load a .npz of the JAX package's params through the weight bridge."""
-    from ..models.speecht5 import convert
-
-    with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
-    model.load_state_dict(convert.asr_from_jax_params(flat, model.cfg), strict=True)
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
     _refuse_unported(args)
@@ -174,6 +165,7 @@ def main(argv=None) -> int:
     from ..utils.device import resolve_device
     from ..utils.metrics import MetricsWriter
     from ..utils.wer import wer
+    from . import common
 
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,9 +175,10 @@ def main(argv=None) -> int:
         tokenizer.vocab_size = args.vocab_size
     cfg = build_config(args)
 
-    model = st5.asr_model_init(cfg, seed=args.seed, device=dev)
     if args.checkpoint:
-        _load_jax_npz(model, args.checkpoint)
+        model = common.load_speecht5_params(args.checkpoint, cfg, device=dev, variant="asr")
+    else:
+        model = st5.asr_model_init(cfg, seed=args.seed, device=dev)
     tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
                      clip_norm=args.grad_clip)
     params = train.trainable_params(model, args.freeze_feature_encoder)

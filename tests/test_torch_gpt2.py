@@ -187,8 +187,10 @@ def test_forward_refusals():
         tg.gpt2_forward(model, np.zeros((1, 33), np.int32))
     with pytest.raises(ValueError, match="attn_pdrop"):
         tg.gpt2_forward(model, ids, attn_impl="flash", deterministic=False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tg.gpt2_forward(model, ids, kv_caches={}, cache_index=0)
+    with pytest.raises(ValueError, match="go together"):
+        tg.gpt2_forward(model, ids, cache_index=0)
+    with pytest.raises(ValueError, match="past the cache"):
+        tg.gpt2_forward(model, ids, kv_caches=tg.init_kv_cache(model, 1, 4), cache_index=0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tg.gpt2_forward(model, ids, attn_impl="ring")
 
