@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``loco_asr_tpu_torch/csrc/`` and drives the
-port's five main paths at full width with random weights made from a
-seed: SpeechT5-base speech-encoder embedding extraction, GPT-2 perplexity
+port's main paths at full width with random weights made from a seed:
+SpeechT5-base speech-encoder embedding extraction, GPT-2 perplexity
 scoring (``eval_ppl --attn_impl flash``), SpeechT5-base ASR fine-tuning
 (``train_asr --attn_impl flash``), SpeechT5 TTS / voice conversion with
-the HiFi-GAN vocoder and the log-mel front end, and ASR decoding with
-GPT-2 shallow fusion and conversation carry-over (``decode_asr``).
+the HiFi-GAN vocoder and the log-mel front end, ASR decoding with GPT-2
+shallow fusion and conversation carry-over (``decode_asr``), GPT-2 LM
+training (``train_lm --attn_impl flash``) and the LoCo experiment
+(``loco_experiment``, its tiny models trained on the card).
 Phases, in order (any failure raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
@@ -25,7 +27,9 @@ Phases, in order (any failure raises and exits non-zero):
    (the variant without the band, as ``flash_attention`` runs it), rows
    with valid length 0, on ``split_heads``-style strided views, and
    T=2048, and the cross-attention's mask-only 192 x 500, each with its
-   profiler device time and host time; B2: [16, 80000], [8, 160000],
+   profiler device time and host time; B1 at the LoCo encoder's head
+   dim 8 ([4, 4, 398, 8], L=20, a padded and an empty row; with the band
+   and mask-only) and at head dim 32; B2: [16, 80000], [8, 160000],
    [4, 64000] and an odd length, its device time by launch (counter
    memset, statistics, output), and ``F.conv1d`` alone (cuDNN, TF32 off)
    as ``partial_library_ms``; B6: views of
@@ -122,8 +126,29 @@ Phases, in order (any failure raises and exits non-zero):
    ``--continuous --conversation`` greedy and beam 5): 120 hyp.text lines,
    a finite wer.json, continuous hypotheses equal to static ones, B1/B2
    launches, RTFx and wall seconds per mode;
-13. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
-   ``decode_launches`` of phase 12), then last
+13. LM training and the LoCo experiment: (a) one ``make_lm_train_step``
+   at gpt2 widths, vocabulary 256, [8, 1024] seeded ids with ragged
+   lengths, dropout off, kernels + flash against plain + dense (phase 8's
+   limits), launches of one step (12 B6, 12 blockwise backward calls, no
+   B5 or B1), 10 steps' median ms and tokens/s, peak memory under the
+   chunked and the dense loss, the device time by kernel group and busy
+   share; B6's backward at [8, 1024, 12, 64] qkv views against autograd
+   through its plain version, SDPA forward + backward timed beside it;
+   (b) ``train_lm --model gpt2 --attn_impl flash --seq_len 1024
+   --batch_size 8`` for 20 steps on ``exp/loco/lm_corpus`` (one save, one
+   dev eval), then ``eval_ppl --checkpoint <its ckpt dir> --attn_impl
+   flash``, and the read-back parameters' dev PPL within rtol 1e-4 of the
+   trainer's; (c) ``loco_experiment --stage lm`` at
+   ``tests/test_loco_experiment.py``'s scale with that test's assertions
+   (context gain > 0.02 nats, max_len and streaming PPL below indep);
+   (d) ``loco_experiment --stage asr`` at a smoke scale (6 train
+   conversations, 2 dev, 4 utterances, 100 + 100 steps): every
+   ``results.json`` key finite, 2 B1 and 1 B2 launches an encode and
+   nothing else, the trained encoder kernel vs plain path at the decodes'
+   batch shapes within 1e-3 (max) and 1e-4 (mean);
+14. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+   ``decode_launches`` of phase 12 and ``loco_launches`` of phase 13 (d),
+   B1 with its head-dim-8 time, B6 with its phase 13 launches), then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -404,19 +429,19 @@ def kernel_build_records(build, pattern: str, describe, n: int) -> list:
 
 
 def b1_build_records(build) -> list:
-    """B1's two flash_rel_fwd_kernels (rel band, mask-only), with their
-    shared memory at L = 160 and the blocks that fit on one SM of this card
-    (CUDA's occupancy API)."""
+    """B1's ten flash_rel_fwd_kernels (rel band and mask-only at head dims
+    8-128), with their shared memory at L = 160 and the blocks that fit on
+    one SM of this card (CUDA's occupancy API)."""
     lib = build.library()
 
     def describe(m):
-        mask_only = int(m.group(1))
-        return dict(kernel="B1", mask_only=bool(mask_only),
+        mask_only, d = int(m.group(1)), int(m.group(2))
+        return dict(kernel="B1", mask_only=bool(mask_only), head_dim=d,
                     shape="4 warps, 64-key tiles, 2 stages" if mask_only
                     else "4 warps, 32-key tiles, 1 stage",
-                    smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only),
-                    blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only))
-    return kernel_build_records(build, r"flash_rel_fwd_kernelILb([01])E", describe, 2)
+                    smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only, d),
+                    blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only, d))
+    return kernel_build_records(build, r"flash_rel_fwd_kernelILb([01])ELi(\d+)E", describe, 10)
 
 
 def b34_build_records(build) -> list:
@@ -1080,6 +1105,322 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
     return launches
 
 
+
+def grads_against(got: dict, want: dict, what: str):
+    """(largest excess of |got - want| over GRAD_RTOL |want|, its parameter,
+    largest abs difference) over every gradient, checked against GRAD_ATOL."""
+    check(got.keys() == want.keys(), f"{what}: different parameters got gradients")
+    worst, worst_name, max_abs = 0.0, "", 0.0
+    for k in want:
+        diff = (got[k] - want[k]).abs()
+        excess = (diff - GRAD_RTOL * want[k].abs()).max().item()
+        max_abs = max(max_abs, diff.max().item())
+        if excess > worst:
+            worst, worst_name = excess, k
+    check(worst <= GRAD_ATOL, f"{what}: gradient {worst_name} off by {worst} beyond "
+                              f"rtol {GRAD_RTOL} (atol {GRAD_ATOL})")
+    return worst, worst_name, max_abs
+
+
+def lm_training_phase(smi: str, dev) -> dict:
+    """Phase 13: GPT-2 LM training at gpt2 width (kernel B6 forward in every
+    layer, its blockwise backward) and the LoCo experiment (B1 at head dim
+    8 and B2 at 64 channels in its decodes).  Returns the launches of the
+    main paths: one train step, the train_lm run, the LoCo ASR stage."""
+    import torch
+
+    from loco_asr_tpu_torch.data import lm_datasets
+    from loco_asr_tpu_torch.data.asr_dataset import KaldiAsrDataset
+    from loco_asr_tpu_torch.data.tokenizer import load_tokenizer
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
+    from loco_asr_tpu_torch.models.speecht5 import convert as sconvert
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import tiny_config
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+    from loco_asr_tpu_torch.parallel import train
+    from loco_asr_tpu_torch.pipelines import eval_ppl, loco_experiment, train_lm
+    from loco_asr_tpu_torch.utils.checkpoint import Checkpointer
+
+    def counts():
+        return {"B6": fc.flash_forward_nhd.launches, "B6_bwd": fc.flash_backward.launches,
+                "B5": fc.flash_forward.launches, "B1": fa.flash_rel_forward.launches,
+                "B2": cf.conv1_instance_norm_gelu.launches,
+                "B3/B4": fa.flash_rel_backward.launches}
+
+    def reset():
+        fc.flash_forward_nhd.launches = fc.flash_backward.launches = 0
+        fc.flash_forward.launches = fa.flash_rel_forward.launches = 0
+        cf.conv1_instance_norm_gelu.launches = fa.flash_rel_backward.launches = 0
+
+    none = {"B6": 0, "B6_bwd": 0, "B5": 0, "B1": 0, "B2": 0, "B3/B4": 0}
+    t_phase = time.perf_counter()
+    # (a) one train step at gpt2 widths, vocabulary 256, dropout off:
+    # kernels + flash against plain + dense (AdamW at rate 0 leaves the
+    # weights, the gradients stay in .grad)
+    cfg = dataclasses.replace(gm.PRESETS["gpt2"], vocab_size=256, embd_pdrop=0.0,
+                              attn_pdrop=0.0, resid_pdrop=0.0)
+    rng = np.random.default_rng(13)
+    B, T = 8, 1024
+
+    def make_batch():
+        lengths = rng.integers(T // 2, T + 1, B)
+        lengths[0] = T
+        return {"ids": torch.as_tensor(rng.integers(0, 256, (B, T)), device=dev),
+                "lengths": torch.as_tensor(lengths, device=dev)}
+
+    batch = make_batch()
+    lm = gm.gpt2_init(cfg, seed=0, device=dev)
+    runs = {}
+    for impl in ("flash", "dense"):
+        tx = train.adamw(0.0, weight_decay=0.0)
+        opt = tx.init(dict(lm.named_parameters()))
+        step = train.make_lm_train_step(cfg, tx, attn_impl=impl)
+        reset()
+        m = step(lm, opt, batch)
+        torch.cuda.synchronize()
+        runs[impl] = (m["loss"].item(), m["grad_norm"].item(),
+                      {k: p.grad.clone() for k, p in lm.named_parameters()}, counts())
+        del opt
+    (fl, fg, fgr, fcnt), (dl, dg, dgr, dcnt) = runs["flash"], runs["dense"]
+    check(np.isfinite(fl) and np.isfinite(fg), f"LM step: loss {fl}, grad_norm {fg}")
+    check(abs(fl - dl) <= LOSS_RTOL * abs(dl), f"LM step: loss flash {fl} dense {dl}")
+    check(abs(fg - dg) <= GNORM_RTOL * abs(dg), f"LM step: grad_norm flash {fg} dense {dg}")
+    worst, worst_name, grad_max_abs = grads_against(fgr, dgr, "LM step")
+    want = dict(none, B6=cfg.n_layer, B6_bwd=cfg.n_layer)
+    check(fcnt == want, f"flash LM step launched {fcnt}, expected {want}")
+    check(dcnt == none, f"dense LM step launched {dcnt}")
+    del runs, fgr, dgr
+    tx = train.adamw(3e-4)                  # constant rate, no warmup
+    opt = tx.init(dict(lm.named_parameters()))
+    step = train.make_lm_train_step(cfg, tx, attn_impl="flash")
+    batches = [make_batch() for _ in range(10)]
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for bt in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(lm, opt, bt)["loss"].item())     # syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"LM training losses {losses}")
+    peak = {"chunked": torch.cuda.max_memory_allocated() / 1e9}
+    dense_loss = train.make_lm_train_step(cfg, tx, attn_impl="flash", loss_impl="dense")
+    torch.cuda.reset_peak_memory_stats()
+    dense_loss(lm, opt, batches[0])
+    torch.cuda.synchronize()
+    peak["dense"] = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms[3:])
+    prof = device_breakdown(lambda: step(lm, opt, batches[1]))
+    rec = dict(model="gpt2", n_embd=cfg.n_embd, n_layer=cfg.n_layer, n_head=cfg.n_head,
+               vocab=cfg.vocab_size, batch=[B, T], lengths=batch["lengths"].tolist(),
+               loss_flash=fl, loss_dense=dl, grad_norm_flash=fg, grad_norm_dense=dg,
+               grad_max_abs_diff=grad_max_abs, grad_worst_excess=worst, grad_worst=worst_name,
+               launches_per_step=fcnt, losses=losses, median_step_ms=med,
+               tokens_per_s=B * T / (med / 1e3), peak_mem_gb=peak,
+               busy_share=prof["busy_share"], device_ms=prof["kernel_ms_sum"],
+               device_groups_ms=prof["groups_ms"], card=smi)
+    print(f"[lm_train] {json.dumps(rec)}")
+    print(f"[lm_train] device breakdown of one step: {json.dumps(prof)}")
+    del opt, batches
+
+    # B6's backward at the training shape: [8, 1024, 12, 64] views of a qkv
+    # projection, causal, against autograd through B6's plain version
+    g = torch.Generator().manual_seed(13)
+    x = (torch.randn(B, T, 3 * 768, generator=g) * 0.5).to(dev)
+    q, k, v = (y.reshape(B, T, 12, 64) for y in x.split(768, dim=-1))
+    gg = torch.randn(B, T, 12, 64, generator=g).to(dev)
+    kw = dict(causal=True, scale=0.125)
+    out, lse = fc.flash_forward_nhd(q, k, v, **kw)
+    got = fc.flash_backward(q, k, v, out, lse, gg, t_axis=1, **kw)
+    leaves = [y.detach().clone().requires_grad_() for y in (q, k, v)]
+
+    def plain_fb():
+        o, _ = fc.flash_forward_nhd_plain(*leaves, **kw)
+        return torch.autograd.grad(o, leaves, gg)
+
+    want_g = plain_fb()
+    err = max((a - w).abs().max().item() for a, w in zip(got, want_g))
+    check(err <= B56_BWD_TOL, f"B6 backward at the LM training shape: max abs err {err}")
+    with torch.no_grad():
+        plain_f_ms = time_ms(lambda: fc.flash_forward_nhd_plain(q, k, v, **kw), reps=5, inner=2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (y.transpose(1, 2) for y in (q, k, v))
+    sl = [y.detach().clone().requires_grad_() for y in (qs, ks, vs)]
+
+    def sdpa_fb():
+        torch.autograd.grad(sdpa(*sl, is_causal=True, scale=0.125), sl, gg.transpose(1, 2))
+
+    with torch.no_grad():
+        sdpa_f_ms = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, scale=0.125))
+    bwd = dict(kernel="B6 backward", case="lm_train", shape_bthd=[B, T, 12, 64],
+               max_abs_err=err, tol=B56_BWD_TOL,
+               ms=time_ms(lambda: fc.flash_backward(q, k, v, out, lse, gg, t_axis=1, **kw),
+                          reps=5, inner=2),
+               plain_ms=time_ms(plain_fb, reps=5, inner=2) - plain_f_ms,
+               library_ms=time_ms(sdpa_fb) - sdpa_f_ms, card=smi)
+    print(f"[lm_train] {json.dumps(bwd)}")
+    del x, q, k, v, gg, out, got, want_g, leaves, sl
+
+    # (b) train_lm at that width on the committed LM corpus: 20 steps, one
+    # save and one dev eval; eval_ppl then reads the training directory
+    lm_corpus = os.path.join(ROOT, "exp", "loco", "lm_corpus")
+    train_txt, dev_txt = (os.path.join(lm_corpus, f) for f in ("train.txt", "dev.txt"))
+    tok = load_tokenizer("char")
+    tok.vocab_size = 256
+    dev_chunks = train_lm._stream_chunks(
+        lm_datasets.MaxLenTextDataset(dev_txt, tok, max_len=T).rec_id2tokens, T,
+        tok.eos_token_id)
+    n_recs = len({u.split("-")[0] for u in lm_datasets.load_key_text(dev_txt)})
+    n_steps = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "lm")
+        reset()
+        t0 = time.perf_counter()
+        rc = train_lm.main(["--train_file", train_txt, "--dev_file", dev_txt,
+                            "--out_dir", out_dir, "--model", "gpt2", "--tokenizer", "char",
+                            "--attn_impl", "flash", "--seq_len", str(T), "--batch_size", "8",
+                            "--steps", str(n_steps), "--warmup_steps", "5",
+                            "--eval_every", "1000", "--save_every", "1000",
+                            "--log_every", "10"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lm_launches = counts()
+        check(rc == 0, f"train_lm returned {rc}")
+        want = dict(none, B6=cfg.n_layer * (n_steps + -(-len(dev_chunks) // 8)),
+                    B6_bwd=cfg.n_layer * n_steps)
+        check(lm_launches == want, f"train_lm launched {lm_launches}, expected {want}")
+        ckpt = os.path.join(out_dir, "ckpt")
+        check(Checkpointer(ckpt).status()["latest"] == n_steps
+              and os.path.exists(os.path.join(ckpt, f"step_{n_steps}.npz")),
+              f"train_lm saved no step_{n_steps}.npz")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        evals = [r for r in logged if "dev_ppl" in r]
+        losses = [r["loss"] for r in logged if "loss" in r]
+        check(len(evals) == 1 and np.isfinite(evals[0]["dev_ppl"]) and losses
+              and all(np.isfinite(losses)), f"train_lm metrics {logged}")
+        reset()
+        t0 = time.perf_counter()
+        rc = eval_ppl.main(["-i", dev_txt, "-o", os.path.join(tmp, "ppl"), "--model", "gpt2",
+                            "--checkpoint", ckpt, "--context_type", "max_len", "--bsize", "8",
+                            "--attn_impl", "flash"])
+        eval_wall = time.perf_counter() - t0
+        eval_launches = counts()
+        check(rc == 0, f"eval_ppl on the training directory returned {rc}")
+        check(eval_launches == dict(none, B6=cfg.n_layer * -(-n_recs // 8)),
+              f"eval_ppl launched {eval_launches}")
+        with open(os.path.join(tmp, "ppl", "rec_id2ppl.json")) as f:
+            rec_ppl = json.load(f)
+        check(len(rec_ppl) == n_recs and all(np.isfinite(list(rec_ppl.values()))),
+              "eval_ppl PPLs on the training directory")
+        # the parameters eval_ppl reads there, scored as train_lm's dev eval
+        read = eval_ppl.load_gpt2(ckpt, dataclasses.replace(gm.PRESETS["gpt2"], vocab_size=256),
+                                  dev)
+        total, count = train_lm.dev_nll(read, dev_chunks, 8, T, "flash")
+        ppl_read = float(np.exp(total / count))
+        ppl_rel = abs(ppl_read - evals[0]["dev_ppl"]) / evals[0]["dev_ppl"]
+        check(ppl_rel <= PPL_RTOL, f"read-back dev PPL {ppl_read} vs train_lm's "
+                                   f"{evals[0]['dev_ppl']}")
+        del read
+    rec = dict(steps=n_steps, wall_s=wall, launches=lm_launches, dev_ppl=evals[0]["dev_ppl"],
+               dev_tokens=evals[0]["dev_tokens"], losses_logged=losses,
+               steps_per_sec=[r["steps_per_sec"] for r in logged if "steps_per_sec" in r],
+               eval_ppl_launches=eval_launches, eval_ppl_wall_s=eval_wall,
+               eval_ppl_mean_rec_ppl=float(np.mean(list(rec_ppl.values()))),
+               read_back_dev_ppl=ppl_read, read_back_rel_diff=ppl_rel, card=smi)
+    print(f"[lm_pipeline_train] {json.dumps(rec)}")
+    del lm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the LM stage at the JAX test's own scale, with its assertions
+        out = os.path.join(tmp, "lm_stage")
+        reset()
+        t0 = time.perf_counter()
+        rc = loco_experiment.main([
+            "--out_dir", out, "--stage", "lm", "--lm_convs", "60", "--lm_dev_convs", "10",
+            "--lm_utts", "8", "--lm_steps", "400", "--lm_batch", "8", "--seq_len", "128",
+            "--lm_n_embd", "64", "--lm_n_layer", "3", "--seed", "0"])
+        lm_wall = time.perf_counter() - t0
+        check(rc == 0, f"loco_experiment --stage lm returned {rc}")
+        with open(os.path.join(out, "results.json")) as f:
+            res = json.load(f)["lm"]
+        check(res["nll_indep"] - res["nll_max_len"] > 0.02
+              and res["ppl_max_len"] < res["ppl_indep"]
+              and res["ppl_streaming"] < res["ppl_indep"], f"LM stage: no context gain {res}")
+        print(f"[loco_lm] {json.dumps(dict(res, wall_s=lm_wall, launches=counts()))}")
+
+        # (d) the ASR stage at a smoke scale: training, the three decodes and
+        # the oracle, with B1 (head dim 8) and B2 (64 channels) in each encode
+        out = os.path.join(tmp, "asr_stage")
+        encodes = []
+        real_encode = st5.encode_speech
+
+        def counted_encode(model, wav, mask=None, **kw):
+            encodes.append(tuple(np.shape(wav)))
+            return real_encode(model, wav, mask, **kw)
+
+        st5.encode_speech = counted_encode
+        try:
+            reset()
+            t0 = time.perf_counter()
+            rc = loco_experiment.main([
+                "--out_dir", out, "--stage", "asr", "--asr_convs", "6",
+                "--asr_dev_convs", "2", "--asr_utts", "4", "--asr_steps", "100",
+                "--asr_lm_steps", "100", "--asr_lm_convs", "60", "--seed", "0"])
+            torch.cuda.synchronize()
+            asr_wall = time.perf_counter() - t0
+            loco_launches = counts()
+        finally:
+            st5.encode_speech = real_encode
+        check(rc == 0, f"loco_experiment --stage asr returned {rc}")
+        tiny = tiny_config(vocab_size=256, hidden_size=32, encoder_attention_heads=4,
+                           decoder_attention_heads=4, encoder_ffn_dim=64, decoder_ffn_dim=64)
+        cfg_asr = dataclasses.replace(tiny, **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in loco_experiment.CONV_OVER.items()})
+        n_enc = len(encodes)
+        want = dict(none, B1=cfg_asr.encoder_layers * n_enc, B2=n_enc)
+        check(n_enc >= 8 and loco_launches == want,
+              f"LoCo ASR stage launched {loco_launches} over {n_enc} encodes, expected {want}")
+        with open(os.path.join(out, "results.json")) as f:
+            res = json.load(f)["asr"]
+        keys = {"nofusion", "carry", "nocarry", "oracle"}
+        metrics = {"wer_all", "wer_clean", "wer_degraded", "name_recovery"}
+        check(set(res) == keys | {"wer_gain_degraded"}
+              and all(set(res[k]) == metrics and all(np.isfinite(list(res[k].values())))
+                      for k in keys) and np.isfinite(res["wer_gain_degraded"]),
+              f"LoCo ASR results {res}")
+        # the trained encoder at the decodes' shapes, kernel path against plain
+        asr = st5.asr_model_init(cfg_asr, device=dev)
+        asr.load_state_dict(sconvert.asr_from_jax_params(
+            eval_ppl.training_dir_params(os.path.join(out, "asr", "ckpt")), cfg_asr),
+            strict=True)
+        ds = KaldiAsrDataset(os.path.join(out, "asr_corpus", "dev"))
+        wavs = [ds.load_waveform(e) for e in ds.examples]
+        bucket = max(len(w) for w in wavs)
+        enc_err = {}
+        for rows in sorted({shape[0] for shape in encodes}):
+            wav = np.zeros((rows, bucket), np.float32)
+            mask = np.zeros((rows, bucket), np.int32)
+            for r in range(rows):
+                w = wavs[r % len(wavs)]
+                wav[r, :len(w)] = w
+                mask[r, :len(w)] = 1
+            reset()
+            hid, fmask = real_encode(asr, wav, mask)
+            check(counts() == dict(none, B1=cfg_asr.encoder_layers, B2=1),
+                  f"LoCo encode at {rows} rows launched {counts()}")
+            phid, _ = real_encode(asr, wav, mask, use_kernels=False)
+            enc_err[rows] = encoder_error(hid, phid, fmask, f"LoCo encoder [{rows}, {bucket}]")
+        rec = dict(results=res, wall_s=asr_wall, launches=loco_launches, encodes=n_enc,
+                   encode_shapes=sorted(set(encodes)), frames=int(hid.shape[1]),
+                   encoder_err=enc_err, card=smi)
+        print(f"[loco_asr] {json.dumps(rec)}")
+    print(f"[lm_phase] {json.dumps(dict(wall_s=time.perf_counter() - t_phase))}")
+    return {"train_step": fcnt, "train_lm": lm_launches, "loco_asr": loco_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1143,27 +1484,33 @@ def main() -> int:
 
     checks = []
     # (case, B, Tq, Tk, L (0: the mask-only variant, as flash_attention
-    # runs it without rel_pe), causal, valid lengths, layout); "split_heads"
-    # hands q/k/v over as the encoder does, transposed views of [B, T, 768]
-    # projections, read in place
+    # runs it without rel_pe), causal, valid lengths, layout, H, D);
+    # "split_heads" hands q/k/v over as the encoder does, transposed views
+    # of [B, T, 768] projections, read in place; the "loco" cases are the
+    # LoCo experiment's tiny encoder (4 heads of 8, L = 20) at its decode
+    # batches of 4 slots of 1 s (398 frames), a slot padded and one empty
     rel_lens = [249] * 10 + [230, 200, 180, 120, 60, 17]
+    loco_lens = [398, 350, 201, 0]
     b1_cases = [
-        ("rel_padded", 16, 249, 249, 160, False, rel_lens, "bhtd"),
-        ("rel_causal", 16, 249, 249, 160, True, [249] * 14 + [200, 100], "bhtd"),
-        ("mask_only", 16, 249, 249, 0, False, [249] * 12 + [200, 150, 99, 40], "bhtd"),
-        ("rel_long", 2, 2048, 2048, 160, False, [2048, 1500], "bhtd"),
-        ("vl0", 16, 249, 249, 160, False, [249] * 12 + [0, 120, 0, 60], "bhtd"),
-        ("cross_mask_only", 8, 192, 500, 0, False, [500] * 6 + [430, 310], "bhtd"),
-        ("rel_strided", 16, 249, 249, 160, False, rel_lens, "split_heads"),
+        ("rel_padded", 16, 249, 249, 160, False, rel_lens, "bhtd", 12, 64),
+        ("rel_causal", 16, 249, 249, 160, True, [249] * 14 + [200, 100], "bhtd", 12, 64),
+        ("mask_only", 16, 249, 249, 0, False, [249] * 12 + [200, 150, 99, 40], "bhtd", 12, 64),
+        ("rel_long", 2, 2048, 2048, 160, False, [2048, 1500], "bhtd", 12, 64),
+        ("vl0", 16, 249, 249, 160, False, [249] * 12 + [0, 120, 0, 60], "bhtd", 12, 64),
+        ("cross_mask_only", 8, 192, 500, 0, False, [500] * 6 + [430, 310], "bhtd", 12, 64),
+        ("rel_strided", 16, 249, 249, 160, False, rel_lens, "split_heads", 12, 64),
+        ("loco_d8", 4, 398, 398, 20, False, loco_lens, "bhtd", 4, 8),
+        ("loco_mask_only_d8", 4, 398, 398, 0, False, loco_lens, "bhtd", 4, 8),
+        ("loco_d32", 4, 398, 398, 20, False, loco_lens, "bhtd", 4, 32),
     ]
-    for name, b, tq, tk, L, causal, vls, layout in b1_cases:
+    for name, b, tq, tk, L, causal, vls, layout, h, d in b1_cases:
         if layout == "split_heads":
-            q, k, v = (randn(b, t, 768).reshape(b, t, 12, 64).transpose(1, 2)
+            q, k, v = (randn(b, t, h * d).reshape(b, t, h, d).transpose(1, 2)
                        for t in (tq, tk, tk))
         else:
-            q, k, v = randn(b, 12, tq, 64), randn(b, 12, tk, 64), randn(b, 12, tk, 64)
-        pe = randn(2 * L, 64) if L else None
-        table = pe if L else torch.zeros(2, 64, device=dev)   # the plain version's
+            q, k, v = randn(b, h, tq, d), randn(b, h, tk, d), randn(b, h, tk, d)
+        pe = randn(2 * L, d) if L else None
+        table = pe if L else torch.zeros(2, d, device=dev)   # the plain version's
         vl = torch.tensor(vls, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, scale=1.0)
 
@@ -1186,7 +1533,7 @@ def main() -> int:
         bms, by = bound(nbytes, flops, products=True)
         ms = time_ms(run)
         dev_ms = kernel_device_ms(run, ("flash_rel_fwd",))["flash_rel_fwd"]
-        rec = dict(kernel="B1", case=name, shape=[b, 12, tq, 64], tk=tk,
+        rec = dict(kernel="B1", case=name, shape=[b, h, tq, d], tk=tk,
                    two_l=2 * L if L else "mask-only", causal=causal, layout=layout,
                    max_abs_err=err, tol=B1_TOL, ms=ms, device_ms=dev_ms, host_ms=ms - dev_ms,
                    plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, table, vl, **kw)),
@@ -1612,16 +1959,7 @@ def main() -> int:
     check(np.isfinite(fl) and np.isfinite(fg), f"train step: loss {fl}, grad_norm {fg}")
     check(abs(fl - dl) <= LOSS_RTOL * abs(dl), f"train step: loss flash {fl} dense {dl}")
     check(abs(fg - dg) <= GNORM_RTOL * abs(dg), f"train step: grad_norm flash {fg} dense {dg}")
-    check(fgr.keys() == dgr.keys(), "train step: different parameters got gradients")
-    worst, worst_name, grad_max_abs = 0.0, "", 0.0
-    for k in dgr:
-        diff = (fgr[k] - dgr[k]).abs()
-        excess = (diff - GRAD_RTOL * dgr[k].abs()).max().item()
-        grad_max_abs = max(grad_max_abs, diff.max().item())
-        if excess > worst:
-            worst, worst_name = excess, k
-    check(worst <= GRAD_ATOL, f"train step: gradient {worst_name} off by {worst} beyond "
-                              f"rtol {GRAD_RTOL} (atol {GRAD_ATOL})")
+    worst, worst_name, grad_max_abs = grads_against(fgr, dgr, "train step")
     check(dcnt == {"B1": 0, "B2": 0, "B3/B4": 0, "B5": 0, "B5_bwd": 0},
           f"dense train pass launched {dcnt}")
     del runs, fgr, dgr
@@ -1838,7 +2176,10 @@ def main() -> int:
     decode_launches = decode_phase(corpus, win_wav, win_lengths, smi, dev)
     tmp_corpus.cleanup()
 
-    # -- 13. summary -------------------------------------------------------
+    # -- 13. LM training at gpt2 width, the LoCo experiment ------------------
+    lm_train_launches = lm_training_phase(smi, dev)
+
+    # -- 14. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1865,16 +2206,23 @@ def main() -> int:
                     wrapper_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
                     bound_ms=bms, bound_by=by, library_ms=main_rec["library_ms"])
 
-    # B1's and B2's launches on the decode path: phase 12's six decode_asr runs
+    # B1's and B2's launches on the decode path: phase 12's six decode_asr
+    # runs, and in phase 13's LoCo ASR stage; B1's time at head dim 8 (the
+    # LoCo encoder's) beside the main case's
+    d8 = next(c for c in checks if c["case"] == "loco_d8")
     kernels = [
         dict(entry("flash_rel_forward", "loco_asr_tpu_torch/csrc/flash_rel.cu",
                    "loco_asr_tpu/ops/pallas/flash_attention.py:518",
                    "flash_attention.py::_flash_rel_kernel", "B1", "rel_padded", launches["B1"]),
-             decode_launches=decode_launches["B1"]),
+             decode_launches=decode_launches["B1"],
+             loco_launches=lm_train_launches["loco_asr"]["B1"],
+             d8_ms=d8["ms"], d8_device_ms=d8["device_ms"], d8_plain_ms=d8["plain_ms"],
+             d8_bound_ms=d8["bound_ms"]),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
-             decode_launches=decode_launches["B2"]),
+             decode_launches=decode_launches["B2"],
+             loco_launches=lm_train_launches["loco_asr"]["B2"]),
         entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
               "loco_asr_tpu/ops/pallas/flash_attention.py:40",
               "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
@@ -1882,10 +2230,13 @@ def main() -> int:
                   "flash_attention.py::_rel_bwd_dq_kernel", "b3"),
         bwd_entry("flash_rel_backward (B4)", "loco_asr_tpu/ops/pallas/flash_attention.py:902",
                   "flash_attention.py::_rel_bwd_dkv_kernel", "b4"),
-        entry("flash_forward_nhd", "loco_asr_tpu_torch/csrc/flash_causal.cu",
-              "loco_asr_tpu/ops/pallas/flash_attention.py:168",
-              "flash_attention.py::_flash_pair_kernel", "B6", "gpt2_max_len",
-              lm_launches["B6"]),
+        dict(entry("flash_forward_nhd", "loco_asr_tpu_torch/csrc/flash_causal.cu",
+                   "loco_asr_tpu/ops/pallas/flash_attention.py:168",
+                   "flash_attention.py::_flash_pair_kernel", "B6", "gpt2_max_len",
+                   lm_launches["B6"]),
+             train_step_launches=lm_train_launches["train_step"]["B6"],
+             train_lm_launches=lm_train_launches["train_lm"]["B6"],
+             train_lm_backward_calls=lm_train_launches["train_lm"]["B6_bwd"]),
         entry("fused_log_mel", "loco_asr_tpu_torch/csrc/logmel.cu",
               "loco_asr_tpu/ops/pallas/logmel.py:40",
               "logmel.py::_logmel_kernel", "B7", "corpus_10s", b7_launches),

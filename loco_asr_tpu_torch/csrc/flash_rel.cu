@@ -11,9 +11,13 @@
 // The mask-only variant (MASK_ONLY, the zero table that flash_attention
 // makes when it has no rel_pe) skips the table and the band.  q, k, v and
 // out are read through (batch, head, time) element strides with a
-// contiguous head dim of 64, as in csrc/flash_causal.cu, so the transposed
-// views of split_heads and the qkv column views of a GPT-2 layer are read
-// in place.
+// contiguous head dim, as in csrc/flash_causal.cu, so the transposed views
+// of split_heads and the qkv column views of a GPT-2 layer are read in
+// place.  The head dim D is a template parameter, instantiated for the
+// set B5 builds, {8, 16, 32, 64, 128}, as the TPU kernel reads d from the
+// shape: the SpeechT5 base encoder runs D = 64, the tiny ASR model of the
+// LoCo experiment D = 8.  D / 8 k-steps make q.k^T and q.pe^T, D / 8
+// column blocks p.v.
 //
 // What bounds it on an H100: arithmetic.  At the encoder's shape
 // ([16, 12, 249, 64], L = 160) the products q.k^T, q.pe^T and p.v are
@@ -51,7 +55,8 @@
 //    diagonal are not loaded (they would add exactly zero), unless
 //    valid_len is 0, where every key counts; pe tiles whose columns no row
 //    of the block reaches are not loaded either.
-// Block shapes (ShapeOf), each 4 warps of 64 rows, two blocks an SM:
+// Block shapes (ShapeOf), each 4 warps of 64 rows, two blocks an SM up to
+// D = 64 (one at D = 128, whose q fragments alone take 128 registers):
 //  - with the band, 32-key K/V tiles in one stage: at L = 160 the table
 //    takes 87 KB and the stage 17 KB, so copy and products overlap across
 //    the two blocks of an SM, not within one;
@@ -70,9 +75,8 @@
 
 namespace {
 
-constexpr int D = 64;          // head dim
-constexpr int KD = D / 8;      // k-steps of q.k^T and q.pe^T, column blocks of p.v
-constexpr int LD = D + 4;      // shared row stride of K, V and pe tiles
+template <int D>
+__host__ __device__ constexpr int ld() { return D + 4; }   // shared row stride of K, V, pe
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_NAT = -1e30f;       // the mask of the plain version
@@ -91,21 +95,23 @@ struct Shape {
 };
 template <bool MASK_ONLY>
 using ShapeOf = std::conditional_t<MASK_ONLY, Shape<4, 64, 2>, Shape<4, 32, 1>>;
-constexpr int MIN_BLOCKS = 2;   // blocks an SM that the launch bound asks for
+// blocks an SM that the launch bound asks for, as in csrc/flash_causal.cu
+template <int D>
+constexpr int min_blocks() { return D <= 64 ? 2 : 1; }
 
-template <bool MASK_ONLY>
+template <bool MASK_ONLY, int D>
 __host__ size_t smem_bytes(int two_l) {
   using S = ShapeOf<MASK_ONLY>;
-  return (size_t)(S::STAGES * 2 * S::BK * LD + (MASK_ONLY ? 0 : two_l * S::TS)) *
+  return (size_t)(S::STAGES * 2 * S::BK * ld<D>() + (MASK_ONLY ? 0 : two_l * S::TS)) *
          sizeof(float);
 }
 
-// rows [row0, row0 + BK) of a strided [n, 64] matrix -> smem [BK][LD],
+// rows [row0, row0 + BK) of a strided [n, D] matrix -> smem [BK][D + 4],
 // asynchronously; rows >= n are zero
-template <class S>
+template <class S, int D>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
                                                 long long row_stride, int row0, int n) {
-  constexpr int C4 = D / 4;
+  constexpr int C4 = D / 4, LD = ld<D>();
 #pragma unroll
   for (int i = threadIdx.x; i < S::BK * C4; i += S::THREADS) {
     const int r = i / C4, c4 = i % C4;
@@ -115,8 +121,8 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
   }
 }
 
-template <bool MASK_ONLY>
-__global__ void __launch_bounds__(ShapeOf<MASK_ONLY>::THREADS, MIN_BLOCKS)
+template <bool MASK_ONLY, int D>
+__global__ void __launch_bounds__(ShapeOf<MASK_ONLY>::THREADS, min_blocks<D>())
 flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ pe,
                      const int* __restrict__ valid_len, float* __restrict__ out,
@@ -124,6 +130,8 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int two_l, int causal, float scale) {
   using S = ShapeOf<MASK_ONLY>;
   constexpr int BQ = S::BQ, BK = S::BK, TS = S::TS;
+  constexpr int KD = D / 8;      // k-steps of q.k^T and q.pe^T, column blocks of p.v
+  constexpr int LD = ld<D>();
   constexpr int NB = BK / 8;     // key blocks of a tile
   constexpr int STAGE = 2 * BK * LD;
   // [STAGES][K, V][BK][LD], then the table [2L][TS]
@@ -162,11 +170,11 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto load_item = [&](int idx) {   // item idx -> its stage, asynchronously
     float* dst = smem + (S::STAGES == 2 ? (idx & 1) : 0) * STAGE;
     if (idx < npe) {
-      load_tile_async<S>(dst, pe, D, (pe0 + idx) * BK, two_l);
+      load_tile_async<S, D>(dst, pe, D, (pe0 + idx) * BK, two_l);
     } else {
       const int k0 = (idx - npe) * BK;
-      load_tile_async<S>(dst, kb, st.kt, k0, Tk);
-      load_tile_async<S>(dst + BK * LD, vb, st.vt, k0, Tk);
+      load_tile_async<S, D>(dst, kb, st.kt, k0, Tk);
+      load_tile_async<S, D>(dst + BK * LD, vb, st.vt, k0, Tk);
     }
     cp_async_commit();
   };
@@ -366,66 +374,89 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // raises the kernel's dynamic shared-memory limit once per device
-template <bool MASK_ONLY>
+template <bool MASK_ONLY, int D>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem_once(flash_rel_fwd_kernel<MASK_ONLY>, 0, done);
+  return allow_smem_once(flash_rel_fwd_kernel<MASK_ONLY, D>, 0, done);
 }
 
-template <bool MASK_ONLY>
+template <bool MASK_ONLY, int D>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* pe,
                    const int* valid_len, float* out, float* lse, const Strides& st,
                    int B, int H, int Tq, int Tk, int two_l, int causal, float scale,
                    cudaStream_t stream) {
   using S = ShapeOf<MASK_ONLY>;
-  const cudaError_t e = allow_smem<MASK_ONLY>();
+  const cudaError_t e = allow_smem<MASK_ONLY, D>();
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Tq + S::BQ - 1) / S::BQ);
-  flash_rel_fwd_kernel<MASK_ONLY><<<grid, S::THREADS, smem_bytes<MASK_ONLY>(two_l),
-                                    stream>>>(q, k, v, pe, valid_len, out, lse, st, H,
-                                              Tq, Tk, two_l, causal, scale);
+  flash_rel_fwd_kernel<MASK_ONLY, D><<<grid, S::THREADS, smem_bytes<MASK_ONLY, D>(two_l),
+                                       stream>>>(q, k, v, pe, valid_len, out, lse, st, H,
+                                                 Tq, Tk, two_l, causal, scale);
   return cudaGetLastError();
 }
 
-template <bool MASK_ONLY>
+template <bool MASK_ONLY, int D>
 int blocks_per_sm(int two_l) {
   int blocks = -1;
-  cudaError_t e = allow_smem<MASK_ONLY>();
+  cudaError_t e = allow_smem<MASK_ONLY, D>();
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, flash_rel_fwd_kernel<MASK_ONLY>, ShapeOf<MASK_ONLY>::THREADS,
-        smem_bytes<MASK_ONLY>(two_l));
+        &blocks, flash_rel_fwd_kernel<MASK_ONLY, D>, ShapeOf<MASK_ONLY>::THREADS,
+        smem_bytes<MASK_ONLY, D>(two_l));
   return e == cudaSuccess ? blocks : -1;
+}
+
+// f(std::bool_constant<mask_only>, std::integral_constant<int, d>) for the
+// instantiated forms, else ``fallback`` (a head dim the kernel does not take)
+template <class R, class F>
+R with_form(int mask_only, int d, R fallback, F&& f) {
+  auto dims = [&](auto mo) -> R {
+    switch (d) {
+      case 8: return f(mo, std::integral_constant<int, 8>{});
+      case 16: return f(mo, std::integral_constant<int, 16>{});
+      case 32: return f(mo, std::integral_constant<int, 32>{});
+      case 64: return f(mo, std::integral_constant<int, 64>{});
+      case 128: return f(mo, std::integral_constant<int, 128>{});
+      default: return fallback;
+    }
+  };
+  return mask_only ? dims(std::true_type{}) : dims(std::false_type{});
 }
 
 }  // namespace
 
-// Dynamic shared memory of a launch.
-extern "C" size_t loco_flash_rel_smem_bytes(int two_l, int mask_only) {
-  return mask_only ? smem_bytes<true>(two_l) : smem_bytes<false>(two_l);
+// Dynamic shared memory of a launch (0 for a head dim not instantiated).
+extern "C" size_t loco_flash_rel_smem_bytes(int two_l, int mask_only, int d) {
+  return with_form(mask_only, d, (size_t)0, [&](auto mo, auto dd) {
+    return smem_bytes<decltype(mo)::value, decltype(dd)::value>(two_l);
+  });
 }
 
 // Blocks of the kernel that fit on one SM of the current device at this
 // table size (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
-extern "C" int loco_flash_rel_blocks_per_sm(int two_l, int mask_only) {
-  return mask_only ? blocks_per_sm<true>(two_l) : blocks_per_sm<false>(two_l);
+extern "C" int loco_flash_rel_blocks_per_sm(int two_l, int mask_only, int d) {
+  return with_form(mask_only, d, -1, [&](auto mo, auto dd) {
+    return blocks_per_sm<decltype(mo)::value, decltype(dd)::value>(two_l);
+  });
 }
 
-// q [.., Tq, 64], k/v [.., Tk, 64], out [.., Tq, 64] (float32, head dim
+// q [.., Tq, D], k/v [.., Tk, D], out [.., Tq, D] (float32, head dim
 // contiguous, 16-byte aligned rows), addressed through strides[12] =
 // (batch, head, time) element strides of q, k, v, out in that order;
-// pe [two_l, 64] contiguous (not read when mask_only), valid_len [B] int32,
-// lse [B,H,Tq] contiguous.
+// pe [two_l, D] contiguous (not read when mask_only), valid_len [B] int32,
+// lse [B,H,Tq] contiguous.  D in {8, 16, 32, 64, 128}.
 extern "C" int loco_flash_rel_fwd(const void* q, const void* k, const void* v,
                                   const void* pe, const void* valid_len, void* out,
                                   void* lse, const long long* strides, int B, int H,
-                                  int Tq, int Tk, int two_l, int causal, int mask_only,
-                                  float scale, void* stream) {
+                                  int Tq, int Tk, int D, int two_l, int causal,
+                                  int mask_only, float scale, void* stream) {
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
-  const auto go = mask_only ? &launch<true> : &launch<false>;
-  return (int)go((const float*)q, (const float*)k, (const float*)v, (const float*)pe,
-                 (const int*)valid_len, (float*)out, (float*)lse, st, B, H, Tq, Tk, two_l,
-                 causal, scale, (cudaStream_t)stream);
+  return (int)with_form(mask_only, D, cudaErrorInvalidValue, [&](auto mo, auto dd) {
+    return launch<decltype(mo)::value, decltype(dd)::value>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)pe,
+        (const int*)valid_len, (float*)out, (float*)lse, st, B, H, Tq, Tk, two_l, causal,
+        scale, (cudaStream_t)stream);
+  });
 }

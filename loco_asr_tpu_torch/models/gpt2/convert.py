@@ -4,7 +4,8 @@
   GPT-2 tree (``loco_asr_tpu.utils.pytree.flatten_with_paths``, the key
   layout of its ``.npz`` checkpoints).  A dense ``kernel`` and a norm
   ``scale`` become ``weight``; dense weights are ``[in, out]`` on both
-  sides, so nothing is transposed.
+  sides, so nothing is transposed.  :func:`to_jax_params` is its
+  inverse, the layout ``train_lm`` saves.
 * :func:`load_hf_gpt2`: an HF ``GPT2LMHeadModel`` / ``GPT2Model`` state
   dict, the counterpart of ``loco_asr_tpu.models.gpt2.import_torch``.  HF's
   ``Conv1D`` already stores ``[in, out]``; the ``transformer.`` prefix, the
@@ -59,6 +60,19 @@ def from_jax_params(flat: Mapping[str, np.ndarray], cfg: GPT2Config
             parts[-1] = "weight"
         state[".".join(parts)] = _as_tensor(value)
     return _checked(state, cfg, "JAX GPT-2")
+
+
+def to_jax_params(model: GPT2Model) -> Dict[str, np.ndarray]:
+    """``GPT2Model`` -> flat JAX-layout float32 numpy params (the inverse
+    of :func:`from_jax_params`): a dense layer's ``weight`` is its
+    ``kernel``, a norm's its ``scale``; the tables keep ``weight``."""
+    out = {}
+    for key, value in model.state_dict().items():
+        parts = key.split(".")
+        if parts[-1] == "weight" and parts[0] not in ("wte", "wpe"):
+            parts[-1] = "scale" if parts[-2].startswith("ln_") else "kernel"
+        out[".".join(parts)] = value.detach().to("cpu", torch.float32).numpy()
+    return out
 
 
 def strip_hf_prefix(key: str) -> str:

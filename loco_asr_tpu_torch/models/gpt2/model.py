@@ -17,6 +17,14 @@ the JAX ``scale``.  The lm head is tied to ``wte``.
   when D != 64 or the head count is odd); with ``attention_mask``, kernel
   B1 with per-row valid-key counts (right padding) and ``causal=True``.
 
+Training mode (``deterministic=False`` with a ``generator``) applies the
+JAX model's dropout at its places: ``embd_pdrop`` after the token and
+position tables, ``attn_pdrop`` on the dense attention probabilities,
+``resid_pdrop`` on the attention and MLP outputs.  The masks come from the
+generator, so they are not JAX's bits.  :func:`token_nll_from_hidden` with
+``checkpoint_chunks`` recomputes each chunk's logits in the backward, so
+the [B, T, V] logits never live in memory during training.
+
 Incremental mode (``kv_caches`` from :func:`init_kv_cache`, ``cache_index``
 an int or a [B] tensor of per-row offsets) attends densely over the cache,
 as the JAX one does, and writes the new keys and values into it in place
@@ -30,10 +38,11 @@ Not ported yet, and refused with an error: the sequence-parallel ``ring``
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ...ops import attention, layers
@@ -168,8 +177,8 @@ def init_kv_cache(model: GPT2Model, batch: int, max_len: int,
 def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
                bias: Optional[torch.Tensor], attn_impl: str,
                kv_valid_len: Optional[torch.Tensor],
-               kv_cache: Optional[Dict[str, torch.Tensor]] = None,
-               cache_index=None, write_mask=None) -> torch.Tensor:
+               kv_cache: Optional[Dict[str, torch.Tensor]], cache_index, write_mask,
+               drop: Callable[[torch.Tensor, float], torch.Tensor]) -> torch.Tensor:
     b, t, _ = h.shape
     q, k, v = (x.reshape(b, t, cfg.n_head, cfg.head_dim)
                for x in blk.attn.c_attn(h).split(cfg.n_embd, dim=-1))
@@ -187,9 +196,9 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
             attention._write_cache(kv_cache, k, v, cache_index, write_mask)
             k, v = kv_cache["k"], kv_cache["v"]
         scores = torch.matmul(q, k.transpose(-1, -2)) / cfg.head_dim ** 0.5
-        probs = torch.softmax(scores + bias, dim=-1)
+        probs = drop(torch.softmax(scores + bias, dim=-1), cfg.attn_pdrop)
         attn = torch.matmul(probs, v).transpose(1, 2)
-    return blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd))
+    return drop(blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd)), cfg.resid_pdrop)
 
 
 def _causal_bias(past, t: int, k_len: int, dev) -> torch.Tensor:
@@ -206,15 +215,17 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
                  attention_mask: Optional[ArrayLike] = None,
                  kv_caches: Optional[KVCache] = None, cache_index=None,
                  kv_write_mask: Optional[torch.Tensor] = None,
-                 deterministic: bool = True, attn_impl: str = "dense"
+                 deterministic: bool = True, attn_impl: str = "dense",
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Token ids [B, T] -> (hidden [B, T, D], ``kv_caches``), on the model's
     device.
 
     ``attention_mask`` [B, T] marks valid tokens; padding must be on the
-    right (the data layer's only form).  No dropout is applied (the JAX
-    forward without a ``dropout_rng``); ``attn_impl="flash"`` outside
-    ``deterministic`` still refuses ``attn_pdrop > 0`` as the JAX one does.
+    right (the data layer's only form).  Dropout runs only outside
+    ``deterministic`` and with a ``generator`` on the model's device (the
+    JAX forward's ``dropout_rng``); ``attn_impl="flash"`` outside
+    ``deterministic`` refuses ``attn_pdrop > 0`` as the JAX one does.
 
     Incremental mode: ``kv_caches`` (:func:`init_kv_cache`) and
     ``cache_index``, the number of positions already cached: an int for
@@ -263,7 +274,12 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
             raise ValueError(f"positions {past}..{past + t - 1} exceed "
                              f"n_positions {cfg.n_positions}")
         pos_emb = model.wpe.weight[past:past + t][None]
-    x = model.wte(ids) + pos_emb
+    training = not deterministic
+
+    def drop(y, p):
+        return layers.dropout(y, p, generator, training)
+
+    x = drop(model.wte(ids) + pos_emb, cfg.embd_pdrop)
     mask = None if attention_mask is None else torch.as_tensor(attention_mask, device=dev)
     bias = kv_valid_len = None
     if kv_caches is not None:
@@ -282,9 +298,9 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
         h = layers.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias, eps=eps)
         x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len,
                            None if kv_caches is None else kv_caches[str(i)],
-                           cache_index, kv_write_mask)
+                           cache_index, kv_write_mask, drop)
         h = layers.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias, eps=eps)
-        x = x + blk.mlp.c_proj(act(blk.mlp.c_fc(h)))
+        x = x + drop(blk.mlp.c_proj(act(blk.mlp.c_fc(h))), cfg.resid_pdrop)
     return layers.layer_norm(x, model.ln_f.weight, model.ln_f.bias, eps=eps), kv_caches
 
 
@@ -295,21 +311,36 @@ def gpt2_logits(model: GPT2Model, input_ids: ArrayLike, **kw
     return torch.matmul(hidden, model.wte.weight.t()), caches
 
 
+def _chunk_nll(hid: torch.Tensor, wte_weight: torch.Tensor,
+               tgt: torch.Tensor) -> torch.Tensor:
+    logits = torch.matmul(hid.float(), wte_weight.float().t())
+    picked = logits.gather(-1, tgt[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - picked
+
+
 def token_nll_from_hidden(wte_weight: torch.Tensor, hidden: torch.Tensor,
-                          targets: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+                          targets: torch.Tensor, *, chunk: int = 256,
+                          checkpoint_chunks: bool = False) -> torch.Tensor:
     """Per-token NLL [B, T-1] straight from the final hidden states, the
     numbers of ``token_nll(logits, targets)`` without the [B, T, V] logits:
     the time axis is scored ``chunk`` steps at a time (logsumexp minus the
-    target's logit, in float32)."""
+    target's logit, in float32).
+
+    ``checkpoint_chunks`` (training): each chunk runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only its
+    inputs for the backward and recomputes the chunk's [B, chunk, V]
+    logits there, as the JAX ``jax.checkpoint`` of the scan body does.
+    Without it autograd keeps every chunk's logits."""
     b, t, _ = hidden.shape
     n = t - 1
     chunk = max(1, min(chunk, n))
     hid, tgt = hidden[:, :-1], targets[:, 1:].to(hidden.device).long()
+    recompute = checkpoint_chunks and torch.is_grad_enabled()
     out = []
     for s in range(0, n, chunk):
-        logits = torch.matmul(hid[:, s:s + chunk].float(), wte_weight.float().t())
-        picked = logits.gather(-1, tgt[:, s:s + chunk, None])[..., 0]
-        out.append(torch.logsumexp(logits, dim=-1) - picked)
+        args = (hid[:, s:s + chunk], wte_weight, tgt[:, s:s + chunk])
+        out.append(torch.utils.checkpoint.checkpoint(_chunk_nll, *args, use_reentrant=False)
+                   if recompute else _chunk_nll(*args))
     return torch.cat(out, dim=1) if out else hidden.new_zeros((b, 0))
 
 

@@ -40,9 +40,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu: (argtypes, restype)
 _SIGNATURES = {
-    "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
-    "loco_flash_rel_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "loco_flash_rel_blocks_per_sm": ([_I, _I], _I),
+    "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _P], _I),
+    "loco_flash_rel_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "loco_flash_rel_blocks_per_sm": ([_I, _I, _I], _I),
     "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
     "loco_flash_rel_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "loco_flash_rel_bwd_blocks_per_sm": ([_I, _I, _I], _I),

@@ -27,9 +27,10 @@ backward).  Under ``torch.no_grad`` / ``inference_mode``, or when no
 operand requires grad, the forward launches without the ``Function``.
 The kernels read q, k, v (and, backward, the cotangent) through their
 strides (the transposed views of ``split_heads`` and a GPT-2 layer's qkv
-column views, in place) and write ``out``, dq, dk and dv into [B, T, H, 64]
-buffers returned as [B, H, T, 64] views, so that merging the heads and the
-gradient of splitting them are views too.  A mask-only forward's backward
+column views, in place) and write ``out``, dq, dk and dv into [B, T, H, D]
+buffers returned as [B, H, T, D] views, so that merging the heads and the
+gradient of splitting them are views too.  B1 takes the head dims B5 takes
+(``flash_causal.HEAD_DIMS``, 8 to 128); B3 + B4 take 64 only.  A mask-only forward's backward
 runs the mask-only B3 + B4 and has no band gradient.
 :func:`flash_attention` is the JAX package's public dispatch: B1 when
 ``rel_pe`` or ``kv_valid_len`` is given, else kernel B5
@@ -46,7 +47,8 @@ import torch
 from . import _build, flash_causal
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+HEAD_DIMS = flash_causal.HEAD_DIMS   # B1's instantiations in csrc/flash_rel.cu
+BWD_HEAD_DIM = 64                    # B3 + B4's, csrc/flash_rel_bwd.cu
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 
 _CONSTANTS: dict = {}   # (kind, device, ...) -> a tensor no caller writes to
@@ -145,11 +147,11 @@ def _check_smem(what: str, smem: int, two_l: int) -> None:
                          "block may use")
 
 
-def _check_cuda(what: str, q: torch.Tensor) -> None:
+def _check_cuda(what: str, q: torch.Tensor, head_dims) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{what}: the CUDA kernel needs head dim {HEAD_DIM}, "
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"{what}: the CUDA kernel takes head dims {tuple(head_dims)}, "
                          f"got {q.shape[-1]}")
 
 
@@ -173,15 +175,15 @@ def _heads_view_buffer(b: int, h: int, t: int, d: int, device) -> torch.Tensor:
 
 def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
     """B1 on the current stream (counted): q, k, v read through their
-    strides, out written into a [B, Tq, H, 64] buffer and returned as a
-    [B, H, Tq, 64] view."""
+    strides, out written into a [B, Tq, H, D] buffer and returned as a
+    [B, H, Tq, D] view."""
     what = "flash_rel_forward"
-    _check_cuda(what, q)
+    _check_cuda(what, q, HEAD_DIMS)
     strides = flash_causal.operand_strides((("q", q), ("k", k), ("v", v)), 2, what)
     pe = _contiguous_f32(what, "pe", pe, q.device)
     b, h, tq, d = q.shape
     two_l = pe.shape[0]
-    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only)),
+    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only), d),
                 two_l)
     vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = _heads_view_buffer(b, h, tq, d, q.device)
@@ -191,7 +193,7 @@ def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
         _build.library().loco_flash_rel_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
         out.data_ptr(), lse.data_ptr(), flash_causal.stride_buffer(tuple(strides)),
-        b, h, tq, k.shape[2], two_l, int(causal), int(mask_only), float(scale))
+        b, h, tq, k.shape[2], d, two_l, int(causal), int(mask_only), float(scale))
     _build.check(code, what)
     flash_rel_forward.launches += 1
     return out, lse
@@ -228,7 +230,7 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
     returned as [B, H, T, 64] views, dqpe [B, H, Tq, 2L] (None when
     ``mask_only``) written whole by B3."""
     what = "flash_rel_backward"
-    _check_cuda(what, q)
+    _check_cuda(what, q, (BWD_HEAD_DIM,))
     strides = flash_causal.operand_strides(
         (("q", q), ("k", k), ("v", v), ("g", g)), 2, what)
     dev = q.device
@@ -336,9 +338,10 @@ def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       pe: Optional[torch.Tensor], valid_len: torch.Tensor, *,
                       causal: bool, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [B,H,Tq,64], k/v [B,H,Tk,64], pe [2L,64] or None (mask-only),
-    valid_len [B] int -> (out [B,H,Tq,64], lse [B,H,Tq] float32).  ``out``
-    is differentiable in q, k, v and pe (``lse`` is not)."""
+    """q [B,H,Tq,D], k/v [B,H,Tk,D], pe [2L,D] or None (mask-only),
+    valid_len [B] int -> (out [B,H,Tq,D], lse [B,H,Tq] float32).  ``out``
+    is differentiable in q, k, v and pe (``lse`` is not); on the card the
+    forward takes D in ``HEAD_DIMS``, its backward D = 64."""
     mask_only = pe is None
     if mask_only:
         pe = _zero_table(q.shape[-1], q.dtype, q.device)

@@ -70,8 +70,8 @@ def load_fusion_lm(args, dev):
     vocabulary (and for ``tiny`` the width, positions and depth) of
     ``--lm_checkpoint``; seeded random weights without one."""
     from ..decode.fusion import FusionLM
-    from ..models.gpt2 import convert, model as g
-    from .eval_ppl import checkpoint_config, read_checkpoint
+    from ..models.gpt2 import model as g
+    from .eval_ppl import load_gpt2
 
     if args.lm_checkpoint is None and args.lm_model == "tiny":
         return None
@@ -84,15 +84,8 @@ def load_fusion_lm(args, dev):
         cfg = g.tiny_gpt2_config(vocab_size=256, n_embd=32, n_head=4, n_positions=n_pos)
     else:
         cfg = g.PRESETS[args.lm_model]
-    if args.lm_checkpoint is None:
-        model = g.gpt2_init(cfg, seed=0, device=dev)
-    else:
-        kind, flat = read_checkpoint(args.lm_checkpoint)
-        cfg = checkpoint_config(cfg, flat, tiny=args.lm_model == "tiny")
-        bridge = convert.from_jax_params if kind == "jax" else convert.load_hf_gpt2
-        model = g.GPT2Model(cfg)
-        model.load_state_dict(bridge(flat, cfg), strict=True)
-        model = model.to(dev).eval()
+    model = load_gpt2(args.lm_checkpoint, cfg, dev, tiny=args.lm_model == "tiny")
+    cfg = model.cfg
     if cfg.vocab_size != args.vocab_size:
         raise SystemExit(f"fusion adds LM and ASR log-probs: the LM's vocabulary "
                          f"({cfg.vocab_size}) must be the ASR one ({args.vocab_size})")

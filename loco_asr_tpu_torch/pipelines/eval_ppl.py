@@ -21,11 +21,13 @@ the head dim is not 64 or the head count is odd) in every layer.
 
 Artifacts: ``rec_id2nlls.pkl``, ``rec_id2ppl.json`` and the timestamped
 log with the reference's aggregate line.  Checkpoints: none (seeded random
-init), a JAX ``.npz``, or HF ``pytorch_model.bin`` / ``.safetensors``
-files or directories.  Not ported yet, and refused with an error: the
-JAX package's training directories, ``.safetensors`` without the
-``safetensors`` package, ``--compute_dtype bfloat16``,
-``--data_parallel > 1`` and ``--sequence_parallel > 1``.
+init), a JAX ``.npz``, a training directory (``status.json`` whose latest
+step is ``step_N.npz``: ``train_lm``'s, the port's or the JAX package's
+``.npz`` backend), or HF ``pytorch_model.bin`` / ``.safetensors`` files or
+directories.  Not ported yet, and refused with an error: orbax step
+directories, ``.safetensors`` without the ``safetensors`` package,
+``--compute_dtype bfloat16``, ``--data_parallel > 1`` and
+``--sequence_parallel > 1``.
 """
 
 from __future__ import annotations
@@ -62,8 +64,9 @@ def parse_arguments(argv=None):
                    help="indep/max_len = reference semantics; streaming = "
                         "half-overlap strided windows")
     p.add_argument("--checkpoint", default=None,
-                   help="local GPT-2 weights (.npz of the JAX package, "
-                        ".bin/.safetensors or an HF dir); random init if omitted")
+                   help="local GPT-2 weights (.npz of the JAX package, a "
+                        "train_lm ckpt dir of .npz steps, .bin/.safetensors "
+                        "or an HF dir); random init if omitted")
     p.add_argument("--tokenizer", default="char",
                    help="'char' or dir with vocab.json+merges.txt")
     p.add_argument("--max_len", type=int, default=None,
@@ -91,14 +94,32 @@ def parse_arguments(argv=None):
     return p.parse_args(argv)
 
 
+def training_dir_params(directory: str) -> Dict:
+    """Flat JAX params of the latest step of a training directory
+    (``status.json`` + ``step_N.npz``, the ``.npz`` layout of both
+    packages' checkpointers: ``params.<flat key>`` entries)."""
+    from ..utils.checkpoint import Checkpointer, flatten
+
+    ckpt = Checkpointer(directory)
+    step = ckpt.status()["latest"]
+    if step is None:
+        raise SystemExit(f"{directory}: status.json names no saved step")
+    if not os.path.exists(ckpt.step_path(step)):
+        orbax = os.path.join(directory, f"step_{step}")
+        raise SystemExit(f"{orbax}: orbax step directories are not ported yet "
+                         f"(no {os.path.basename(ckpt.step_path(step))}); this "
+                         "package reads training directories of .npz steps (the "
+                         "JAX Checkpointer with use_orbax=False)")
+    return flatten(ckpt.restore(step)["params"])
+
+
 def read_checkpoint(checkpoint: str):
-    """('jax', flat JAX params) for a ``.npz``, ('hf', state dict) for HF
-    torch or safetensors weights."""
+    """('jax', flat JAX params) for a ``.npz`` or a training directory of
+    ``.npz`` steps, ('hf', state dict) for HF torch or safetensors
+    weights."""
     if os.path.isdir(checkpoint):
         if os.path.exists(os.path.join(checkpoint, "status.json")):
-            raise SystemExit(f"{checkpoint}: training directories of the JAX "
-                             "package are not ported yet; export an .npz "
-                             "(utils.checkpoint.save_npz of its params)")
+            return "jax", training_dir_params(checkpoint)
         for name in ("model.safetensors", "pytorch_model.bin"):
             path = os.path.join(checkpoint, name)
             if os.path.exists(path):
@@ -132,6 +153,27 @@ def checkpoint_config(cfg, flat: Dict, *, tiny: bool):
     return dataclasses.replace(cfg, **over)
 
 
+def load_gpt2(checkpoint, cfg, device, *, tiny: bool = False):
+    """A ``GPT2Model`` in eval mode on ``device``: seeded random weights
+    (seed 0) of ``cfg`` without a ``checkpoint``, else the weights that
+    :func:`read_checkpoint` reads, under the config their shapes pin
+    (:func:`checkpoint_config`); ``model.cfg`` is that config."""
+    import torch
+
+    from ..models.gpt2 import convert, model as g
+
+    if checkpoint is None:
+        return g.gpt2_init(cfg, seed=0, device=device)
+    kind, flat = read_checkpoint(checkpoint)
+    cfg = checkpoint_config(cfg, flat, tiny=tiny)
+    bridge = convert.from_jax_params if kind == "jax" else convert.load_hf_gpt2
+    state = bridge(flat, cfg)
+    with torch.device("meta"):
+        model = g.GPT2Model(cfg)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.to(device).eval()
+
+
 def main(argv=None) -> int:
     args = parse_arguments(argv)
     if args.download_only:
@@ -147,7 +189,7 @@ def main(argv=None) -> int:
     import torch
 
     from ..data import lm_datasets, tokenizer as tok_lib
-    from ..models.gpt2 import convert, model as g
+    from ..models.gpt2 import model as g
     from ..utils.device import resolve_device
     from ..utils.metrics import create_logger
 
@@ -170,19 +212,10 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, vocab_size=256)
     if args.tokenizer == "char":
         tokenizer.vocab_size = cfg.vocab_size  # keep ids inside the model vocab
-    if args.checkpoint is None:
-        model = g.gpt2_init(cfg, seed=0, device=dev)
-    else:
-        kind, flat = read_checkpoint(args.checkpoint)
-        cfg = checkpoint_config(cfg, flat, tiny=args.model == "tiny")
-        if args.model == "tiny" and args.tokenizer == "char":
-            tokenizer.vocab_size = cfg.vocab_size
-        bridge = convert.from_jax_params if kind == "jax" else convert.load_hf_gpt2
-        state = bridge(flat, cfg)
-        with torch.device("meta"):
-            model = g.GPT2Model(cfg)
-        model.load_state_dict(state, strict=True, assign=True)
-        model = model.to(dev).eval()
+    model = load_gpt2(args.checkpoint, cfg, dev, tiny=args.model == "tiny")
+    cfg = model.cfg
+    if args.model == "tiny" and args.tokenizer == "char":
+        tokenizer.vocab_size = cfg.vocab_size
     max_len = args.max_len or cfg.n_positions
     if max_len > cfg.n_positions:
         logger.warning(f"--max_len {max_len} > n_positions "

@@ -110,28 +110,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    dims = [int(x) for x in args.mesh.split(",")]
-    refused = {
-        "--optimizer adafactor": args.optimizer != "adamw",
-        "--opt_mu_dtype bfloat16": args.opt_mu_dtype != "float32",
-        "--dtype bfloat16 (the kernels are float32)": args.dtype != "float32",
-        "--compute_dtype bfloat16 (the kernels are float32)": args.compute_dtype != "same",
-        "--mesh with more than one device": any(d not in (-1, 1) for d in dims),
-        f"--attn_impl {args.attn_impl}": args.attn_impl in ("ring", "ulysses"),
-        "--sp_devices": bool(args.sp_devices),
-        f"--remat {args.remat}": args.remat != "none",
-        "--nan_recovery": args.nan_recovery,
-        "--nan_inject_step": args.nan_inject_step is not None,
-        "--checkpoint other than a JAX .npz": (args.checkpoint is not None
-                                               and not args.checkpoint.endswith(".npz")),
-    }
-    bad = [k for k, v in refused.items() if v]
-    if bad:
-        raise SystemExit(f"not supported by this package yet: {', '.join(bad)} "
-                         "(use loco_asr_tpu.pipelines.train_asr)")
-
-
 def build_config(args):
     from ..models.speecht5.config import SpeechT5Config, tiny_config
 
@@ -151,7 +129,12 @@ def build_config(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    _refuse_unported(args)
+    from . import common
+    common.refuse_unported(
+        args, "train_asr",
+        **{"--dtype bfloat16 (the kernels are float32)": args.dtype != "float32",
+           "--checkpoint other than a JAX .npz": (args.checkpoint is not None
+                                                  and not args.checkpoint.endswith(".npz"))})
 
     import torch
 
@@ -165,7 +148,6 @@ def main(argv=None) -> int:
     from ..utils.device import resolve_device
     from ..utils.metrics import MetricsWriter
     from ..utils.wer import wer
-    from . import common
 
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False

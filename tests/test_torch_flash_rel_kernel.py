@@ -3,7 +3,8 @@ kernel's numerics (three TF32 passes per product, the band included)
 emulated on the CPU, the direct launch under ``no_grad`` against the
 autograd path, the build's hash of the headers, and, on a CUDA device
 (marker ``cuda``), the kernel against its plain version: rel-pos, causal,
-mask-only, Tq != Tk, ragged lengths, ``valid_len`` 0, and q/k/v given as
+mask-only, Tq != Tk, ragged lengths, ``valid_len`` 0, head dims 8 to 128
+(the LoCo experiment's tiny encoder runs 8), and q/k/v given as
 ``split_heads``-style transposed views and as GPT-2 qkv column views.
 
 This file imports no JAX, so on a GPU machine without it run:
@@ -91,10 +92,10 @@ def test_three_tf32_passes_keep_the_band_f32_accurate():
     assert np.abs(_emulated_b1(q, k, v, pe, scale, band_passes=1) - want).max() > 1e-4
 
 
-def _inputs(b, h, tq, tk, two_l, seed, device="cpu"):
+def _inputs(b, h, tq, tk, two_l, seed, device="cpu", d=64):
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(b, h, t, 64, generator=g) * 0.3 for t in (tq, tk, tk))
-    pe = torch.randn(two_l, 64, generator=g) * 0.3
+    q, k, v = (torch.randn(b, h, t, d, generator=g) * 0.3 for t in (tq, tk, tk))
+    pe = torch.randn(two_l, d, generator=g) * 0.3
     return [x.to(device) for x in (q, k, v, pe)]
 
 
@@ -186,7 +187,7 @@ def cuda_f32():
 def _kernel_vs_plain(q, k, v, pe, vl, causal):
     """Max abs error of the kernel against the plain version, out and lse,
     through the wrapper (one launch counted)."""
-    table = torch.zeros(2, 64, device=q.device) if pe is None else pe
+    table = torch.zeros(2, q.shape[-1], device=q.device) if pe is None else pe
     before = tfa.flash_rel_forward.launches
     with torch.no_grad():
         out, lse = tfa.flash_rel_forward(q, k, v, pe, vl, causal=causal, scale=1.0)
@@ -195,7 +196,7 @@ def _kernel_vs_plain(q, k, v, pe, vl, causal):
     pout, plse = tfa.flash_rel_forward_plain(q, k, v, table, vl, causal=causal, scale=1.0)
     assert out.shape == pout.shape and lse.shape == plse.shape
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
-    # out is a [B, H, Tq, 64] view of a [B, Tq, H, 64] buffer
+    # out is a [B, H, Tq, D] view of a [B, Tq, H, D] buffer
     assert out.transpose(1, 2).is_contiguous()
     return max((out - pout).abs().max().item(), (lse - plse).abs().max().item())
 
@@ -265,3 +266,45 @@ def test_cuda_no_grad_and_autograd_launch_alike(cuda_f32):
     assert out0.grad_fn is None and out1.grad_fn is not None
     torch.testing.assert_close(out1, out0, rtol=0, atol=0)
     torch.testing.assert_close(lse1, lse0, rtol=0, atol=0)
+
+
+# (B, H, Tq, Tk, D, 2L or 0 for mask-only, causal, valid lengths); the LoCo
+# experiment's ASR encoder is [4 slots, 4 heads, T, 8] with L = 20
+HEAD_DIM_CASES = {
+    "loco_encoder_d8": (4, 4, 509, 509, 8, 40, False, [509, 431, 120, 0]),
+    "loco_mask_only_d8": (4, 4, 509, 509, 8, 0, False, [509, 431, 120, 0]),
+    "causal_d8": (2, 4, 130, 130, 8, 40, True, [130, 67]),
+    "loco_encoder_d32": (4, 4, 509, 509, 32, 40, False, [509, 431, 120, 0]),
+    "mask_only_d32": (4, 4, 509, 509, 32, 0, False, [509, 431, 120, 0]),
+    "cross_d32": (2, 4, 70, 300, 32, 320, False, [300, 211]),
+    "rel_d16": (2, 4, 249, 249, 16, 320, False, [249, 100]),
+    "rel_d128": (2, 2, 249, 249, 128, 320, True, [249, 0]),
+    "mask_only_d128": (2, 2, 249, 249, 128, 0, False, [249, 188]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HEAD_DIM_CASES))
+def test_cuda_kernel_head_dims_match_plain(case, cuda_f32):
+    """B1 at every head dim it is built for, with the band and mask-only,
+    padded rows and a row of valid length 0."""
+    b, h, tq, tk, d, two_l, causal, vls = HEAD_DIM_CASES[case]
+    q, k, v, pe = _inputs(b, h, tq, tk, max(two_l, 2), seed=tq + d, device=cuda_f32, d=d)
+    vl = torch.tensor(vls, dtype=torch.int32, device=cuda_f32)
+    err = _kernel_vs_plain(q, k, v, pe if two_l else None, vl, causal)
+    assert err <= 1e-4, f"{case}: max abs err {err}"
+
+
+@pytest.mark.cuda
+def test_cuda_refuses_head_dims_not_built(cuda_f32):
+    """A head dim outside B1's instantiations raises before any launch; B3
+    + B4 take 64 only, so the backward at D = 8 raises too."""
+    q, k, v, pe = _inputs(1, 2, 20, 20, 8, seed=0, device=cuda_f32, d=24)
+    vl = torch.tensor([20], dtype=torch.int32, device=cuda_f32)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=1.0)
+    q, k, v, pe = _inputs(1, 2, 20, 20, 8, seed=0, device=cuda_f32, d=8)
+    out, lse = tfa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_rel_backward(q, k, v, pe, vl, out, lse, torch.ones_like(out),
+                               causal=False, scale=1.0)
