@@ -10,8 +10,10 @@ scoring (``eval_ppl --attn_impl flash``), SpeechT5-base ASR fine-tuning
 (``train_asr --attn_impl flash``), SpeechT5 TTS / voice conversion with
 the HiFi-GAN vocoder and the log-mel front end, ASR decoding with GPT-2
 shallow fusion and conversation carry-over (``decode_asr``), GPT-2 LM
-training (``train_lm --attn_impl flash``) and the LoCo experiment
-(``loco_experiment``, its tiny models trained on the card).
+training (``train_lm --attn_impl flash``), the LoCo experiment
+(``loco_experiment``, its tiny models trained on the card, and its decodes
+on the reference's trained weights) and SLURP intent classification
+(``extract_embeddings`` -> ``train_classifier`` -> ``slurp_sweep``).
 Phases, in order (any failure raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
@@ -69,8 +71,8 @@ Phases, in order (any failure raises and exits non-zero):
    [8, 1024] seeded ids, flash against dense (NLL within 1e-4), launch
    counts of one forward (12 B6, 0 B5), forward ms and tokens/s, the device
    time by kernel group; a right-padded batch under flash (kernel B1)
-   against dense; then gpt2-xl widths (1600, 25 heads, weights drawn on the
-   card), flash against dense with n_layer B5 launches;
+   against dense; then gpt2-xl widths (1600, 25 heads), flash against
+   dense with n_layer B5 launches;
 7. LM-scoring pipeline: ``eval_ppl --model gpt2 --context_type max_len
    --bsize 8`` on the committed ``exp/loco/lm_corpus/dev.txt`` under flash
    (60 B6 launches) and dense (none), PPLs within rtol 1e-4; an ``indep``
@@ -146,10 +148,36 @@ Phases, in order (any failure raises and exits non-zero):
    ``results.json`` key finite, 2 B1 and 1 B2 launches an encode and
    nothing else, the trained encoder kernel vs plain path at the decodes'
    batch shapes within 1e-3 (max) and 1e-4 (mean);
-14. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
-   ``decode_launches`` of phase 12 and ``loco_launches`` of phase 13 (d),
-   B1 with its head-dim-8 time, B6 with its phase 13 launches), then last
-   ``{"ok": true, "device": {...}}``.
+14. SLURP intent classification at full width (SpeechT5-base, random
+   weights): (a) a SLURP directory of seeded 1-4 s wavs (64 train, 16
+   train_synthetic, 16 devel, 16 test) whose labels cycle through all 101
+   intents; ``extract_embeddings -m audio`` of every split, 12 B1 and 1 B2
+   a batch of 16 and nothing else, each batch's encoder output against
+   the plain versions' on the same padded batch (1e-3 max, 1e-4 mean over
+   valid frames), and ``-m text`` with a hand-built
+   SentencePiece ``.model`` (the TTS text encoder, dense: no launch);
+   (b) ``train_classifier`` on the audio store for 3 epochs, each pooling
+   and the attention pooling with ``--hidden_dims 256``: every artifact,
+   finite losses, the training loss falling, and a CPU run of the same
+   command giving the same ``metrics.jsonl`` (losses within 1e-4,
+   accuracies equal); the classifier step's ms by CUDA events at a batch
+   of 16; (c) ``slurp_sweep --epochs 2``: six ``ok`` entries in
+   ``sweep.json``; (d) an HF-layout ``model.safetensors`` of the port's own
+   seeded encoder (written and read without the safetensors package)
+   loads the same weights and encoder output as the ``.npz`` route;
+15. the LoCo ASR stage's decodes (``loco_experiment --stage asr
+   --skip_training --fusion_weights 1.0``) on ``fixtures/loco_reference``,
+   the reference's trained weights: 2 B1 (head dim 8) and 1 B2 (64
+   channels) an encode and nothing else, the ``nofusion``, ``carry``,
+   ``nocarry`` and ``oracle`` entries of ``exp/loco/results.json`` to
+   every digit, wall seconds; then the same decodes through the plain
+   versions on the card: the same entries, and no hypothesis parting
+   from the kernel path's;
+16. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+   ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
+   ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
+   phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches),
+   then last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 
@@ -169,7 +197,9 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -733,29 +763,97 @@ def corpus_windows(data_dir: str, n: int, seconds: float = 10.0):
     return wav, lengths, texts
 
 
-def write_slurp(root: str, n: int, seed: int) -> list:
-    """SLURP layout: dataset/slurp/train.jsonl + audio/slurp_real/*.wav."""
+def write_slurp(root: str, n: int, seed: int, split: str = "train",
+                intents=None, first: int = 0) -> list:
+    """SLURP layout: dataset/slurp/{split}.jsonl + audio/slurp_real/*.wav
+    (slurp_synth for train_synthetic) of ``n`` seeded wavs of 1-4 s.  The
+    labels cycle through ``intents`` (default four) from index ``first``;
+    each sentence is its intent's words and its number."""
     rng = np.random.default_rng(seed)
-    os.makedirs(os.path.join(root, "dataset", "slurp"))
-    audio_dir = os.path.join(root, "audio", "slurp_real")
-    os.makedirs(audio_dir)
-    intents = ["alarm_set", "play_music", "weather_query", "iot_coffee"]
+    os.makedirs(os.path.join(root, "dataset", "slurp"), exist_ok=True)
+    audio_dir = os.path.join(root, "audio",
+                             "slurp_synth" if split == "train_synthetic" else "slurp_real")
+    os.makedirs(audio_dir, exist_ok=True)
+    intents = intents or ["alarm_set", "play_music", "weather_query", "iot_coffee"]
     lengths = []
-    with open(os.path.join(root, "dataset", "slurp", "train.jsonl"), "w") as f:
+    with open(os.path.join(root, "dataset", "slurp", f"{split}.jsonl"), "w") as f:
         for i in range(n):
             samples = int(rng.integers(16000, 64001))
             pcm = (rng.standard_normal(samples) * 3000).astype(np.int16)
-            name = f"utt_{i}.wav"
+            name = f"{split}_{i}.wav"
             with wave.open(os.path.join(audio_dir, name), "wb") as w:
                 w.setnchannels(1)
                 w.setsampwidth(2)
                 w.setframerate(16000)
                 w.writeframes(pcm.tobytes())
-            f.write(json.dumps({"slurp_id": 1000 + i, "sentence": f"utterance {i}",
-                                "intent": intents[i % len(intents)],
-                                "recordings": [{"file": name}]}) + "\n")
+            intent = intents[(first + i) % len(intents)]
+            f.write(json.dumps({"slurp_id": 1000 + first + i,
+                                "sentence": f"{intent.replace('_', ' ')} {i}",
+                                "intent": intent, "recordings": [{"file": name}]}) + "\n")
             lengths.append(samples)
     return lengths
+
+
+def sentencepiece_piece(piece: str, score: float, typ: int = 1) -> bytes:
+    """One ``pieces`` entry of a SentencePiece ModelProto, wire-encoded:
+    field 1 (piece), 2 (score, float) and 3 (type)."""
+    pb = piece.encode("utf-8")
+    body = (bytes([0x0A, len(pb)]) + pb + bytes([0x15]) + struct.pack("<f", score)
+            + bytes([0x18, typ]))
+    return bytes([0x0A, len(body)]) + body
+
+
+def write_sentencepiece_model(path: str, pieces) -> None:
+    """A ``.model`` file of ``(piece, score, type)`` entries in id order."""
+    with open(path, "wb") as f:
+        f.write(b"".join(sentencepiece_piece(*p) for p in pieces))
+
+
+# a unigram model for SLURP-like sentences whose ids stay below SpeechT5's
+# text vocabulary (81): specials, the word mark, letters, digits and words
+SLURP_SPM_PIECES = (
+    [("<s>", 0.0, 3), ("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2),
+     ("\u2581", -3.0, 1)]
+    + [(c, -2.5, 1) for c in "abcdefghijklmnopqrstuvwxyz0123456789"]
+    + [(f"\u2581{w}", -1.0, 1) for w in ("alarm", "set", "play", "music", "weather",
+                                          "query", "iot", "coffee", "email", "calendar",
+                                          "news", "general", "qa", "transport", "audio")])
+
+
+def save_safetensors(path: str, tensors: dict) -> None:
+    """float32 CPU tensors as a ``.safetensors`` file: the 8-byte
+    little-endian header length, the JSON header, the raw buffers."""
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        data = t.detach().cpu().float().contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+def hf_speecht5_state(flat: dict) -> dict:
+    """Flat JAX-layout SpeechT5 params -> an HF ``SpeechT5For*`` state dict
+    (``speecht5.`` prefix, dense kernels transposed back to weights, norm
+    scales as weights): the inverse of ``import_torch.load_hf_state_dict``."""
+    import torch
+
+    out = {}
+    for key, value in flat.items():
+        t = torch.from_numpy(np.ascontiguousarray(value))
+        if key.endswith(".kernel"):
+            key, t = key[: -len("kernel")] + "weight", t.t().contiguous()
+        key = re.sub(r"(layer_norm|batch_norm)\.scale$", r"\1.weight", key)
+        key = re.sub(r"batch_norm\.mean$", "batch_norm.running_mean", key)
+        key = re.sub(r"batch_norm\.var$", "batch_norm.running_var", key)
+        out["speecht5." + key] = t
+    return out
 
 
 def all_launches() -> dict:
@@ -1421,6 +1519,288 @@ def lm_training_phase(smi: str, dev) -> dict:
     return {"train_step": fcnt, "train_lm": lm_launches, "loco_asr": loco_launches}
 
 
+INTENT_SPLITS = (("train", 64), ("train_synthetic", 16), ("devel", 16), ("test", 16))
+INTENT_POOLINGS = ("average", "max", "attention")
+INTENT_TOL = 1e-4     # metrics.jsonl losses, card run against a CPU run
+
+
+def intent_phase(smi: str, dev) -> dict:
+    """Phase 14: SLURP intent classification at full width (SpeechT5-base,
+    768, 12 layers).  Returns the launches of the audio extraction, every
+    split, counted from zero just before it."""
+    import torch
+
+    from loco_asr_tpu_torch.data.embedding_store import EmbeddingStore
+    from loco_asr_tpu_torch.data.intent_classes import INTENT_CLASSES
+    from loco_asr_tpu_torch.models.speecht5 import convert as sconvert
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.pipelines import common, extract_embeddings, slurp_sweep
+    from loco_asr_tpu_torch.pipelines import train_classifier
+
+    cfg = SpeechT5Config()
+    none = {k: 0 for k in all_launches()}
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) a SLURP directory over all 101 intents, then both modalities'
+        # embeddings of every split
+        root = os.path.join(tmp, "slurp")
+        first, lengths = 0, {}
+        for i, (split, n) in enumerate(INTENT_SPLITS):
+            lengths[split] = write_slurp(root, n, seed=20 + i, split=split,
+                                         intents=list(INTENT_CLASSES), first=first)
+            first += n
+        check(first >= len(INTENT_CLASSES), "labels do not cover every intent")
+        folder = os.path.join(tmp, "extracted", "speecht5")
+        spm = os.path.join(tmp, "slurp.model")
+        write_sentencepiece_model(spm, SLURP_SPM_PIECES)
+        extraction = {}
+        intent_launches = dict(none)
+        real_encode = st5.encode_speech
+        for modality, flags in (("audio", []), ("text", ["--tokenizer", spm])):
+            for split, n in INTENT_SPLITS:
+                encodes = []
+
+                def kept_encode(model, wav, mask=None, **kw):
+                    hid, fmask = real_encode(model, wav, mask, **kw)
+                    encodes.append((model, wav, mask, hid, fmask))
+                    return hid, fmask
+
+                st5.encode_speech = kept_encode
+                try:
+                    reset_all_launches()
+                    t0 = time.perf_counter()
+                    rc = extract_embeddings.main([
+                        "-m", modality, "-s", split, "--data_path", root,
+                        "--out_dir", os.path.join(folder, split, modality),
+                        "--batch_size", "16", *flags])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    got = all_launches()
+                finally:
+                    st5.encode_speech = real_encode
+                check(rc == 0, f"extract_embeddings -m {modality} -s {split} returned {rc}")
+                n_batches = -(-n // 16)
+                want = (dict(none, B1=cfg.encoder_layers * n_batches, B2=n_batches)
+                        if modality == "audio" else none)
+                check(got == want, f"-m {modality} -s {split}: launched {got}, expected {want}")
+                check(len(encodes) == (n_batches if modality == "audio" else 0),
+                      f"-m {modality} -s {split}: {len(encodes)} speech encodes")
+                # each batch's encoder output, kernel path against plain path
+                enc_err = []
+                for model, wav, mask, hid, fmask in encodes:
+                    with torch.inference_mode():
+                        phid, pmask = real_encode(model, wav, mask, use_kernels=False)
+                    check(torch.equal(fmask, pmask), f"-m audio -s {split}: frame masks differ")
+                    enc_err.append([list(np.shape(wav)), *encoder_error(
+                        hid, phid, fmask, f"-m audio -s {split} {list(np.shape(wav))}")])
+                del encodes
+                if modality == "audio":
+                    intent_launches = {k: intent_launches[k] + v for k, v in got.items()}
+                store = EmbeddingStore(os.path.join(folder, split, modality))
+                check(len(store) == n, f"{modality}/{split}: {len(store)} records")
+                for j in range(n):
+                    _, emb, tgt = store[j]
+                    frames = (cfg.feat_extract_output_length(lengths[split][j])
+                              if modality == "audio" else emb.shape[0])
+                    check(emb.shape == (frames, 768) and bool(np.isfinite(emb).all())
+                          and tgt.shape == (len(INTENT_CLASSES),),
+                          f"{modality}/{split} record {j}: {emb.shape}")
+                extraction[f"{modality}/{split}"] = dict(records=n, wall_s=wall, launches=got,
+                                                         encoder_err=enc_err)
+        print(f"[intent_extract] {json.dumps(dict(extraction=extraction, card=smi))}")
+
+        # (b) train_classifier on the audio store, each pooling and the MLP
+        # head, 3 epochs on the card, then the same command on the CPU
+        runs = [(p, []) for p in INTENT_POOLINGS] + [("attention", ["--hidden_dims", "256"])]
+        classifier = []
+        for pooling, extra in runs:
+            argv = ["-m", "audio", "-p", pooling, "--folder", folder, "--epochs", "3",
+                    "--seed", "0", *extra]
+            metrics = {}
+            for device in ("cuda", "cpu"):
+                run_dir = os.path.join(tmp, "runs", f"{pooling}{len(extra)}_{device}")
+                os.makedirs(run_dir)
+                os.chdir(run_dir)
+                try:
+                    reset_all_launches()
+                    t0 = time.perf_counter()
+                    rc = train_classifier.main([*argv, "--device", device])
+                    wall = time.perf_counter() - t0
+                finally:
+                    os.chdir(cwd)
+                check(rc == 0, f"train_classifier {argv} --device {device} returned {rc}")
+                check(all_launches() == none, f"train_classifier launched {all_launches()}")
+                ckpt = os.path.join(run_dir, "checkpoints", "fine_tuned", "audio", pooling)
+                logs = os.path.join(run_dir, "results", "fine_tuned", "audio", pooling, "logs")
+                files = [f"speecht5_{pooling}_audio_{x}.npz"
+                         for x in ("epoch_1", "epoch_2", "epoch_3", "best", "last")]
+                files += ["status.json", "step_3.npz"]
+                check(all(os.path.exists(os.path.join(ckpt, f)) for f in files)
+                      and os.path.exists(os.path.join(logs, "results.txt")),
+                      f"train_classifier artifacts missing under {run_dir}")
+                with open(os.path.join(logs, "metrics.jsonl")) as f:
+                    metrics[device] = [json.loads(line) for line in f]
+                if device == "cuda":
+                    card_wall = wall
+            m, c = metrics["cuda"], metrics["cpu"]
+            check(len(m) == len(c) == 3, f"{pooling}: {len(m)} / {len(c)} epochs logged")
+            losses = [e["train_loss"] for e in m]
+            check(all(np.isfinite([e[k] for e in m for k in ("train_loss", "val_loss")]))
+                  and losses[-1] < losses[0], f"{pooling}: train losses {losses}")
+            err = max(abs(a[k] - b[k]) for a, b in zip(m, c) for k in ("train_loss", "val_loss"))
+            check(err <= INTENT_TOL and all(a[k] == b[k] for a, b in zip(m, c)
+                                            for k in ("train_acc", "val_acc")),
+                  f"{pooling}: card and CPU metrics part (loss error {err})\n{m}\n{c}")
+            rec = dict(pooling=pooling, hidden_dims=[int(x) for x in extra[1:]] or None,
+                       train_losses=losses,
+                       val_losses=[e["val_loss"] for e in m],
+                       val_acc=[e["val_acc"] for e in m], card_cpu_loss_err=err,
+                       wall_s=card_wall, card=smi)
+            classifier.append(rec)
+            print(f"[intent_train] {json.dumps(rec)}")
+
+        # the classifier step alone at the store's batch shape, by CUDA events
+        from loco_asr_tpu_torch.models import intent
+        from loco_asr_tpu_torch.parallel.train import reference_adam
+        store = EmbeddingStore([os.path.join(folder, "train", "audio")])
+        emb, lens, tgts = next(store.padded_batches(16))
+        batch = [torch.from_numpy(x).to(dev) for x in (emb, lens, tgts)]
+        step_ms = {}
+        for pooling in INTENT_POOLINGS:
+            model = intent.intent_classifier_init(768, 101, seed=0, device=dev)
+            tx = reference_adam()
+            state = tx.init(dict(model.named_parameters()))
+            step = train_classifier.make_classifier_step(pooling, True, tx)
+            step_ms[pooling] = time_ms(lambda: step(model, state, *batch))
+        print(f"[intent_step] {json.dumps(dict(batch=list(emb.shape), step_ms=step_ms, card=smi))}")
+
+        # (c) the sweep over both modalities and the three poolings
+        sweep_dir = os.path.join(tmp, "sweep")
+        os.makedirs(sweep_dir)
+        os.chdir(sweep_dir)
+        try:
+            t0 = time.perf_counter()
+            rc = slurp_sweep.main(["--folder", folder, "--epochs", "2"])
+            sweep_wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        check(rc == 0, f"slurp_sweep returned {rc}")
+        with open(os.path.join(sweep_dir, "results", "fine_tuned", "sweep.json")) as f:
+            sweep = json.load(f)
+        check(len(sweep) == 6 and all(r["status"] == "ok" for r in sweep.values()),
+              f"sweep.json {sweep}")
+        print(f"[intent_sweep] {json.dumps(dict(sweep=sweep, wall_s=sweep_wall))}")
+
+        # (d) an HF-layout state dict of the port's own seeded encoder as a
+        # model.safetensors directory, read without the package, against the
+        # .npz route of the same weights
+        src = st5.asr_init(cfg, seed=7, device="cpu")
+        flat = sconvert.encoder_to_jax_params(src)
+        hf_dir = os.path.join(tmp, "hf")
+        os.makedirs(hf_dir)
+        save_safetensors(os.path.join(hf_dir, "model.safetensors"), hf_speecht5_state(flat))
+        npz = os.path.join(tmp, "encoder.npz")
+        np.savez(npz, **flat)
+        t0 = time.perf_counter()
+        from_hf = common.load_speecht5_params(hf_dir, cfg, device=dev)
+        hf_load_s = time.perf_counter() - t0
+        from_npz = common.load_speecht5_params(npz, cfg, device=dev)
+        a, b = from_hf.state_dict(), from_npz.state_dict()
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+              "the .safetensors route loads other weights than the .npz route")
+        wav = np.random.default_rng(3).standard_normal((2, 48000)).astype(np.float32) * 0.1
+        mask = np.ones_like(wav, np.int32)
+        mask[1, 30000:] = 0
+        h_hf, _ = st5.encode_speech(from_hf, wav, mask)
+        h_npz, _ = st5.encode_speech(from_npz, wav, mask)
+        check(torch.equal(h_hf, h_npz), "encoder outputs of the two routes differ")
+        seeded = st5.asr_init(cfg, seed=0, device=dev)
+        check(not torch.equal(st5.encode_speech(seeded, wav, mask)[0], h_hf),
+              "the .safetensors route kept the seeded init")
+        print(f"[intent_import] {json.dumps(dict(tensors=len(flat), load_s=hf_load_s))}")
+    print(f"[intent_phase] {json.dumps(dict(wall_s=time.perf_counter() - t_phase))}")
+    return intent_launches
+
+
+LOCO_LABELS = ("nofusion", "carry", "nocarry", "oracle")
+
+
+def loco_reference_phase(smi: str, dev) -> dict:
+    """Phase 15: the LoCo ASR stage's decodes on the reference's own trained
+    weights (``fixtures/loco_reference``), through B1 at head dim 8 and B2 at
+    64 channels, against ``exp/loco/results.json``; then the same decodes
+    with the plain versions on the card, which must give the same entries
+    and hypotheses.  Returns the kernel run's launches."""
+    import torch
+
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.pipelines import loco_experiment
+
+    with open(os.path.join(ROOT, "exp", "loco", "results.json")) as f:
+        recorded = json.load(f)["asr"]
+    none = {k: 0 for k in all_launches()}
+    runs = {}
+    real_encode = st5.encode_speech
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in ("kernels", "plain"):
+            out = os.path.join(tmp, path)
+            for name in ("asr", "asr_lm"):
+                shutil.copytree(os.path.join(ROOT, "fixtures", "loco_reference", name),
+                                os.path.join(out, name, "ckpt"))
+            encodes = []
+
+            def counted_encode(model, wav, mask=None, use_kernels=True, **kw):
+                encodes.append(tuple(np.shape(wav)))
+                return real_encode(model, wav, mask, use_kernels=path == "kernels", **kw)
+
+            st5.encode_speech = counted_encode
+            try:
+                reset_all_launches()
+                t0 = time.perf_counter()
+                rc = loco_experiment.main(["--out_dir", out, "--stage", "asr",
+                                           "--skip_training", "--fusion_weights", "1.0"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = all_launches()
+            finally:
+                st5.encode_speech = real_encode
+            check(rc == 0, f"loco_experiment ({path}) returned {rc}")
+            n = len(encodes)
+            want = (dict(none, B1=2 * n, B2=n) if path == "kernels" else none)
+            check(n >= 12 and launches == want,
+                  f"{path}: {n} encodes launched {launches}, expected {want}")
+            with open(os.path.join(out, "results.json")) as f:
+                res = json.load(f)["asr"]
+            with open(os.path.join(out, "asr_hyps.json")) as f:
+                hyps = json.load(f)
+            runs[path] = dict(results={k: res[k] for k in LOCO_LABELS}, hyps=hyps,
+                              wall_s=wall, encodes=n, launches=launches)
+    kern, plain = runs["kernels"], runs["plain"]
+    parted = sorted((uid, label) for uid, h in kern["hyps"].items() for label in LOCO_LABELS
+                    if h[label] != plain["hyps"][uid][label])
+    # the recorded entries, to every digit, on both paths; no hypothesis
+    # parts between them
+    for path in ("kernels", "plain"):
+        for label in LOCO_LABELS:
+            for key, value in recorded[label].items():
+                check(abs(runs[path]["results"][label][key] - value) <= 1e-12,
+                      f"LoCo on the reference weights ({path}): {label}.{key} "
+                      f"{runs[path]['results'][label][key]} against the recorded {value}; "
+                      f"kernel and plain paths part at {parted}")
+    check(not parted, f"LoCo on the reference weights: kernel and plain hypotheses part at "
+                      f"{parted}")
+    rec = dict(results=kern["results"], recorded={k: recorded[k] for k in LOCO_LABELS},
+               wall_s=kern["wall_s"], plain_wall_s=plain["wall_s"], encodes=kern["encodes"],
+               launches=kern["launches"],
+               launches_per_encode={k: v / kern["encodes"] for k, v in kern["launches"].items()
+                                    if v},
+               card=smi)
+    print(f"[loco_reference] {json.dumps(rec)}")
+    return kern["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1819,7 +2199,7 @@ def main() -> int:
     n_tokens = batch * seq
     for preset, kern in (("gpt2", "B6"), ("gpt2-xl", "B5")):
         cfg = gm.PRESETS[preset]
-        lm = gm.gpt2_init(cfg, seed=0, device=dev)   # drawn on the card
+        lm = gm.gpt2_init(cfg, seed=0, device=dev)
         with torch.inference_mode():
             reset_b56()
             nll = gm.score_tokens(lm, ids, attn_impl="flash")
@@ -2179,7 +2559,13 @@ def main() -> int:
     # -- 13. LM training at gpt2 width, the LoCo experiment ------------------
     lm_train_launches = lm_training_phase(smi, dev)
 
-    # -- 14. summary -------------------------------------------------------
+    # -- 14. SLURP intent classification at full width -----------------------
+    intent_launches = intent_phase(smi, dev)
+
+    # -- 15. the LoCo decodes on the reference's trained weights -------------
+    reference_launches = loco_reference_phase(smi, dev)
+
+    # -- 16. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2207,8 +2593,9 @@ def main() -> int:
                     bound_ms=bms, bound_by=by, library_ms=main_rec["library_ms"])
 
     # B1's and B2's launches on the decode path: phase 12's six decode_asr
-    # runs, and in phase 13's LoCo ASR stage; B1's time at head dim 8 (the
-    # LoCo encoder's) beside the main case's
+    # runs, phase 13's LoCo ASR stage and phase 15's decodes on the
+    # reference weights; on the intent slice's audio extraction (phase 14);
+    # B1's time at head dim 8 (the LoCo encoder's) beside the main case's
     d8 = next(c for c in checks if c["case"] == "loco_d8")
     kernels = [
         dict(entry("flash_rel_forward", "loco_asr_tpu_torch/csrc/flash_rel.cu",
@@ -2216,13 +2603,17 @@ def main() -> int:
                    "flash_attention.py::_flash_rel_kernel", "B1", "rel_padded", launches["B1"]),
              decode_launches=decode_launches["B1"],
              loco_launches=lm_train_launches["loco_asr"]["B1"],
+             loco_reference_launches=reference_launches["B1"],
+             intent_launches=intent_launches["B1"],
              d8_ms=d8["ms"], d8_device_ms=d8["device_ms"], d8_plain_ms=d8["plain_ms"],
              d8_bound_ms=d8["bound_ms"]),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
              decode_launches=decode_launches["B2"],
-             loco_launches=lm_train_launches["loco_asr"]["B2"]),
+             loco_launches=lm_train_launches["loco_asr"]["B2"],
+             loco_reference_launches=reference_launches["B2"],
+             intent_launches=intent_launches["B2"]),
         entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
               "loco_asr_tpu/ops/pallas/flash_attention.py:40",
               "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),

@@ -140,13 +140,13 @@ def gpt2_init(cfg: GPT2Config, *, seed: int = 0,
               device: Optional[Union[str, torch.device]] = None) -> GPT2Model:
     """Seeded random init with the JAX ``gpt2_init`` distributions (dense
     weights uniform in +-1/sqrt(in), zero biases, unit norms, ``wte`` ~
-    N(0, 0.02), ``wpe`` ~ N(0, 0.01); the numbers differ), drawn on
-    ``device`` (default CUDA; raises when no GPU is present) by a
-    generator of that device, in eval mode."""
+    N(0, 0.02), ``wpe`` ~ N(0, 0.01); the numbers differ), drawn on the
+    CPU by a seeded CPU generator, so one seed gives the same weights on
+    every device, then moved to ``device`` (default CUDA; raises when no
+    GPU is present), in eval mode."""
     dev = resolve_device(device)
-    with torch.device(dev):
-        model = GPT2Model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = GPT2Model(cfg)
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for blk in model.h:
             for lin in (blk.attn.c_attn, blk.attn.c_proj, blk.mlp.c_fc, blk.mlp.c_proj):
@@ -155,7 +155,7 @@ def gpt2_init(cfg: GPT2Config, *, seed: int = 0,
                 lin.bias.zero_()
         model.wte.weight.normal_(0.0, 0.02, generator=gen)
         model.wpe.weight.normal_(0.0, 0.01, generator=gen)
-    return model.eval()
+    return model.to(dev).eval()
 
 
 ArrayLike = Union[torch.Tensor, np.ndarray]

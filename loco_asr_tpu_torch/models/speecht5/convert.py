@@ -13,7 +13,8 @@ sides and every other name is kept.
 * :func:`asr_from_jax_params` reads the whole ``asr_init`` tree into a
   ``model.AsrModel`` state dict;
 * :func:`asr_to_jax_params` goes back: an ``AsrModel`` -> flat JAX-layout
-  numpy dict (what the trainer's checkpoints store under ``params.``);
+  numpy dict (what the trainer's checkpoints store under ``params.``), and
+  :func:`encoder_to_jax_params` likewise for a ``SpeechEncoder``;
 * :func:`tts_from_jax_params` / :func:`s2s_from_jax_params` read the
   ``tts_init`` / ``s2s_init`` trees into ``TtsModel`` / ``S2sModel`` state
   dicts, :func:`hifigan_from_jax_params` the ``hifigan_init`` tree (whose
@@ -149,6 +150,12 @@ def _to_jax_params(model: nn.Module, rename: bool = True) -> Dict[str, np.ndarra
         t = t.detach().float().cpu()
         out[key] = (t.t() if transpose else t).contiguous().numpy()
     return out
+
+
+def encoder_to_jax_params(model: SpeechEncoder) -> Dict[str, np.ndarray]:
+    """``SpeechEncoder`` -> its flat JAX-layout params under ``encoder.``
+    (the inverse of :func:`from_jax_params`)."""
+    return {PREFIX + k: v for k, v in _to_jax_params(model).items()}
 
 
 def asr_to_jax_params(model: AsrModel) -> Dict[str, np.ndarray]:

@@ -6,6 +6,9 @@
   decoupled weight decay on every trainable tensor) with the JAX
   package's warmup-cosine schedule and optional global-norm clipping
   before the moment updates, applied in place with ``torch._foreach_*``.
+* :func:`reference_adam` -- torch ``Adam(lr, weight_decay)`` (L2 added to
+  the gradients before the moments), the JAX ``reference_adam`` of the
+  intent classifier, on the same in-place update as :func:`adamw`.
 * :func:`make_asr_train_step` -- loss -> backward -> update.  Non-dense
   attention zeroes ``attention_dropout`` with the JAX package's
   ``UserWarning`` (the kernels carry no attention-prob dropout);
@@ -107,6 +110,29 @@ def adamw(learning_rate: float = 1e-4, weight_decay: float = 0.01,
     """AdamW with warmup-cosine schedule and optional global-norm clipping
     (the JAX ``adamw``; its bfloat16 first moment is not ported)."""
     return AdamW(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm)
+
+
+class ReferenceAdam(AdamW):
+    """torch ``Adam(lr, weight_decay)``: the L2 term ``weight_decay * p`` is
+    added to the gradient before the moment updates (optax
+    ``add_decayed_weights``, ``scale_by_adam``, ``scale(-lr)``); constant
+    rate, eps 1e-8, no clipping."""
+
+    def __init__(self, learning_rate: float = 1e-3, weight_decay: float = 1e-4):
+        super().__init__(learning_rate, weight_decay=0.0)
+        self.l2 = weight_decay
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, Optional[torch.Tensor]], state: OptState) -> None:
+        g = {k: (grads[k] if grads.get(k) is not None else torch.zeros_like(p)) + self.l2 * p
+             for k, p in params.items()}
+        super().update(params, g, state)
+
+
+def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> ReferenceAdam:
+    """The intent classifier's optimizer, the JAX ``reference_adam``."""
+    return ReferenceAdam(learning_rate, weight_decay)
 
 
 def global_norm(tensors) -> torch.Tensor:

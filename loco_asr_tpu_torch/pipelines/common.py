@@ -1,9 +1,11 @@
 """Shared pipeline utilities: the trainers' refusal of flags not ported,
-batch rounding and SpeechT5 weight loading."""
+batch rounding and SpeechT5 weight loading from every source the JAX
+package reads."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -42,32 +44,116 @@ def round_up(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
+# the first name part of every flat key, in any variant
+MODEL_HALVES = ("encoder", "decoder", "text_decoder_postnet", "speech_decoder_postnet")
+
+VARIANTS = {
+    "encoder": (st5.asr_init, convert.from_jax_params, convert.encoder_to_jax_params),
+    "asr": (st5.asr_model_init, convert.asr_from_jax_params, convert.asr_to_jax_params),
+    "tts": (st5.tts_init, convert.tts_from_jax_params, convert.tts_to_jax_params),
+}
+
+
 def load_speecht5_params(checkpoint: Optional[str], cfg: SpeechT5Config, *,
                          device: Optional[Union[str, torch.device]] = None,
                          variant: str = "encoder"
-                         ) -> Union[st5.SpeechEncoder, st5.AsrModel]:
-    """The speech encoder (``variant="encoder"``) or the whole ASR model
-    (``"asr"``: encoder, text decoder and vocabulary head) on ``device``
-    (default CUDA), from:
+                         ) -> Union[st5.SpeechEncoder, st5.AsrModel, st5.TtsModel]:
+    """The speech encoder (``variant="encoder"``), the whole ASR model
+    (``"asr"``: encoder, text decoder and vocabulary head) or the TTS model
+    (``"tts"``: text encoder, speech decoder and postnet) on ``device``
+    (default CUDA), from any source the JAX ``load_speecht5_params`` reads:
 
-      * None   -> seeded random init (smoke/benchmark mode)
-      * *.npz  -> a checkpoint of the JAX package (``utils.checkpoint.save_npz``),
-                  through ``convert.from_jax_params`` / ``asr_from_jax_params``
+      * None          -> seeded random init (smoke/benchmark mode)
+      * *.npz         -> a checkpoint of the JAX package (``save_npz``)
+      * a directory with ``status.json`` -> a training directory's latest
+                         ``.npz`` step (``train_asr``'s)
+      * a directory   -> an HF model directory (``model.safetensors`` or
+                         ``pytorch_model.bin``)
+      * *.safetensors -> HF weights, read by ``utils/safetensors.py``
+      * other files   -> a torch state dict (HF) or a fairseq checkpoint
+                         with ``model`` (grafted over the init)
 
-    Other formats (HF / fairseq torch files, training directories) are not
-    supported by this package yet and raise.
+    ``.npz`` params and training directories are the whole tree.  HF and
+    fairseq weights overlay the seeded init, as the JAX loader's ``_merge``
+    does; a shape mismatch raises.  A loaded key of a module that the model
+    does not have (``masked_spec_embed`` of a model without SpecAugment, the
+    other half of a task model) is dropped: the JAX model carries it unread.
+    A loaded key that names no parameter of a module the model has is a
+    mis-mapped name and raises.  Every route ends in the strict weight
+    bridge of
+    ``models/speecht5/convert.py``.
     """
-    if variant not in ("encoder", "asr"):
-        raise ValueError(f"variant {variant!r}: expected 'encoder' or 'asr'")
-    init = st5.asr_init if variant == "encoder" else st5.asr_model_init
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: expected one of {sorted(VARIANTS)}")
+    init, bridge, to_jax = VARIANTS[variant]
     model = init(cfg, device=device)
     if checkpoint is None:
         return model
-    if not checkpoint.endswith(".npz"):
-        raise ValueError(f"{checkpoint}: only .npz checkpoints of the JAX "
-                         "package load in this package so far")
-    bridge = convert.from_jax_params if variant == "encoder" else convert.asr_from_jax_params
-    with np.load(checkpoint, allow_pickle=False) as z:
-        state = bridge({k: z[k] for k in z.files}, cfg)
-    model.load_state_dict(state, strict=True)
+    flat = _read_params(checkpoint, variant, lambda: to_jax(model))
+    model.load_state_dict(bridge(flat, cfg), strict=True)
     return model
+
+
+def _read_params(checkpoint: str, variant: str,
+                 init: Callable[[], Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Flat JAX-layout params of ``checkpoint`` (see
+    :func:`load_speecht5_params`); ``init()`` gives the seeded init's,
+    which HF and fairseq weights overlay and whose keys they keep."""
+    from ..models.speecht5 import import_torch
+
+    if os.path.isdir(checkpoint):
+        if os.path.exists(os.path.join(checkpoint, "status.json")):
+            from .eval_ppl import training_dir_params
+            return training_dir_params(checkpoint)
+        for name in ("model.safetensors", "pytorch_model.bin"):
+            path = os.path.join(checkpoint, name)
+            if os.path.exists(path):
+                checkpoint = path
+                break
+        else:
+            raise FileNotFoundError(f"no weights found under {checkpoint}")
+    if checkpoint.endswith(".npz"):
+        with np.load(checkpoint, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    base = init()
+    if checkpoint.endswith(".safetensors"):
+        from ..utils.safetensors import load_file
+        flat = _merge(base, import_torch.load_hf_state_dict(load_file(checkpoint)))
+    else:
+        obj = torch.load(checkpoint, map_location="cpu", weights_only=False)
+        if isinstance(obj, dict) and "model" in obj and not any(
+                k.startswith("speecht5") for k in obj):
+            # fairseq speecht5_base.pt: graft the encoder / prenets over the init
+            graft = (import_torch.graft_fairseq_into_tts if variant == "tts"
+                     else import_torch.graft_fairseq_into_asr)
+            flat = graft(base, obj)
+        else:
+            flat = _merge(base, import_torch.load_hf_state_dict(obj))
+    return _known_keys(flat, base)
+
+
+def _known_keys(flat: Dict[str, np.ndarray], base: Dict[str, np.ndarray]
+                ) -> Dict[str, np.ndarray]:
+    """``flat`` cut to ``base``'s keys.  A key is dropped where ``base`` has
+    no module of its first three name parts (``encoder.prenet.feature_encoder``
+    under the text prenet, ``decoder.wrapped_decoder`` under the encoder);
+    any other key that ``base`` lacks raises KeyError, naming it."""
+    modules = {tuple(k.split(".")[:3]) for k in base}
+    stray = sorted(k for k in flat if k not in base
+                   and (k.split(".")[0] not in MODEL_HALVES
+                        or tuple(k.split(".")[:3]) in modules))
+    if stray:
+        raise KeyError(f"{len(stray)} loaded keys name no parameter of the model: {stray[:8]}")
+    return {k: v for k, v in flat.items() if k in base}
+
+
+def _merge(base: Dict[str, np.ndarray], loaded: Dict[str, np.ndarray]
+           ) -> Dict[str, np.ndarray]:
+    """Overlay ``loaded`` onto ``base`` (both flat), raising on a shape
+    mismatch."""
+    out = dict(base)
+    for k, v in loaded.items():
+        if k in out and tuple(np.shape(out[k])) != tuple(np.shape(v)):
+            raise ValueError(f"shape mismatch for {k}: {np.shape(out[k])} vs {np.shape(v)}")
+        out[k] = v
+    return out

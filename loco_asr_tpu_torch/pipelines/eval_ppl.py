@@ -24,9 +24,9 @@ log with the reference's aggregate line.  Checkpoints: none (seeded random
 init), a JAX ``.npz``, a training directory (``status.json`` whose latest
 step is ``step_N.npz``: ``train_lm``'s, the port's or the JAX package's
 ``.npz`` backend), or HF ``pytorch_model.bin`` / ``.safetensors`` files or
-directories.  Not ported yet, and refused with an error: orbax step
-directories, ``.safetensors`` without the ``safetensors`` package,
-``--compute_dtype bfloat16``, ``--data_parallel > 1`` and
+directories (``.safetensors`` through ``utils/safetensors.py``, without
+the package).  Not ported yet, and refused with an error: orbax step
+directories, ``--compute_dtype bfloat16``, ``--data_parallel > 1`` and
 ``--sequence_parallel > 1``.
 """
 
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib.util
 import json
 import os
 import pickle
@@ -129,10 +128,7 @@ def read_checkpoint(checkpoint: str):
         with np.load(checkpoint, allow_pickle=False) as z:
             return "jax", {k: z[k] for k in z.files}
     if checkpoint.endswith(".safetensors"):
-        if importlib.util.find_spec("safetensors") is None:
-            raise SystemExit(f"{checkpoint}: .safetensors loading without the "
-                             "safetensors package is not ported yet")
-        from safetensors.torch import load_file
+        from ..utils.safetensors import load_file
         return "hf", load_file(checkpoint)
     import torch
     return "hf", torch.load(checkpoint, map_location="cpu", weights_only=True)

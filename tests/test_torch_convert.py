@@ -87,6 +87,12 @@ def test_save_npz_checkpoint_loads(jax_params, flat, tmp_path):
 
 
 def test_other_checkpoint_formats_raise(tmp_path):
-    with pytest.raises(ValueError, match="npz"):
+    # every format of the JAX loader is read (tests/test_torch_import_torch.py);
+    # a directory without weights, a missing file and an unknown variant raise
+    with pytest.raises(FileNotFoundError, match="no weights"):
+        common.load_speecht5_params(str(tmp_path), tiny_config(), device="cpu")
+    with pytest.raises(FileNotFoundError):
         common.load_speecht5_params(str(tmp_path / "model.safetensors"), tiny_config(),
                                     device="cpu")
+    with pytest.raises(ValueError, match="variant"):
+        common.load_speecht5_params(None, tiny_config(), device="cpu", variant="s2s")

@@ -181,5 +181,7 @@ def test_tokenizers_match_jax(tmp_path):
     assert ids == want(text)["input_ids"] and len(ids) < len(text.encode("utf-8"))
     assert got.decode(ids) == want.decode(ids) == text
     assert (got.bos_token_id, got.eos_token_id) == (want.bos_token_id, want.eos_token_id)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttok.load_tokenizer("spm.model")
+    # a .model spec names a SentencePiece file, which both packages read
+    for lib in (ttok, jtok):
+        with pytest.raises(FileNotFoundError):
+            lib.load_tokenizer(str(tmp_path / "spm.model"))

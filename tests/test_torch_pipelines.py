@@ -98,7 +98,8 @@ def test_extract_embeddings_audio(slurp_root, tmp_path, fmt, monkeypatch):
         assert json.loads(f.readline())["records"] == N_UTT
 
 
-@pytest.mark.parametrize("flags", [["-m", "text"], ["-m", "audio", "--data_parallel", "2"],
+@pytest.mark.parametrize("flags", [["-m", "text", "--dtype", "bfloat16"],
+                                   ["-m", "audio", "--data_parallel", "2"],
                                    ["-m", "audio", "--dtype", "bfloat16"]])
 def test_unported_options_raise(flags, slurp_root):
     with pytest.raises(SystemExit, match="not supported"):
