@@ -173,10 +173,42 @@ Phases, in order (any failure raises and exits non-zero):
    every digit, wall seconds; then the same decodes through the plain
    versions on the card: the same entries, and no hypothesis parting
    from the kernel path's;
-16. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+16. mixed precision, the bf16 forms of B1-B6: (a) each at the f32
+   cases' shapes (B1 ``rel_padded``, mask-only and ``vl0`` at
+   [16, 12, 249, 64], L = 160, and mask-only at the decoder's
+   cross-attention [8, 12, 160, 64] over 500 keys; B3/B4 at
+   [8, 12, 500, 64]; B5 at [8, 25, 1024, 64] causal; B6 on
+   [8, 1024, 12, 64] qkv views; B2 at [16, 80000]) against its plain
+   version (max |d| <= 2^-7 max |plain|, lse within 1e-3) and, with it,
+   against a float64 evaluation on the same bf16 inputs (the kernel's
+   error at most twice the plain version's); CUDA-event and device ms
+   beside the f32 form's, the bound (bytes over 3.35 TB/s or products
+   over 989 TFLOP/s in one pass), SDPA in bf16 (B5, B6, mask-only B1; its
+   backward beside B3/B4); (b) the full-width ASR step under
+   ``compute_dtype=bfloat16`` with the feature encoder frozen: kernels +
+   flash against plain + dense in bf16 (loss rtol 1e-2), the inputs of
+   each kernel form it launches (B1 with the band and mask-only, their
+   B3/B4, B5, B2) captured and replayed against the plain versions by
+   the same checks as (a), every parameter's gradient within twice the
+   plain + dense bf16 step's distance from the f32 step's, against the
+   f32 step under the JAX test's contract (loss rtol 5e-2, grad norm
+   15 %), launches by form (18 B1, 18 B3/B4, 6 B5, 1 B2, all bf16), 10
+   steps' median ms, audio-s/s, busy share, kernels a step, the slowest
+   kernels, the casts' host ms and peak memory beside the f32 step's;
+   ``train_asr --compute_dtype bfloat16 --freeze_feature_encoder
+   --opt_mu_dtype bfloat16`` for 8 steps and ``--resume`` to 12, which
+   reads back a bf16 first moment; (c) the gpt2-width LM step in bf16
+   (12 bf16 B6 launches, loss against f32 within 5e-2, ms and tokens/s),
+   ``train_lm`` with both flags for 10 steps, ``eval_ppl
+   --compute_dtype bfloat16`` on its checkpoint against f32 (mean |d NLL|
+   < 5e-2); (d) ``extract_embeddings -m audio --dtype bfloat16`` on 8
+   seeded SLURP wavs, B1 and B2 in their f32 forms (JAX's promotion),
+   the card against a CPU run of the same command (1e-3 max, 1e-4 mean);
+17. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
    ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
    ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
-   phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches),
+   phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches;
+   then the six bf16 forms with phase 16's launches, times and bounds),
    then last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -196,6 +228,7 @@ import dataclasses
 import itertools
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -212,6 +245,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12       # CUDA cores
 TF32_FLOP_PER_S = 495e12     # tensor cores, dense
+BF16_FLOP_PER_S = 989e12     # tensor cores, dense
 
 B1_TOL = 1e-4
 B2_TOL = 1e-4
@@ -257,14 +291,18 @@ def time_ms(fn, reps: int = 10, inner: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, products: bool = False):
+def bound(nbytes: float, flops: float, products: bool = False, bf16: bool = False):
     """(least ms, what binds it): the bytes over the memory rate, or the
     operations over the peak rate for them.  With ``products`` the flops are
     matrix products, whose least time at f32 accuracy is three TF32 passes
     on the tensor cores, 3 flops / 495 TFLOP/s (six bf16 passes at 989 give
-    the same); other flops run on the CUDA cores at 67 TFLOP/s."""
+    the same), and on bf16 operands (``bf16``) one pass at 989 TFLOP/s;
+    other flops run on the CUDA cores at 67 TFLOP/s."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (3 * flops / TF32_FLOP_PER_S if products else flops / F32_FLOP_PER_S) * 1e3
+    if products and bf16:
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+    else:
+        t_ops = (3 * flops / TF32_FLOP_PER_S if products else flops / F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -291,26 +329,28 @@ KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
 
 def device_breakdown(fn) -> dict:
     """Device time of one ``fn()`` by kernel group (torch.profiler, CUDA
-    activity; summed kernel durations), and the device-busy share of the
-    profiled window: the union of kernel intervals over its wall time
-    (cuDNN may run kernels concurrently, so the group sums can exceed it)."""
+    activity; summed kernel durations), the kernels recorded, and the
+    device-busy share of the profiled window: the union of kernel
+    intervals over its wall time (cuDNN may run kernels concurrently, so
+    the group sums can exceed it).  A window that recorded no kernel is
+    profiled again, as in :func:`kernel_device_ms`."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(PROFILER_TRIES):
+        prof, wall_ms = profiled(fn)
+        averages = [e for e in prof.key_averages() if e.device_time_total > 0]
+        if averages:
+            break
+        PROFILER_WINDOWS["empty"] += 1
+        PROFILER_WINDOWS["empty_of"].append({"*": 0})
+    check(bool(averages), f"the profiler recorded no kernel in {PROFILER_TRIES} windows")
     groups: dict = {}
     top = []
-    for e in prof.key_averages():
+    for e in averages:
         us = e.device_time_total
-        if us <= 0:
-            continue
         name = e.key
         group = next((g for pat, g in KERNEL_GROUPS if pat in name), "other")
         groups[group] = groups.get(group, 0.0) + us / 1e3
@@ -324,7 +364,7 @@ def device_breakdown(fn) -> dict:
             busy_us += b - max(a, end)
             end = b
     return dict(kernel_ms_sum=sum(groups.values()), busy_ms=busy_us / 1e3,
-                wall_ms=wall_ms, busy_share=busy_us / 1e3 / wall_ms,
+                wall_ms=wall_ms, busy_share=busy_us / 1e3 / wall_ms, kernels=len(spans),
                 groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                 top_kernels=[dict(ms=ms, count=n, name=k) for ms, n, k in top[:12]])
 
@@ -346,49 +386,78 @@ def visible(tq, tk, two_l, vl, causal):
 
 
 def b1_work(q, k, pe, vl, causal):
-    """Bytes moved (q, k, v, out, pe, lse, valid_len once each) and FLOP
-    this run's data needs: q.k^T and p.v over the keys each row may see,
-    plus q.pe^T over the distinct table cells those keys reach (none for
-    the mask-only variant, ``pe`` None)."""
+    """Bytes moved (q, k, v, out, pe in their dtype, lse and valid_len in
+    4 bytes, once each) and FLOP this run's data needs: q.k^T and p.v over
+    the keys each row may see, plus q.pe^T over the distinct table cells
+    those keys reach (none for the mask-only variant, ``pe`` None)."""
     b, h, tq, d = q.shape
     pe_numel = 0 if pe is None else pe.numel()
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + pe_numel + b * h * tq + b)
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel() + pe_numel) + 4 * (b * h * tq + b)
     keys, pe_cols = visible(tq, k.shape[2], 2 if pe is None else pe.shape[0], vl, causal)
     return nbytes, h * 2 * d * (2 * keys + (0 if pe is None else pe_cols))
 
 
 def b34_work(q, k, pe, vl, causal):
     """Bounds of B3 and B4 from this run's data.  Both read q, g, k, v, pe,
-    lse, delta and valid_len once.  B3 writes dq and the band gradient
-    dqpe [B, H, Tq, 2L] and needs s, dp and ds.k over the visible pairs plus
-    q.pe^T over the reached cells; B4 writes dk, dv and needs s, dp, p^T.g
-    and ds^T.q over the pairs plus the same band product."""
+    lse, delta and valid_len once (q, g, k, v, pe in their dtype).  B3
+    writes dq and the band gradient dqpe [B, H, Tq, 2L] (float32) and needs
+    s, dp and ds.k over the visible pairs plus q.pe^T over the reached
+    cells; B4 writes dk, dv (float32) and needs s, dp, p^T.g and ds^T.q over
+    the pairs plus the same band product."""
     b, h, tq, d = q.shape
-    reads = 4 * (2 * q.numel() + 2 * k.numel() + pe.numel() + 2 * b * h * tq + b)
+    reads = (q.element_size() * (2 * q.numel() + 2 * k.numel() + pe.numel())
+             + 4 * (2 * b * h * tq + b))
     keys, pe_cols = visible(tq, k.shape[2], pe.shape[0], vl, causal)
     b3 = (reads + 4 * (q.numel() + b * h * tq * pe.shape[0]), h * 2 * d * (3 * keys + pe_cols))
     b4 = (reads + 4 * 2 * k.numel(), h * 2 * d * (4 * keys + pe_cols))
     return b3, b4
 
 
+# windows of kernel_device_ms / device_breakdown over the run, and those
+# that recorded no kernel of a pattern, with the patterns ("*": any
+# kernel) and what each recorded (printed in the summary)
+PROFILER_WINDOWS = {"windows": 0, "empty": 0, "empty_of": []}
+PROFILER_TRIES = 10
+PROFILER_LEAD_S = 0.05
+
+
+def profiled(fn, n: int = 1):
+    """(torch.profiler over ``n`` calls of ``fn``, CUDA activity, the calls'
+    wall ms).  The calls start ``PROFILER_LEAD_S`` after the window opens:
+    on the H100, windows of a few short launches opened just before them
+    recorded no kernel at all in ~2 % of cases, with the wait in 1 of 434
+    (``scripts/profiler_windows.py``).  Most windows lose their first
+    kernel record either way; callers profile again when a window
+    recorded nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    PROFILER_WINDOWS["windows"] += 1
+    return prof, wall_ms
+
+
 def kernel_device_ms(fn, patterns, n: int = 5, optional=()) -> dict:
     """Mean device time of one launch of the kernels whose names contain
     each pattern (torch.profiler over ``n`` calls of ``fn``, which launches
     each once), divided by the launches the profiler recorded: a window
-    can lose kernel records, and is profiled again (up to 3 times) when it
-    recorded none of a pattern.  A pattern of ``optional`` may match
-    nothing, and then counts 0."""
+    can lose kernel records (most often the first), and is profiled again
+    (up to ``PROFILER_TRIES`` windows) when it recorded none of a pattern;
+    then it fails.  A pattern of ``optional`` may match nothing, and then
+    counts 0."""
     patterns = tuple(patterns) + tuple(optional)
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+    for _ in range(PROFILER_TRIES):
+        prof, _ = profiled(fn, n)
         total = {p: 0.0 for p in patterns}
         count = {p: 0 for p in patterns}
         for e in prof.key_averages():
@@ -399,7 +468,10 @@ def kernel_device_ms(fn, patterns, n: int = 5, optional=()) -> dict:
         required = [count[p] for p in patterns if p not in optional]
         if all(required):
             break
-    check(all(required), f"the profiler recorded no launch of {patterns}")
+        PROFILER_WINDOWS["empty"] += 1
+        PROFILER_WINDOWS["empty_of"].append(count)
+    check(all(required), f"the profiler recorded no launch of {patterns} "
+                         f"in {PROFILER_TRIES} windows")
     return {p: total[p] / count[p] if count[p] else 0.0 for p in patterns}
 
 
@@ -458,20 +530,27 @@ def kernel_build_records(build, pattern: str, describe, n: int) -> list:
     return recs
 
 
+# the element type in a mangled kernel name: float or bf16
+ELEM = r"(f|13__nv_bfloat16)"
+
+
 def b1_build_records(build) -> list:
-    """B1's ten flash_rel_fwd_kernels (rel band and mask-only at head dims
-    8-128), with their shared memory at L = 160 and the blocks that fit on
-    one SM of this card (CUDA's occupancy API)."""
+    """B1's twenty flash_rel_fwd_kernels (f32 and bf16, rel band and
+    mask-only at head dims 8-128), with their shared memory at L = 160 and
+    the blocks that fit on one SM of this card (CUDA's occupancy API)."""
     lib = build.library()
 
     def describe(m):
-        mask_only, d = int(m.group(1)), int(m.group(2))
-        return dict(kernel="B1", mask_only=bool(mask_only), head_dim=d,
+        bf16, mask_only, d = int(m.group(1) != "f"), int(m.group(2)), int(m.group(3))
+        return dict(kernel="B1", dtype=("float32", "bfloat16")[bf16],
+                    mask_only=bool(mask_only), head_dim=d,
                     shape="4 warps, 64-key tiles, 2 stages" if mask_only
                     else "4 warps, 32-key tiles, 1 stage",
-                    smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only, d),
-                    blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only, d))
-    return kernel_build_records(build, r"flash_rel_fwd_kernelILb([01])ELi(\d+)E", describe, 10)
+                    smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only, d, bf16),
+                    blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only, d,
+                                                                        bf16))
+    return kernel_build_records(build, r"flash_rel_fwd_kernelI" + ELEM + r"Lb([01])ELi(\d+)E",
+                                describe, 20)
 
 
 def b34_build_records(build) -> list:
@@ -482,14 +561,20 @@ def b34_build_records(build) -> list:
     b4 = "4 warps of 16 keys, 32-query tiles double-buffered, v in shared memory"
 
     def describe(m):
-        kernel, mask_only = int(m.group(1) == "dkv"), int(m.group(2))
-        return dict(kernel=("B3", "B4")[kernel], mask_only=bool(mask_only),
-                    shape=(b3, b4)[kernel] + ("" if mask_only else
-                                              (", the q.pe table", ", the pe band")[kernel]),
-                    smem_bytes_l160=lib.loco_flash_rel_bwd_smem_bytes(320, mask_only, kernel),
+        kernel, bf16 = int(m.group(1) == "dkv"), int(m.group(2) != "f")
+        mask_only = int(m.group(3))
+        shape = (b3, b4)[kernel] + ("" if mask_only else
+                                    (", the q.pe table", ", the pe band")[kernel])
+        if bf16 and kernel:
+            shape = shape.replace("v in shared memory", "k and v in registers")
+        return dict(kernel=("B3", "B4")[kernel], dtype=("float32", "bfloat16")[bf16],
+                    mask_only=bool(mask_only), shape=shape,
+                    smem_bytes_l160=lib.loco_flash_rel_bwd_smem_bytes(320, mask_only, kernel,
+                                                                      bf16),
                     blocks_per_sm_l160=lib.loco_flash_rel_bwd_blocks_per_sm(320, mask_only,
-                                                                            kernel))
-    return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelILb([01])E", describe, 4)
+                                                                            kernel, bf16))
+    return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelI" + ELEM + r"Lb([01])E",
+                                describe, 8)
 
 
 def sass_counts(lib_path: str, patterns) -> dict:
@@ -543,9 +628,9 @@ def b2_b7_build_records(build) -> list:
                     blocks_per_sm_80_mels=lib.loco_logmel_blocks_per_sm(log2_m, 80, stride),
                     cluster=None)
 
-    recs = (kernel_build_records(build, r"conv_(stats|out)_kernel", b2, 2)
+    recs = (kernel_build_records(build, r"conv_(stats|out)_kernelILi10EfE", b2, 2)
             + kernel_build_records(build, r"logmel_warp_kernelILi(\d)E", b7, 5))
-    sass = sass_counts(build.library_path(), ("conv_out_kernel", "logmel_warp_kernelILi9E"))
+    sass = sass_counts(build.library_path(), ("conv_out_kernelILi10EfE", "logmel_warp_kernelILi9E"))
     for name, n in sass.items():
         if "conv_out_kernel" in name:
             recs.append(dict(kernel="B2", sass_instructions_output_kernel=n,
@@ -557,7 +642,7 @@ def b2_b7_build_records(build) -> list:
 
 def b2_work(wav, c, k, f):
     b = wav.shape[0]
-    nbytes = 4 * (wav.numel() + c * k + 2 * c + b * c * f)
+    nbytes = wav.element_size() * (wav.numel() + c * k + 2 * c + b * c * f)
     # conv (2K), folded affine (2) and GELU (~4) per output, tap statistics
     flops = b * c * f * (2 * k + 6) + 2 * b * f * (k + k * (k + 1) // 2)
     return nbytes, flops
@@ -617,11 +702,12 @@ def b2_case_checks(cf, smi: str) -> list:
     return recs
 
 
-def causal_work(b, h, tq, tk, d, causal):
-    """Bytes moved (q, k, v, out, lse once each) and FLOP of q.k^T and p.v
-    over the key pairs each row may see (row i sees keys 0..i if causal)."""
+def causal_work(b, h, tq, tk, d, causal, elem: int = 4):
+    """Bytes moved (q, k, v, out of ``elem`` bytes, lse of 4, once each)
+    and FLOP of q.k^T and p.v over the key pairs each row may see (row i
+    sees keys 0..i if causal)."""
     pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
-    nbytes = 4 * (2 * b * h * tq * d + 2 * b * h * tk * d + b * h * tq)
+    nbytes = elem * (2 * b * h * tq * d + 2 * b * h * tk * d) + 4 * b * h * tq
     return nbytes, 4 * b * h * d * pairs
 
 
@@ -1801,6 +1887,713 @@ def loco_reference_phase(smi: str, dev) -> dict:
     return kern["launches"]
 
 
+BF16_REL_TOL = 2.0 ** -7   # bf16 kernel vs its plain version, of max |plain|
+BF16_LSE_TOL = 1e-3
+BF16_STEP_RTOL = 1e-2      # bf16 step, kernels + flash vs plain + dense: loss
+MP_LOSS_RTOL, MP_GNORM_REL = 5e-2, 0.15   # bf16 vs f32 step (the JAX test's contract)
+BF16_NLL_DELTA = 5e-2      # eval_ppl, bf16 vs f32: mean |d NLL| (the JAX test's bound)
+
+
+@contextlib.contextmanager
+def counted_forms():
+    """A tally of kernel launches by form: every launch path calls
+    ``_build.bf16_flag`` once to pick its kernel's form; the tally counts
+    those calls by ``caller:form`` while the block runs."""
+    from loco_asr_tpu_torch.ops.cuda import _build
+
+    real = _build.bf16_flag
+    tally: dict = {}
+
+    def spy(dtype, what):
+        flag = real(dtype, what)
+        key = f"{what}:{'bf16' if flag else 'f32'}"
+        tally[key] = tally.get(key, 0) + 1
+        return flag
+
+    _build.bf16_flag = spy
+    try:
+        yield tally
+    finally:
+        _build.bf16_flag = real
+
+
+def bf16_held(what: str, got, plain, exact, lse=None, plain_lse=None) -> dict:
+    """A bf16 kernel's output against its plain version (max |d| <= 2^-7
+    max |plain|, lse within 1e-3) and both against a float64 evaluation on
+    the same bf16 inputs (the kernel's error at most twice the plain
+    version's)."""
+    import torch
+
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite output")
+    check(got.dtype == plain.dtype, f"{what}: dtype {got.dtype}, plain {plain.dtype}")
+    err = (got.float() - plain.float()).abs().max().item()
+    lim = BF16_REL_TOL * plain.float().abs().max().item()
+    check(err <= lim, f"{what}: max abs err {err} > {lim}")
+    k_err = (got.double() - exact).abs().max().item()
+    p_err = (plain.double() - exact).abs().max().item()
+    check(k_err <= 2 * p_err, f"{what}: error against float64 {k_err} > 2 x plain {p_err}")
+    rec = dict(max_abs_err=err, tol=lim, f64_err=k_err, plain_f64_err=p_err)
+    if lse is not None:
+        rec["lse_err"] = (lse - plain_lse).abs().max().item()
+        check(rec["lse_err"] <= BF16_LSE_TOL, f"{what}: lse err {rec['lse_err']}")
+    return rec
+
+
+def b1_f64(q, k, v, table, vl, causal: bool, scale: float, dtype=None):
+    """B1's output in float64 on the same inputs (``table``: the rel-pos
+    table, zeros for the mask-only variant)."""
+    import torch
+
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+
+    s = fa._scores(q.double(), k.double(), table.double(), scale)
+    s = s.masked_fill(fa._masked(vl, q.shape[2], k.shape[2], causal, q.device), fa.NEG_INF)
+    return torch.softmax(s, -1) @ v.double()
+
+
+def hold_b1(what: str, q, k, v, pe, vl, *, causal: bool, scale: float) -> dict:
+    """B1 (``pe`` None: mask-only) on these inputs, held by :func:`bf16_held`."""
+    import torch
+
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+
+    table = pe if pe is not None else torch.zeros(2, q.shape[-1], dtype=q.dtype, device=q.device)
+    out, lse = fa.flash_rel_forward(q, k, v, pe, vl, causal=causal, scale=scale)
+    pout, plse = fa.flash_rel_forward_plain(q, k, v, table, vl, causal=causal, scale=scale)
+    return bf16_held(what, out, pout, b1_f64(q, k, v, table, vl, causal, scale), lse, plse)
+
+
+def hold_b34(what: str, q, k, v, pe, vl, out, lse, g, *, causal: bool, scale: float,
+             mask_only: bool) -> dict:
+    """B3 + B4 (the wrapper's dq, dk, dv) against the plain backward and the
+    float64 gradient of :func:`b1_f64`, each by :func:`bf16_held`."""
+    import torch
+
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+
+    got = fa.flash_rel_backward(q, k, v, pe, vl, out, lse, g, causal=causal, scale=scale,
+                                need_dpe=False, mask_only=mask_only)
+    dq, dk, dv, dqpe = fa.flash_rel_backward_plain(q, k, v, pe, vl, out, lse, g,
+                                                   causal=causal, scale=scale)
+    if not mask_only:
+        dq = dq + (dqpe @ pe.float()) * scale
+    plain = tuple(x.to(q.dtype) for x in (dq, dk, dv))
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    exact = torch.autograd.grad(b1_f64(*leaves, pe, vl, causal, scale), leaves, g.double())
+    errs = {n: bf16_held(f"{what} {n}", a, p_, e)
+            for n, a, p_, e in zip(("dq", "dk", "dv"), got, plain, exact)}
+    return dict(max_abs_err=max(r["max_abs_err"] for r in errs.values()), errs=errs)
+
+
+def hold_b5(what: str, q, k, v, *, causal: bool, scale: float, nhd: bool = False) -> dict:
+    """B5 ([B, H, T, D]) or B6 (``nhd``: [B, T, H, D]) by :func:`bf16_held`."""
+    import torch
+
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
+    fn, plain_fn = ((fc.flash_forward_nhd, fc.flash_forward_nhd_plain) if nhd
+                    else (fc.flash_forward, fc.flash_forward_plain))
+    out, lse = fn(q, k, v, causal=causal, scale=scale)
+    pout, plse = plain_fn(q, k, v, causal=causal, scale=scale)
+    qs, ks, vs = ((x.transpose(1, 2) if nhd else x).double() for x in (q, k, v))
+    s = (qs @ ks.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).triu(1),
+                          -1e30)
+    exact = torch.softmax(s, -1) @ vs
+    return bf16_held(what, out, pout, exact.transpose(1, 2) if nhd else exact, lse, plse)
+
+
+def hold_b2(what: str, wav, w, sc, bi, *, stride: int = 5) -> dict:
+    """B2 by :func:`bf16_held`; the float64 evaluation is the plain version
+    on float64 copies."""
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+
+    out = cf.conv1_instance_norm_gelu(wav, w, sc, bi, stride=stride)
+    pout = cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi, stride=stride)
+    exact = cf.conv1_instance_norm_gelu_plain(*(t.double() for t in (wav, w, sc, bi)),
+                                              stride=stride)
+    return bf16_held(what, out, pout, exact)
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """The inputs of the first launch of each kernel form and shape while
+    the block runs (B1 and B3/B4 by variant and q/k shapes, B5, B2), copied
+    at the launch: the wrappers' launch paths are wrapped for the block.
+    B3/B4's record takes ``out`` from the B1 launch of the same q (autograd
+    saves it for the backward)."""
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
+    real = (fa._launch_forward, fa._launch_backward, fc._launch, cf._launch)
+    cases: dict = {}
+    outs: dict = {}
+
+    def keep(key, **tensors):
+        if key not in cases:
+            cases[key] = {n: (t.detach().clone() if hasattr(t, "detach") else t)
+                          for n, t in tensors.items()}
+
+    def b1(q, k, v, pe, valid_len, causal, scale, *, mask_only):
+        out, lse = real[0](q, k, v, pe, valid_len, causal, scale, mask_only=mask_only)
+        outs[q.data_ptr()] = out
+        keep(("B1", "mask-only" if mask_only else "band", tuple(q.shape), tuple(k.shape)),
+             q=q, k=k, v=v, pe=None if mask_only else pe, vl=valid_len, causal=causal,
+             scale=scale)
+        return out, lse
+
+    def b34(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *, mask_only):
+        keep(("B3/B4", "mask-only" if mask_only else "band", tuple(q.shape), tuple(k.shape)),
+             q=q, k=k, v=v, pe=pe, vl=valid_len, out=outs[q.data_ptr()], lse=lse, g=g,
+             causal=causal, scale=scale, mask_only=mask_only)
+        return real[1](q, k, v, pe, valid_len, lse, delta, g, causal, scale,
+                       mask_only=mask_only)
+
+    def b5(q, k, v, dims, *, t_axis, causal, scale, what):
+        keep(("B5" if t_axis == 2 else "B6", tuple(q.shape), tuple(k.shape)), q=q, k=k, v=v,
+             causal=causal, scale=scale, nhd=t_axis == 1)
+        return real[2](q, k, v, dims, t_axis=t_axis, causal=causal, scale=scale, what=what)
+
+    def b2(wav, weight, scale, bias, k, stride):
+        keep(("B2", tuple(wav.shape)), wav=wav, w=weight, sc=scale, bi=bias, stride=stride)
+        return real[3](wav, weight, scale, bias, k, stride)
+
+    fa._launch_forward, fa._launch_backward, fc._launch, cf._launch = b1, b34, b5, b2
+    try:
+        yield cases
+    finally:
+        fa._launch_forward, fa._launch_backward, fc._launch, cf._launch = real
+        outs.clear()
+
+
+def hold_captured(cases: dict) -> list:
+    """Each captured launch (:func:`captured_launches`) replayed through its
+    wrapper and held against its plain version by the ``hold_*`` checks."""
+    recs = []
+    for key, c in cases.items():
+        what = f"{key[0]} bf16 at the step's {' '.join(map(str, key[1:]))}"
+        if key[0] == "B1":
+            rec = hold_b1(what, c["q"], c["k"], c["v"], c["pe"], c["vl"], causal=c["causal"],
+                          scale=c["scale"])
+        elif key[0] == "B3/B4":
+            rec = hold_b34(what, c["q"], c["k"], c["v"], c["pe"], c["vl"], c["out"], c["lse"],
+                           c["g"], causal=c["causal"], scale=c["scale"],
+                           mask_only=c["mask_only"])
+        elif key[0] == "B2":
+            rec = hold_b2(what, c["wav"], c["w"], c["sc"], c["bi"], stride=c["stride"])
+        else:
+            rec = hold_b5(what, c["q"], c["k"], c["v"], causal=c["causal"], scale=c["scale"],
+                          nhd=c["nhd"])
+        recs.append(dict(kernel=key[0], case=[str(x) for x in key[1:]],
+                         dtype=str(next(t.dtype for t in c.values() if hasattr(t, "dtype"))),
+                         **{n: rec[n] for n in ("max_abs_err", "tol", "f64_err",
+                                                "plain_f64_err") if n in rec},
+                         **({"errs": {n: r["max_abs_err"] for n, r in rec["errs"].items()}}
+                            if "errs" in rec else {})))
+    return recs
+
+
+def grads_by_leaf(got: dict, plain: dict, f32: dict, what: str) -> dict:
+    """Each parameter's gradient of the kernel path in bf16 (``got``)
+    against the f32 step's (``f32``): its distance at most twice the plain
+    + dense bf16 path's (``plain``), plus 2^-8 of the f32 gradient's norm.
+    The attention key biases are left out after showing that their f32
+    gradient is rounding noise (at most 2^-8 of the same block's value
+    bias's): the softmax cancels a per-query shift, so the exact gradient
+    is 0.  Returns the worst ratio and the leaves held."""
+    check(got.keys() == plain.keys() == f32.keys(), f"{what}: different parameters")
+    worst, worst_name, held = 0.0, "", 0
+    for k in f32:
+        ref = f32[k].double()
+        if k.endswith("k_proj.bias"):
+            signal = f32[k.replace("k_proj", "v_proj")].double().norm().item()
+            check(ref.norm().item() <= 2.0 ** -8 * signal,
+                  f"{what}: {k}'s f32 gradient {ref.norm().item()} is not noise ({signal})")
+            continue
+        e_got = (got[k].double() - ref).norm().item()
+        e_plain = (plain[k].double() - ref).norm().item()
+        lim = 2 * e_plain + 2.0 ** -8 * ref.norm().item()
+        check(e_got <= lim, f"{what}: {k} off the f32 gradient by {e_got} > {lim} "
+                            f"(plain + dense bf16 {e_plain})")
+        held += 1
+        if e_got / lim > worst:
+            worst, worst_name = e_got / lim, k
+    return dict(leaves_held=held, worst_share_of_limit=worst, worst=worst_name)
+
+
+def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> dict:
+    """Phase 16: the bf16 forms of B1-B6 at the main path's shapes, the
+    full-width ASR step and ``train_asr`` under the JAX README's
+    mixed-precision flags, the gpt2-width LM step, ``train_lm`` and
+    ``eval_ppl`` in bf16, and ``extract_embeddings --dtype bfloat16``.
+    Returns the kernel records and the main paths' launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+    from loco_asr_tpu_torch.parallel import train
+    from loco_asr_tpu_torch.pipelines import eval_ppl, extract_embeddings, train_asr, train_lm
+
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(16)
+    sdpa = F.scaled_dot_product_attention
+
+    def randn(*shape, sc=0.3):
+        return (torch.randn(*shape, generator=g) * sc).to(dev, bf)
+
+    def counts():
+        return {"B1": fa.flash_rel_forward.launches, "B2": cf.conv1_instance_norm_gelu.launches,
+                "B3/B4": fa.flash_rel_backward.launches, "B5": fc.flash_forward.launches,
+                "B5_bwd": fc.flash_backward.launches, "B6": fc.flash_forward_nhd.launches}
+
+    def reset():
+        fa.flash_rel_forward.launches = cf.conv1_instance_norm_gelu.launches = 0
+        fa.flash_rel_backward.launches = fc.flash_forward.launches = 0
+        fc.flash_backward.launches = fc.flash_forward_nhd.launches = 0
+
+    recs = {}
+
+    # (a) the bf16 kernels at the f32 cases' shapes, and B1 mask-only at
+    # the decoder's cross-attention shape (160 label positions over 500
+    # frames)
+    for name, b, tq, tk, L, vls in (
+            ("rel_padded", 16, 249, 249, 160, [249] * 10 + [230, 200, 180, 120, 60, 17]),
+            ("mask_only", 16, 249, 249, 0, [249] * 12 + [200, 150, 99, 40]),
+            ("vl0", 16, 249, 249, 160, [249] * 12 + [0, 120, 0, 60]),
+            ("cross_mask_only", 8, 160, 500, 0, [500] * 6 + [430, 310])):
+        q = randn(b, 12, tq, 64)
+        k, v = (randn(b, 12, tk, 64) for _ in range(2))
+        pe = randn(2 * L, 64) if L else None
+        table = pe if L else torch.zeros(2, 64, dtype=bf, device=dev)
+        vl = torch.tensor(vls, dtype=torch.int32, device=dev)
+        kw = dict(causal=False, scale=1.0)
+
+        def run():
+            return fa.flash_rel_forward(q, k, v, pe, vl, **kw)
+
+        rec = hold_b1(f"B1 bf16 {name}", q, k, v, pe, vl, **kw)
+        lib_ms = None
+        if not L:
+            keep = (torch.arange(tk, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+            lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        pe32 = None if pe is None else pe.float()
+        nbytes, flops = b1_work(q, k, pe, vl, False)
+        bms, by = bound(nbytes, flops, products=True, bf16=True)
+        ms = time_ms(run)
+        rec.update(kernel="B1 bf16", case=name, shape=[b, 12, tq, 64], tk=tk,
+                   two_l=2 * L or "mask-only", ms=ms,
+                   device_ms=kernel_device_ms(run, ("flash_rel_fwd",))["flash_rel_fwd"],
+                   f32_ms=time_ms(lambda: fa.flash_rel_forward(q32, k32, v32, pe32, vl, **kw)),
+                   plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, table, vl, **kw)),
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by, bound_share=bms / ms, card=smi)
+        recs.setdefault("B1", rec)
+        print(f"[bf16] {json.dumps(rec)}")
+        del q, k, v, q32, k32, v32
+
+    # B3/B4 at the encoder's training shape, two rows padded
+    q, k, v = (randn(8, 12, 500, 64) for _ in range(3))
+    gg, pe = randn(8, 12, 500, 64, sc=1.0), randn(320, 64)
+    vl = torch.tensor([500] * 6 + [430, 310], dtype=torch.int32, device=dev)
+    out, lse = fa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=1.0)
+    kw = dict(causal=False, scale=1.0, need_dpe=True)
+
+    def run():
+        return fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw)
+
+    rec = hold_b34("B3/B4 bf16", q, k, v, pe, vl, out, lse, gg, causal=False, scale=1.0,
+                   mask_only=False)
+    keep = (torch.arange(500, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+    sl = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fb():
+        torch.autograd.grad(sdpa(*sl, attn_mask=keep, scale=1.0), sl, gg)
+
+    with torch.no_grad():
+        sdpa_f_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
+    q32, k32, v32, g32, pe32 = (x.float() for x in (q, k, v, gg, pe))
+    out32, lse32 = fa.flash_rel_forward(q32, k32, v32, pe32, vl, causal=False, scale=1.0)
+    pair = ("flash_rel_bwd_dq", "flash_rel_bwd_dkv")
+    split = kernel_device_ms(run, pair)
+    split32 = kernel_device_ms(lambda: fa.flash_rel_backward(q32, k32, v32, pe32, vl, out32,
+                                                             lse32, g32, **kw), pair)
+    (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, False)
+    ms = time_ms(run)
+    b34 = dict(kernel="B3/B4 bf16", case="enc_padded", shape=[8, 12, 500, 64], two_l=320,
+               **rec, ms=ms, b3_ms=split[pair[0]], b4_ms=split[pair[1]],
+               b3_f32_ms=split32[pair[0]], b4_f32_ms=split32[pair[1]],
+               plain_ms=time_ms(lambda: fa.flash_rel_backward_plain(
+                   q, k, v, pe, vl, out, lse, gg, causal=False, scale=1.0)),
+               library_ms=time_ms(sdpa_fb) - sdpa_f_ms,
+               b3_bound=bound(b3b, b3f, products=True, bf16=True),
+               b4_bound=bound(b4b, b4f, products=True, bf16=True), card=smi)
+    recs["B3/B4"] = b34
+    print(f"[bf16] {json.dumps(b34)}")
+    del q, k, v, gg, out, sl, q32, k32, v32, g32, out32
+
+    # B5 at [8, 25, 1024, 64] causal, B6 on [8, 1024, 12, 64] qkv views
+    for kern in ("B5", "B6"):
+        if kern == "B5":
+            q, k, v = (randn(8, 25, 1024, 64, sc=0.5) for _ in range(3))
+            fn, plain_fn = fc.flash_forward, fc.flash_forward_plain
+            qs, ks, vs = q, k, v
+            h = 25
+        else:
+            x = randn(8, 1024, 3 * 768, sc=0.5)
+            q, k, v = (y.reshape(8, 1024, 12, 64) for y in x.split(768, dim=-1))
+            fn, plain_fn = fc.flash_forward_nhd, fc.flash_forward_nhd_plain
+            qs, ks, vs = (y.transpose(1, 2) for y in (q, k, v))
+            h = 12
+        kw = dict(causal=True, scale=0.125)
+        rec = hold_b5(f"{kern} bf16", q, k, v, nhd=kern == "B6", **kw)
+        nbytes, flops = causal_work(8, h, 1024, 1024, 64, True, elem=2)
+        bms, by = bound(nbytes, flops, products=True, bf16=True)
+        f32 = [y.float() for y in (q, k, v)]
+        if kern == "B6":   # the f32 form on views of one f32 projection, as scoring reads it
+            x32 = x.float()
+            f32 = [y.reshape(8, 1024, 12, 64) for y in x32.split(768, dim=-1)]
+        ms = time_ms(lambda: fn(q, k, v, **kw))
+        rec.update(kernel=f"{kern} bf16", case="causal_1024", shape_bhtd=[8, h, 1024, 64], ms=ms,
+                   device_ms=kernel_device_ms(lambda: fn(q, k, v, **kw),
+                                              ("flash_causal_fwd",))["flash_causal_fwd"],
+                   f32_ms=time_ms(lambda: fn(*f32, **kw)),
+                   plain_ms=time_ms(lambda: plain_fn(q, k, v, **kw), reps=5, inner=2),
+                   library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, scale=0.125)),
+                   bound_ms=bms, bound_by=by, bound_share=bms / ms, card=smi)
+        recs[kern] = rec
+        print(f"[bf16] {json.dumps(rec)}")
+        del q, k, v, qs, ks, vs, f32
+
+    # B2 at the encoder's [16, 80000]
+    wav = randn(16, 80000, sc=0.1)
+    w, sc_, bi = randn(512, 1, 10), randn(512, sc=0.2) + 1.0, randn(512, sc=0.1)
+
+    def run():
+        return cf.conv1_instance_norm_gelu(wav, w, sc_, bi)
+
+    rec = hold_b2("B2 bf16", wav, w, sc_, bi)
+    nbytes, flops = b2_work(wav, 512, 10, 15999)
+    bms, by = bound(nbytes, flops)
+    f32 = [t.float() for t in (wav, w, sc_, bi)]
+    ms = time_ms(run)
+    split = kernel_device_ms(run, ("conv_stats", "conv_out"), optional=("Memset",))
+    rec.update(kernel="B2 bf16", case="main", shape=[16, 80000], ms=ms,
+               device_ms=sum(split.values()), device_ms_by_launch=split,
+               f32_ms=time_ms(lambda: cf.conv1_instance_norm_gelu(*f32)),
+               plain_ms=time_ms(lambda: cf.conv1_instance_norm_gelu_plain(wav, w, sc_, bi)),
+               library_ms=None,
+               partial_library_ms=time_ms(lambda: F.conv1d(wav[:, None], w, stride=5)),
+               bound_ms=bms, bound_by=by, bound_share=bms / ms, card=smi)
+    recs["B2"] = rec
+    print(f"[bf16] {json.dumps(rec)}")
+    del wav, f32
+
+    # (b) the full-width ASR step under the JAX README's realistic
+    # fine-tuning flags: bf16 compute, frozen feature encoder, flash.  The
+    # kernel launches of its kernel path are captured and each replayed
+    # against its plain version; every gradient is held to the f32 step's
+    cfg = SpeechT5Config(vocab_size=256)
+    quiet = dataclasses.replace(cfg, positional_dropout=0.0, hidden_dropout=0.0,
+                                attention_dropout=0.0, activation_dropout=0.0,
+                                apply_spec_augment=False)
+
+    def to_dev(hb):
+        return {k: torch.as_tensor(hb[k], device=dev)
+                for k in ("input_values", "attention_mask", "labels")}
+
+    b0 = to_dev(host_batches[0])
+    model = st5.asr_model_init(quiet, seed=0, device=dev).train()
+    runs = {}
+    for name, impl, dtype in (("flash_bf16", "flash", bf), ("dense_bf16", "dense", bf),
+                              ("flash_f32", "flash", None)):
+        tx = train.adamw(0.0, weight_decay=0.0)            # rate 0: the weights stay
+        opt = tx.init(train.trainable_params(model, True))
+        step = train.make_asr_train_step(quiet, tx, attn_impl=impl, freeze_feature_encoder=True,
+                                         compute_dtype=dtype)
+        with counted_forms() as tally, captured_launches() as cases:
+            reset()
+            m = step(model, opt, b0)
+            torch.cuda.synchronize()
+            launched = counts()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+        runs[name] = (m["loss"].item(), m["grad_norm"].item(), launched, dict(tally), grads,
+                      dict(cases))
+        check(all(p.dtype == torch.float32 for p in model.parameters()), "master weights not f32")
+        check(all(t.dtype == torch.float32 for t in opt["mu"].values()), "Adam state not f32")
+        del opt, cases
+    (l16, g16, c16, f16, gr16, cap16), (ld, gd, cd, _, grd, _), (l32, g32_, _, _, gr32, _) = (
+        runs["flash_bf16"], runs["dense_bf16"], runs["flash_f32"])
+    check(np.isfinite(l16) and np.isfinite(g16), f"bf16 step: loss {l16}, grad_norm {g16}")
+    check(abs(l16 - ld) <= BF16_STEP_RTOL * abs(ld), f"bf16 step: flash {l16} dense {ld}")
+    check(abs(l16 - l32) <= MP_LOSS_RTOL * abs(l32), f"bf16 step {l16} vs f32 {l32}")
+    check(abs(g16 - g32_) <= MP_GNORM_REL * g32_, f"bf16 grad_norm {g16} vs f32 {g32_}")
+    n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
+    want = {"B1": n_enc + n_dec, "B2": 1, "B3/B4": n_enc + n_dec, "B5": n_dec,
+            "B5_bwd": n_dec, "B6": 0}
+    check(c16 == want, f"bf16 step launched {c16}, expected {want}")
+    want_forms = {"flash_rel_forward:bf16": n_enc + n_dec, "conv_frontend:bf16": 1,
+                  "flash_rel_backward:bf16": n_enc + n_dec, "flash_forward:bf16": n_dec}
+    check(f16 == want_forms, f"bf16 step forms {f16}, expected {want_forms}")
+    check(all(v == 0 for v in cd.values()), f"dense bf16 launched {cd}")
+    # every captured form: B1 with the band (encoder) and mask-only over
+    # Tq != Tk (the decoder's cross-attention), their B3/B4, B5 (decoder), B2
+    check(sorted({(key[0], key[1]) if key[0] in ("B1", "B3/B4") else (key[0],) for key in cap16})
+          == [("B1", "band"), ("B1", "mask-only"), ("B2",), ("B3/B4", "band"),
+              ("B3/B4", "mask-only"), ("B5",)], f"captured {sorted(cap16)}")
+    step_holds = hold_captured(cap16)
+    for r in step_holds:
+        print(f"[bf16_step_kernels] {json.dumps(r)}")
+    leaf_rec = grads_by_leaf(gr16, grd, gr32, "bf16 step")
+    step_launches = c16
+    del model, runs, gr16, grd, gr32, cap16
+    tput = {}
+    for name, dtype, mu in (("bf16", bf, bf), ("f32", None, None)):
+        model = st5.asr_model_init(cfg, seed=0, device=dev)
+        tx = train.adamw(1e-4, mu_dtype=mu)
+        opt = tx.init(train.trainable_params(model, True))
+        step = train.make_asr_train_step(cfg, tx, attn_impl="flash", freeze_feature_encoder=True,
+                                         compute_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batches = [to_dev(hb) for hb in host_batches[1:14]]
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses, audio_s = [], [], 0.0
+        for i, bt in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(model, opt, bt, gen)["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i >= 3:
+                audio_s += bt["attention_mask"].sum().item() / 16000.0
+        check(all(np.isfinite(losses)), f"{name} training losses {losses}")
+        prof = device_breakdown(lambda: step(model, opt, batches[0], gen))
+        cast_ms = None
+        if dtype is not None:   # the host's share: the parameter and batch casts alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                train.cast_compute(model, batches[0], dtype)
+            torch.cuda.synchronize()
+            cast_ms = (time.perf_counter() - t0) * 1e3 / 10
+        tput[name] = dict(median_step_ms=statistics.median(step_ms[3:]),
+                          audio_s_per_wall_s=audio_s / (sum(step_ms[3:]) / 1e3),
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          busy_share=prof["busy_share"], device_ms=prof["kernel_ms_sum"],
+                          kernels=prof["kernels"], device_groups_ms=prof["groups_ms"],
+                          top_kernels=prof["top_kernels"][:4], cast_compute_ms=cast_ms,
+                          losses=losses)
+        del model, opt, batches
+    print(f"[bf16_train] {json.dumps(dict(step=dict(loss_flash_bf16=l16, loss_dense_bf16=ld, loss_flash_f32=l32, grad_norm_bf16=g16, grad_norm_f32=g32_, grads_by_leaf=leaf_rec, launches=c16, forms=f16), throughput=tput, card=smi))}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "asr")
+        flags = ["--train_dir", corpus["train"], "--dev_dir", corpus["dev"],
+                 "--out_dir", out_dir, "--attn_impl", "flash", "--compute_dtype", "bfloat16",
+                 "--freeze_feature_encoder", "--opt_mu_dtype", "bfloat16",
+                 "--conversation_seconds", "10", "--batch_size", "8",
+                 "--save_every", "4", "--eval_every", "8", "--eval_batches", "2"]
+        with counted_forms() as tally:
+            t0 = time.perf_counter()
+            check(train_asr.main([*flags, "--steps", "8"]) == 0, "bf16 train_asr failed")
+            wall = time.perf_counter() - t0
+            check(train_asr.main([*flags, "--steps", "12", "--resume"]) == 0,
+                  "bf16 train_asr --resume failed")
+        ckpt = os.path.join(out_dir, "ckpt")
+        with np.load(os.path.join(ckpt, "step_12.npz")) as z:
+            check(int(z["opt_state.count"]) == 12, "bf16 resume: optimizer count")
+            mu = {z[k].dtype for k in z.files if k.startswith("opt_state.mu.")}
+            par = {z[k].dtype for k in z.files if k.startswith("params.")}
+        check(mu == {np.dtype("V2")} and par == {np.dtype(np.float32)},
+              f"bf16 checkpoint: mu {mu}, params {par}")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            evals = [json.loads(line) for line in f if "dev_wer" in line]
+        check(evals and all(np.isfinite(r["dev_loss"]) for r in evals), f"dev metrics {evals}")
+        check(tally.get("flash_rel_backward:bf16", 0) == 12 * (n_enc + n_dec),
+              f"train_asr bf16 forms {tally}")
+        print(f"[bf16_train_asr] {json.dumps(dict(wall_s=wall, forms=tally, dev=evals[-1]))}")
+
+    # (c) the gpt2-width LM step in bf16, train_lm and eval_ppl
+    lcfg = dataclasses.replace(gm.PRESETS["gpt2"], vocab_size=256, embd_pdrop=0.0,
+                               attn_pdrop=0.0, resid_pdrop=0.0)
+    rng = np.random.default_rng(16)
+    B, T = 8, 1024
+
+    def make_batch():
+        lengths = rng.integers(T // 2, T + 1, B)
+        lengths[0] = T
+        return {"ids": torch.as_tensor(rng.integers(0, 256, (B, T)), device=dev),
+                "lengths": torch.as_tensor(lengths, device=dev)}
+
+    lm = gm.gpt2_init(lcfg, seed=0, device=dev)
+    batch = make_batch()
+    lruns = {}
+    for name, dtype in (("bf16", bf), ("f32", None)):
+        tx = train.adamw(0.0, weight_decay=0.0)
+        opt = tx.init(dict(lm.named_parameters()))
+        step = train.make_lm_train_step(lcfg, tx, attn_impl="flash", compute_dtype=dtype)
+        with counted_forms() as tally:
+            reset()
+            m = step(lm, opt, batch)
+            torch.cuda.synchronize()
+            lruns[name] = (m["loss"].item(), m["grad_norm"].item(), counts(), dict(tally))
+        del opt
+    (ll16, lg16, lc16, lf16), (ll32, lg32, _, _) = lruns["bf16"], lruns["f32"]
+    check(abs(ll16 - ll32) <= MP_LOSS_RTOL * abs(ll32), f"LM bf16 loss {ll16} vs f32 {ll32}")
+    want = {"B1": 0, "B2": 0, "B3/B4": 0, "B5": 0, "B5_bwd": lcfg.n_layer, "B6": lcfg.n_layer}
+    check(lc16 == want, f"bf16 LM step launched {lc16}, expected {want}")
+    check(lf16 == {"flash_forward_nhd:bf16": lcfg.n_layer}, f"bf16 LM step forms {lf16}")
+    lm_step_launches = lc16
+    ltput = {}
+    for name, dtype, mu in (("bf16", bf, bf), ("f32", None, None)):
+        tx = train.adamw(3e-4, mu_dtype=mu)
+        opt = tx.init(dict(lm.named_parameters()))
+        step = train.make_lm_train_step(lcfg, tx, attn_impl="flash", compute_dtype=dtype)
+        batches = [make_batch() for _ in range(8)]
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for bt in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(np.isfinite(step(lm, opt, bt)["loss"].item()), f"LM {name} loss")
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(step_ms[3:])
+        ltput[name] = dict(median_step_ms=med, tokens_per_s=B * T / (med / 1e3),
+                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del opt, batches
+    del lm
+    print(f"[bf16_lm] {json.dumps(dict(loss_bf16=ll16, loss_f32=ll32, grad_norm_bf16=lg16, grad_norm_f32=lg32, launches=lc16, forms=lf16, throughput=ltput, card=smi))}")
+    lm_corpus = os.path.join(ROOT, "exp", "loco", "lm_corpus")
+    train_txt, dev_txt = (os.path.join(lm_corpus, f) for f in ("train.txt", "dev.txt"))
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "lm")
+        with counted_forms() as tally:
+            rc = train_lm.main(["--train_file", train_txt, "--dev_file", dev_txt,
+                                "--out_dir", out_dir, "--model", "gpt2", "--tokenizer", "char",
+                                "--attn_impl", "flash", "--compute_dtype", "bfloat16",
+                                "--opt_mu_dtype", "bfloat16", "--seq_len", str(T),
+                                "--batch_size", "8", "--steps", "10", "--warmup_steps", "2",
+                                "--eval_every", "1000", "--save_every", "1000",
+                                "--log_every", "5"])
+        check(rc == 0 and tally.get("flash_forward_nhd:bf16", 0) == 10 * lcfg.n_layer,
+              f"bf16 train_lm: rc {rc}, forms {tally}")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            lm_metrics = [json.loads(line) for line in f]
+        check(all(np.isfinite(r.get("loss", 0.0)) for r in lm_metrics), f"train_lm {lm_metrics}")
+        nlls = {}
+        for name, extra in (("f32", []), ("bf16", ["--compute_dtype", "bfloat16"])):
+            ppl_dir = os.path.join(tmp, f"ppl_{name}")
+            with counted_forms() as ptally:
+                rc = eval_ppl.main(["-i", dev_txt, "-o", ppl_dir, "--model", "gpt2",
+                                    "--tokenizer", "char", "--checkpoint",
+                                    os.path.join(out_dir, "ckpt"), "--context_type", "max_len",
+                                    "--bsize", "8", "--attn_impl", "flash", *extra])
+            check(rc == 0, f"eval_ppl {name} returned {rc}")
+            with open(os.path.join(ppl_dir, "rec_id2nlls.pkl"), "rb") as f:
+                nlls[name] = (pickle.load(f), dict(ptally))
+        (n32, _), (n16, t16) = nlls["f32"], nlls["bf16"]
+        check(list(n16) == list(n32), "eval_ppl bf16: recordings differ")
+        d = np.concatenate([np.abs(np.asarray(n16[r]) - np.asarray(n32[r])) for r in n32])
+        check(d.mean() < BF16_NLL_DELTA, f"eval_ppl bf16: mean |d NLL| {d.mean()}")
+        check(set(t16) == {"flash_forward_nhd:bf16"}, f"eval_ppl bf16 forms {t16}")
+        print(f"[bf16_lm_pipelines] {json.dumps(dict(train_lm_forms=tally, train_lm=lm_metrics[-1], eval_ppl_mean_abs_dnll=float(d.mean()), eval_ppl_max_abs_dnll=float(d.max()), eval_ppl_forms=t16))}")
+
+    # (d) extract_embeddings -m audio --dtype bfloat16: the weights cast, the
+    # waveform not, so the encoder runs in f32 (B1 and B2 in their f32 forms)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_slurp(tmp, 8, seed=14)
+        stores = {}
+        for device in ("cuda", "cpu"):
+            with counted_forms() as tally:
+                rc = extract_embeddings.main(["-m", "audio", "-s", "train", "--data_path", tmp,
+                                              "--out_dir", os.path.join(tmp, device),
+                                              "--batch_size", "8", "--dtype", "bfloat16",
+                                              "--device", device])
+            check(rc == 0, f"extract_embeddings --dtype bfloat16 on {device}: {rc}")
+            stores[device] = (extract_store(os.path.join(tmp, device)), dict(tally))
+        (gpu, forms), (cpu, _) = stores["cuda"], stores["cpu"]
+        check(forms == {"flash_rel_forward:f32": cfg.encoder_layers, "conv_frontend:f32": 1},
+              f"bf16 extraction forms {forms}")
+        diffs = [np.abs(a - b) for a, b in zip(gpu, cpu, strict=True)]
+        mx, mean = max(x.max() for x in diffs), np.mean([x.mean() for x in diffs])
+        check(all(a.dtype == np.float32 for a in gpu), "bf16 extraction: not float32")
+        check(mx <= ENC_MAX_TOL and mean <= ENC_MEAN_TOL,
+              f"bf16 extraction: card vs CPU max {mx} mean {mean}")
+        print(f"[bf16_extract] {json.dumps(dict(forms=forms, max_abs_diff=float(mx), mean_abs_diff=float(mean)))}")
+    print(f"[bf16] phase wall s {time.perf_counter() - t_phase:.1f}")
+    return dict(recs=recs, asr_step=step_launches, lm_step=lm_step_launches,
+                step_kernels=step_holds)
+
+
+# the bf16 forms in the kernels line: (name, phase 16's record, launches
+# key, source, the TPU kernel's line)
+BF16_FORMS = (
+    ("flash_rel_forward (bf16)", "B1", ("asr_step", "B1"), "flash_rel.cu", 518),
+    ("conv1_instance_norm_gelu (bf16)", "B2", ("asr_step", "B2"), "conv_frontend.cu", None),
+    ("flash_rel_backward (B3, bf16)", "B3", ("asr_step", "B3/B4"), "flash_rel_bwd.cu", 799),
+    ("flash_rel_backward (B4, bf16)", "B4", ("asr_step", "B3/B4"), "flash_rel_bwd.cu", 902),
+    ("flash_forward (bf16)", "B5", ("asr_step", "B5"), "flash_causal.cu", 40),
+    ("flash_forward_nhd (bf16)", "B6", ("lm_step", "B6"), "flash_causal.cu", 168),
+)
+
+
+def bf16_entries(mixed: dict) -> list:
+    """The kernels line's entries of the bf16 forms: phase 16's records,
+    and the launches of its main paths (the full-width ASR step for B1-B5,
+    the gpt2-width LM step for B6)."""
+    out = []
+    for name, kern, (path, key), src, line in BF16_FORMS:
+        rec = mixed["recs"]["B3/B4" if kern in ("B3", "B4") else kern]
+        replaces = ("loco_asr_tpu/ops/pallas/conv_frontend.py:56" if kern == "B2"
+                    else f"loco_asr_tpu/ops/pallas/flash_attention.py:{line}")
+        e = dict(name=name, route="cuda", source=f"loco_asr_tpu_torch/csrc/{src}",
+                 replaces=replaces, launches=mixed[path][key], max_abs_err=rec["max_abs_err"],
+                 ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=rec["library_ms"])
+        step = [r["max_abs_err"] for r in mixed["step_kernels"]
+                if r["kernel"] == ("B3/B4" if kern in ("B3", "B4") else kern)]
+        if step:   # the same form replayed on the ASR step's own inputs
+            e["step_max_abs_err"] = max(step)
+        if kern in ("B3", "B4"):
+            # its own device time; the wrapper's CUDA-event time beside it
+            which = kern.lower()
+            e.update(ms=rec[f"{which}_ms"], device_ms=rec[f"{which}_ms"], wrapper_ms=rec["ms"],
+                     f32_ms=rec[f"{which}_f32_ms"])
+            e["bound_ms"], e["bound_by"] = rec[f"{which}_bound"]
+        else:
+            e.update(device_ms=rec["device_ms"], f32_ms=rec["f32_ms"], bound_ms=rec["bound_ms"],
+                     bound_by=rec["bound_by"])
+        out.append(e)
+    return out
+
+
+def asr_host_batches(train_dir: str, n: int = 31) -> list:
+    """``n`` host batches of 8 conversation windows of <= 10 s (the char
+    tokenizer, vocabulary 256), epochs 0-2 shuffled by their seeds."""
+    from loco_asr_tpu_torch.data.asr_dataset import ConversationAsrDataset
+    from loco_asr_tpu_torch.data.tokenizer import load_tokenizer
+
+    tok = load_tokenizer("char")
+    tok.vocab_size = 256
+    ds = ConversationAsrDataset(train_dir, window_seconds=10)
+    eos = 2   # SpeechT5Config().eos_token_id
+    return list(itertools.islice(itertools.chain.from_iterable(
+        ds.batches(tok, 8, max_seconds=10, max_label_len=160, shuffle=True, seed=e,
+                   eos_id=eos) for e in range(3)), n))
+
+
+def extract_store(path: str) -> list:
+    """The embeddings of an ``extract_embeddings`` store, in record order."""
+    from loco_asr_tpu_torch.data.embedding_store import EmbeddingStore
+
+    store = EmbeddingStore(path)
+    return [store[i][1] for i in range(len(store))]
+
+
 def main() -> int:
     import torch
 
@@ -1809,7 +2602,6 @@ def main() -> int:
         return 1
 
     from loco_asr_tpu_torch.data import lm_datasets
-    from loco_asr_tpu_torch.data.asr_dataset import ConversationAsrDataset
     from loco_asr_tpu_torch.data.tokenizer import load_tokenizer
     from loco_asr_tpu_torch.data.embedding_store import EmbeddingStore
     from loco_asr_tpu_torch.models.gpt2 import model as gm
@@ -2309,10 +3101,7 @@ def main() -> int:
     tok = load_tokenizer("char")
     tok.vocab_size = 256
     cfg = SpeechT5Config(vocab_size=256)
-    train_ds = ConversationAsrDataset(corpus["train"], window_seconds=10)
-    host_batches = list(itertools.islice(itertools.chain.from_iterable(
-        train_ds.batches(tok, 8, max_seconds=10, max_label_len=160, shuffle=True,
-                         seed=e, eos_id=cfg.eos_token_id) for e in range(3)), 31))
+    host_batches = asr_host_batches(corpus["train"])
 
     def to_dev(hb):
         return {k: torch.as_tensor(hb[k], device=dev)
@@ -2565,7 +3354,13 @@ def main() -> int:
     # -- 15. the LoCo decodes on the reference's trained weights -------------
     reference_launches = loco_reference_phase(smi, dev)
 
-    # -- 16. summary -------------------------------------------------------
+    # -- 16. mixed precision: the bf16 forms of B1-B6 ----------------------
+    tmp_corpus = tempfile.TemporaryDirectory()
+    corpus = relocate_corpus(tmp_corpus.name)
+    mixed = mixed_precision_phase(corpus, host_batches, smi, dev)
+    tmp_corpus.cleanup()
+
+    # -- 17. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2631,8 +3426,8 @@ def main() -> int:
         entry("fused_log_mel", "loco_asr_tpu_torch/csrc/logmel.cu",
               "loco_asr_tpu/ops/pallas/logmel.py:40",
               "logmel.py::_logmel_kernel", "B7", "corpus_10s", b7_launches),
-    ]
-    print(f"[summary] card: {smi}")
+    ] + bf16_entries(mixed)
+    print(f"[summary] card: {smi}; profiler windows {json.dumps(PROFILER_WINDOWS)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

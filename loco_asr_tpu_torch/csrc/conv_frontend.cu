@@ -57,10 +57,24 @@
 // approximate reciprocal, one ex2 and a five-term polynomial, 13
 // instructions an output.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+// element loads and the output store of the two forms: float, and bf16
+// (read and widened exactly; the output rounded to nearest even)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename E>
+__device__ __forceinline__ E from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 constexpr int STAT_THREADS = 256;
 constexpr int MAX_CHUNK = 2048;     // frames of a statistics block (41 KB of waveform)
@@ -100,11 +114,11 @@ __device__ __forceinline__ float warp_transpose_sum(float (&a)[N], int lane) {
   return a[B];
 }
 
-template <int K>
+template <int K, typename E>
 __global__ void __launch_bounds__(STAT_THREADS, 2)
-conv_stats_kernel(const float* __restrict__ wav, const float* __restrict__ w,
-                  const float* __restrict__ scale,
-                  const float* __restrict__ bias, float* __restrict__ partial,
+conv_stats_kernel(const E* __restrict__ wav, const E* __restrict__ w,
+                  const E* __restrict__ scale,
+                  const E* __restrict__ bias, float* __restrict__ partial,
                   float* __restrict__ gain_off, int* __restrict__ count,
                   int T, int C, int F, int chunk, float eps) {
   constexpr int S = K / 2;
@@ -124,8 +138,8 @@ conv_stats_kernel(const float* __restrict__ wav, const float* __restrict__ w,
   // the row's last block folds every channel: bring the weights into L2
   if (32 * threadIdx.x < C * K)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(w + 32 * threadIdx.x));
-  const float* x = wav + (size_t)b * T + (size_t)f0 * S;
-  for (int i = threadIdx.x; i < nf * S + K - S; i += STAT_THREADS) sx[i] = x[i];
+  const E* x = wav + (size_t)b * T + (size_t)f0 * S;
+  for (int i = threadIdx.x; i < nf * S + K - S; i += STAT_THREADS) sx[i] = to_f32(x[i]);
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
@@ -260,7 +274,7 @@ conv_stats_kernel(const float* __restrict__ wav, const float* __restrict__ w,
   for (int c = threadIdx.x; c < C; c += STAT_THREADS) {
     float wc[K];
 #pragma unroll
-    for (int i = 0; i < K; ++i) wc[i] = w[c * K + i];
+    for (int i = 0; i < K; ++i) wc[i] = to_f32(w[c * K + i]);
     float mean = 0.f;
 #pragma unroll
     for (int i = 0; i < K; ++i) mean = fmaf(tot[i], wc[i], mean);
@@ -273,9 +287,9 @@ conv_stats_kernel(const float* __restrict__ wav, const float* __restrict__ w,
         const float g = tot[p++];
         var = fmaf(i == j ? g : 2.f * g, wc[i] * wc[j], var);
       }
-    const float gain = rsqrtf(var + eps) * scale[c];
+    const float gain = rsqrtf(var + eps) * to_f32(scale[c]);
     gain_off[((size_t)b * 2) * C + c] = gain;
-    gain_off[((size_t)b * 2 + 1) * C + c] = bias[c] - mean * gain;
+    gain_off[((size_t)b * 2 + 1) * C + c] = to_f32(bias[c]) - mean * gain;
   }
 }
 
@@ -306,10 +320,10 @@ __device__ __forceinline__ float gelu_as(float z) {
   return fmaf(-(a * t) * p, e, fmaxf(z, 0.f));
 }
 
-template <int K>
+template <int K, typename E>
 __global__ void __launch_bounds__(OUT_THREADS)
-conv_out_kernel(const float* __restrict__ wav, const float* __restrict__ w,
-                const float* __restrict__ gain_off, float* __restrict__ out,
+conv_out_kernel(const E* __restrict__ wav, const E* __restrict__ w,
+                const float* __restrict__ gain_off, E* __restrict__ out,
                 int T, int C, int F) {
   constexpr int S = K / 2;
   static_assert(K <= 11, "a channel's weights and offset fill three float4");
@@ -318,14 +332,14 @@ conv_out_kernel(const float* __restrict__ wav, const float* __restrict__ w,
 
   const int b = blockIdx.z;
   const int f0 = blockIdx.x * FT, c0 = blockIdx.y * CT;
-  const float* x = wav + (size_t)b * T;
+  const E* x = wav + (size_t)b * T;
   for (int i = threadIdx.x; i < FT * S + K - S; i += OUT_THREADS) {
     const int idx = f0 * S + i;
-    sx[i] = idx < T ? x[idx] : 0.f;
+    sx[i] = idx < T ? to_f32(x[idx]) : 0.f;
   }
   for (int i = threadIdx.x; i < CT * K; i += OUT_THREADS) {
     const int c = i / K, r = i - c * K;
-    sw[c * 12 + r] = c0 + c < C ? w[(size_t)(c0 + c) * K + r] : 0.f;
+    sw[c * 12 + r] = c0 + c < C ? to_f32(w[(size_t)(c0 + c) * K + r]) : 0.f;
   }
   // the statistics' gains and offsets are complete and visible past here
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -347,7 +361,7 @@ conv_out_kernel(const float* __restrict__ wav, const float* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < K; ++i) t[j][i] = sx[(lane + 32 * j) * S + i];
   const int cw = warp * NC;
-  float* o = out + ((size_t)b * C + c0 + cw) * F + f0 + lane;
+  E* o = out + ((size_t)b * C + c0 + cw) * F + f0 + lane;
   const float4* sw4 = reinterpret_cast<const float4*>(sw);
   const bool full = f0 + FT <= F;    // no frame of the tile past the row's end
 #pragma unroll
@@ -362,23 +376,15 @@ conv_out_kernel(const float* __restrict__ wav, const float* __restrict__ w,
       float z = wk[K];
 #pragma unroll
       for (int i = 0; i < K; ++i) z = fmaf(t[j][i], wk[i], z);
-      if (full || f0 + lane + 32 * j < F) o[(size_t)cc * F + 32 * j] = gelu_as(z);
+      if (full || f0 + lane + 32 * j < F) o[(size_t)cc * F + 32 * j] = from_f32<E>(gelu_as(z));
     }
   }
 }
 
-}  // namespace
-
-// wav [B,T], w [C,1,K], scale/bias [C] (float32, contiguous); scratch of
-// B*chunks*65 + B*2*C floats then B int32 counters, chunks = ceil(F /
-// chunk); out [B,C,F].  K must be 10 (stride 5).
-extern "C" int loco_conv_frontend(const void* wav, const void* w,
-                                  const void* scale, const void* bias,
-                                  void* scratch, void* out, int B, int T,
-                                  int C, int K, int S, int F, int chunk,
-                                  float eps, void* stream) {
-  if (K != 10 || S != 5 || chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename E>
+int launch(const void* wav, const void* w, const void* scale, const void* bias,
+           void* scratch, void* out, int B, int T, int C, int K, int S, int F, int chunk,
+           float eps, cudaStream_t st) {
   const int chunks = (F + chunk - 1) / chunk;
   float* partial = (float*)scratch;
   float* gain_off = partial + (size_t)B * chunks * 65;
@@ -386,9 +392,9 @@ extern "C" int loco_conv_frontend(const void* wav, const void* w,
   cudaError_t e = cudaMemsetAsync(count, 0, (size_t)B * sizeof(int), st);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = ((size_t)chunk * S + K - S) * sizeof(float);
-  conv_stats_kernel<10><<<dim3(chunks, B), STAT_THREADS, smem, st>>>(
-      (const float*)wav, (const float*)w, (const float*)scale, (const float*)bias, partial,
-      gain_off, count, T, C, F, chunk, eps);
+  conv_stats_kernel<10, E><<<dim3(chunks, B), STAT_THREADS, smem, st>>>(
+      (const E*)wav, (const E*)w, (const E*)scale, (const E*)bias, partial, gain_off, count,
+      T, C, F, chunk, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -400,10 +406,30 @@ extern "C" int loco_conv_frontend(const void* wav, const void* w,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, conv_out_kernel<10>, (const float*)wav, (const float*)w,
-                         (const float*)gain_off, (float*)out, T, C, F);
+  e = cudaLaunchKernelEx(&cfg, conv_out_kernel<10, E>, (const E*)wav, (const E*)w,
+                         (const float*)gain_off, (E*)out, T, C, F);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// wav [B,T], w [C,1,K], scale/bias [C] (float32, or bfloat16 when
+// bf16_io is nonzero; contiguous); scratch of B*chunks*65 + B*2*C floats
+// then B int32 counters, chunks = ceil(F / chunk); out [B,C,F] of wav's
+// type (the statistics, the norm and the GELU are f32 either way).  K must
+// be 10 (stride 5).
+extern "C" int loco_conv_frontend(const void* wav, const void* w,
+                                  const void* scale, const void* bias,
+                                  void* scratch, void* out, int B, int T,
+                                  int C, int K, int S, int F, int chunk,
+                                  float eps, int bf16_io, void* stream) {
+  if (K != 10 || S != 5 || chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16_io ? launch<__nv_bfloat16>(wav, w, scale, bias, scratch, out, B, T, C, K, S, F,
+                                         chunk, eps, st)
+                 : launch<float>(wav, w, scale, bias, scratch, out, B, T, C, K, S, F, chunk,
+                                 eps, st);
 }
 
 // Blocks of B2's statistics kernel (phase 0, at `chunk` frames) or output
@@ -414,9 +440,9 @@ extern "C" int loco_conv_frontend_blocks_per_sm(int phase, int chunk) {
   const size_t smem = ((size_t)chunk * 5 + 5) * sizeof(float);
   const cudaError_t e =
       phase == 0
-          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_stats_kernel<10>,
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_stats_kernel<10, float>,
                                                           STAT_THREADS, smem)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_out_kernel<10>,
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_out_kernel<10, float>,
                                                           OUT_THREADS, 0);
   return e == cudaSuccess ? n : -(int)e;
 }

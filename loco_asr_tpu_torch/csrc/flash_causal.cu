@@ -58,10 +58,27 @@
 // 128 of the 255 registers a thread may hold; no main path runs it.  wgmma
 // and TMA are later work: TF32 wgmma takes both operands K-major, so p.v
 // would need V transposed in shared memory, while mma.sync reads any layout.
+//
+// The bf16 form (the element type T is a template parameter; the f32
+// instantiation is the kernel described above, unchanged) is the JAX
+// kernels' bf16 path: q, k, v and out in bf16, products on bf16 operands
+// with f32 accumulation, p rounded to bf16 before p.v (p.astype(v.dtype)),
+// the softmax, the row sums and lse in f32.  Each product is one
+// m16n8k16 bf16 mma.sync (bf16_mma.cuh) at 989 TFLOP/s peak, where the f32
+// form spends three TF32 passes at 495: the same [8, 1024, 12, 64] call
+// needs a sixth of the f32 form's tensor-core time and half its bytes.
+// Its fragments need no split: q's A fragments are loaded as packed pairs,
+// K's B fragments are pairs of one row (rows of D + 8 bf16, conflict-free),
+// V's pairs of two rows are packed from two 2-byte reads, and the C
+// fragments of two adjacent score blocks are the A fragment of a 16-key
+// p.v step as they stand.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -80,26 +97,29 @@ struct Strides {               // element strides of (batch, head, time)
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
 };
 
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 4; }
+// shared row stride of K and V: 16-byte aligned rows, fragment reads in
+// distinct banks (D + 4 floats, see above; D + 8 bf16, 4g + t mod 32 words
+// for the pairs of K's rows and 8t + g / 2 for V's columns at D = 64)
+template <typename T, int D>
+__host__ __device__ constexpr int ld() { return std::is_same<T, float>::value ? D + 4 : D + 8; }
 
-template <int D>
+template <typename T, int D>
 __host__ constexpr size_t smem_bytes() {   // two stages of (K, V) tiles
-  return (size_t)2 * 2 * BK * ld<D>() * sizeof(float);
+  return (size_t)2 * 2 * BK * ld<T, D>() * sizeof(T);
 }
 
-// rows [row0, row0 + BK) of a strided [n, D] matrix -> smem [BK][D + 4],
+// rows [row0, row0 + BK) of a strided [n, D] matrix -> smem [BK][ld],
 // asynchronously; rows >= n are zero
-template <int D>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src,
                                                 long long row_stride, int row0, int n) {
-  constexpr int C4 = D / 4;
+  constexpr int C = D * (int)sizeof(T) / 16, E = 16 / (int)sizeof(T);   // 16-byte pieces
 #pragma unroll
-  for (int i = threadIdx.x; i < BK * C4; i += THREADS) {
-    const int r = i / C4, c4 = i % C4;
+  for (int i = threadIdx.x; i < BK * C; i += THREADS) {
+    const int r = i / C, c = i % C;
     const bool valid = row0 + r < n;
-    const float* s = valid ? src + (row0 + r) * row_stride + c4 * 4 : src;
-    cp_async16(dst + r * ld<D>() + c4 * 4, s, valid);
+    const T* s = valid ? src + (row0 + r) * row_stride + c * E : src;
+    cp_async16(dst + r * ld<T, D>() + c * E, s, valid);
   }
 }
 
@@ -111,16 +131,21 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
 template <int D>
 constexpr int min_blocks() { return D <= 64 ? 2 : 1; }
 
-template <int D>
+// T = float: three-pass TF32 products, f32-accurate.  T = bf16: one bf16
+// pass, p rounded to bf16 before p.v (the JAX kernel's p.astype(v.dtype)),
+// out rounded to bf16; the softmax and the accumulators are f32 either way.
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, min_blocks<D>())
-flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out,
+flash_causal_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out,
                         float* __restrict__ lse, Strides st, int H, int Tq,
                         int Tk, int causal, float scale) {
-  constexpr int LD = ld<D>();
-  constexpr int KD = D / 8;     // k-steps of q.k^T, column blocks of p.v
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int LD = ld<T, D>();
+  constexpr int KD = D / 8;     // k-steps of q.k^T (TF32), column blocks of p.v
   constexpr int NB = BK / 8;    // key blocks of a tile
-  extern __shared__ __align__(16) float smem[];   // [2 stages][K, V][BK][LD]
+  extern __shared__ __align__(16) unsigned char smem_raw[];   // [2 stages][K, V][BK][LD]
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -128,19 +153,20 @@ flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;     // this thread's rows
-  const float* qb = q + b * st.qb + h * st.qh;
-  const float* kb = k + b * st.kb + h * st.kh;
-  const float* vb = v + b * st.vb + h * st.vh;
+  const T* qb = q + b * st.qb + h * st.qh;
+  const T* kb = k + b * st.kb + h * st.kh;
+  const T* vb = v + b * st.vb + h * st.vh;
 
   int nk = (Tk + BK - 1) / BK;
   if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);   // tiles above: all masked
-  load_tile_async<D>(smem, kb, st.kt, 0, Tk);
-  load_tile_async<D>(smem + BK * LD, vb, st.vt, 0, Tk);
+  load_tile_async<T, D>(smem, kb, st.kt, 0, Tk);
+  load_tile_async<T, D>(smem + BK * LD, vb, st.vt, 0, Tk);
   cp_async_commit();
 
-  // q's A fragments, split once
-  unsigned qbig[KD][4], qsmall[KD][4];
-  {
+  // q's A fragments: split once (TF32), packed pairs (bf16)
+  unsigned qbig[F32 ? KD : 1][4], qsmall[F32 ? KD : 1][4];
+  Bf16Rows<D> qa;
+  if constexpr (F32) {
     const float* q_r0 = qb + r0 * st.qt;
     const float* q_r1 = qb + r1 * st.qt;
 #pragma unroll
@@ -151,6 +177,8 @@ flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int e = 0; e < 4; ++e) split_tf32(x[e], qbig[kk][e], qsmall[kk][e]);
     }
+  } else {
+    qa.load(qb + r0 * st.qt, qb + r1 * st.qt, r0 < Tq, r1 < Tq, t);
   }
 
   float o[KD][4];
@@ -165,17 +193,17 @@ flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     if (kt + 1 < nk) {   // the next tile's copy overlaps this tile's products
-      float* nxt = smem + ((kt + 1) & 1) * 2 * BK * LD;
-      load_tile_async<D>(nxt, kb, st.kt, k0 + BK, Tk);
-      load_tile_async<D>(nxt + BK * LD, vb, st.vt, k0 + BK, Tk);
+      T* nxt = smem + ((kt + 1) & 1) * 2 * BK * LD;
+      load_tile_async<T, D>(nxt, kb, st.kt, k0 + BK, Tk);
+      load_tile_async<T, D>(nxt + BK * LD, vb, st.vt, k0 + BK, Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sK = smem + (kt & 1) * 2 * BK * LD;
-    const float* sV = sK + BK * LD;
+    const T* sK = smem + (kt & 1) * 2 * BK * LD;
+    const T* sV = sK + BK * LD;
 
     // s = q.k^T: block n holds keys k0 + 8n + {2t, 2t + 1} of rows r0, r1
     float s[NB][4];
@@ -183,16 +211,20 @@ flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+      for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        const float* kr = sK + (8 * n + g) * LD + 8 * kk + t;
-        unsigned bbig[2], bsmall[2];
-        split_tf32(kr[0], bbig[0], bsmall[0]);
-        split_tf32(kr[4], bbig[1], bsmall[1]);
-        mma_3xtf32(s[n], qbig[kk], qsmall[kk], bbig, bsmall);
+        for (int n = 0; n < NB; ++n) {
+          const float* kr = sK + (8 * n + g) * LD + 8 * kk + t;
+          unsigned bbig[2], bsmall[2];
+          split_tf32(kr[0], bbig[0], bsmall[0]);
+          split_tf32(kr[4], bbig[1], bsmall[1]);
+          mma_3xtf32(s[n], qbig[kk], qsmall[kk], bbig, bsmall);
+        }
       }
+    } else {
+      qa.template mma_bt<NB, LD>(s, sK, g, t);
     }
 
     // scale, mask, online softmax in base 2
@@ -237,22 +269,26 @@ flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 
-    // o += p.v over key block kk, keys read in the order (2t, 2t + 1)
+    if constexpr (F32) {
+      // o += p.v over key block kk, keys read in the order (2t, 2t + 1)
 #pragma unroll
-    for (int kk = 0; kk < NB; ++kk) {
-      unsigned abig[4], asmall[4];
-      split_tf32(s[kk][0], abig[0], asmall[0]);
-      split_tf32(s[kk][2], abig[1], asmall[1]);
-      split_tf32(s[kk][1], abig[2], asmall[2]);
-      split_tf32(s[kk][3], abig[3], asmall[3]);
-      const float* vr = sV + (8 * kk + 2 * t) * LD + g;
+      for (int kk = 0; kk < NB; ++kk) {
+        unsigned abig[4], asmall[4];
+        split_tf32(s[kk][0], abig[0], asmall[0]);
+        split_tf32(s[kk][2], abig[1], asmall[1]);
+        split_tf32(s[kk][1], abig[2], asmall[2]);
+        split_tf32(s[kk][3], abig[3], asmall[3]);
+        const float* vr = sV + (8 * kk + 2 * t) * LD + g;
 #pragma unroll
-      for (int n = 0; n < KD; ++n) {
-        unsigned bbig[2], bsmall[2];
-        split_tf32(vr[8 * n], bbig[0], bsmall[0]);
-        split_tf32(vr[LD + 8 * n], bbig[1], bsmall[1]);
-        mma_3xtf32(o[n], abig, asmall, bbig, bsmall);
+        for (int n = 0; n < KD; ++n) {
+          unsigned bbig[2], bsmall[2];
+          split_tf32(vr[8 * n], bbig[0], bsmall[0]);
+          split_tf32(vr[LD + 8 * n], bbig[1], bsmall[1]);
+          mma_3xtf32(o[n], abig, asmall, bbig, bsmall);
+        }
       }
+    } else {
+      mma_p_b_bf16<NB, D, LD>(o, s, sV, g, t);   // o += bf16(p).v
     }
     __syncthreads();   // this stage is refilled two tiles on
   }
@@ -262,54 +298,68 @@ flash_causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int r = 0; r < 2; ++r) {
     const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
     if (rows[r] >= Tq) continue;
-    float* orow = out + b * st.ob + h * st.oh + rows[r] * st.ot + 2 * t;
+    T* orow = out + b * st.ob + h * st.oh + rows[r] * st.ot + 2 * t;
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n) =
-          make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    for (int n = 0; n < KD; ++n) {
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+      else
+        *reinterpret_cast<unsigned*>(orow + 8 * n) =
+            round_pair(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    }
     if (t == 0) lse[(long long)bh * Tq + rows[r]] = (m[r] + log2f(denom)) * LN2;
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out,
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, const Strides& st, int B, int H, int Tq, int Tk,
                    int causal, float scale, cudaStream_t stream) {
-  // the dynamic shared-memory limit is raised once per head dim and device
+  // the dynamic shared-memory limit is raised once per form and device
   static std::atomic<unsigned long long> done{0};
-  const cudaError_t e = allow_smem_once(flash_causal_fwd_kernel<D>, (int)smem_bytes<D>(), done);
+  const cudaError_t e =
+      allow_smem_once(flash_causal_fwd_kernel<T, D>, (int)smem_bytes<T, D>(), done);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_causal_fwd_kernel<D><<<grid, THREADS, smem_bytes<D>(), stream>>>(
-      q, k, v, out, lse, st, H, Tq, Tk, causal, scale);
+  flash_causal_fwd_kernel<T, D><<<grid, THREADS, smem_bytes<T, D>(), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, st, H, Tq, Tk, causal, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* out,
+                     float* lse, const Strides& st, int B, int H, int Tq, int Tk,
+                     int causal, float scale, cudaStream_t s) {
+  switch (D) {
+    case 8: return launch<T, 8>(q, k, v, out, lse, st, B, H, Tq, Tk, causal, scale, s);
+    case 16: return launch<T, 16>(q, k, v, out, lse, st, B, H, Tq, Tk, causal, scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, st, B, H, Tq, Tk, causal, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, st, B, H, Tq, Tk, causal, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, st, B, H, Tq, Tk, causal, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q [.., Tq, D], k/v [.., Tk, D], out [.., Tq, D] (float32, head dim
-// contiguous, 16-byte aligned rows), addressed through strides[12] =
-// (batch, head, time) element strides of q, k, v, out in that order;
-// lse [B,H,Tq] contiguous.  D in {8, 16, 32, 64, 128}.
+// q [.., Tq, D], k/v [.., Tk, D], out [.., Tq, D] (float32, or bfloat16
+// when bf16 is nonzero; head dim contiguous, 16-byte aligned rows),
+// addressed through strides[12] = (batch, head, time) element strides of
+// q, k, v, out in that order; lse [B,H,Tq] float32 contiguous.  D in
+// {8, 16, 32, 64, 128}.
 extern "C" int loco_flash_causal_fwd(const void* q, const void* k, const void* v,
                                      void* out, void* lse,
                                      const long long* strides, int B, int H,
                                      int Tq, int Tk, int D, int causal,
-                                     float scale, void* stream) {
+                                     float scale, int bf16_operands, void* stream) {
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
-  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
-  float *of = (float*)out, *lf = (float*)lse;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  switch (D) {
-    case 8: e = launch<8>(qf, kf, vf, of, lf, st, B, H, Tq, Tk, causal, scale, s); break;
-    case 16: e = launch<16>(qf, kf, vf, of, lf, st, B, H, Tq, Tk, causal, scale, s); break;
-    case 32: e = launch<32>(qf, kf, vf, of, lf, st, B, H, Tq, Tk, causal, scale, s); break;
-    case 64: e = launch<64>(qf, kf, vf, of, lf, st, B, H, Tq, Tk, causal, scale, s); break;
-    case 128: e = launch<128>(qf, kf, vf, of, lf, st, B, H, Tq, Tk, causal, scale, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  const cudaError_t e =
+      bf16_operands
+          ? launch_d<bf16>(D, q, k, v, out, (float*)lse, st, B, H, Tq, Tk, causal, scale, s)
+          : launch_d<float>(D, q, k, v, out, (float*)lse, st, B, H, Tq, Tk, causal, scale, s);
   return (int)e;
 }

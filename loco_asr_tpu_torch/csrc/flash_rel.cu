@@ -65,18 +65,29 @@
 // KB, one block an SM) and one 8-warp block of 128 rows with 32-key tiles
 // were slower with the band; the 64-key stages win without it.  wgmma and
 // TMA are later work.
+//
+// The bf16 form (the element type T is a template parameter; the f32
+// instantiation is the kernel described above, unchanged) is the JAX
+// kernel's bf16 path: q, k, v, pe and out in bf16, q.k^T, q.pe^T and p.v
+// as one m16n8k16 bf16 mma.sync each with f32 accumulation (bf16_mma.cuh),
+// p rounded to bf16 before p.v; the band table (f32 in shared memory, as
+// the TPU kernel's y_scr), the masks and their constants, the softmax and
+// lse stay f32.  K, V and pe tiles are bf16 rows of D + 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <type_traits>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 4; }   // shared row stride of K, V, pe
+// shared row stride of K, V and pe: D + 4 floats or D + 8 bf16 (as in
+// csrc/flash_causal.cu)
+template <typename T, int D>
+__host__ __device__ constexpr int ld() { return std::is_same<T, float>::value ? D + 4 : D + 8; }
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_NAT = -1e30f;       // the mask of the plain version
@@ -99,44 +110,50 @@ using ShapeOf = std::conditional_t<MASK_ONLY, Shape<4, 64, 2>, Shape<4, 32, 1>>;
 template <int D>
 constexpr int min_blocks() { return D <= 64 ? 2 : 1; }
 
-template <bool MASK_ONLY, int D>
+// the stages in T, then the f32 table
+template <typename T, bool MASK_ONLY, int D>
 __host__ size_t smem_bytes(int two_l) {
   using S = ShapeOf<MASK_ONLY>;
-  return (size_t)(S::STAGES * 2 * S::BK * ld<D>() + (MASK_ONLY ? 0 : two_l * S::TS)) *
-         sizeof(float);
+  return (size_t)S::STAGES * 2 * S::BK * ld<T, D>() * sizeof(T) +
+         (size_t)(MASK_ONLY ? 0 : two_l * S::TS) * sizeof(float);
 }
 
-// rows [row0, row0 + BK) of a strided [n, D] matrix -> smem [BK][D + 4],
+// rows [row0, row0 + BK) of a strided [n, D] matrix -> smem [BK][ld],
 // asynchronously; rows >= n are zero
-template <class S, int D>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
+template <class S, typename T, int D>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src,
                                                 long long row_stride, int row0, int n) {
-  constexpr int C4 = D / 4, LD = ld<D>();
+  constexpr int C = D * (int)sizeof(T) / 16, E = 16 / (int)sizeof(T), LD = ld<T, D>();
 #pragma unroll
-  for (int i = threadIdx.x; i < S::BK * C4; i += S::THREADS) {
-    const int r = i / C4, c4 = i % C4;
+  for (int i = threadIdx.x; i < S::BK * C; i += S::THREADS) {
+    const int r = i / C, c = i % C;
     const bool valid = row0 + r < n;
-    const float* s = valid ? src + (row0 + r) * row_stride + c4 * 4 : src;
-    cp_async16(dst + r * LD + c4 * 4, s, valid);
+    const T* s = valid ? src + (row0 + r) * row_stride + c * E : src;
+    cp_async16(dst + r * LD + c * E, s, valid);
   }
 }
 
-template <bool MASK_ONLY, int D>
+// T = float: three-pass TF32 products.  T = bf16: one bf16 pass for q.k^T,
+// q.pe^T and p.v, p rounded to bf16 before p.v, out rounded to bf16; the
+// table, the softmax and lse stay f32.
+template <typename T, bool MASK_ONLY, int D>
 __global__ void __launch_bounds__(ShapeOf<MASK_ONLY>::THREADS, min_blocks<D>())
-flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ pe,
-                     const int* __restrict__ valid_len, float* __restrict__ out,
+flash_rel_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ pe,
+                     const int* __restrict__ valid_len, T* __restrict__ out,
                      float* __restrict__ lse, Strides st, int H, int Tq, int Tk,
                      int two_l, int causal, float scale) {
   using S = ShapeOf<MASK_ONLY>;
+  constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int BQ = S::BQ, BK = S::BK, TS = S::TS;
-  constexpr int KD = D / 8;      // k-steps of q.k^T and q.pe^T, column blocks of p.v
-  constexpr int LD = ld<D>();
+  constexpr int KD = D / 8;      // k-steps of q.k^T and q.pe^T (TF32), column blocks of p.v
+  constexpr int LD = ld<T, D>();
   constexpr int NB = BK / 8;     // key blocks of a tile
   constexpr int STAGE = 2 * BK * LD;
-  // [STAGES][K, V][BK][LD], then the table [2L][TS]
-  extern __shared__ __align__(16) float smem[];
-  float* tab = smem + S::STAGES * STAGE;
+  // [STAGES][K, V][BK][LD] of T, then the f32 table [2L][TS]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* tab = reinterpret_cast<float*>(smem_raw + S::STAGES * STAGE * sizeof(T));
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -146,9 +163,9 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rl = 16 * warp + g;                       // row in the block
   const int r0 = q0 + rl, r1 = r0 + 8;                // this thread's rows
   const int L = two_l / 2;
-  const float* qb = q + b * st.qb + h * st.qh;
-  const float* kb = k + b * st.kb + h * st.kh;
-  const float* vb = v + b * st.vb + h * st.vh;
+  const T* qb = q + b * st.qb + h * st.qh;
+  const T* kb = k + b * st.kb + h * st.kh;
+  const T* vb = v + b * st.vb + h * st.vh;
   const int vl = max(0, min(valid_len[b], Tk));
 
   int nk = (Tk + BK - 1) / BK;
@@ -168,21 +185,24 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_items = npe + nk;
 
   auto load_item = [&](int idx) {   // item idx -> its stage, asynchronously
-    float* dst = smem + (S::STAGES == 2 ? (idx & 1) : 0) * STAGE;
+    T* dst = smem + (S::STAGES == 2 ? (idx & 1) : 0) * STAGE;
     if (idx < npe) {
-      load_tile_async<S, D>(dst, pe, D, (pe0 + idx) * BK, two_l);
+      load_tile_async<S, T, D>(dst, pe, D, (pe0 + idx) * BK, two_l);
     } else {
       const int k0 = (idx - npe) * BK;
-      load_tile_async<S, D>(dst, kb, st.kt, k0, Tk);
-      load_tile_async<S, D>(dst + BK * LD, vb, st.vt, k0, Tk);
+      load_tile_async<S, T, D>(dst, kb, st.kt, k0, Tk);
+      load_tile_async<S, T, D>(dst + BK * LD, vb, st.vt, k0, Tk);
     }
     cp_async_commit();
   };
   if (S::STAGES == 2) load_item(0);
 
-  // q's A fragments, split once
-  unsigned qbig[KD][4], qsmall[KD][4];
-  {
+  // q's A fragments: split once (TF32), packed pairs (bf16)
+  unsigned qbig[F32 ? KD : 1][4], qsmall[F32 ? KD : 1][4];
+  Bf16Rows<D> qa;
+  if constexpr (!F32) {
+    qa.load(qb + r0 * st.qt, qb + r1 * st.qt, r0 < Tq, r1 < Tq, t);
+  } else {
     const float* q_r0 = qb + r0 * st.qt;
     const float* q_r1 = qb + r1 * st.qt;
 #pragma unroll
@@ -218,8 +238,8 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sK = smem + (S::STAGES == 2 ? (idx & 1) : 0) * STAGE;
-    const float* sV = sK + BK * LD;
+    const T* sK = smem + (S::STAGES == 2 ? (idx & 1) : 0) * STAGE;
+    const T* sV = sK + BK * LD;
 
     // s = q.B^T with B the stage's first tile (pe rows or keys): block n
     // holds columns 8n + {2t, 2t + 1} of rows r0, r1
@@ -228,16 +248,20 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+      for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        const float* kr = sK + (8 * n + g) * LD + 8 * kk + t;
-        unsigned bbig[2], bsmall[2];
-        split_tf32(kr[0], bbig[0], bsmall[0]);
-        split_tf32(kr[4], bbig[1], bsmall[1]);
-        mma_3xtf32(s[n], qbig[kk], qsmall[kk], bbig, bsmall);
+        for (int n = 0; n < NB; ++n) {
+          const float* kr = sK + (8 * n + g) * LD + 8 * kk + t;
+          unsigned bbig[2], bsmall[2];
+          split_tf32(kr[0], bbig[0], bsmall[0]);
+          split_tf32(kr[4], bbig[1], bsmall[1]);
+          mma_3xtf32(s[n], qbig[kk], qsmall[kk], bbig, bsmall);
+        }
       }
+    } else {
+      qa.template mma_bt<NB, LD>(s, sK, g, t);
     }
 
     if (!MASK_ONLY && idx < npe) {   // table columns m0 + 8n + 2t + (e & 1)
@@ -335,22 +359,26 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 
-    // o += p.v over key block kk, keys read in the order (2t, 2t + 1)
+    if constexpr (F32) {
+      // o += p.v over key block kk, keys read in the order (2t, 2t + 1)
 #pragma unroll
-    for (int kk = 0; kk < NB; ++kk) {
-      unsigned abig[4], asmall[4];
-      split_tf32(s[kk][0], abig[0], asmall[0]);
-      split_tf32(s[kk][2], abig[1], asmall[1]);
-      split_tf32(s[kk][1], abig[2], asmall[2]);
-      split_tf32(s[kk][3], abig[3], asmall[3]);
-      const float* vr = sV + (8 * kk + 2 * t) * LD + g;
+      for (int kk = 0; kk < NB; ++kk) {
+        unsigned abig[4], asmall[4];
+        split_tf32(s[kk][0], abig[0], asmall[0]);
+        split_tf32(s[kk][2], abig[1], asmall[1]);
+        split_tf32(s[kk][1], abig[2], asmall[2]);
+        split_tf32(s[kk][3], abig[3], asmall[3]);
+        const float* vr = sV + (8 * kk + 2 * t) * LD + g;
 #pragma unroll
-      for (int n = 0; n < KD; ++n) {
-        unsigned bbig[2], bsmall[2];
-        split_tf32(vr[8 * n], bbig[0], bsmall[0]);
-        split_tf32(vr[LD + 8 * n], bbig[1], bsmall[1]);
-        mma_3xtf32(o[n], abig, asmall, bbig, bsmall);
+        for (int n = 0; n < KD; ++n) {
+          unsigned bbig[2], bsmall[2];
+          split_tf32(vr[8 * n], bbig[0], bsmall[0]);
+          split_tf32(vr[LD + 8 * n], bbig[1], bsmall[1]);
+          mma_3xtf32(o[n], abig, asmall, bbig, bsmall);
+        }
       }
+    } else {
+      mma_p_b_bf16<NB, D, LD>(o, s, sV, g, t);   // o += bf16(p).v
     }
     __syncthreads();   // this stage is refilled
   }
@@ -360,11 +388,16 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
     if (rows[r] >= Tq) continue;
-    float* orow = out + b * st.ob + h * st.oh + rows[r] * st.ot + 2 * t;
+    T* orow = out + b * st.ob + h * st.oh + rows[r] * st.ot + 2 * t;
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n) =
-          make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    for (int n = 0; n < KD; ++n) {
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+      else
+        *reinterpret_cast<unsigned*>(orow + 8 * n) =
+            round_pair(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    }
     // a row that saw only masked keys has the plain version's lse,
     // -1e30 + log(sum), which -1e30 * log2 e * ln 2 would miss by ulps of 1e30
     if (t == 0)
@@ -374,89 +407,96 @@ flash_rel_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // raises the kernel's dynamic shared-memory limit once per device
-template <bool MASK_ONLY, int D>
+template <typename T, bool MASK_ONLY, int D>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem_once(flash_rel_fwd_kernel<MASK_ONLY, D>, 0, done);
+  return allow_smem_once(flash_rel_fwd_kernel<T, MASK_ONLY, D>, 0, done);
 }
 
-template <bool MASK_ONLY, int D>
-cudaError_t launch(const float* q, const float* k, const float* v, const float* pe,
-                   const int* valid_len, float* out, float* lse, const Strides& st,
+template <typename T, bool MASK_ONLY, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* pe,
+                   const int* valid_len, void* out, float* lse, const Strides& st,
                    int B, int H, int Tq, int Tk, int two_l, int causal, float scale,
                    cudaStream_t stream) {
   using S = ShapeOf<MASK_ONLY>;
-  const cudaError_t e = allow_smem<MASK_ONLY, D>();
+  const cudaError_t e = allow_smem<T, MASK_ONLY, D>();
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Tq + S::BQ - 1) / S::BQ);
-  flash_rel_fwd_kernel<MASK_ONLY, D><<<grid, S::THREADS, smem_bytes<MASK_ONLY, D>(two_l),
-                                       stream>>>(q, k, v, pe, valid_len, out, lse, st, H,
-                                                 Tq, Tk, two_l, causal, scale);
+  flash_rel_fwd_kernel<T, MASK_ONLY, D>
+      <<<grid, S::THREADS, smem_bytes<T, MASK_ONLY, D>(two_l), stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)pe, valid_len, (T*)out, lse, st,
+          H, Tq, Tk, two_l, causal, scale);
   return cudaGetLastError();
 }
 
-template <bool MASK_ONLY, int D>
+template <typename T, bool MASK_ONLY, int D>
 int blocks_per_sm(int two_l) {
   int blocks = -1;
-  cudaError_t e = allow_smem<MASK_ONLY, D>();
+  cudaError_t e = allow_smem<T, MASK_ONLY, D>();
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, flash_rel_fwd_kernel<MASK_ONLY, D>, ShapeOf<MASK_ONLY>::THREADS,
-        smem_bytes<MASK_ONLY, D>(two_l));
+        &blocks, flash_rel_fwd_kernel<T, MASK_ONLY, D>, ShapeOf<MASK_ONLY>::THREADS,
+        smem_bytes<T, MASK_ONLY, D>(two_l));
   return e == cudaSuccess ? blocks : -1;
 }
 
-// f(std::bool_constant<mask_only>, std::integral_constant<int, d>) for the
-// instantiated forms, else ``fallback`` (a head dim the kernel does not take)
+// f(type tag T*, std::bool_constant<mask_only>, std::integral_constant<int, d>)
+// for the instantiated forms, else ``fallback`` (a head dim the kernel does
+// not take)
 template <class R, class F>
-R with_form(int mask_only, int d, R fallback, F&& f) {
-  auto dims = [&](auto mo) -> R {
+R with_form(int bf16_operands, int mask_only, int d, R fallback, F&& f) {
+  auto dims = [&](auto tag, auto mo) -> R {
     switch (d) {
-      case 8: return f(mo, std::integral_constant<int, 8>{});
-      case 16: return f(mo, std::integral_constant<int, 16>{});
-      case 32: return f(mo, std::integral_constant<int, 32>{});
-      case 64: return f(mo, std::integral_constant<int, 64>{});
-      case 128: return f(mo, std::integral_constant<int, 128>{});
+      case 8: return f(tag, mo, std::integral_constant<int, 8>{});
+      case 16: return f(tag, mo, std::integral_constant<int, 16>{});
+      case 32: return f(tag, mo, std::integral_constant<int, 32>{});
+      case 64: return f(tag, mo, std::integral_constant<int, 64>{});
+      case 128: return f(tag, mo, std::integral_constant<int, 128>{});
       default: return fallback;
     }
   };
-  return mask_only ? dims(std::true_type{}) : dims(std::false_type{});
+  auto masks = [&](auto tag) -> R {
+    return mask_only ? dims(tag, std::true_type{}) : dims(tag, std::false_type{});
+  };
+  return bf16_operands ? masks((bf16*)nullptr) : masks((float*)nullptr);
 }
+
+#define FORM std::remove_pointer_t<decltype(tag)>, decltype(mo)::value, decltype(dd)::value
 
 }  // namespace
 
 // Dynamic shared memory of a launch (0 for a head dim not instantiated).
-extern "C" size_t loco_flash_rel_smem_bytes(int two_l, int mask_only, int d) {
-  return with_form(mask_only, d, (size_t)0, [&](auto mo, auto dd) {
-    return smem_bytes<decltype(mo)::value, decltype(dd)::value>(two_l);
-  });
+extern "C" size_t loco_flash_rel_smem_bytes(int two_l, int mask_only, int d, int bf16_operands) {
+  return with_form(bf16_operands, mask_only, d, (size_t)0,
+                   [&](auto tag, auto mo, auto dd) { return smem_bytes<FORM>(two_l); });
 }
 
 // Blocks of the kernel that fit on one SM of the current device at this
 // table size (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
-extern "C" int loco_flash_rel_blocks_per_sm(int two_l, int mask_only, int d) {
-  return with_form(mask_only, d, -1, [&](auto mo, auto dd) {
-    return blocks_per_sm<decltype(mo)::value, decltype(dd)::value>(two_l);
-  });
+extern "C" int loco_flash_rel_blocks_per_sm(int two_l, int mask_only, int d, int bf16_operands) {
+  return with_form(bf16_operands, mask_only, d, -1,
+                   [&](auto tag, auto mo, auto dd) { return blocks_per_sm<FORM>(two_l); });
 }
 
-// q [.., Tq, D], k/v [.., Tk, D], out [.., Tq, D] (float32, head dim
-// contiguous, 16-byte aligned rows), addressed through strides[12] =
-// (batch, head, time) element strides of q, k, v, out in that order;
-// pe [two_l, D] contiguous (not read when mask_only), valid_len [B] int32,
-// lse [B,H,Tq] contiguous.  D in {8, 16, 32, 64, 128}.
+// q [.., Tq, D], k/v [.., Tk, D], out [.., Tq, D] (float32, or bfloat16
+// when bf16_operands is nonzero; head dim contiguous, 16-byte aligned
+// rows), addressed through strides[12] = (batch, head, time) element
+// strides of q, k, v, out in that order; pe [two_l, D] contiguous, of q's
+// type (not read when mask_only), valid_len [B] int32, lse [B,H,Tq] float32
+// contiguous.  D in {8, 16, 32, 64, 128}.
 extern "C" int loco_flash_rel_fwd(const void* q, const void* k, const void* v,
                                   const void* pe, const void* valid_len, void* out,
                                   void* lse, const long long* strides, int B, int H,
                                   int Tq, int Tk, int D, int two_l, int causal,
-                                  int mask_only, float scale, void* stream) {
+                                  int mask_only, float scale, int bf16_operands,
+                                  void* stream) {
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
-  return (int)with_form(mask_only, D, cudaErrorInvalidValue, [&](auto mo, auto dd) {
-    return launch<decltype(mo)::value, decltype(dd)::value>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)pe,
-        (const int*)valid_len, (float*)out, (float*)lse, st, B, H, Tq, Tk, two_l, causal,
-        scale, (cudaStream_t)stream);
-  });
+  return (int)with_form(bf16_operands, mask_only, D, cudaErrorInvalidValue,
+                        [&](auto tag, auto mo, auto dd) {
+                          return launch<FORM>(q, k, v, pe, (const int*)valid_len, out,
+                                              (float*)lse, st, B, H, Tq, Tk, two_l, causal,
+                                              scale, (cudaStream_t)stream);
+                        });
 }

@@ -78,17 +78,36 @@
 //   masked, so Tq != Tk and ragged T need no padding.
 // Shapes, registers and blocks an SM are in PERF.md §6; wgmma and TMA are
 // later work.
+//
+// The bf16 forms (the element type T is a template parameter; the f32
+// instantiations are the kernels described above, unchanged) are the JAX
+// kernels' bf16 path: q, k, v, g and pe in bf16, every product one
+// m16n8k16 bf16 mma.sync with f32 accumulation (bf16_mma.cuh), ds rounded
+// to bf16 before ds.k (B3) and p and ds before p^T.g and ds^T.q (B4), as
+// the JAX kernels' astype does; lse, delta, p, ds, the band table, dqpe and
+// the dq, dk, dv sums stay f32, and the outputs leave the kernels in f32
+// (the wrapper casts them, as _flash_rel_backward_pallas does).  Shared
+// tiles hold bf16 rows of D + 8; B4's bf16 form keeps both k's and v's
+// fragments in registers (packed pairs take a quarter of a split f32
+// fragment's registers), so it stages no v.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int D = 64;          // head dim
 constexpr int KD = D / 8;      // k-steps over the head dim, column blocks of dq/dk/dv
-constexpr int LD = D + 4;      // shared row stride of q, g, k, v and pe tiles
+constexpr int LD = D + 4;      // shared row stride of q, g, k, v and pe tiles (f32)
+// the same for either form: D + 4 floats or D + 8 bf16 (conflict-free pair
+// reads, as in csrc/flash_causal.cu)
+template <typename T>
+__host__ __device__ constexpr int ldt() { return std::is_same<T, float>::value ? LD : D + 8; }
 constexpr float LOG2E = 1.4426950408889634f;
 
 enum Operand { IQ, IK, IV, IG, IDQ, IDK, IDV, N_OPERANDS };
@@ -186,18 +205,18 @@ __device__ __forceinline__ void mma_p_b(float (&acc)[KD][4], const float (&p)[NB
   }
 }
 
-// rows [row0, row0 + rows) of a strided [n, 64] matrix -> smem [rows][LD],
+// rows [row0, row0 + rows) of a strided [n, 64] matrix -> smem [rows][ldt],
 // asynchronously; rows >= n are zero
-template <int THREADS>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
+template <int THREADS, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src,
                                                 long long row_stride, int row0, int rows,
                                                 int n) {
-  constexpr int C4 = D / 4;
-  for (int i = threadIdx.x; i < rows * C4; i += THREADS) {
-    const int r = i / C4, c4 = i % C4;
+  constexpr int C = D * (int)sizeof(T) / 16, E = 16 / (int)sizeof(T);   // 16-byte pieces
+  for (int i = threadIdx.x; i < rows * C; i += THREADS) {
+    const int r = i / C, c = i % C;
     const bool valid = row0 + r < n;
-    const float* s = valid ? src + (row0 + r) * row_stride + c4 * 4 : src;
-    cp_async16(dst + r * LD + c4 * 4, s, valid);
+    const T* s = valid ? src + (row0 + r) * row_stride + c * E : src;
+    cp_async16(dst + r * ldt<T>() + c * E, s, valid);
   }
 }
 
@@ -262,26 +281,32 @@ struct DqShape {
 };
 using DqS = DqShape<4, 32>;
 
-template <bool MASK_ONLY>
-__host__ size_t dq_smem_bytes(int two_l) {   // two K / pe buffers, V, [the table]
-  return (size_t)(3 * DqS::BK * LD + (MASK_ONLY ? 0 : two_l * DqS::TS)) * sizeof(float);
+template <typename T, bool MASK_ONLY>
+__host__ size_t dq_smem_bytes(int two_l) {   // two K / pe buffers, V, [the f32 table]
+  return (size_t)3 * DqS::BK * ldt<T>() * sizeof(T) +
+         (size_t)(MASK_ONLY ? 0 : two_l * DqS::TS) * sizeof(float);
 }
 
-template <bool MASK_ONLY>
+// T = float: three-pass TF32 products.  T = bf16: one bf16 pass, ds
+// rounded to bf16 before ds.k (the JAX kernel's ds.astype(k.dtype)); p,
+// ds, the table, dqpe and dq stay f32.
+template <typename T, bool MASK_ONLY>
 __global__ void __launch_bounds__(DqS::THREADS, 2)
-flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ pe,
+flash_rel_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ pe,
                         const int* __restrict__ valid_len, const float* __restrict__ lse,
-                        const float* __restrict__ delta, const float* __restrict__ dout,
+                        const float* __restrict__ delta, const T* __restrict__ dout,
                         float* __restrict__ dq, float* __restrict__ dqpe, Strides st,
                         int H, int Tq, int Tk, int two_l, int causal, float scale) {
   using S = DqS;
-  constexpr int BQ = S::BQ, BK = S::BK, TS = S::TS;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int BQ = S::BQ, BK = S::BK, TS = S::TS, LDT = ldt<T>();
   constexpr int NB = BK / 8;     // key blocks of a tile
-  // [2][BK][LD] pe or K tiles, V [BK][LD], then the table [2L][TS]
-  extern __shared__ __align__(16) float smem[];
-  float* sV = smem + 2 * BK * LD;
-  float* tab = sV + BK * LD;
+  // [2][BK][LDT] pe or K tiles, V [BK][LDT] (of T), then the f32 table [2L][TS]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* sV = smem + 2 * BK * LDT;
+  float* tab = reinterpret_cast<float*>(sV + BK * LDT);
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -291,8 +316,8 @@ flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int rl = 16 * warp + g;                       // row in the block
   const int r0 = q0 + rl, r1 = r0 + 8;                // this thread's rows
   const int L = two_l / 2;
-  const float* kb = k + b * st.b[IK] + h * st.h[IK];
-  const float* vb = v + b * st.b[IV] + h * st.h[IV];
+  const T* kb = k + b * st.b[IK] + h * st.h[IK];
+  const T* vb = v + b * st.b[IV] + h * st.h[IV];
   const int vl = max(0, min(valid_len[b], Tk));
 
   int nk = (vl + BK - 1) / BK;   // later tiles are masked; none when vl is 0
@@ -310,7 +335,7 @@ flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   // rows or keys) goes to buffer idx & 1 while the item before it runs;
   // V goes to its one buffer once the item before has read it
   auto load_first = [&](int idx) {
-    float* dst = smem + (idx & 1) * BK * LD;
+    T* dst = smem + (idx & 1) * BK * LDT;
     if (idx < npe)
       load_tile_async<S::THREADS>(dst, pe, D, (pe0 + idx) * BK, BK, two_l);
     else
@@ -327,8 +352,16 @@ flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 
   SplitRows qf;
   RawRows gf;   // split at each use: registers left to schedule with
-  load_rows(qf, q + b * st.b[IQ] + h * st.h[IQ], st.t[IQ], r0, r1, Tq, t);
-  load_rows(gf, dout + b * st.b[IG] + h * st.h[IG], st.t[IG], r0, r1, Tq, t);
+  Bf16Rows<D> qa, ga;   // the bf16 form's packed pairs
+  const T* qrows = q + b * st.b[IQ] + h * st.h[IQ];
+  const T* grows = dout + b * st.b[IG] + h * st.h[IG];
+  if constexpr (F32) {
+    load_rows(qf, qrows, st.t[IQ], r0, r1, Tq, t);
+    load_rows(gf, grows, st.t[IG], r0, r1, Tq, t);
+  } else {
+    qa.load(qrows + r0 * st.t[IQ], qrows + r1 * st.t[IQ], r0 < Tq, r1 < Tq, t);
+    ga.load(grows + r0 * st.t[IG], grows + r1 * st.t[IG], r0 < Tq, r1 < Tq, t);
+  }
   float lse2[2], dlt[2];
   {
     const int rows[2] = {r0, r1};
@@ -356,8 +389,8 @@ flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sK = smem + (idx & 1) * BK * LD;
-    gf.keep_raw();
+    const T* sK = smem + (idx & 1) * BK * LDT;
+    if constexpr (F32) gf.keep_raw();
 
     // s = q.B^T with B the item's first tile (pe rows or keys)
     float s[NB][4];
@@ -365,7 +398,10 @@ flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma_rows_bt<NB>(s, qf, sK, g, t);
+    if constexpr (F32)
+      mma_rows_bt<NB>(s, qf, sK, g, t);
+    else
+      qa.template mma_bt<NB, LDT>(s, sK, g, t);
 
     if (!MASK_ONLY && idx < npe) {   // table columns m0 + 8n + 2t + (e & 1)
       const int m0 = (pe0 + idx) * BK;
@@ -386,7 +422,10 @@ flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
-    mma_rows_bt<NB>(dp, gf, sV, g, t);
+    if constexpr (F32)
+      mma_rows_bt<NB>(dp, gf, sV, g, t);
+    else
+      ga.template mma_bt<NB, LDT>(dp, sV, g, t);
     if (idx + 1 < n_items) {     // V is read: the next tile's copy overlaps the rest
       __syncthreads();
       load_v(idx + 1);
@@ -441,7 +480,10 @@ flash_rel_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
         }
       }
 
-    mma_p_b<NB>(acc, s, sK, g, t);   // dq += ds.k
+    if constexpr (F32)
+      mma_p_b<NB>(acc, s, sK, g, t);   // dq += ds.k
+    else
+      mma_p_b_bf16<NB, D, LDT>(acc, s, sK, g, t);   // dq += bf16(ds).k
     __syncthreads();   // this buffer is refilled
   }
 
@@ -498,34 +540,48 @@ struct DkvShape {
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int NPE = (BQ + BK - 1 + 15) / 16 * 16;   // pe rows a tile pair
   static constexpr int BLD = BQ + 8;                // band stride, = 8 mod 32
-  static constexpr int STAGE = 2 * BQ * LD + 2 * BQ;   // q, g, lse, delta
 };
 using DkvS = DkvShape<4, 32>;
 
-template <bool MASK_ONLY>
-__host__ size_t dkv_smem_bytes() {   // v, two stages, [pe rows, band]
+// bytes of B4's shared memory: v (the f32 form's; the bf16 form holds v's
+// fragments in registers), two stages of (q, g of T, lse, delta), then pe
+// rows of T and the f32 band
+template <typename T, bool MASK_ONLY>
+struct DkvSmem {
   using S = DkvS;
-  return (size_t)(S::BK * LD + 2 * S::STAGE + (MASK_ONLY ? 0 : S::NPE * (LD + S::BLD))) *
-         sizeof(float);
-}
+  static constexpr size_t V = std::is_same<T, float>::value ? S::BK * LD * sizeof(float) : 0;
+  static constexpr size_t STAGE = 2 * S::BQ * ldt<T>() * sizeof(T) + 2 * S::BQ * sizeof(float);
+  static constexpr size_t PE = MASK_ONLY ? 0 : S::NPE * ldt<T>() * sizeof(T);
+  static constexpr size_t BAND = MASK_ONLY ? 0 : S::NPE * S::BLD * sizeof(float);
+  static constexpr size_t BYTES = V + 2 * STAGE + PE + BAND;
+};
 
-template <bool MASK_ONLY>
+template <typename T, bool MASK_ONLY>
+__host__ size_t dkv_smem_bytes() { return DkvSmem<T, MASK_ONLY>::BYTES; }
+
+// T = float: three-pass TF32 products.  T = bf16: one bf16 pass, p and ds
+// rounded to bf16 before p^T.g and ds^T.q (the JAX kernel's astype); the
+// band, p, ds and the dk, dv sums stay f32.
+template <typename T, bool MASK_ONLY>
 __global__ void __launch_bounds__(DkvS::THREADS, 2)
-flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ pe,
+flash_rel_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ pe,
                          const int* __restrict__ valid_len, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const float* __restrict__ dout,
+                         const float* __restrict__ delta, const T* __restrict__ dout,
                          float* __restrict__ dk, float* __restrict__ dv, Strides st,
                          int H, int Tq, int Tk, int two_l, int causal, float scale) {
   using S = DkvS;
-  constexpr int BQ = S::BQ, BK = S::BK, BLD = S::BLD, STAGE = S::STAGE;
+  using M = DkvSmem<T, MASK_ONLY>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int BQ = S::BQ, BK = S::BK, BLD = S::BLD, LDT = ldt<T>();
   constexpr int NQ = BQ / 8;     // query blocks of a tile
-  // v [BK][LD], [2][q, g, lse, delta], then pe rows [NPE][LD], band [NPE][BLD]
-  extern __shared__ __align__(16) float smem[];
-  float* sV = smem;
-  float* stages = sV + BK * LD;
-  float* sPE = stages + 2 * STAGE;
-  float* band = sPE + S::NPE * LD;
+  // v [BK][LD] (f32 form), [2][q, g, lse, delta], then pe rows [NPE][LDT],
+  // band [NPE][BLD]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sV = reinterpret_cast<float*>(smem_raw);
+  unsigned char* stages = smem_raw + M::V;
+  T* sPE = reinterpret_cast<T*>(stages + 2 * M::STAGE);
+  float* band = reinterpret_cast<float*>(stages + 2 * M::STAGE + M::PE);
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -547,8 +603,8 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     return;
   }
 
-  const float* qb = q + b * st.b[IQ] + h * st.h[IQ];
-  const float* gb = dout + b * st.b[IG] + h * st.h[IG];
+  const T* qb = q + b * st.b[IQ] + h * st.h[IQ];
+  const T* gb = dout + b * st.b[IG] + h * st.h[IG];
   const int qt0 = causal ? k0 / BQ : 0;   // earlier query tiles are above the diagonal
   const int n_items = (Tq + BQ - 1) / BQ - qt0;
   auto m_lo_of = [&](int q0) { return clip(q0 - (k0 + BK - 1), L) + L; };
@@ -556,20 +612,21 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     return (clip(q0 + BQ - 1 - k0, L) + L - m_lo_of(q0) + 16) / 16 * 16;
   };
   auto load_tile = [&](int idx) {   // query tile idx -> stage idx & 1
-    float* dst = stages + (idx & 1) * STAGE;
+    T* dst = reinterpret_cast<T*>(stages + (idx & 1) * M::STAGE);
+    float* dst_f = reinterpret_cast<float*>(dst + 2 * BQ * LDT);
     const int q0 = (qt0 + idx) * BQ;
     load_tile_async<S::THREADS>(dst, qb, st.t[IQ], q0, BQ, Tq);
-    load_tile_async<S::THREADS>(dst + BQ * LD, gb, st.t[IG], q0, BQ, Tq);
-    load_vec_async<S::THREADS>(dst + 2 * BQ * LD, lse + (long long)bh * Tq, q0, BQ, Tq);
-    load_vec_async<S::THREADS>(dst + 2 * BQ * LD + BQ, delta + (long long)bh * Tq, q0, BQ,
-                               Tq);
+    load_tile_async<S::THREADS>(dst + BQ * LDT, gb, st.t[IG], q0, BQ, Tq);
+    load_vec_async<S::THREADS>(dst_f, lse + (long long)bh * Tq, q0, BQ, Tq);
+    load_vec_async<S::THREADS>(dst_f + BQ, delta + (long long)bh * Tq, q0, BQ, Tq);
   };
   auto load_pe = [&](int idx) {     // the pe rows query tile idx pairs with
     const int q0 = (qt0 + idx) * BQ;
     load_tile_async<S::THREADS>(sPE, pe, D, m_lo_of(q0), n_band_of(q0), two_l);
   };
-  // v's rows, the first query tile and its pe rows: one group
-  load_tile_async<S::THREADS>(sV, v + b * st.b[IV] + h * st.h[IV], st.t[IV], k0, BK, Tk);
+  // v's rows (f32 form), the first query tile and its pe rows: one group
+  const T* vrows = v + b * st.b[IV] + h * st.h[IV];
+  if constexpr (F32) load_tile_async<S::THREADS>(sV, vrows, st.t[IV], k0, BK, Tk);
   if (n_items > 0) {
     load_tile(0);
     if (!MASK_ONLY) load_pe(0);
@@ -577,7 +634,14 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
   cp_async_commit();
 
   SplitRows kf;                  // k's fragments split once; v's read at each use
-  load_rows(kf, k + b * st.b[IK] + h * st.h[IK], st.t[IK], j0, j1, Tk, t);
+  Bf16Rows<D> ka, va;            // the bf16 form's: both in registers
+  const T* krows = k + b * st.b[IK] + h * st.h[IK];
+  if constexpr (F32) {
+    load_rows(kf, krows, st.t[IK], j0, j1, Tk, t);
+  } else {
+    ka.load(krows + j0 * st.t[IK], krows + j1 * st.t[IK], j0 < Tk, j1 < Tk, t);
+    va.load(vrows + j0 * st.t[IV], vrows + j1 * st.t[IV], j0 < Tk, j1 < Tk, t);
+  }
   const SmemRows vf{sV + (16 * warp + g) * LD + t};
   const float c2 = scale * LOG2E;
 
@@ -590,9 +654,9 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sQ = stages + (idx & 1) * STAGE;
-    const float* sG = sQ + BQ * LD;
-    const float* sL = sG + BQ * LD;
+    const T* sQ = reinterpret_cast<const T*>(stages + (idx & 1) * M::STAGE);
+    const T* sG = sQ + BQ * LDT;
+    const float* sL = reinterpret_cast<const float*>(sG + BQ * LDT);
     const float* sD = sL + BQ;
     const int q0 = (qt0 + idx) * BQ;
 
@@ -604,15 +668,24 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int job = warp; job < jobs; job += S::WARPS) {
         const int mt = job / NQ, nb = job % NQ;
         float c[4] = {0.f, 0.f, 0.f, 0.f};
-        const SmemRows pf{sPE + (16 * mt + g) * LD + t};
+        if constexpr (F32) {
+          const SmemRows pf{sPE + (16 * mt + g) * LD + t};
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-          const float* br = sQ + (8 * nb + g) * LD + 8 * kk + t;
-          unsigned abig[4], asmall[4], bbig[2], bsmall[2];
-          pf.get(kk, abig, asmall);
-          split_tf32(br[0], bbig[0], bsmall[0]);
-          split_tf32(br[4], bbig[1], bsmall[1]);
-          mma_3xtf32(c, abig, asmall, bbig, bsmall);
+          for (int kk = 0; kk < KD; ++kk) {
+            const float* br = sQ + (8 * nb + g) * LD + 8 * kk + t;
+            unsigned abig[4], asmall[4], bbig[2], bsmall[2];
+            pf.get(kk, abig, asmall);
+            split_tf32(br[0], bbig[0], bsmall[0]);
+            split_tf32(br[4], bbig[1], bsmall[1]);
+            mma_3xtf32(c, abig, asmall, bbig, bsmall);
+          }
+        } else {
+          Bf16Rows<D> pf;
+          pf.template load_smem<LDT>(sPE + (16 * mt + g) * LDT, t);
+          float cc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+          pf.template mma_bt<1, LDT>(cc, sQ + 8 * nb * LDT, g, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[e] = cc[0][e];
         }
         float* o = band + (16 * mt + g) * BLD + 8 * nb + 2 * t;
         *reinterpret_cast<float2*>(o) = make_float2(c[0] * c2, c[1] * c2);
@@ -632,8 +705,13 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int n = 0; n < NQ; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_rows_bt<NQ>(s, kf, sQ, g, t);
-    mma_rows_bt<NQ>(dp, vf, sG, g, t);
+    if constexpr (F32) {
+      mma_rows_bt<NQ>(s, kf, sQ, g, t);
+      mma_rows_bt<NQ>(dp, vf, sG, g, t);
+    } else {
+      ka.template mma_bt<NQ, LDT>(s, sQ, g, t);
+      va.template mma_bt<NQ, LDT>(dp, sG, g, t);
+    }
     const bool all_valid = q0 + BQ <= Tq && k0 + BK <= vl && !(causal && k0 + BK - 1 > q0);
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
@@ -654,10 +732,16 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     // carried through every query tile's mma drifts
     float part[KD][4];
     zero_acc(part);
-    mma_p_b<NQ>(part, s, sG, g, t);
+    if constexpr (F32)
+      mma_p_b<NQ>(part, s, sG, g, t);
+    else
+      mma_p_b_bf16<NQ, D, LDT>(part, s, sG, g, t);   // bf16(p)^T.g
     add_acc(dva, part);
     zero_acc(part);
-    mma_p_b<NQ>(part, dp, sQ, g, t);
+    if constexpr (F32)
+      mma_p_b<NQ>(part, dp, sQ, g, t);
+    else
+      mma_p_b_bf16<NQ, D, LDT>(part, dp, sQ, g, t);  // bf16(ds)^T.q
     add_acc(dka, part);
     __syncthreads();   // this stage and the band are refilled
   }
@@ -668,98 +752,119 @@ flash_rel_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
 
 // ---- launch --------------------------------------------------------------
 
-template <bool MASK_ONLY>
+template <typename T, bool MASK_ONLY>
 cudaError_t allow_smem_dq() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem_once(flash_rel_bwd_dq_kernel<MASK_ONLY>, 0, done);
+  return allow_smem_once(flash_rel_bwd_dq_kernel<T, MASK_ONLY>, 0, done);
 }
 
-template <bool MASK_ONLY>
+template <typename T, bool MASK_ONLY>
 cudaError_t allow_smem_dkv() {
   static std::atomic<unsigned long long> done{0};
-  return allow_smem_once(flash_rel_bwd_dkv_kernel<MASK_ONLY>, 0, done);
+  return allow_smem_once(flash_rel_bwd_dkv_kernel<T, MASK_ONLY>, 0, done);
 }
 
-template <bool MASK_ONLY>
-cudaError_t launch(const float* q, const float* k, const float* v, const float* pe,
+template <typename T, bool MASK_ONLY>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* pe,
                    const int* valid_len, const float* lse, const float* delta,
-                   const float* dout, float* dq, float* dqpe, float* dk, float* dv,
+                   const void* dout, float* dq, float* dqpe, float* dk, float* dv,
                    const Strides& st, int B, int H, int Tq, int Tk, int two_l, int causal,
                    float scale, cudaStream_t stream) {
   using SQ = DqS;
-  cudaError_t e = allow_smem_dq<MASK_ONLY>();
+  cudaError_t e = allow_smem_dq<T, MASK_ONLY>();
   if (e != cudaSuccess) return e;
-  e = allow_smem_dkv<MASK_ONLY>();
+  e = allow_smem_dkv<T, MASK_ONLY>();
   if (e != cudaSuccess) return e;
-  flash_rel_bwd_dq_kernel<MASK_ONLY>
+  const T *qt = (const T*)q, *kt = (const T*)k, *vt = (const T*)v, *pt = (const T*)pe,
+          *gt = (const T*)dout;
+  flash_rel_bwd_dq_kernel<T, MASK_ONLY>
       <<<dim3(B * H, (Tq + SQ::BQ - 1) / SQ::BQ), SQ::THREADS,
-         dq_smem_bytes<MASK_ONLY>(two_l), stream>>>(q, k, v, pe, valid_len, lse, delta,
-                                                    dout, dq, dqpe, st, H, Tq, Tk, two_l,
-                                                    causal, scale);
+         dq_smem_bytes<T, MASK_ONLY>(two_l), stream>>>(qt, kt, vt, pt, valid_len, lse, delta,
+                                                       gt, dq, dqpe, st, H, Tq, Tk, two_l,
+                                                       causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_rel_bwd_dkv_kernel<MASK_ONLY>
+  flash_rel_bwd_dkv_kernel<T, MASK_ONLY>
       <<<dim3(B * H, (Tk + DkvS::BK - 1) / DkvS::BK), DkvS::THREADS,
-         dkv_smem_bytes<MASK_ONLY>(), stream>>>(q, k, v, pe, valid_len, lse, delta, dout,
-                                                dk, dv, st, H, Tq, Tk, two_l, causal,
-                                                scale);
+         dkv_smem_bytes<T, MASK_ONLY>(), stream>>>(qt, kt, vt, pt, valid_len, lse, delta, gt,
+                                                   dk, dv, st, H, Tq, Tk, two_l, causal,
+                                                   scale);
   return cudaGetLastError();
 }
 
-template <bool MASK_ONLY>
+template <typename T, bool MASK_ONLY>
 int blocks_per_sm(int two_l, int kernel) {
   int blocks = -1;
   cudaError_t e;
   if (kernel == 0) {
-    e = allow_smem_dq<MASK_ONLY>();
+    e = allow_smem_dq<T, MASK_ONLY>();
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, flash_rel_bwd_dq_kernel<MASK_ONLY>, DqS::THREADS,
-          dq_smem_bytes<MASK_ONLY>(two_l));
+          &blocks, flash_rel_bwd_dq_kernel<T, MASK_ONLY>, DqS::THREADS,
+          dq_smem_bytes<T, MASK_ONLY>(two_l));
   } else {
-    e = allow_smem_dkv<MASK_ONLY>();
+    e = allow_smem_dkv<T, MASK_ONLY>();
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, flash_rel_bwd_dkv_kernel<MASK_ONLY>, DkvS::THREADS,
-          dkv_smem_bytes<MASK_ONLY>());
+          &blocks, flash_rel_bwd_dkv_kernel<T, MASK_ONLY>, DkvS::THREADS,
+          dkv_smem_bytes<T, MASK_ONLY>());
   }
   return e == cudaSuccess ? blocks : -1;
 }
 
+// f(type tag T*, std::bool_constant<mask_only>) for the four forms
+template <class F>
+auto with_form(int bf16_operands, int mask_only, F&& f) {
+  auto masks = [&](auto tag) {
+    return mask_only ? f(tag, std::true_type{}) : f(tag, std::false_type{});
+  };
+  return bf16_operands ? masks((bf16*)nullptr) : masks((float*)nullptr);
+}
+
+#define FORM std::remove_pointer_t<decltype(tag)>, decltype(mo)::value
+
 }  // namespace
 
 // Dynamic shared memory of a launch of B3 (kernel 0) or B4 (kernel 1).
-extern "C" size_t loco_flash_rel_bwd_smem_bytes(int two_l, int mask_only, int kernel) {
-  if (kernel == 0) return mask_only ? dq_smem_bytes<true>(two_l) : dq_smem_bytes<false>(two_l);
-  return mask_only ? dkv_smem_bytes<true>() : dkv_smem_bytes<false>();
+extern "C" size_t loco_flash_rel_bwd_smem_bytes(int two_l, int mask_only, int kernel,
+                                                int bf16_operands) {
+  return with_form(bf16_operands, mask_only, [&](auto tag, auto mo) {
+    return kernel == 0 ? dq_smem_bytes<FORM>(two_l) : dkv_smem_bytes<FORM>();
+  });
 }
 
 // Blocks of B3 (kernel 0) or B4 (kernel 1) that fit on one SM of the
 // current device at this table size (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // or -1.
-extern "C" int loco_flash_rel_bwd_blocks_per_sm(int two_l, int mask_only, int kernel) {
-  return mask_only ? blocks_per_sm<true>(two_l, kernel) : blocks_per_sm<false>(two_l, kernel);
+extern "C" int loco_flash_rel_bwd_blocks_per_sm(int two_l, int mask_only, int kernel,
+                                                int bf16_operands) {
+  return with_form(bf16_operands, mask_only,
+                   [&](auto tag, auto mo) { return blocks_per_sm<FORM>(two_l, kernel); });
 }
 
-// q/g [.., Tq, 64], k/v [.., Tk, 64] and the outputs dq [.., Tq, 64],
-// dk/dv [.., Tk, 64] (float32, head dim contiguous, 16-byte aligned rows),
+// q/g [.., Tq, 64], k/v [.., Tk, 64] (float32, or bfloat16 when
+// bf16_operands is nonzero) and the float32 outputs dq [.., Tq, 64],
+// dk/dv [.., Tk, 64] (head dim contiguous, 16-byte aligned rows),
 // addressed through strides[21] = (batch, head, time) element strides of
-// q, k, v, g, dq, dk, dv in that order; pe [two_l, 64] contiguous (not read
-// when mask_only), valid_len [B] int32, lse/delta [B,H,Tq] contiguous ->
-// dq_content, dk, dv and, unless mask_only, dqpe [B,H,Tq,two_l] contiguous
-// (every cell written).  Launches B3 then B4 on ``stream``.
+// q, k, v, g, dq, dk, dv in that order; pe [two_l, 64] contiguous, of q's
+// type (not read when mask_only), valid_len [B] int32, lse/delta [B,H,Tq]
+// float32 contiguous -> dq_content, dk, dv and, unless mask_only, dqpe
+// [B,H,Tq,two_l] float32 contiguous (every cell written).  Launches B3
+// then B4 on ``stream``.
 extern "C" int loco_flash_rel_bwd(const void* q, const void* k, const void* v,
                                   const void* pe, const void* valid_len, const void* lse,
                                   const void* delta, const void* g, void* dq, void* dqpe,
                                   void* dk, void* dv, const long long* strides, int B,
                                   int H, int Tq, int Tk, int two_l, int causal,
-                                  int mask_only, float scale, void* stream) {
+                                  int mask_only, float scale, int bf16_operands,
+                                  void* stream) {
   Strides st;
   for (int o = 0; o < N_OPERANDS; ++o)
     st.b[o] = strides[3 * o], st.h[o] = strides[3 * o + 1], st.t[o] = strides[3 * o + 2];
-  const auto go = mask_only ? &launch<true> : &launch<false>;
-  return (int)go((const float*)q, (const float*)k, (const float*)v, (const float*)pe,
-                 (const int*)valid_len, (const float*)lse, (const float*)delta,
-                 (const float*)g, (float*)dq, (float*)dqpe, (float*)dk, (float*)dv, st, B,
-                 H, Tq, Tk, two_l, causal, scale, (cudaStream_t)stream);
+  return (int)with_form(bf16_operands, mask_only, [&](auto tag, auto mo) {
+    return launch<FORM>(q, k, v, pe, (const int*)valid_len, (const float*)lse,
+                        (const float*)delta, g, (float*)dq, (float*)dqpe, (float*)dk,
+                        (float*)dv, st, B, H, Tq, Tk, two_l, causal, scale,
+                        (cudaStream_t)stream);
+  });
 }

@@ -95,7 +95,9 @@ class Conv1D(nn.Module):
         self.bias = nn.Parameter(torch.empty(n_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.addmm(self.bias, x.reshape(-1, x.shape[-1]), self.weight)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)   # as JAX's layers.dense
+        y = torch.addmm(self.bias.to(dt), x.reshape(-1, x.shape[-1]).to(dt),
+                        self.weight.to(dt))
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
@@ -195,8 +197,10 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
         if kv_cache is not None:
             attention._write_cache(kv_cache, k, v, cache_index, write_mask)
             k, v = kv_cache["k"], kv_cache["v"]
-        scores = torch.matmul(q, k.transpose(-1, -2)) / cfg.head_dim ** 0.5
-        probs = drop(torch.softmax(scores + bias, dim=-1), cfg.attn_pdrop)
+        # float32 scores from operands of their own dtype, probabilities
+        # in v's dtype (JAX's preferred_element_type and astype)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / cfg.head_dim ** 0.5
+        probs = drop(torch.softmax(scores + bias, dim=-1).to(v.dtype), cfg.attn_pdrop)
         attn = torch.matmul(probs, v).transpose(1, 2)
     return drop(blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd)), cfg.resid_pdrop)
 

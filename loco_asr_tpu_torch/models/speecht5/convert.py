@@ -60,7 +60,8 @@ def _state_from_jax(flat: Mapping[str, np.ndarray], module: nn.Module,
         if name not in expected:
             unexpected.append(key)
             continue
-        t = torch.from_numpy(np.array(value, dtype=np.float32))
+        t = (value.detach().float() if isinstance(value, torch.Tensor)   # bf16 leaves
+             else torch.from_numpy(np.array(value, dtype=np.float32)))
         if transpose:
             t = t.t().contiguous()
         if tuple(t.shape) != expected[name]:
@@ -143,12 +144,16 @@ def jax_names(model: nn.Module, rename: bool = True) -> Dict[str, tuple]:
 
 
 def _to_jax_params(model: nn.Module, rename: bool = True) -> Dict[str, np.ndarray]:
+    """Float32 numpy leaves, except that a bfloat16 model's stay bfloat16
+    CPU tensors (numpy has no bfloat16; the checkpoint stores them as the
+    JAX package does)."""
     names = jax_names(model, rename)
     out = {}
     for name, t in model.state_dict().items():
         key, transpose = names[name]
-        t = t.detach().float().cpu()
-        out[key] = (t.t() if transpose else t).contiguous().numpy()
+        t = t.detach().cpu()
+        t = (t.t() if transpose else t).contiguous()
+        out[key] = t if t.dtype is torch.bfloat16 else t.float().numpy()
     return out
 
 

@@ -22,8 +22,8 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: SpeechT5Config, ffn_dim: Optional[int] = None):
         super().__init__()
         ffn_dim = ffn_dim or cfg.encoder_ffn_dim
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, ffn_dim)
-        self.output_dense = nn.Linear(ffn_dim, cfg.hidden_size)
+        self.intermediate_dense = layers.Dense(cfg.hidden_size, ffn_dim)
+        self.output_dense = layers.Dense(ffn_dim, cfg.hidden_size)
 
 
 class EncoderLayer(nn.Module):

@@ -80,14 +80,18 @@ def conv1_instance_norm_gelu_gram(wav: torch.Tensor, weight: torch.Tensor,
     f = (t - k) // stride + 1
     r = wav[:, :stride * (f + 1)].reshape(b, f + 1, stride)
     taps = torch.cat([r[:, :f], r[:, 1:f + 1]], dim=-1)           # [B, F, K]
-    w = weight[:, 0, :].t()                                       # [K, C]
+    w = weight[:, 0, :].t().to(wav.dtype)                         # [K, C]
+    # the dtypes of the JAX form's: the tap means and their product in the
+    # caller's dtype, the gram, E[y^2], the affine and y in float32, the
+    # activation emitted in the caller's dtype
+    tf, wf = taps.float(), w.float()
     mean = taps.mean(dim=1) @ w                                   # [B, C]
-    gram = torch.matmul(taps.transpose(1, 2), taps) / f           # [B, K, K]
-    ysq = torch.einsum("ic,bij,jc->bc", w, gram, w)               # E[y^2]
+    gram = torch.matmul(tf.transpose(1, 2), tf) / f               # [B, K, K]
+    ysq = torch.einsum("ic,bij,jc->bc", wf, gram, wf)             # E[y^2]
     gain = torch.rsqrt(ysq - mean * mean + eps) * scale[None, :]
     off = bias[None, :] - mean * gain
-    y = torch.matmul(taps, w).transpose(1, 2)                     # [B, C, F]
-    return layers.gelu(y * gain[:, :, None] + off[:, :, None])
+    y = torch.matmul(tf, wf).transpose(1, 2)                      # [B, C, F]
+    return layers.gelu((y * gain[:, :, None] + off[:, :, None]).to(wav.dtype))
 
 
 class FeatureEncoder(nn.Module):
@@ -109,8 +113,12 @@ class FeatureEncoder(nn.Module):
             first = conv_frontend.conv1_instance_norm_gelu
         else:
             first = conv_frontend.conv1_instance_norm_gelu_plain
-        x = first(wav, c0.conv.weight, c0.layer_norm.weight, c0.layer_norm.bias,
-                  stride=cfg.conv_stride[0])                        # [B, C, F]
+        # layer 0 in the promotion of the waveform's and weights' dtypes
+        # (JAX's: a float32 waveform with bfloat16 weights computes in
+        # float32); the kernel and the plain version take one dtype
+        dt = torch.promote_types(wav.dtype, c0.conv.weight.dtype)
+        x = first(wav.to(dt), c0.conv.weight.to(dt), c0.layer_norm.weight.to(dt),
+                  c0.layer_norm.bias.to(dt), stride=cfg.conv_stride[0])   # [B, C, F]
         for i in range(1, len(cfg.conv_dim)):
             p = self.conv_layers[i]
             x = layers.gelu(layers.conv1d(x, p.conv.weight, p.conv.bias,
@@ -122,7 +130,7 @@ class FeatureProjection(nn.Module):
     def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
         super().__init__()
         self.layer_norm = layers.Norm(cfg.conv_dim[-1])
-        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.projection = layers.Dense(cfg.conv_dim[-1], cfg.hidden_size)
         layers.init_dense(self.projection, generator)
 
 
@@ -295,7 +303,7 @@ class TextDecoderPostnet(nn.Module):
 
     def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
         super().__init__()
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        self.lm_head = layers.Dense(cfg.hidden_size, cfg.vocab_size, bias=False)
         with torch.no_grad():
             self.lm_head.weight.copy_(layers.uniform_param(
                 self.lm_head.weight.shape, cfg.hidden_size, generator))
@@ -356,11 +364,11 @@ class SpeechDecoderPrenet(nn.Module):
         self.cfg = cfg
         units = cfg.speech_decoder_prenet_units
         self.layers = nn.ModuleList(
-            nn.Linear(cfg.num_mel_bins if i == 0 else units, units)
+            layers.Dense(cfg.num_mel_bins if i == 0 else units, units)
             for i in range(cfg.speech_decoder_prenet_layers))
-        self.final_layer = nn.Linear(units, cfg.hidden_size)
+        self.final_layer = layers.Dense(units, cfg.hidden_size)
         self.encode_positions = ScaledPositions()
-        self.speaker_embeds_layer = nn.Linear(
+        self.speaker_embeds_layer = layers.Dense(
             cfg.speaker_embedding_dim + cfg.hidden_size, cfg.hidden_size)
         for lin in (*self.layers, self.final_layer, self.speaker_embeds_layer):
             layers.init_dense(lin, generator)
@@ -449,8 +457,8 @@ class SpeechDecoderPostnet(nn.Module):
     def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
         super().__init__()
         self.cfg = cfg
-        self.feat_out = nn.Linear(cfg.hidden_size, cfg.num_mel_bins * cfg.reduction_factor)
-        self.prob_out = nn.Linear(cfg.hidden_size, cfg.reduction_factor)
+        self.feat_out = layers.Dense(cfg.hidden_size, cfg.num_mel_bins * cfg.reduction_factor)
+        self.prob_out = layers.Dense(cfg.hidden_size, cfg.reduction_factor)
         layers.init_dense(self.feat_out, generator)
         layers.init_dense(self.prob_out, generator)
         n, units = cfg.speech_decoder_postnet_layers, cfg.speech_decoder_postnet_units

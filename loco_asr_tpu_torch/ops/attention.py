@@ -41,10 +41,10 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.q_proj = layers.Dense(embed_dim, embed_dim)
+        self.k_proj = layers.Dense(embed_dim, embed_dim)
+        self.v_proj = layers.Dense(embed_dim, embed_dim)
+        self.out_proj = layers.Dense(embed_dim, embed_dim)
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -183,9 +183,11 @@ def multi_head_attention(
                                     rel_pe=rel_pe, kv_valid_len=kv_valid_len)
         return module.out_proj(merge_heads(out))
 
-    scores = torch.matmul(q, k.transpose(-1, -2))
+    # scores in float32 from operands of their own dtype (JAX's
+    # preferred_element_type=float32; bf16 products are exact in float32)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if rel_pe is not None:
-        qpe = torch.matmul(q, rel_pe.to(q.dtype).t())              # [B,H,Tq,2L]
+        qpe = torch.matmul(q.float(), rel_pe.to(q.dtype).float().t())   # [B,H,Tq,2L]
         scores = scores + flash.relative_position_scores(qpe, k.shape[2])
     if attention_bias is not None:
         scores = scores + attention_bias.to(scores.dtype)

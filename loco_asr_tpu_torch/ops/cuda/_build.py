@@ -38,18 +38,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of the entry points in csrc/*.cu: (argtypes, restype)
+# C signatures of the entry points in csrc/*.cu: (argtypes, restype).  The
+# kernels of B1-B6 take their operand type as an int after their other
+# arguments (0: float32, 1: bfloat16; ``bf16_flag``).
 _SIGNATURES = {
-    "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _P], _I),
-    "loco_flash_rel_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
-    "loco_flash_rel_blocks_per_sm": ([_I, _I, _I], _I),
-    "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 7 + [_F, _P], _I),
-    "loco_flash_rel_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
-    "loco_flash_rel_bwd_blocks_per_sm": ([_I, _I, _I], _I),
-    "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
+    "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], _I),
+    "loco_flash_rel_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+    "loco_flash_rel_blocks_per_sm": ([_I] * 4, _I),
+    "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 7 + [_F, _I, _P], _I),
+    "loco_flash_rel_bwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+    "loco_flash_rel_bwd_blocks_per_sm": ([_I] * 4, _I),
+    "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _I, _P], _I),
     "loco_conv_frontend_blocks_per_sm": ([_I, _I], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _P], _I),
+                               _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "loco_logmel": ([_P] * 6 + [_I] * 12 + [_F, _P], _I),
     "loco_logmel_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "loco_logmel_blocks_per_sm": ([_I, _I, _I], _I),
@@ -144,6 +146,25 @@ def call_on_stream(fn, device: torch.device, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)   # the operand types of B1-B6
+
+
+def bf16_flag(dtype: torch.dtype, what: str) -> int:
+    """The C entries' operand-type argument: 0 for float32, 1 for
+    bfloat16; any other type raises (no kernel takes it, and no wrapper
+    casts to one that does)."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: the CUDA kernels take float32 or bfloat16, got {dtype}")
+    return int(dtype is torch.bfloat16)
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` lies on a CUDA device: the launch paths' guard
+    (the wrappers send CPU tensors to their plain versions before it)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
 
 
 def check(code: int, what: str) -> None:

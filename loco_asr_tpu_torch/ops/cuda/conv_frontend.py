@@ -13,6 +13,12 @@ zero tail included; the plain version takes the ``E[y^2] - mean^2``
 variance, the kernel a sum of centred squares (the same value, without
 the cancellation a DC offset brings).
 
+Bfloat16 inputs (waveform, weight, scale and bias, one dtype) take the
+TPU kernel's bf16 path: the conv's products are exact in float32, the
+statistics, the norm and the GELU run in float32, and the output is
+rounded to bf16 once.  The kernel has a form for each type; a bf16 CUDA
+tensor reaches the bf16 form or raises.
+
 :func:`conv1_instance_norm_gelu` launches the kernel for a CUDA tensor
 and takes the plain version only for a CPU tensor; ``launches`` counts
 kernel launches.  The kernel has no backward, as the Pallas one has none:
@@ -62,20 +68,23 @@ def _check_geometry(weight: torch.Tensor, stride: int) -> int:
 def conv1_instance_norm_gelu_plain(wav: torch.Tensor, weight: torch.Tensor,
                                    scale: torch.Tensor, bias: torch.Tensor, *,
                                    stride: int = 5) -> torch.Tensor:
-    """Plain PyTorch version: [B, T] wave -> [B, C, (T-K)//stride + 1]."""
+    """Plain PyTorch version: [B, T] wave -> [B, C, (T-K)//stride + 1] in
+    the waveform's dtype, computed in float32 (float64 for float64 input)."""
     _check_geometry(weight, stride)
-    y = F.conv1d(wav[:, None, :], weight, stride=stride)        # [B, C, F]
+    ct = torch.promote_types(wav.dtype, torch.float32)
+    y = F.conv1d(wav.to(ct)[:, None, :], weight.to(ct), stride=stride)   # [B, C, F]
     mean = y.mean(dim=-1, keepdim=True)
     var = (y * y).mean(dim=-1, keepdim=True) - mean * mean
     z = (y - mean) * torch.rsqrt(var + EPS)
-    return gelu(z * scale[None, :, None] + bias[None, :, None])
+    return gelu(z * scale.to(ct)[None, :, None] + bias.to(ct)[None, :, None]).to(wav.dtype)
 
 
 def conv1_instance_norm_gelu(wav: torch.Tensor, weight: torch.Tensor,
                              scale: torch.Tensor, bias: torch.Tensor, *,
                              stride: int = 5) -> torch.Tensor:
-    """[B, T] float32 waveform, [C, 1, K] conv weight (K == 2*stride),
-    [C] norm scale/bias -> [B, C, (T-K)//stride + 1] activations."""
+    """[B, T] float32 or bf16 waveform, [C, 1, K] conv weight (K ==
+    2*stride), [C] norm scale/bias, all of one dtype -> [B, C, (T-K)//stride
+    + 1] activations of that dtype."""
     if wav.device.type == "cpu":
         return conv1_instance_norm_gelu_plain(wav, weight, scale, bias,
                                               stride=stride)
@@ -90,12 +99,22 @@ def conv1_instance_norm_gelu(wav: torch.Tensor, weight: torch.Tensor,
             "conv1_instance_norm_gelu: kernel B2 has no backward; call it "
             "under torch.no_grad() or use the differentiable gram form "
             "(models/speecht5/prenets.conv1_instance_norm_gelu_gram)")
+    out = _launch(wav, weight, scale, bias, k, stride)
+    conv1_instance_norm_gelu.launches += 1
+    return out
+
+
+def _launch(wav, weight, scale, bias, k: int, stride: int) -> torch.Tensor:
+    """Check the CUDA operands, allocate the output and scratch, and launch
+    the kernel's form for the operands' type on the current stream."""
+    _build.require_cuda(wav, "conv_frontend")
     if k != 10:
         raise ValueError(f"the CUDA kernel is built for k=10/stride 5, got k={k}")
+    bf16 = _build.bf16_flag(wav.dtype, "conv_frontend")
     for name, t in (("wav", wav), ("weight", weight), ("scale", scale),
                     ("bias", bias)):
-        if t.dtype != torch.float32 or t.device != wav.device:
-            raise ValueError(f"{name} must be float32 on {wav.device}, "
+        if t.dtype != wav.dtype or t.device != wav.device:
+            raise ValueError(f"{name} must be {wav.dtype} on {wav.device}, "
                              f"got {t.dtype} on {t.device}")
     b, t = wav.shape
     c = weight.shape[0]
@@ -114,13 +133,12 @@ def conv1_instance_norm_gelu(wav: torch.Tensor, weight: torch.Tensor,
     # ticket counters (zeroed by the C entry)
     scratch = torch.empty(b * (-(-f // chunk) * N_STATS + 2 * c + 1),
                           dtype=torch.float32, device=dev)
-    out = torch.empty((b, c, f), dtype=torch.float32, device=dev)
+    out = torch.empty((b, c, f), dtype=wav.dtype, device=dev)
     code = _build.call_on_stream(
         _build.library().loco_conv_frontend, dev, wav.data_ptr(), weight.data_ptr(),
         scale.data_ptr(), bias.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        b, t, c, k, stride, f, chunk, EPS)
+        b, t, c, k, stride, f, chunk, EPS, bf16)
     _build.check(code, "conv_frontend")
-    conv1_instance_norm_gelu.launches += 1
     return out
 
 

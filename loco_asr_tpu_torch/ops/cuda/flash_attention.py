@@ -17,6 +17,17 @@ backward take a zero 2-row table in its place.  The backward recomputes
 no valid key gets zero gradients, not NaN) and
 ``ds = p * (g.v^T - rowsum(g * out))``.
 
+Float32 operands run in float32.  Bfloat16 operands take the JAX kernels'
+bf16 path: every product on bf16 operands with float32 accumulation (the
+plain versions upcast to float32, exact for bf16 products), ``p`` rounded
+to bf16 before ``p v`` and ``p^T g``, ``ds`` before ``ds k`` and
+``ds^T q``; the band ``q pe^T``, the softmax, lse, delta, dqpe and the
+gradient sums stay float32; ``out`` is bf16, and dq, dk, dv leave B3 + B4
+in float32 and are cast to bf16 after the band's share is added.  ``pe``
+takes q's dtype (an exact upcast for a bf16 table under float32 q; a
+float32 table under bf16 q raises on the card, where the bf16 form would
+round it).  A bf16 CUDA tensor reaches the bf16 forms or raises.
+
 :func:`flash_rel_forward` is differentiable through one
 ``torch.autograd.Function``: its forward is B1, its backward
 :func:`flash_rel_backward` (B3 + B4 and two ``torch.matmul`` for the
@@ -118,7 +129,7 @@ def flash_rel_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.matmul(p, v.float()) / denom
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / denom
     lse = (m + torch.log(denom))[..., 0]
     return out.to(q.dtype), lse
 
@@ -148,17 +159,17 @@ def _check_smem(what: str, smem: int, two_l: int) -> None:
 
 
 def _check_cuda(what: str, q: torch.Tensor, head_dims) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    _build.require_cuda(q, what)
     if q.shape[-1] not in head_dims:
         raise ValueError(f"{what}: the CUDA kernel takes head dims {tuple(head_dims)}, "
                          f"got {q.shape[-1]}")
 
 
-def _contiguous_f32(what: str, name: str, t: torch.Tensor, dev) -> torch.Tensor:
-    """``t`` as a contiguous, 16-byte aligned float32 tensor on ``dev``."""
-    if t.dtype is not torch.float32 or t.device != dev:
-        raise ValueError(f"{what}: {name} must be float32 on {dev}, "
+def _contiguous(what: str, name: str, t: torch.Tensor, dev,
+                dtype=torch.float32) -> torch.Tensor:
+    """``t`` as a contiguous, 16-byte aligned ``dtype`` tensor on ``dev``."""
+    if t.dtype is not dtype or t.device != dev:
+        raise ValueError(f"{what}: {name} must be {dtype} on {dev}, "
                          f"got {t.dtype} on {t.device}")
     t = t.contiguous()
     if t.data_ptr() % 16:
@@ -166,11 +177,22 @@ def _contiguous_f32(what: str, name: str, t: torch.Tensor, dev) -> torch.Tensor:
     return t
 
 
-def _heads_view_buffer(b: int, h: int, t: int, d: int, device) -> torch.Tensor:
+def _table_of(what: str, pe: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The rel-pos table in q's dtype, as the kernel reads it: a bf16 table
+    under float32 q widens exactly; a float32 table under bf16 q would be
+    rounded, which the JAX kernels do not do, so it raises."""
+    if pe.dtype is torch.float32 and q.dtype is torch.bfloat16:
+        raise ValueError(f"{what}: a float32 rel-pos table with bfloat16 q; "
+                         "cast the table to bfloat16 first")
+    return _contiguous(what, "pe", pe.to(q.dtype), q.device, q.dtype)
+
+
+def _heads_view_buffer(b: int, h: int, t: int, d: int, device,
+                       dtype=torch.float32) -> torch.Tensor:
     """[B, H, T, d] view of a new [B, T, H, d] buffer: the layout of
     ``split_heads``, so merging the heads of an output, or the gradient of
     splitting them, is a view."""
-    return torch.empty((b, t, h, d), dtype=torch.float32, device=device).transpose(1, 2)
+    return torch.empty((b, t, h, d), dtype=dtype, device=device).transpose(1, 2)
 
 
 def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
@@ -180,20 +202,21 @@ def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
     what = "flash_rel_forward"
     _check_cuda(what, q, HEAD_DIMS)
     strides = flash_causal.operand_strides((("q", q), ("k", k), ("v", v)), 2, what)
-    pe = _contiguous_f32(what, "pe", pe, q.device)
+    bf16 = _build.bf16_flag(q.dtype, what)
+    pe = _table_of(what, pe, q)
     b, h, tq, d = q.shape
     two_l = pe.shape[0]
-    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only), d),
-                two_l)
+    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only), d,
+                                  bf16), two_l)
     vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-    out = _heads_view_buffer(b, h, tq, d, q.device)
-    lse = q.new_empty((b, h, tq))
+    out = _heads_view_buffer(b, h, tq, d, q.device, q.dtype)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     strides += out.stride()[:3]
     code = _build.call_on_stream(
         _build.library().loco_flash_rel_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
         out.data_ptr(), lse.data_ptr(), flash_causal.stride_buffer(tuple(strides)),
-        b, h, tq, k.shape[2], d, two_l, int(causal), int(mask_only), float(scale))
+        b, h, tq, k.shape[2], d, two_l, int(causal), int(mask_only), float(scale), bf16)
     _build.check(code, what)
     flash_rel_forward.launches += 1
     return out, lse
@@ -208,15 +231,17 @@ def flash_rel_backward_plain(q, k, v, pe, valid_len, out, lse, g, *,
     ``scatter_add`` of ds into the band columns.  Returns (dq_content, dk,
     dv, dqpe) -- dq without the band's share, as the kernels do."""
     tq, tk, two_l = q.shape[2], k.shape[2], pe.shape[0]
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    dt = q.dtype
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.to(dt).float()
     s = _scores(qf, kf, pe.float(), scale)
     masked = _masked(valid_len, tq, tk, causal, q.device)
     p = torch.exp(s - lse[..., None]).masked_fill(masked, 0.0)
-    delta = (gf * out.float()).sum(dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), gf)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gf)
     ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta[..., None])
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    ds_dt = ds.to(dt).float()    # the band's gradient takes ds unrounded
+    dq = torch.matmul(ds_dt, kf) * scale
+    dk = torch.matmul(ds_dt.transpose(-1, -2), qf) * scale
     idx = band_index(tq, tk, two_l, q.device).expand_as(ds)
     dqpe = torch.zeros(*ds.shape[:-1], two_l, dtype=ds.dtype, device=ds.device)
     dqpe.scatter_add_(-1, idx, ds)
@@ -225,21 +250,23 @@ def flash_rel_backward_plain(q, k, v, pe, valid_len, out, lse, g, *,
 
 def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
                      mask_only: bool):
-    """B3 + B4 on the current stream (counted): q, k, v and g read through
-    their strides, dq, dk, dv written into [B, T, H, 64] buffers and
-    returned as [B, H, T, 64] views, dqpe [B, H, Tq, 2L] (None when
-    ``mask_only``) written whole by B3."""
+    """B3 + B4 on the current stream (counted): q, k, v and g (float32 or
+    bf16, one dtype) read through their strides, dq, dk, dv written in
+    float32 into [B, T, H, 64] buffers and returned as [B, H, T, 64] views,
+    dqpe [B, H, Tq, 2L] (None when ``mask_only``) written whole by B3."""
     what = "flash_rel_backward"
     _check_cuda(what, q, (BWD_HEAD_DIM,))
     strides = flash_causal.operand_strides(
         (("q", q), ("k", k), ("v", v), ("g", g)), 2, what)
+    bf16 = _build.bf16_flag(q.dtype, what)
     dev = q.device
-    pe, lse, delta = (_contiguous_f32(what, n, t, dev)
-                      for n, t in (("pe", pe), ("lse", lse), ("delta", delta)))
+    pe = _table_of(what, pe, q)
+    lse, delta = (_contiguous(what, n, t, dev) for n, t in (("lse", lse), ("delta", delta)))
     b, h, tq, d = q.shape
     tk, two_l = k.shape[2], pe.shape[0]
     _check_smem(what, max(_smem_bytes("loco_flash_rel_bwd_smem_bytes", two_l,
-                                      int(mask_only), kernel) for kernel in (0, 1)), two_l)
+                                      int(mask_only), kernel, bf16) for kernel in (0, 1)),
+                two_l)
     vl = valid_len.to(device=dev, dtype=torch.int32).contiguous()
     dq = _heads_view_buffer(b, h, tq, d, dev)
     dk = _heads_view_buffer(b, h, tk, d, dev)
@@ -254,7 +281,7 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
         lse.data_ptr(), delta.data_ptr(), g.data_ptr(), dq.data_ptr(),
         0 if dqpe is None else dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         flash_causal.stride_buffer(tuple(strides)), b, h, tq, tk, two_l, int(causal),
-        int(mask_only), float(scale))
+        int(mask_only), float(scale), bf16)
     _build.check(code, what)
     flash_rel_backward.launches += 1
     return dq, dk, dv, dqpe
@@ -325,11 +352,13 @@ class _FlashRel(torch.autograd.Function):
 
 def _kernel_layout(g: torch.Tensor) -> torch.Tensor:
     """The cotangent as it came when B3 + B4 can read it in place (a
-    contiguous head dim, strides that are multiples of 4, a 16-byte aligned
-    start: the [B, T, H, 64] layout that ``merge_heads`` hands back), else
-    a contiguous copy (e.g. of the stride-0 expansion of ``out.sum()``'s
-    gradient)."""
-    if g.stride(-1) == 1 and g.data_ptr() % 16 == 0 and not any(s % 4 for s in g.stride()[:-1]):
+    contiguous head dim, strides that are multiples of 16 bytes, a 16-byte
+    aligned start: the [B, T, H, 64] layout that ``merge_heads`` hands
+    back), else a contiguous copy (e.g. of the stride-0 expansion of
+    ``out.sum()``'s gradient)."""
+    unit = 16 // g.element_size()
+    if (g.stride(-1) == 1 and g.data_ptr() % 16 == 0
+            and not any(s % unit for s in g.stride()[:-1])):
         return g
     return g.contiguous()
 

@@ -16,9 +16,13 @@ Counterparts in ``loco_asr_tpu/ops/pallas/flash_attention.py``:
 ``s = scale * q k^T``; with ``causal``, keys ``j > i`` are masked with
 -1e30 (top-left aligned, so row i sees keys 0..i even when Tq != Tk);
 ``out = softmax(s) v`` and ``lse = logsumexp(s)`` per row, the row sum
-clamped at 1e-30.  Everything runs in float32: the JAX package's
-``precision="default"`` (bf16 MXU operands) applies on the TPU only, and
-its CPU reference is f32.
+clamped at 1e-30.  Float32 operands run in float32: the JAX package's
+``precision="default"`` (bf16 MXU operands for f32 inputs) applies on the
+TPU only, and its CPU reference is f32.  Bfloat16 operands take the JAX
+kernels' bf16 path: products of bf16 operands accumulated in f32 (exact
+products, so the plain versions upcast to f32), ``p`` rounded to bf16
+before ``p v``, softmax and lse in f32, ``out`` in bf16.  The kernel has
+a form for each type; a bf16 CUDA tensor reaches the bf16 form or raises.
 
 The kernel addresses q, k, v and out through (batch, head, time) strides
 with a contiguous head dim, so neither layout, nor the column slices of a
@@ -61,7 +65,7 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.matmul(p, v.float()) / denom
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / denom
     lse = (m + torch.log(denom))[..., 0]
     return out.to(q.dtype), lse
 
@@ -107,33 +111,36 @@ def stride_buffer(strides: tuple) -> int:
 
 
 def operand_strides(operands, t_axis: int, what: str) -> list:
-    """(batch, head, time) element strides of float32 CUDA operands on the
-    first one's device, with a contiguous head dim, strides that are
-    multiples of 4 and 16-byte aligned starts -- or a ValueError naming the
-    operand.  The common case costs one pass of attribute reads; the full
-    check, which also allows any stride on an axis of size 1 (never
-    stepped), runs only when that pass fails."""
+    """(batch, head, time) element strides of CUDA operands of the first
+    one's type (float32 or bfloat16) and device, with a contiguous head
+    dim, strides that are multiples of 16 bytes and 16-byte aligned starts
+    -- or a ValueError naming the operand.  The common case costs one pass
+    of attribute reads; the full check, which also allows any stride on an
+    axis of size 1 (never stepped), runs only when that pass fails."""
     h_axis = 3 - t_axis
-    dev = operands[0][1].device
+    dev, dtype = operands[0][1].device, operands[0][1].dtype
+    unit = 16 // operands[0][1].element_size()   # elements in 16 bytes
     strides = []
-    ok = True
+    ok = dtype in _build.KERNEL_DTYPES
     for _, t in operands:
         s = t.stride()
         strides += (s[0], s[h_axis], s[t_axis])
-        ok = (ok and t.dtype is torch.float32 and t.device == dev and s[3] == 1
+        ok = (ok and t.dtype is dtype and t.device == dev and s[3] == 1
               and t.data_ptr() % 16 == 0)
-    if ok and not any(s % 4 for s in strides):
+    if ok and not any(s % unit for s in strides):
         return strides
+    if dtype not in _build.KERNEL_DTYPES:
+        _build.bf16_flag(dtype, what)      # raises, naming the types the kernels take
     strides = []
     for name, t in operands:
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"{what}: {name} must be float32 on {dev}, "
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{what}: {name} must be {dtype} on {dev}, "
                              f"got {t.dtype} on {t.device}")
         # a stride of a size-1 axis is never stepped; it may be anything
         st = tuple(0 if t.shape[a] == 1 else t.stride(a) for a in (0, h_axis, t_axis))
-        if t.stride(3) != 1 or any(s % 4 for s in st) or t.data_ptr() % 16:
+        if t.stride(3) != 1 or any(s % unit for s in st) or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} needs a contiguous head dim, strides "
-                             f"that are multiples of 4 and a 16-byte aligned "
+                             f"that are multiples of {unit} and a 16-byte aligned "
                              f"start, got strides {tuple(t.stride())}")
         strides.extend(st)
     return strides
@@ -146,20 +153,20 @@ def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
     same transposed layout, so merging its heads is a view) and lse, and
     launch the kernel on the current stream."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    _build.require_cuda(q, what)
     b, h, tq, tk, d = dims
     if d not in HEAD_DIMS:
         raise ValueError(f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
     strides = operand_strides((("q", q), ("k", k), ("v", v)), t_axis, what)
     out = torch.empty_like(q)
-    lse = q.new_empty((b, h, tq))
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
     so = out.stride()
     strides += (so[0], so[3 - t_axis], so[t_axis])
     code = _build.call_on_stream(
         _build.library().loco_flash_causal_fwd, dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        stride_buffer(tuple(strides)), b, h, tq, tk, d, int(causal), float(scale))
+        stride_buffer(tuple(strides)), b, h, tq, tk, d, int(causal), float(scale),
+        _build.bf16_flag(q.dtype, what))
     _build.check(code, what)
     return out, lse
 
@@ -172,12 +179,17 @@ def flash_backward_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash-attention-2 backward over key blocks, the counterpart of the JAX
     package's ``_flash_backward`` (XLA there, not a Pallas kernel).  Memory
     is O(Tq * block_k); ``delta = rowsum(g * out)`` and every sum are float32.
-    Under ``causal`` a key block only meets the query rows at or below its
-    first key, so the rows above are skipped."""
+    The products take operands of q's dtype (the cotangent cast to it, p and
+    ds rounded to it), upcast to float32, which is exact for bf16, so that
+    a bf16 call accumulates in float32 as the JAX ``preferred_element_type``
+    does; the gradients are cast to the inputs' dtypes.  Under ``causal`` a
+    key block only meets the query rows at or below its first key, so the
+    rows above are skipped."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-    delta = (gf * out.float()).sum(dim=-1)                      # [B,H,Tq]
+    dt = q.dtype
+    delta = (g.float() * out.float()).sum(dim=-1)               # [B,H,Tq]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.to(dt).float()
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
@@ -194,8 +206,9 @@ def flash_backward_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             j = torch.arange(k0, k1, device=q.device)[None, :]
             s = s.masked_fill(j > i, NEG_INF)
         p = torch.exp(s - lse[:, :, r0:, None])
-        dv[:, :, k0:k1] = torch.matmul(p.transpose(-1, -2), gi)
+        dv[:, :, k0:k1] = torch.matmul(p.to(dt).float().transpose(-1, -2), gi)
         ds = p * (torch.matmul(gi, vj.transpose(-1, -2)) - delta[:, :, r0:, None])
+        ds = ds.to(dt).float()
         dq[:, :, r0:] += torch.matmul(ds, kj) * scale
         dk[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qi) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -3,11 +3,18 @@
 
 Weights keep the JAX package's layouts where the tensor is passed in:
 convolution weights are torch OIH (``[out, in/groups, K]``), as there.
-Dense layers live in ``nn.Linear`` modules, whose ``weight`` is
-``[out, in]``; the weight bridge (``models/speecht5/convert.py``)
+Dense layers live in :class:`Dense` (``nn.Linear``) modules, whose
+``weight`` is ``[out, in]``; the weight bridge (``models/speecht5/convert.py``)
 transposes the JAX ``[in, out]`` kernels.  The large products and
 convolutions go to ``torch.matmul`` / ``F.conv1d``, which the JAX package
 likewise left to XLA.
+
+Result dtypes follow the JAX layers': a dense layer computes in the
+promotion of its input's and weight's dtypes (a float32 input with
+bfloat16 weights gives float32, as JAX promotes, where ``F.linear``
+would refuse the mix); a convolution casts its weight and bias to the
+input's dtype; a norm reduces in float32 and returns the input's dtype
+before its affine, whose product promotes.
 """
 
 from __future__ import annotations
@@ -41,6 +48,18 @@ def uniform_param(shape, fan_in: int,
     return nn.Parameter(torch.rand(shape, generator=generator) * 2 * bound - bound)
 
 
+def cast_parameters(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``module``'s floating parameters to ``dtype`` in place (the JAX
+    ``cast_floating`` of a parameter tree) and return it.  Buffers keep
+    their dtype: they hold what the JAX models keep as float32 constants
+    (the sinusoidal tables), which are cast to the hidden dtype at use;
+    ``module.to(dtype)`` would round them too."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return module
+
+
 def init_dense(lin: nn.Linear, generator: Optional[torch.Generator]) -> None:
     """JAX ``dense_init`` on an ``nn.Linear``: uniform weight, zero bias."""
     with torch.no_grad():
@@ -65,8 +84,17 @@ ACTIVATIONS = {"gelu": gelu, "gelu_new": gelu_new}
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ weight.T + bias`` with an ``nn.Linear``-layout ``[out, in]``
-    weight."""
-    return F.linear(x, weight, bias)
+    weight, in the promotion of the operands' dtypes (JAX ``layers.dense``:
+    a float32 input with bfloat16 weights computes in float32)."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` whose call is :func:`dense` (dtype promotion)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -79,9 +107,18 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def conv1d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *, stride: int = 1,
            padding: int = 0, groups: int = 1) -> torch.Tensor:
-    """1-D convolution on channel-major ``[B, C, T]`` with OIH weights."""
-    return F.conv1d(x, weight.to(x.dtype), bias, stride=stride,
-                    padding=padding, groups=groups)
+    """1-D convolution on channel-major ``[B, C, T]`` with OIH weights, in
+    the input's dtype (the weight and bias are cast to it, as JAX's).  A
+    bf16 convolution sums its products in float32 and rounds once, as XLA's
+    and cuDNN's do; PyTorch's CPU bf16 convolution does not (its grouped
+    form misses by more than the output's size), so on the CPU it runs in
+    float32 on the bf16 values and rounds the result."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if x.dtype is torch.bfloat16 and x.device.type == "cpu":
+        return F.conv1d(x.float(), w.float(), None if b is None else b.float(),
+                        stride=stride, padding=padding, groups=groups).to(x.dtype)
+    return F.conv1d(x, w, b, stride=stride, padding=padding, groups=groups)
 
 
 def conv1d_nhc(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1,

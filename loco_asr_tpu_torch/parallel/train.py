@@ -5,7 +5,17 @@
 * :func:`adamw` -- optax's ``adamw`` (b1 0.9, b2 0.999, eps 1e-8,
   decoupled weight decay on every trainable tensor) with the JAX
   package's warmup-cosine schedule and optional global-norm clipping
-  before the moment updates, applied in place with ``torch._foreach_*``.
+  before the moment updates, applied in place with ``torch._foreach_*``;
+  ``mu_dtype=torch.bfloat16`` stores the first moment in bf16 in optax's
+  order (updated from the float32 gradient, the step built from the
+  float32 moment, the moment then stored rounded).
+* :func:`cast_compute` -- mixed precision, the JAX ``_cast_compute``:
+  inside the differentiated loss the float parameters and batch entries
+  are cast to the compute dtype (bf16 copies swapped in for the call by
+  ``torch.func.functional_call``), so gradients come back through the
+  casts in float32 and the master parameters and optimizer state stay
+  float32.  Norms, the attention kernels' softmax and sums, and the
+  losses' log-softmax reduce in float32 whatever the compute dtype.
 * :func:`reference_adam` -- torch ``Adam(lr, weight_decay)`` (L2 added to
   the gradients before the moments), the JAX ``reference_adam`` of the
   intent classifier, on the same in-place update as :func:`adamw`.
@@ -15,12 +25,14 @@
   ``grad_accum`` sums ``nll_sum`` gradients over a strided split of the
   batch and divides once by the total token count (exactly the full-batch
   token mean); ``freeze_feature_encoder`` gives the conv stack neither
-  gradients nor updates, weight decay included.
+  gradients nor updates, weight decay included; ``compute_dtype`` runs
+  the loss under :func:`cast_compute`.
 * :func:`make_lm_train_step` -- the GPT-2 causal-LM step: token-mean NLL
   over tokens 1..len-1 of each row, the lm head chunked with recompute
   (default) or dense; ``attn_impl="flash"`` zeroes ``attn_pdrop`` with the
   same warning and runs kernel B6 (B5 where the head dim is not 64 or the
-  head count is odd) and its blockwise backward; ``grad_accum`` as above.
+  head count is odd) and its blockwise backward; ``grad_accum`` and
+  ``compute_dtype`` as above.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import warnings
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
+from torch import nn
 
 from ..models.gpt2 import model as g
 from ..models.speecht5 import model as st5
@@ -52,8 +65,10 @@ class AdamW:
 
     def __init__(self, learning_rate: float = 1e-4, weight_decay: float = 0.01,
                  warmup_steps: int = 0, total_steps: Optional[int] = None,
-                 clip_norm: Optional[float] = None):
+                 clip_norm: Optional[float] = None,
+                 mu_dtype: Optional[torch.dtype] = None):
         self.lr, self.weight_decay, self.clip_norm = learning_rate, weight_decay, clip_norm
+        self.mu_dtype = mu_dtype
         self.scheduled = bool(warmup_steps or total_steps)
         self.total = total_steps or warmup_steps * 10
         self.warmup = min(warmup_steps, max(self.total - 1, 0))
@@ -69,7 +84,7 @@ class AdamW:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
         return {"count": 0,
-                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype) for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     @torch.no_grad()
@@ -85,9 +100,19 @@ class AdamW:
             factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                  self.clip_norm / norm)
             g = torch._foreach_mul(g, factor)
-        mu = [state["mu"][k] for k in names]
+        stored = [state["mu"][k] for k in names]
+        narrow = any(m.dtype != x.dtype for m, x in zip(stored, g))
+        if narrow:
+            # optax's order for a narrower stored moment: decay * mu in the
+            # stored dtype, with the decay itself in that dtype (JAX's weak
+            # typing makes 0.9 * a bf16 array a bf16 product by 0.8984375),
+            # (1 - decay) * g added in the gradient's dtype, the step built
+            # from that, the moment stored rounded at the end
+            mu = [(m * _in_dtype(B1, m.dtype)).to(x.dtype) for m, x in zip(stored, g)]
+        else:
+            mu = stored
+            torch._foreach_mul_(mu, B1)
         nu = [state["nu"][k] for k in names]
-        torch._foreach_mul_(mu, B1)
         torch._foreach_add_(mu, g, alpha=1.0 - B1)
         torch._foreach_mul_(nu, B2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - B2)
@@ -102,14 +127,25 @@ class AdamW:
         if self.weight_decay:
             torch._foreach_add_(upd, p, alpha=self.weight_decay)
         torch._foreach_add_(p, upd, alpha=-lr)
+        if narrow:
+            for s, m in zip(stored, mu):
+                s.copy_(m)
 
 
 def adamw(learning_rate: float = 1e-4, weight_decay: float = 0.01,
           warmup_steps: int = 0, total_steps: Optional[int] = None,
-          clip_norm: Optional[float] = None) -> AdamW:
+          clip_norm: Optional[float] = None,
+          mu_dtype: Optional[torch.dtype] = None) -> AdamW:
     """AdamW with warmup-cosine schedule and optional global-norm clipping
-    (the JAX ``adamw``; its bfloat16 first moment is not ported)."""
-    return AdamW(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm)
+    (the JAX ``adamw``); ``mu_dtype`` (e.g. ``torch.bfloat16``) stores the
+    first moment in that dtype, the second stays in the parameters'."""
+    return AdamW(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm,
+                 mu_dtype)
+
+
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 class ReferenceAdam(AdamW):
@@ -133,6 +169,48 @@ class ReferenceAdam(AdamW):
 def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> ReferenceAdam:
     """The intent classifier's optimizer, the JAX ``reference_adam``."""
     return ReferenceAdam(learning_rate, weight_decay)
+
+
+def cast_compute(model: nn.Module, batch: Mapping[str, torch.Tensor],
+                 compute_dtype: torch.dtype):
+    """Mixed precision, the JAX ``_cast_compute``: (the float parameters of
+    ``model`` cast to ``compute_dtype`` by name, ``batch`` with its float
+    entries cast).  Each cast is recorded by autograd, so a loss computed
+    from the copies sends float32 gradients to the master parameters; buffers (the sinusoidal tables) are not cast, as
+    JAX's are constants the model casts to the hidden dtype at use."""
+    params = {k: p.to(compute_dtype) if p.is_floating_point() else p
+              for k, p in model.named_parameters()}
+    batch = {k: v.to(compute_dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+    return params, batch
+
+
+class _Bound(nn.Module):
+    """``fn(model, *args)`` as a module call, so that
+    ``torch.func.functional_call`` can swap ``model``'s parameters."""
+
+    def __init__(self, model: nn.Module, fn: Callable):
+        super().__init__()
+        self.model, self.fn = model, fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def _with_compute_dtype(loss_parts: Callable, compute_dtype: Optional[torch.dtype]
+                        ) -> Callable:
+    """``loss_parts`` as it is, or run under :func:`cast_compute`: the
+    model's parameters replaced by their cast copies for the call."""
+    if compute_dtype is None:
+        return loss_parts
+
+    def cast_loss_parts(model, batch, generator):
+        params, batch = cast_compute(model, batch, compute_dtype)
+        return torch.func.functional_call(_Bound(model, loss_parts),
+                                          {f"model.{k}": v for k, v in params.items()},
+                                          (batch, generator))
+
+    return cast_loss_parts
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -205,7 +283,8 @@ def _sum_form_update(loss_parts, model, params: Dict[str, torch.Tensor],
 def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
                         attn_impl: str = "dense",
                         freeze_feature_encoder: bool = False,
-                        grad_accum: int = 1) -> Callable:
+                        grad_accum: int = 1,
+                        compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """Returns ``step(model, opt_state, batch, generator) -> metrics``:
     the model (an ``AsrModel`` on the batch's device) and ``opt_state``
     (``tx.init(trainable_params(model, freeze_feature_encoder))``) are
@@ -215,7 +294,8 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
     clipping), ``nll_sum``, ``ntokens``.
 
     ``attn_impl="flash"`` runs the kernels (B1, B3/B4, B5 and its
-    backward; B2 under ``freeze_feature_encoder``)."""
+    backward; B2 under ``freeze_feature_encoder``), in their bf16 forms
+    under ``compute_dtype=torch.bfloat16`` (:func:`cast_compute`)."""
     cfg = _zero_attention_dropout(cfg, "attention_dropout", attn_impl)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -226,6 +306,8 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
                               generator=generator,
                               freeze_feature_encoder=freeze_feature_encoder)
         return aux["nll_sum"], aux["ntokens"]
+
+    loss_parts = _with_compute_dtype(loss_parts, compute_dtype)
 
     def step(model, opt_state: OptState, batch: Mapping[str, torch.Tensor],
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -241,7 +323,8 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
 
 
 def make_lm_train_step(cfg: g.GPT2Config, tx: AdamW, *, attn_impl: str = "dense",
-                       loss_impl: str = "chunked", grad_accum: int = 1) -> Callable:
+                       loss_impl: str = "chunked", grad_accum: int = 1,
+                       compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """Returns ``step(model, opt_state, batch, generator) -> metrics`` for
     a ``GPT2Model`` on the batch's device, updated in place with
     ``opt_state = tx.init(dict(model.named_parameters()))``.  ``batch``
@@ -276,6 +359,8 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: AdamW, *, attn_impl: str = "dense"
         valid = (torch.arange(t, device=nll.device)[None, :]
                  < (batch["lengths"].to(nll.device) - 1)[:, None])
         return (nll * valid).sum(), valid.sum()
+
+    loss_parts = _with_compute_dtype(loss_parts, compute_dtype)
 
     def step(model, opt_state: OptState, batch: Mapping[str, torch.Tensor],
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

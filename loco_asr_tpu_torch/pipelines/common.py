@@ -18,14 +18,12 @@ from ..models.speecht5.config import SpeechT5Config
 def refuse_unported(args, jax_pipeline: str, **extra: bool) -> None:
     """SystemExit naming every flag of a trainer's ``args`` that this
     package does not support yet: the JAX trainers' common ones (adafactor,
-    a bfloat16 first moment or compute type, a mesh of more than one device,
-    sequence parallelism, remat, NaN recovery) and ``extra`` (a description
-    of the flag -> whether it was given)."""
+    a mesh of more than one device, sequence parallelism, remat, NaN
+    recovery) and ``extra`` (a description of the flag -> whether it was
+    given)."""
     dims = [int(x) for x in args.mesh.split(",")]
     refused = {
         "--optimizer adafactor": args.optimizer != "adamw",
-        "--opt_mu_dtype bfloat16": args.opt_mu_dtype != "float32",
-        "--compute_dtype bfloat16 (the kernels are float32)": args.compute_dtype != "same",
         "--mesh with more than one device": any(d not in (-1, 1) for d in dims),
         f"--attn_impl {args.attn_impl}": args.attn_impl in ("ring", "ulysses"),
         "--sp_devices": bool(args.sp_devices),

@@ -25,8 +25,10 @@ init), a JAX ``.npz``, a training directory (``status.json`` whose latest
 step is ``step_N.npz``: ``train_lm``'s, the port's or the JAX package's
 ``.npz`` backend), or HF ``pytorch_model.bin`` / ``.safetensors`` files or
 directories (``.safetensors`` through ``utils/safetensors.py``, without
-the package).  Not ported yet, and refused with an error: orbax step
-directories, ``--compute_dtype bfloat16``, ``--data_parallel > 1`` and
+the package).  ``--compute_dtype bfloat16`` casts the weights to bf16, as
+the JAX pipeline does (the attention kernels then run their bf16 forms;
+the lm head's logsumexp and the NLLs stay float32).  Not ported yet, and
+refused with an error: orbax step directories, ``--data_parallel > 1`` and
 ``--sequence_parallel > 1``.
 """
 
@@ -179,13 +181,12 @@ def main(argv=None) -> int:
                         ("--sequence_parallel", args.sequence_parallel)):
         if value > 1:
             raise SystemExit(f"{flag} > 1 is not ported yet")
-    if args.compute_dtype != "same":
-        raise SystemExit("--compute_dtype bfloat16 is not ported yet")
 
     import torch
 
     from ..data import lm_datasets, tokenizer as tok_lib
     from ..models.gpt2 import model as g
+    from ..ops.layers import cast_parameters
     from ..utils.device import resolve_device
     from ..utils.metrics import create_logger
 
@@ -212,6 +213,11 @@ def main(argv=None) -> int:
     cfg = model.cfg
     if args.model == "tiny" and args.tokenizer == "char":
         tokenizer.vocab_size = cfg.vocab_size
+    if args.compute_dtype == "bfloat16":
+        cast_parameters(model, torch.bfloat16)
+        logger.info("scoring in bfloat16 (f32 logsumexp/NLL accumulation);"
+                    " NLLs differ from the f32 reference contract by bf16"
+                    " rounding")
     max_len = args.max_len or cfg.n_positions
     if max_len > cfg.n_positions:
         logger.warning(f"--max_len {max_len} > n_positions "

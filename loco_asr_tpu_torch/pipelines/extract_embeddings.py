@@ -16,9 +16,12 @@ TTS model's text encoder; each sentence becomes ``[bos] + ids + [eos]``
 (with the char tokenizer's ids folded into the SpeechT5 vocabulary),
 padded to a multiple of 8, encoded densely (``encode_text``, no kernel, as
 every JAX caller runs it) and cropped to its tokens.  ``--checkpoint``
-takes every source of ``common.load_speecht5_params``.  Not ported yet,
-and refused with an error: ``--data_parallel > 1`` and ``--dtype
-bfloat16``.
+takes every source of ``common.load_speecht5_params``.  ``--dtype
+bfloat16`` casts the weights only, as the JAX pipeline does: the audio
+encoder then computes in float32 on bf16-rounded weights (every op
+promotes with the float32 waveform, as JAX's do) and the text encoder in
+bf16.  Embeddings are stored in float32.  Not ported yet, and refused with
+an error: ``--data_parallel > 1``.
 """
 
 from __future__ import annotations
@@ -63,8 +66,6 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.data_parallel > 1:
         raise SystemExit("--data_parallel > 1 is not supported by this package yet")
-    if args.dtype != "float32":
-        raise SystemExit("--dtype bfloat16 is not supported by this package yet")
 
     import torch
 
@@ -72,6 +73,7 @@ def main(argv=None) -> int:
     from ..models.speecht5 import model as st5
     from ..models.speecht5.config import SpeechT5Config
     from ..ops import audio
+    from ..ops.layers import cast_parameters
     from ..utils.metrics import MetricsWriter, Stopwatch
     from . import common
 
@@ -86,6 +88,8 @@ def main(argv=None) -> int:
     variant = "encoder" if args.modality == "audio" else "tts"
     model = common.load_speecht5_params(args.checkpoint, cfg, device=args.device,
                                         variant=variant)
+    if args.dtype == "bfloat16":
+        cast_parameters(model, torch.bfloat16)
     dev = next(model.parameters()).device
     tok = tok_lib.load_tokenizer(args.tokenizer) if args.modality == "text" else None
 

@@ -17,8 +17,15 @@ every 50 steps with the running ``trunc_*`` totals of data cut at the
 caps; ``{out_dir}/ckpt`` holds ``step_{N}.npz`` and ``status.json``, and
 ``--resume`` continues from the latest.
 
+Mixed precision as in JAX: ``--compute_dtype bfloat16`` runs the forward
+and backward in bf16 (the kernels' bf16 forms) on float32 master weights
+and optimizer state (``parallel.train.cast_compute``); ``--dtype
+bfloat16`` keeps the weights (and so Adam's moments) in bf16, with each op
+in the promotion of its operands' dtypes; ``--opt_mu_dtype bfloat16``
+stores Adam's first moment in bf16.  Checkpoints hold bf16 leaves as the
+JAX package's ``.npz`` does, and ``--resume`` reads them back.
+
 Refused with an error (not ported): ``--optimizer adafactor``,
-``--opt_mu_dtype bfloat16``, ``--dtype``/``--compute_dtype bfloat16``,
 a ``--mesh`` of more than one device, ``--attn_impl ring|ulysses``,
 ``--sp_devices``, ``--remat`` other than none, ``--nan_recovery``,
 ``--nan_inject_step`` and a ``--checkpoint`` that is not a JAX ``.npz``.
@@ -56,7 +63,7 @@ def parse_args(argv=None):
     p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw",
                    help="adafactor is not ported (refused)")
     p.add_argument("--opt_mu_dtype", choices=["float32", "bfloat16"],
-                   default="float32", help="bfloat16 is not ported (refused)")
+                   default="float32", help="dtype of Adam's first moment")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="micro-batches per optimizer step (sum-form, exact "
                         "token-mean equivalence; batch_size must divide)")
@@ -73,8 +80,11 @@ def parse_args(argv=None):
                         "single utterances")
     p.add_argument("--mesh", default="-1,1,1",
                    help="data,fsdp,tensor mesh shape; only one device is ported")
-    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
-    p.add_argument("--compute_dtype", choices=["same", "bfloat16"], default="same")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="dtype of the weights (and so of Adam's moments)")
+    p.add_argument("--compute_dtype", choices=["same", "bfloat16"], default="same",
+                   help="mixed precision: forward and backward in this dtype on "
+                        "float32 master weights")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--remat", nargs="?", const="full", default="none",
                    choices=["none", "full", "dots", "hybrid", "lite"],
@@ -132,8 +142,7 @@ def main(argv=None) -> int:
     from . import common
     common.refuse_unported(
         args, "train_asr",
-        **{"--dtype bfloat16 (the kernels are float32)": args.dtype != "float32",
-           "--checkpoint other than a JAX .npz": (args.checkpoint is not None
+        **{"--checkpoint other than a JAX .npz": (args.checkpoint is not None
                                                   and not args.checkpoint.endswith(".npz"))})
 
     import torch
@@ -145,6 +154,7 @@ def main(argv=None) -> int:
     from ..models.speecht5 import model as st5
     from ..parallel import train
     from ..utils.checkpoint import Checkpointer, flatten
+    from ..ops.layers import cast_parameters
     from ..utils.device import resolve_device
     from ..utils.metrics import MetricsWriter
     from ..utils.wer import wer
@@ -161,14 +171,18 @@ def main(argv=None) -> int:
         model = common.load_speecht5_params(args.checkpoint, cfg, device=dev, variant="asr")
     else:
         model = st5.asr_model_init(cfg, seed=args.seed, device=dev)
+    if args.dtype == "bfloat16":
+        cast_parameters(model, torch.bfloat16)
     tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
-                     clip_norm=args.grad_clip)
+                     clip_norm=args.grad_clip,
+                     mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
     params = train.trainable_params(model, args.freeze_feature_encoder)
     opt_state = tx.init(params)
     step_fn = train.make_asr_train_step(
         cfg, tx, attn_impl=args.attn_impl,
         freeze_feature_encoder=args.freeze_feature_encoder,
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum,
+        compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None)
 
     ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
     metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))
@@ -182,7 +196,7 @@ def main(argv=None) -> int:
             for key in ("mu", "nu"):
                 saved = flatten(os_[key])
                 for name, t in opt_state[key].items():
-                    t.copy_(torch.from_numpy(saved[name]))
+                    t.copy_(torch.as_tensor(saved[name]))
             opt_state["count"] = int(os_["count"])
             start_step = int(restored["step"])
             print(f"resumed at step {start_step}", file=sys.stderr)

@@ -26,8 +26,12 @@ by the JAX package's ``load_npz``) and ``status.json``; ``--resume``
 continues from the latest.  ``--checkpoint`` takes what ``eval_ppl``
 reads: a JAX ``.npz``, a training directory of ``.npz`` steps, HF weights.
 
-Refused with an error (not ported): ``--optimizer adafactor``,
-``--opt_mu_dtype bfloat16``, ``--compute_dtype bfloat16``, ``--remat``
+Mixed precision as in JAX: ``--compute_dtype bfloat16`` runs the forward
+and backward in bf16 (kernel B6's bf16 form under ``--attn_impl flash``)
+on float32 master weights and optimizer state; ``--opt_mu_dtype bfloat16``
+stores Adam's first moment in bf16 (read back by ``--resume``).
+
+Refused with an error (not ported): ``--optimizer adafactor``, ``--remat``
 other than none, ``--nan_recovery``, ``--nan_inject_step``, a ``--mesh``
 of more than one device, ``--attn_impl ring|ulysses`` and
 ``--sp_devices``.
@@ -84,13 +88,14 @@ def parse_args(argv=None):
                    help="the JAX trainer's PRNG; no counterpart here (torch "
                         "generators seeded from --seed; accepted, ignored)")
     p.add_argument("--compute_dtype", choices=["same", "bfloat16"], default="same",
-                   help="bfloat16 is not ported (refused)")
+                   help="mixed precision: forward and backward in this dtype on "
+                        "float32 master weights")
     p.add_argument("--grad_clip", type=float, default=None,
                    help="global-norm gradient clipping threshold")
     p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw",
                    help="adafactor is not ported (refused)")
     p.add_argument("--opt_mu_dtype", choices=["float32", "bfloat16"],
-                   default="float32", help="bfloat16 is not ported (refused)")
+                   default="float32", help="dtype of Adam's first moment")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="micro-batches per optimizer step (sum-form, exact "
                         "token-mean equivalence; the batch is padded to a "
@@ -230,10 +235,13 @@ def main(argv=None) -> int:
     cfg = model.cfg
     params = dict(model.named_parameters())
     tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
-                     clip_norm=args.grad_clip)
+                     clip_norm=args.grad_clip,
+                     mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
     opt_state = tx.init(params)
-    step_fn = train.make_lm_train_step(cfg, tx, attn_impl=args.attn_impl,
-                                       loss_impl=args.loss_impl, grad_accum=args.grad_accum)
+    step_fn = train.make_lm_train_step(
+        cfg, tx, attn_impl=args.attn_impl, loss_impl=args.loss_impl,
+        grad_accum=args.grad_accum,
+        compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None)
 
     train_ds = lm_datasets.MaxLenTextDataset(args.train_file, tokenizer,
                                              max_len=args.seq_len)
@@ -256,7 +264,7 @@ def main(argv=None) -> int:
             for key in ("mu", "nu"):
                 flat = flatten(saved[key])
                 for name, t in opt_state[key].items():
-                    t.copy_(torch.from_numpy(flat[name]))
+                    t.copy_(torch.as_tensor(flat[name]))
             opt_state["count"] = int(saved["count"])
             start_step = int(restored["step"])
             print(f"resumed at step {start_step}", file=sys.stderr)

@@ -9,6 +9,13 @@ flat with ``.``-joined keys: the trainer stores ``params.<JAX flat key>``
 ``Checkpointer(use_orbax=False)`` read the parameters, and the optimizer
 state under ``opt_state.count``, ``opt_state.mu.<name>``,
 ``opt_state.nu.<name>`` with the port's parameter names.
+
+A bfloat16 tensor (a ``--opt_mu_dtype bfloat16`` first moment, a
+``--dtype bfloat16`` parameter) is saved as the JAX package's ``.npz``
+holds one: its raw 2-byte values as a void (``|V2``) array, since the
+``.npy`` format has no bfloat16; a 2-byte void array reads back as
+bfloat16.  A file the JAX ``save_npz`` wrote and one written here then
+hold the same bytes.
 """
 
 from __future__ import annotations
@@ -45,10 +52,24 @@ def unflatten(flat: Dict[str, Any]) -> Dict:
     return tree
 
 
+BF16_NPZ = np.dtype("V2")   # how a bfloat16 array is stored in an .npz
+
+
 def _numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype is torch.bfloat16:
+            return x.view(torch.int16).numpy().view(BF16_NPZ)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _tensor_or_array(a: np.ndarray):
+    """A stored bfloat16 array (2-byte void) as a bfloat16 tensor; any other
+    array as it was stored."""
+    if a.dtype == BF16_NPZ:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return a
 
 
 def save_npz(path: str, tree: Dict) -> None:
@@ -59,8 +80,10 @@ def save_npz(path: str, tree: Dict) -> None:
 
 
 def load_npz(path: str) -> Dict:
+    """The tree of :func:`save_npz`: numpy arrays, and bfloat16 tensors for
+    the 2-byte void arrays that hold bfloat16 values."""
     with np.load(path, allow_pickle=False) as z:
-        return unflatten({k: z[k] for k in z.files})
+        return unflatten({k: _tensor_or_array(z[k]) for k in z.files})
 
 
 class Checkpointer:

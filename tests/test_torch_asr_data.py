@@ -4,8 +4,9 @@ equal the JAX ones for the same seed on the committed dev corpus; the JAX
 ``Checkpointer(use_orbax=False)`` reads the port's checkpoints; greedy
 decoding gives JAX's tokens at ``tiny_config``; SpecAugment spans obey
 the count, min-mask and length rules; ``train_asr`` runs on the CPU with
-save and ``--resume``, refuses what is not ported and needs a GPU unless
-``--device cpu`` is given."""
+save and ``--resume``, runs its mixed-precision flags as JAX's CLI does,
+refuses what is not ported and needs a GPU unless ``--device cpu`` is
+given."""
 
 import dataclasses
 import json
@@ -203,9 +204,97 @@ def test_train_asr_starts_from_a_jax_params_npz(dev_dir, tmp_path):
             np.testing.assert_array_equal(z[f"params.{key}"], np.asarray(want), err_msg=key)
 
 
+# each mixed-precision flag: (the params' atol port against JAX after two
+# steps -- the JAX train-step test's 2e-4, or for bf16 weights one bf16
+# spacing of the value, a rounding flip --, the share of entries held to
+# it -- less for bf16 weights, whose Adam arithmetic XLA and PyTorch round
+# at other points --, the checkpoint entries both store in bf16, and each
+# leaf's limit on |port - JAX| over |JAX - init|, its two steps' movement:
+# 7x and 2.3x the largest readings, 1.4e-3 in f32 compute and 0.098 / 0.109
+# under bf16 compute / weights, where a wrong update to a leaf reads ~1)
+PRECISION_FLAGS = {
+    "--opt_mu_dtype": (2e-4, 0.99, ("opt_state.mu.",), 1e-2),
+    "--dtype": (0.0, 0.98, ("params.", "opt_state.mu.", "opt_state.nu."), 0.25),
+    "--compute_dtype": (2e-4, 0.99, (), 0.25),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(PRECISION_FLAGS))
+def test_train_asr_precision_flags_match_jax(flag, dev_dir, tmp_path):
+    """``train_asr`` with a mixed-precision flag, port against JAX's CLI
+    under the same flag, two steps from one JAX init with dropout and
+    SpecAugment off (the batches are equal for one seed; no dev set: the
+    JAX CLI's dev decode fails under ``--dtype bfloat16``, ROADMAP.md §C):
+    the checkpoints hold the same entries in bf16, and the parameters
+    agree."""
+    from loco_asr_tpu.pipelines import train_asr as jtrain_asr
+    from loco_asr_tpu.utils.checkpoint import save_npz
+
+    atol, share, bf16_prefix, leaf_rel = PRECISION_FLAGS[flag]
+    over = dict(CONV, hidden_dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                feat_proj_dropout=0.0, positional_dropout=0.0, apply_spec_augment=False)
+    cfg = tiny_config(vocab_size=256, hidden_size=32, encoder_attention_heads=4,
+                      decoder_attention_heads=4, encoder_ffn_dim=64, decoder_ffn_dim=64,
+                      **{k: tuple(v) if isinstance(v, list) else v for k, v in over.items()})
+    init = jm.asr_init(jax.random.PRNGKey(7), JConfig(**dataclasses.asdict(cfg)))
+    save_npz(str(tmp_path / "init.npz"), init)
+    init = {f"params.{k}": np.asarray(v, np.float32) for k, v in flatten_with_paths(init).items()}
+    (tmp_path / "cfg.json").write_text(json.dumps(over))
+    common = ["--train_dir", dev_dir, "--tiny", "--config_json", str(tmp_path / "cfg.json"),
+              "--batch_size", "4", "--conversation_seconds", "3", "--attn_impl", "flash",
+              "--warmup_steps", "1", "--lr", "1e-3", "--steps", "2", "--save_every", "2",
+              "--eval_every", "10", "--checkpoint", str(tmp_path / "init.npz"),
+              flag, "bfloat16"]
+    assert jtrain_asr.main([*common, "--out_dir", str(tmp_path / "jax")]) == 0
+    assert train_asr.main([*common, "--out_dir", str(tmp_path / "port"),
+                           "--device", "cpu"]) == 0
+    restored = JCheckpointer(str(tmp_path / "jax" / "ckpt")).restore()
+    adam = restored["opt_state"][0]     # optax's ScaleByAdamState, as a dict
+    want = {f"params.{k}": v for k, v in flatten_with_paths(restored["params"]).items()}
+    want.update({f"opt_state.{m}.{k}": v for m in ("mu", "nu")
+                 for k, v in flatten_with_paths(adam[m]).items()})
+    with np.load(tmp_path / "port" / "ckpt" / "step_2.npz") as z:
+        got = {k: z[k] for k in z.files}
+    assert int(got["step"]) == int(restored["step"]) == 2
+    # the port keys its moments by its own parameter names, JAX by its paths
+    bf16 = lambda keys, d, is_bf16: sorted(k.split(".", 2)[1] if k.startswith("opt_state")
+                                           else "params" for k in keys if is_bf16(d[k]))
+    assert (bf16(got, got, lambda v: v.dtype == np.dtype("V2"))
+            == bf16(want, want, lambda v: v.dtype == jnp.bfloat16))
+    assert ({k for k, v in got.items() if v.dtype == np.dtype("V2")}
+            == {k for k in got if k.startswith(bf16_prefix)})
+    # ``share`` of the entries within the bound; every entry within what two
+    # Adam steps of lr 1e-3 can move apart; and each leaf within
+    # ``leaf_rel`` of its movement, but the attention key biases: their
+    # exact gradient is 0 (the softmax cancels a per-query shift), so each
+    # package steps them by the signs of its rounding noise, which JAX's
+    # second moment shows: below 2^-8 of the same block's value bias's
+    as_f32 = lambda k: np.asarray(want[k], np.float32)
+    err, lim = [], []
+    for key, w in want.items():
+        if not key.startswith("params."):
+            continue
+        g, w = got[key], np.asarray(w, np.float32).ravel()
+        if g.dtype == np.dtype("V2"):
+            g = np.asarray(jnp.asarray(g.view(np.uint16)).view(jnp.bfloat16), np.float32)
+            lim.append(np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 2.0 ** -126))) - 7))
+        else:
+            lim.append(np.full(w.shape, atol))
+        err.append(np.abs(g.ravel() - w))
+        if key.endswith("k_proj.bias"):
+            nu = "opt_state.nu." + key[len("params."):]
+            noise, signal = (np.sqrt(as_f32(n)).max() for n in (nu, nu.replace("k_proj", "v_proj")))
+            assert noise <= 2.0 ** -8 * signal, (key, noise, signal)
+            continue
+        moved = np.linalg.norm(w - init[key].ravel())
+        assert np.linalg.norm(err[-1]) <= leaf_rel * moved, (key, np.linalg.norm(err[-1]), moved)
+    err, lim = np.concatenate(err), np.concatenate(lim)
+    assert (err <= lim).mean() >= share, (err <= lim).mean()
+    assert (err <= lim + 2 * 2 * 1e-3).all(), err.max()
+
+
 @pytest.mark.parametrize("flags", [
-    ["--optimizer", "adafactor"], ["--opt_mu_dtype", "bfloat16"],
-    ["--dtype", "bfloat16"], ["--compute_dtype", "bfloat16"], ["--mesh", "2,1,1"],
+    ["--optimizer", "adafactor"], ["--mesh", "2,1,1"],
     ["--attn_impl", "ring"], ["--attn_impl", "ulysses"], ["--sp_devices", "2"],
     ["--remat", "full"], ["--nan_recovery"], ["--nan_inject_step", "3"],
     ["--checkpoint", "weights.safetensors"]])

@@ -2,8 +2,8 @@
 text with the same ``.npz`` weights (``--device cpu`` on the port's side)
 and must write the same recordings, PPLs within rtol 1e-5 and NLL lists
 within atol 1e-4, in every context type and under both attention paths;
-plus the committed trained LM on the committed dev corpus, and the options
-the port refuses."""
+plus the committed trained LM on the committed dev corpus, ``--compute_dtype
+bfloat16`` against JAX's, and the options the port refuses."""
 
 import json
 import os
@@ -118,8 +118,31 @@ def test_eval_ppl_trained_lm_on_dev_corpus(tmp_path):
         _assert_same(got, want)
 
 
-@pytest.mark.parametrize("flags", [["--compute_dtype", "bfloat16"],
-                                   ["--data_parallel", "2"],
+@pytest.mark.parametrize("flag", ["--compute_dtype"])
+def test_eval_ppl_precision_flag_matches_jax(flag, fisher_text, tiny_npz, tmp_path):
+    """``--compute_dtype bfloat16`` (bf16 weights, float32 NLLs), port
+    against JAX's CLI under the same flag on the same weights, flash
+    attention (B6's bf16 form on the card): the recordings alike, the
+    per-token NLLs within a mean |d| of 5e-3 of JAX's, and within 5e-2 of
+    the float32 run's (the JAX test's bound)."""
+    flags = ["--model", "tiny", "--checkpoint", tiny_npz, *MODES["max_len"],
+             "--attn_impl", "flash"]
+    want = _run(jeval.main, tmp_path / "jax", fisher_text, [*flags, flag, "bfloat16"],
+                port=False)
+    got = _run(teval.main, tmp_path / "port", fisher_text, [*flags, flag, "bfloat16"],
+               port=True)
+    f32 = _run(teval.main, tmp_path / "f32", fisher_text, flags, port=True)
+
+    def mean_delta(a, b):
+        assert list(a[1]) == list(b[1])
+        d = np.concatenate([np.abs(np.asarray(a[1][r]) - np.asarray(b[1][r])) for r in b[1]])
+        return d.mean()
+
+    assert mean_delta(got, want) <= 5e-3
+    assert mean_delta(got, f32) < 5e-2
+
+
+@pytest.mark.parametrize("flags", [["--data_parallel", "2"],
                                    ["--sequence_parallel", "2"],
                                    ["--checkpoint", LM_CKPT]])
 def test_unported_options_raise(flags, fisher_text, tmp_path):

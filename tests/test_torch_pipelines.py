@@ -1,5 +1,6 @@
 """The port's extract_embeddings on a synthetic SLURP directory
-(``--device cpu``), and the device rules of its entry points."""
+(``--device cpu``), its ``--dtype bfloat16`` against the JAX pipeline's,
+and the device rules of its entry points."""
 
 import json
 import os
@@ -98,9 +99,50 @@ def test_extract_embeddings_audio(slurp_root, tmp_path, fmt, monkeypatch):
         assert json.loads(f.readline())["records"] == N_UTT
 
 
-@pytest.mark.parametrize("flags", [["-m", "text", "--dtype", "bfloat16"],
-                                   ["-m", "audio", "--data_parallel", "2"],
-                                   ["-m", "audio", "--dtype", "bfloat16"]])
+# the modality: (the seeded JAX init it reads, the embeddings' tolerance:
+# the audio encoder computes in float32 on bf16 weights, as JAX's promotes
+# with the float32 waveform; the text encoder computes in bf16)
+BF16_MODALITIES = {"audio": ("asr_init", 1e-4), "text": ("tts_init", 5e-2)}
+
+
+@pytest.mark.parametrize("modality", sorted(BF16_MODALITIES))
+def test_extract_embeddings_bf16_matches_jax(modality, slurp_root, tmp_path, monkeypatch):
+    """``--dtype bfloat16`` (the weights cast, the inputs not), port against
+    JAX's CLI under the same flag from one seeded JAX checkpoint, with the
+    tiny config in both pipelines: the same records and targets, float32
+    embeddings within the modality's tolerance."""
+    import jax
+
+    from loco_asr_tpu.models.speecht5 import config as jconfig
+    from loco_asr_tpu.models.speecht5 import model as jst5
+    from loco_asr_tpu.pipelines import extract_embeddings as jextract
+    from loco_asr_tpu.utils.checkpoint import save_npz
+    from loco_asr_tpu_torch.models.speecht5 import config as tconfig
+
+    for lib in (jconfig, tconfig):
+        full, tiny = lib.SpeechT5Config, lib.tiny_config()
+        monkeypatch.setattr(lib, "SpeechT5Config",
+                            lambda *a, _t=tiny, _f=full, **kw: _f(*a, **kw) if a or kw else _t)
+    init, tol = BF16_MODALITIES[modality]
+    ckpt = str(tmp_path / "init.npz")
+    save_npz(ckpt, getattr(jst5, init)(jax.random.PRNGKey(5), jconfig.tiny_config()))
+    flags = ["-m", modality, "-s", "train", "--data_path", slurp_root, "--batch_size", "3",
+             "--checkpoint", ckpt, "--dtype", "bfloat16"]
+    monkeypatch.chdir(tmp_path)
+    assert jextract.main([*flags, "--out_dir", str(tmp_path / "jax")]) == 0
+    assert extract_embeddings.main([*flags, "--out_dir", str(tmp_path / "port"),
+                                    "--device", "cpu"]) == 0
+    want, got = EmbeddingStore(str(tmp_path / "jax")), EmbeddingStore(str(tmp_path / "port"))
+    assert len(got) == len(want) == N_UTT
+    for i in range(N_UTT):
+        (wid, wemb, wtgt), (gid, gemb, gtgt) = want[i], got[i]
+        assert int(gid) == int(wid) and gemb.shape == wemb.shape
+        assert gemb.dtype == wemb.dtype == np.float32
+        np.testing.assert_array_equal(gtgt, wtgt)
+        np.testing.assert_allclose(gemb, wemb, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("flags", [["-m", "audio", "--data_parallel", "2"]])
 def test_unported_options_raise(flags, slurp_root):
     with pytest.raises(SystemExit, match="not supported"):
         extract_embeddings.main([*flags, "-s", "train", "--data_path", slurp_root,

@@ -361,9 +361,50 @@ def test_cli_checkpoint_reads_in_jax_and_resumes(tmp_path):
     assert int(resumed["opt_state"]["count"]) == 6
 
 
+# each mixed-precision flag: the dev PPL's rtol port against JAX after two
+# steps (float32 compute, or bf16 forward and backward)
+PRECISION_FLAGS = {"--opt_mu_dtype": 1e-4, "--compute_dtype": 5e-3}
+
+
+@pytest.mark.parametrize("flag", sorted(PRECISION_FLAGS))
+def test_cli_precision_flags_match_jax(flag, tmp_path, monkeypatch):
+    """``train_lm`` with a mixed-precision flag, port against JAX's CLI
+    under the same flag: two flash steps from one JAX init with dropout off
+    (both trainers' tiny configs, patched alike), the final dev PPL within
+    the flag's rtol, Adam's first moment stored in bf16 by both under
+    ``--opt_mu_dtype`` and in float32 under ``--compute_dtype``."""
+    for mod in (jg, tg):
+        real = mod.tiny_gpt2_config
+        monkeypatch.setattr(mod, "tiny_gpt2_config", lambda _real=real, **kw: _real(
+            **{**kw, "embd_pdrop": 0.0, "attn_pdrop": 0.0, "resid_pdrop": 0.0}))
+    jcfg = jg.tiny_gpt2_config(vocab_size=256, n_positions=64, n_embd=16, n_layer=2,
+                               n_head=2)
+    jckpt.save_npz(str(tmp_path / "init.npz"), jg.gpt2_init(jax.random.PRNGKey(4), jcfg))
+    common = ["--train_file", LM_TEXT, "--dev_file", LM_TEXT, "--model", "tiny",
+              "--seq_len", "48", "--batch_size", "8", "--steps", "2", "--lr", "1e-3",
+              "--warmup_steps", "1", "--log_every", "1", "--eval_every", "100",
+              "--save_every", "2", "--attn_impl", "flash", "--tiny_n_embd", "16",
+              "--tiny_n_head", "2", "--checkpoint", str(tmp_path / "init.npz"),
+              flag, "bfloat16"]
+    assert jtrain_lm.main([*common, "--out_dir", str(tmp_path / "jax"),
+                           "--rng_impl", "threefry"]) == 0
+    assert ttrain_lm.main([*common, "--out_dir", str(tmp_path / "port"),
+                           "--device", "cpu"]) == 0
+
+    def dev_ppl(run):
+        with open(tmp_path / run / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f if "dev_ppl" in line][-1]["dev_ppl"]
+
+    np.testing.assert_allclose(dev_ppl("port"), dev_ppl("jax"), rtol=PRECISION_FLAGS[flag])
+    mu_dtype = np.dtype(jnp.bfloat16 if flag == "--opt_mu_dtype" else jnp.float32)
+    adam = jckpt.Checkpointer(str(tmp_path / "jax" / "ckpt")).restore()["opt_state"][0]
+    assert {v.dtype for v in flatten_with_paths(adam["mu"]).values()} == {mu_dtype}
+    with np.load(tmp_path / "port" / "ckpt" / "step_2.npz") as z:
+        mu = {z[k].dtype for k in z.files if k.startswith("opt_state.mu.")}
+    assert mu == {np.dtype("V2") if flag == "--opt_mu_dtype" else np.dtype(np.float32)}
+
+
 @pytest.mark.parametrize("flags", [["--optimizer", "adafactor"],
-                                   ["--opt_mu_dtype", "bfloat16"],
-                                   ["--compute_dtype", "bfloat16"],
                                    ["--remat"], ["--nan_recovery"],
                                    ["--nan_inject_step", "3"], ["--mesh", "2,1,1"],
                                    ["--attn_impl", "ring"], ["--attn_impl", "ulysses"],
