@@ -12,17 +12,20 @@ the HiFi-GAN vocoder and the log-mel front end, ASR decoding with GPT-2
 shallow fusion and conversation carry-over (``decode_asr``), GPT-2 LM
 training (``train_lm --attn_impl flash``), the LoCo experiment
 (``loco_experiment``, its tiny models trained on the card, and its decodes
-on the reference's trained weights) and SLURP intent classification
-(``extract_embeddings`` -> ``train_classifier`` -> ``slurp_sweep``).
+on the reference's trained weights), SLURP intent classification
+(``extract_embeddings`` -> ``train_classifier`` -> ``slurp_sweep``) and
+conversation-scale ASR training (``train_asr --conversation_seconds 164
+--attn_impl flash --remat lite``).
 Phases, in order (any failure raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
 2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
-   for B1's two kernels and B3's and B4's two each (rel band and
-   mask-only), their block shapes, registers, spill, shared memory at
-   L=160 and blocks per SM; the same for B2's two kernels and B7's warp
-   kernels, with their static SASS counts where cuobjdump exists;
+   for B1's twenty kernels and B3's and B4's forty (f32 and bf16, rel
+   band and mask-only, head dims 8-128), their block shapes, registers,
+   spill, shared memory at L=160 and blocks per SM; the same for B2's two
+   kernels and B7's warp kernels, with their static SASS counts where
+   cuobjdump exists;
 3. kernel checks, after ~0.5 s of warm-up GEMMs: each kernel against its
    plain PyTorch version on the card at the main path's shapes (B1:
    [16, 12, 249, 64], L=160, mixed valid lengths, also causal, mask-only
@@ -204,12 +207,48 @@ Phases, in order (any failure raises and exits non-zero):
    < 5e-2); (d) ``extract_embeddings -m audio --dtype bfloat16`` on 8
    seeded SLURP wavs, B1 and B2 in their f32 forms (JAX's promotion),
    the card against a CPU run of the same command (1e-3 max, 1e-4 mean);
-17. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+17. conversation-scale ASR training: (a) B3/B4 at head dims 8 ([8, 4,
+   398, 8], L = 20), 16 and 32 ([8, 8, 500, D], L = 160), 128 ([8, 6, 500,
+   128], L = 160) and 12 (padded to 16; [8, 4, 398, 12], L = 20), f32 and
+   bf16, rel band and mask-only, two rows padded, each against its plain
+   version (f32 within 1e-4, dpe relative; bf16 as phase 16), with each
+   kernel's device time, the wrapper's and the plain version's, SDPA's
+   backward beside the mask-only cases, the bounds, registers and spill;
+   (b) head dim 8: one step at the LoCo ASR widths (``train_asr --tiny``
+   with the experiment's conv front end, 4 s windows), kernels + flash
+   against plain + dense (phase 8's limits), launches by head dim (4 B1,
+   4 B3/B4, 2 B5 at D = 8); ``train_asr --tiny --attn_impl flash`` and
+   the same with the LoCo conv overrides, 3 steps each (12 B3/B4 at
+   D = 8); ``decode_asr --tiny`` (head dim 12, B1 padded to 16) on the
+   dev corpus, and the tiny encoder kernel vs plain path; (c) the
+   full-width step at B = 1 x 164 s of seeded audio (2,624,000 samples,
+   8,199 frames) and 2,048 seeded labels, flash, dropout and SpecAugment
+   on: each remat policy's loss and gradients against ``none``'s (loss
+   rtol 1e-6, gradients rtol 1e-5 + atol 1e-6, the JAX test's; with
+   cuDNN's deterministic algorithms, and the spread of two ``none``
+   steps measured with and without them), the live generator where
+   ``none`` leaves it; the gpt2-width LM step ([8, 1024], dropout on)
+   under ``full`` and ``lite`` against ``none`` (B6 24 and 12 times a
+   step, 12 blockwise backward calls); dropout
+   off under ``full``, kernels + flash against plain + dense at the
+   longest window that fits (164 s first; phase 8's limits); per policy
+   the launches (B1 30 under full/dots/hybrid, 18 under none/lite; 18
+   B3/B4; 6 B5), the median ms of 6 steps taken in two turns (none ..
+   lite, lite .. none), audio-s/s, peak memory, busy share and device
+   time by kernel group; (d) ``train_asr
+   --conversation_seconds 164 --attn_impl flash --remat lite
+   --batch_size 1`` for 8 steps, then ``--resume`` to 10, on a Kaldi
+   directory of the committed train utterances concatenated into
+   recording-channels of >= 200 s: finite losses, windows of <= 164 s,
+   labels up to 2,624, its launches (no B1 recompute under lite);
+18. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
    ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
    ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
-   phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches;
-   then the six bf16 forms with phase 16's launches, times and bounds),
-   then last ``{"ok": true, "device": {...}}``.
+   phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches,
+   B1, B3/B4 and B5 with phase 17 (d)'s launches, B3/B4 with phase 17
+   (a)'s head dims and phase 17 (b)'s head-dim-8 launches; then the six
+   bf16 forms with phase 16's launches, times and bounds), then last
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 
@@ -554,27 +593,31 @@ def b1_build_records(build) -> list:
 
 
 def b34_build_records(build) -> list:
-    """The same for B3's and B4's kernels (flash_rel_bwd_dq_kernel,
-    flash_rel_bwd_dkv_kernel), rel band and mask-only."""
+    """The same for B3's and B4's forty kernels (flash_rel_bwd_dq_kernel,
+    flash_rel_bwd_dkv_kernel; f32 and bf16, rel band and mask-only, head
+    dims 8-128)."""
     lib = build.library()
     b3 = "4 warps of 16 query rows, 32-key tiles, K double-buffered, V single"
-    b4 = "4 warps of 16 keys, 32-query tiles double-buffered, v in shared memory"
+    b4 = "4 warps of 16 keys, 32-query tiles double-buffered"
 
     def describe(m):
         kernel, bf16 = int(m.group(1) == "dkv"), int(m.group(2) != "f")
-        mask_only = int(m.group(3))
+        mask_only, d = int(m.group(3)), int(m.group(4))
         shape = (b3, b4)[kernel] + ("" if mask_only else
                                     (", the q.pe table", ", the pe band")[kernel])
-        if bf16 and kernel:
-            shape = shape.replace("v in shared memory", "k and v in registers")
+        if kernel:
+            shape += (", k and v in shared memory" if d >= 128 else
+                      ", k and v in registers" if bf16 else ", v in shared memory")
+        elif d >= 128 and not bf16:
+            shape += ", q and g in shared memory"
         return dict(kernel=("B3", "B4")[kernel], dtype=("float32", "bfloat16")[bf16],
-                    mask_only=bool(mask_only), shape=shape,
+                    mask_only=bool(mask_only), head_dim=d, shape=shape,
                     smem_bytes_l160=lib.loco_flash_rel_bwd_smem_bytes(320, mask_only, kernel,
-                                                                      bf16),
+                                                                      d, bf16),
                     blocks_per_sm_l160=lib.loco_flash_rel_bwd_blocks_per_sm(320, mask_only,
-                                                                            kernel, bf16))
-    return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelI" + ELEM + r"Lb([01])E",
-                                describe, 8)
+                                                                            kernel, d, bf16))
+    return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelI" + ELEM
+                                + r"Lb([01])ELi(\d+)E", describe, 40)
 
 
 def sass_counts(lib_path: str, patterns) -> dict:
@@ -2571,6 +2614,628 @@ def bf16_entries(mixed: dict) -> list:
     return out
 
 
+# ---- phase 17: conversation-scale ASR training ----------------------------
+
+LONG_SECONDS = 164          # the JAX README's long-context recipe: B = 1 x 164 s
+LONG_LABELS = 2048
+POLICIES = ("none", "full", "dots", "hybrid", "lite")
+# remat against none, the JAX test's limits (tests/test_remat_policies.py)
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL, REMAT_GRAD_ATOL = 1e-6, 1e-5, 1e-6
+# the LoCo experiment's ASR model (loco_experiment.py): train_asr --tiny
+# (hidden 32, 4 heads of 8) with this conv front end
+LOCO_CONV = {"conv_dim": [64, 64, 64], "conv_stride": [5, 4, 2],
+             "conv_kernel": [10, 8, 4], "max_speech_positions": 2048}
+
+
+@contextlib.contextmanager
+def launches_by_head_dim():
+    """Kernel launches by ``kernel:head dim:form`` while the block runs: the
+    launch paths of B1, B3/B4 and B5/B6 are wrapped for the block (the
+    head dim is the caller's, before any padding)."""
+    import torch
+
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
+    real = (fa._launch_forward, fa._launch_backward, fc._launch)
+    tally: dict = {}
+
+    def count(kern, q):
+        key = f"{kern}:d{q.shape[-1]}:{'bf16' if q.dtype is torch.bfloat16 else 'f32'}"
+        tally[key] = tally.get(key, 0) + 1
+
+    def b1(q, *a, **kw):
+        count("B1", q)
+        return real[0](q, *a, **kw)
+
+    def b34(q, *a, **kw):
+        count("B3/B4", q)
+        return real[1](q, *a, **kw)
+
+    def b5(q, *a, t_axis, **kw):
+        count("B5" if t_axis == 2 else "B6", q)
+        return real[2](q, *a, t_axis=t_axis, **kw)
+
+    fa._launch_forward, fa._launch_backward, fc._launch = b1, b34, b5
+    try:
+        yield tally
+    finally:
+        fa._launch_forward, fa._launch_backward, fc._launch = real
+
+
+def conv_frames(samples: int, cfg) -> int:
+    """Frames of the speech prenet's conv stack for ``samples`` samples."""
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        samples = (samples - k) // s + 1
+    return samples
+
+
+def kernel_counts() -> dict:
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
+    return {"B1": fa.flash_rel_forward.launches, "B2": cf.conv1_instance_norm_gelu.launches,
+            "B3/B4": fa.flash_rel_backward.launches, "B5": fc.flash_forward.launches,
+            "B5_bwd": fc.flash_backward.launches}
+
+
+def rel_bwd_reference(q, k, v, pe, vl, out, lse, gg, causal, scale, mask_only):
+    """The plain B3 + B4 with the band's matmuls: (dq, dk, dv, dpe or None),
+    as ``flash_rel_backward`` returns them."""
+    import torch
+
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+
+    dq, dk, dv, dqpe = fa.flash_rel_backward_plain(q, k, v, pe, vl, out, lse, gg,
+                                                   causal=causal, scale=scale)
+    if mask_only:
+        return dq, dk, dv, None
+    return (dq + (dqpe @ pe.float()) * scale, dk, dv,
+            torch.einsum("bhim,bhid->md", dqpe, q.float()) * scale)
+
+
+def b34_dims_cases(b34_recs: list, smi: str, dev) -> list:
+    """Phase 17 (a): B3 + B4 at head dims 8, 16, 32, 128 and 12 (padded to
+    16), f32 and bf16, rel band and mask-only, each against its plain
+    version (f32: dq, dk, dv within B34_TOL, dpe relative to its max; bf16:
+    :func:`hold_b34`), with each kernel's device time, the wrapper's
+    CUDA-event time, the plain version's, SDPA's backward for the mask-only
+    cases, the bounds and each kernel's registers and spill."""
+    import torch
+    import torch.nn.functional as F
+
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
+    g = torch.Generator().manual_seed(17)
+    sdpa = F.scaled_dot_product_attention
+    # (D, B, H, T, L): the LoCo encoder's widths at D = 8, the encoder's
+    # training length at 16-128, tiny_config's D = 12 (padded)
+    cases = [(8, 8, 4, 398, 20), (16, 8, 8, 500, 160), (32, 8, 8, 500, 160),
+             (128, 8, 6, 500, 160), (12, 8, 4, 398, 20)]
+    recs = []
+    for d, b, h, t, L in cases:
+        kd = fc.kernel_head_dim(d, "b34_dims")
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype is torch.bfloat16
+
+            def randn(*shape, sc=0.3):
+                return (torch.randn(*shape, generator=g) * sc).to(dev, dtype)
+
+            for mask_only in (False, True):
+                q, k, v, gg = randn(b, h, t, d), randn(b, h, t, d), randn(b, h, t, d), \
+                    randn(b, h, t, d, sc=1.0)
+                pe = torch.zeros(2, d, device=dev, dtype=dtype) if mask_only else randn(2 * L, d)
+                vl = torch.tensor([t] * (b - 2) + [t - 70, t - 190], dtype=torch.int32,
+                                  device=dev)
+                out, lse = fa.flash_rel_forward(q, k, v, None if mask_only else pe, vl,
+                                                causal=False, scale=1.0)
+                kw = dict(causal=False, scale=1.0, need_dpe=not mask_only, mask_only=mask_only)
+
+                def run():
+                    return fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw)
+
+                def plain():
+                    return rel_bwd_reference(q, k, v, pe, vl, out, lse, gg, False, 1.0,
+                                             mask_only)
+
+                name = f"d{d}_{'bf16' if bf16 else 'f32'}_{'mask_only' if mask_only else 'band'}"
+                before = fa.flash_rel_backward.launches
+                got = run()
+                torch.cuda.synchronize()
+                check(fa.flash_rel_backward.launches == before + 1, f"B3/B4 {name}: launches")
+                check(all(x.shape == q.shape for x in got[:3]), f"B3/B4 {name}: shapes")
+                if bf16:
+                    held = hold_b34(f"B3/B4 {name}", q, k, v, pe, vl, out, lse, gg,
+                                    causal=False, scale=1.0, mask_only=mask_only)
+                    err, errs, tol = held["max_abs_err"], held["errs"], "2^-7 max|plain|"
+                else:
+                    want = plain()
+                    errs = {n: (a - w).abs().max().item()
+                            for n, a, w in zip("q k v".split(), got, want)}
+                    if not mask_only:
+                        errs["pe"] = ((got[3] - want[3]).abs().max().item()
+                                      / want[3].abs().max().item())
+                    check(all(bool(torch.isfinite(x).all()) for x in got if x is not None),
+                          f"B3/B4 {name}: non-finite gradient")
+                    err, tol = max(errs.values()), B34_TOL
+                    check(err <= B34_TOL, f"B3/B4 {name}: errors {errs} > {B34_TOL} "
+                                          "(dpe relative to its max)")
+                split = kernel_device_ms(run, ("flash_rel_bwd_dq", "flash_rel_bwd_dkv"))
+                (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, False)
+                lib_ms = None
+                if mask_only:
+                    keep = (torch.arange(t, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+                    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+                    def fb():
+                        o = sdpa(*leaves, attn_mask=keep, scale=1.0)
+                        torch.autograd.grad(o, leaves, gg)
+
+                    def f():
+                        with torch.no_grad():
+                            sdpa(q, k, v, attn_mask=keep, scale=1.0)
+                    lib_ms = time_ms(fb, reps=5) - time_ms(f, reps=5)
+                build = {r["kernel"]: {x: r.get(x) for x in ("registers", "spill_stores",
+                                                            "spill_loads", "blocks_per_sm_l160",
+                                                            "smem_bytes_l160")}
+                         for r in b34_recs if r["head_dim"] == kd and r["mask_only"] == mask_only
+                         and r["dtype"] == ("bfloat16" if bf16 else "float32")}
+                rec = dict(kernel="B3/B4", case=name, head_dim=d, kernel_head_dim=kd,
+                           dtype=str(dtype).split(".")[-1], mask_only=mask_only,
+                           shape=[b, h, t, d], two_l="mask-only" if mask_only else 2 * L,
+                           max_abs_err=err, errs=errs, tol=tol, ms=time_ms(run, reps=5),
+                           plain_ms=time_ms(plain, reps=3, inner=2), library_ms=lib_ms,
+                           b3_ms=split["flash_rel_bwd_dq"], b4_ms=split["flash_rel_bwd_dkv"],
+                           b3_bound=bound(b3b, b3f, products=True, bf16=bf16),
+                           b4_bound=bound(b4b, b4f, products=True, bf16=bf16),
+                           build=build, card=smi)
+                recs.append(rec)
+                print(f"[long] b34 {json.dumps(rec)}")
+                del q, k, v, gg, out, got
+    return recs
+
+
+def long_corpus(train_dir: str, dst: str, seconds: float = 330.0) -> str:
+    """A Kaldi dir of recording-channels of >= ``seconds`` of audio each:
+    the committed train utterances, cropped by their segments, concatenated
+    in order (16-bit PCM, 16 kHz), with their transcripts and new segments
+    and timestamped utterance ids."""
+    from loco_asr_tpu_torch.data.asr_dataset import KaldiAsrDataset
+
+    ds = KaldiAsrDataset(train_dir)
+    os.makedirs(dst)
+    recs, cur = [], []
+    for ex in ds.examples:
+        cur.append(ex)
+        if sum(e.end - e.start for e in cur) >= seconds:
+            recs.append(cur)
+            cur = []
+    if cur:
+        recs[-1].extend(cur)
+    text, segs, scp = [], [], []
+    for r, exs in enumerate(recs):
+        reco = f"long{r:03d}-A"
+        parts, t = [], 0
+        for ex in exs:
+            wav = ds.load_waveform(ex)
+            a, z = t / 16000.0, (t + len(wav)) / 16000.0
+            utt = f"{reco}-{int(a * 100):06d}-{int(z * 100):06d}"
+            text.append(f"{utt} {ex.text}")
+            segs.append(f"{utt} {reco} {a:.4f} {z:.4f}")
+            parts.append(wav)
+            t += len(wav)
+        path = os.path.join(dst, f"{reco}.wav")
+        pcm = np.clip(np.round(np.concatenate(parts) * 32768.0), -32768, 32767).astype(np.int16)
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+        scp.append(f"{reco} {path}")
+    for name, lines in (("text", text), ("segments", segs), ("wav.scp", scp)):
+        with open(os.path.join(dst, name), "w") as f:
+            f.write("\n".join(sorted(lines)) + "\n")
+    return dst
+
+
+def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
+    """Phase 17: B3/B4 at every head dim, the D = 8 training paths and
+    ``decode_asr --tiny`` (D = 12), the remat policies on the full-width
+    long step, and ``train_asr --conversation_seconds 164 --attn_impl flash
+    --remat lite``.  Returns the records and launches for the summary."""
+    import torch
+
+    from loco_asr_tpu_torch.data.asr_dataset import ConversationAsrDataset
+    from loco_asr_tpu_torch.data.tokenizer import load_tokenizer
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config, tiny_config
+    from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+    from loco_asr_tpu_torch.parallel import train
+    from loco_asr_tpu_torch.pipelines import decode_asr, train_asr
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    def reset_counts():
+        fa.flash_rel_forward.launches = fa.flash_rel_backward.launches = 0
+        fc.flash_forward.launches = fc.flash_backward.launches = 0
+        cf.conv1_instance_norm_gelu.launches = 0
+
+    def quiet(cfg):
+        return dataclasses.replace(cfg, positional_dropout=0.0, hidden_dropout=0.0,
+                                   attention_dropout=0.0, activation_dropout=0.0,
+                                   apply_spec_augment=False)
+
+    # (a) B3/B4 at every head dim, both forms, band and mask-only
+    out["b34_dims"] = b34_dims_cases(b34_recs, smi, dev)
+    t_a = time.perf_counter()
+
+    # (b) head dim 8: the LoCo ASR widths, one step kernels + flash against
+    # plain + dense, then the trainers that run it; decode_asr --tiny (D = 12)
+    tok = load_tokenizer("char")
+    tok.vocab_size = 256
+    loco = quiet(dataclasses.replace(
+        tiny_config(vocab_size=256, hidden_size=32, encoder_attention_heads=4,
+                    decoder_attention_heads=4, encoder_ffn_dim=64, decoder_ffn_dim=64),
+        **{k: tuple(v) if isinstance(v, list) else v for k, v in LOCO_CONV.items()}))
+    hb = next(ConversationAsrDataset(corpus["train"], window_seconds=4).batches(
+        tok, 8, max_seconds=4, max_label_len=64, shuffle=True, seed=0, eos_id=2))
+    batch = {k: torch.as_tensor(hb[k], device=dev)
+             for k in ("input_values", "attention_mask", "labels")}
+    model = st5.asr_model_init(loco, seed=0, device=dev).train()
+    runs = {}
+    for impl in ("flash", "dense"):
+        for p in model.parameters():
+            p.grad = None
+        with launches_by_head_dim() as tally:
+            loss, _ = st5.asr_loss(model, batch["input_values"], batch["attention_mask"],
+                                   batch["labels"], attn_impl=impl)
+            loss.backward()
+            torch.cuda.synchronize()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+        runs[impl] = (loss.item(), train.global_norm(list(grads.values())).item(), grads,
+                      dict(tally))
+    (fl, fg, fgr, ftally), (dl, dg, dgr, dtally) = runs["flash"], runs["dense"]
+    check(np.isfinite(fl) and abs(fl - dl) <= LOSS_RTOL * abs(dl),
+          f"D=8 step: loss flash {fl} dense {dl}")
+    check(abs(fg - dg) <= GNORM_RTOL * abs(dg), f"D=8 step: grad_norm flash {fg} dense {dg}")
+    worst, worst_name, grad_max_abs = grads_against(fgr, dgr, "D=8 step")
+    n_enc, n_dec = loco.encoder_layers, loco.decoder_layers
+    want = {"B1:d8:f32": n_enc + n_dec, "B3/B4:d8:f32": n_enc + n_dec, "B5:d8:f32": n_dec}
+    check(ftally == want and dtally == {}, f"D=8 step launched {ftally} (dense {dtally}), "
+                                           f"expected {want}")
+    out["d8_step"] = dict(batch=list(batch["input_values"].shape),
+                          labels=list(batch["labels"].shape), loss_flash=fl, loss_dense=dl,
+                          grad_norm_flash=fg, grad_norm_dense=dg, grad_max_abs_diff=grad_max_abs,
+                          grad_worst_excess=worst, grad_worst=worst_name, launches=ftally)
+    print(f"[long] d8_step {json.dumps(out['d8_step'])}")
+    del model, runs, fgr, dgr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        conv_json = os.path.join(tmp, "loco_conv.json")
+        with open(conv_json, "w") as f:
+            json.dump(LOCO_CONV, f)
+        d8_runs = {}
+        for tag, extra in (("tiny", []), ("loco", ["--config_json", conv_json])):
+            run_dir = os.path.join(tmp, tag)
+            reset_counts()
+            with launches_by_head_dim() as tally:
+                rc = train_asr.main(["--train_dir", corpus["train"], "--dev_dir", corpus["dev"],
+                                     "--out_dir", run_dir, "--tiny", *extra, "--attn_impl",
+                                     "flash", "--conversation_seconds", "4", "--batch_size", "8",
+                                     "--steps", "3", "--save_every", "3", "--eval_every", "3",
+                                     "--eval_batches", "1", "--decode_max_len", "16"])
+                torch.cuda.synchronize()
+            check(rc == 0, f"train_asr --tiny ({tag}) returned {rc}")
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                evals = [json.loads(line) for line in f if "dev_loss" in line]
+            check(evals and all(np.isfinite(r["dev_loss"]) for r in evals),
+                  f"train_asr --tiny ({tag}): dev metrics {evals}")
+            counts = kernel_counts()
+            check(tally.get("B3/B4:d8:f32", 0) == 3 * 4 and counts["B3/B4"] == 12
+                  and tally.get("B1:d8:f32", 0) > 12,
+                  f"train_asr --tiny ({tag}) launched {tally} ({counts})")
+            d8_runs[tag] = dict(launches=counts, by_head_dim=dict(tally), dev=evals[-1])
+        # decode_asr --tiny: tiny_config's head dim 12 runs B1 padded to 16
+        reset_counts()
+        dec_dir = os.path.join(tmp, "decode")
+        with launches_by_head_dim() as tally:
+            rc = decode_asr.main(["--data_dir", corpus["dev"], "--out_dir", dec_dir, "--tiny",
+                                  "--beam_size", "1", "--max_decode_len", "16",
+                                  "--max_seconds", "1"])
+            torch.cuda.synchronize()
+        check(rc == 0, f"decode_asr --tiny returned {rc}")
+        with open(os.path.join(dec_dir, "hyp.text")) as f:
+            n_hyp = sum(1 for _ in f)
+        check(n_hyp == 120 and tally.get("B1:d12:f32", 0) > 0 and set(tally) == {"B1:d12:f32"},
+              f"decode_asr --tiny: {n_hyp} hypotheses, launches {tally}")
+        d8_runs["decode_asr_tiny"] = dict(launches=kernel_counts(), by_head_dim=dict(tally),
+                                          hypotheses=n_hyp)
+    # the tiny encoder (head dim 12) on a dev batch, kernel path vs plain path
+    tiny = st5.asr_model_init(tiny_config(vocab_size=256, apply_spec_augment=False), seed=0,
+                              device=dev)
+    dev_b = next(ConversationAsrDataset(corpus["dev"], window_seconds=1).batches(
+        tok, 8, max_seconds=1, max_label_len=64, eos_id=2))
+    hid, msk = st5.encode_speech(tiny, dev_b["input_values"], dev_b["attention_mask"])
+    ref, _ = st5.encode_speech(tiny, dev_b["input_values"], dev_b["attention_mask"],
+                               use_kernels=False)
+    d8_runs["tiny_encoder_d12"] = encoder_error(hid, ref, msk, "tiny encoder (D = 12)")
+    out["d8_runs"] = d8_runs
+    print(f"[long] d8_runs {json.dumps(d8_runs)}")
+    del tiny
+    t_b = time.perf_counter()
+
+    # (c) the full-width long step: SpeechT5-base, B = 1 x 164 s, 2048 labels
+    cfg = dataclasses.replace(SpeechT5Config(vocab_size=256), attention_dropout=0.0)
+    g = torch.Generator().manual_seed(164)
+    wav = (torch.randn(1, LONG_SECONDS * 16000, generator=g) * 0.1).to(dev)
+    mask = torch.ones_like(wav, dtype=torch.int32)
+    labels = torch.randint(3, 256, (1, LONG_LABELS), generator=g).to(dev)
+    long_batch = {"input_values": wav, "attention_mask": mask, "labels": labels}
+    model = st5.asr_model_init(cfg, seed=0, device=dev).train()
+
+    def value_grad(spec, m=model, impl="flash", generator=True):
+        for p in m.parameters():
+            p.grad = None
+        gen = torch.Generator(device=dev).manual_seed(17) if generator else None
+        loss, _ = st5.asr_loss(m, wav, mask, labels, attn_impl=impl, generator=gen, remat=spec)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad.detach().clone() for k, p in m.named_parameters()
+                 if p.grad is not None}
+        return loss.item(), grads, None if gen is None else gen.get_state()
+
+    def none_spread():
+        """Two none steps: their losses, and each gradient's largest spread."""
+        la, ga, _ = value_grad("none")
+        lb, gb, _ = value_grad("none")
+        spread = {k: (gb[k] - ga[k]).abs().max().item() for k in ga}
+        varying = sorted(k for k, x in spread.items() if x > 0)
+        return spread, dict(loss=[la, lb], params_varying=len(varying), varying=varying[:12],
+                            max_spread=max(spread.values()))
+
+    # two none steps as the card runs them by default, then the comparison
+    # with cuDNN's deterministic algorithms (two none steps agree there, so
+    # each policy is held to the JAX test's limits; a parameter beyond them
+    # would be held to the spread of the two none steps)
+    _, default_spread = none_spread()
+    torch.backends.cudnn.deterministic = True
+    spread, det_spread = none_spread()
+    check(det_spread["loss"][0] == det_spread["loss"][1], f"two none steps: {det_spread}")
+    exact = {"none_vs_none_default": default_spread, "none_vs_none": det_spread}
+    l0, g0, s0 = value_grad("none")
+    for spec in POLICIES[1:]:
+        l1, g1, s1 = value_grad(spec)
+        check(abs(l1 - l0) <= REMAT_LOSS_RTOL * abs(l0) + 1e-7,
+              f"remat {spec}: loss {l1} against none {l0}")
+        check(torch.equal(s1, s0), f"remat {spec}: the generator moved on in the recompute")
+        worst, worst_name, beyond = 0.0, "", []
+        for k in g0:
+            diff = (g1[k] - g0[k]).abs()
+            excess = (diff - REMAT_GRAD_RTOL * g0[k].abs() - REMAT_GRAD_ATOL).max().item()
+            if excess > 0:
+                # a parameter whose none steps differ: held to their spread
+                check(diff.max().item() <= spread[k],
+                      f"remat {spec}: {k} off by {diff.max().item()} (none vs none "
+                      f"{spread[k]})")
+                beyond.append(k)
+            if excess > worst:
+                worst, worst_name = excess, k
+        exact[spec] = dict(loss=l1, loss_rel_diff=abs(l1 - l0) / abs(l0),
+                           grad_worst_excess=worst, grad_worst=worst_name,
+                           held_to_spread=beyond)
+        del g1
+    del g0
+    torch.backends.cudnn.deterministic = False
+
+    # the gpt2-width LM step's gradients under full and lite against none
+    # (dropout on; flash: B6 and its blockwise backward, B6 run again in
+    # the backward under full)
+    lcfg = dataclasses.replace(gm.PRESETS["gpt2"], vocab_size=256, attn_pdrop=0.0)
+    lm = gm.gpt2_init(lcfg, seed=1, device=dev).train()
+    ids = torch.randint(0, 256, (8, 1024), generator=g).to(dev)
+    lm_grads = {}
+    for spec in ("none", "full", "lite"):
+        for p in lm.parameters():
+            p.grad = None
+        gen = torch.Generator(device=dev).manual_seed(5)
+        fc.flash_forward_nhd.launches = fc.flash_backward.launches = 0
+        hidden, _ = gm.gpt2_forward(lm, ids, deterministic=False, generator=gen,
+                                    attn_impl="flash", remat=spec)
+        loss = gm.token_nll_from_hidden(lm.wte.weight, hidden, ids,
+                                        checkpoint_chunks=True).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        n = lcfg.n_layer
+        want = (n * (2 if spec == "full" else 1), n)
+        got = (fc.flash_forward_nhd.launches, fc.flash_backward.launches)
+        check(got == want, f"gpt2 step {spec}: B6 and backward calls {got}, expected {want}")
+        lm_grads[spec] = (loss.item(), {k: p.grad.clone() for k, p in lm.named_parameters()},
+                          gen.get_state())
+    l_none, g_none, s_none = lm_grads["none"]
+    for spec in ("full", "lite"):
+        l1, g1, s1 = lm_grads[spec]
+        check(abs(l1 - l_none) <= REMAT_LOSS_RTOL * abs(l_none) + 1e-7,
+              f"gpt2 remat {spec}: loss {l1} against none {l_none}")
+        check(torch.equal(s1, s_none), f"gpt2 remat {spec}: the generator moved on")
+        excess = max((((g1[k] - g_none[k]).abs() - REMAT_GRAD_RTOL * g_none[k].abs()
+                       - REMAT_GRAD_ATOL).max().item()) for k in g_none)
+        check(excess <= 0, f"gpt2 remat {spec}: gradient beyond the limits by {excess}")
+        exact[f"gpt2_{spec}"] = dict(loss=l1, grad_worst_excess=excess,
+                                     b6_launches=lcfg.n_layer * (2 if spec == "full" else 1))
+    del lm, lm_grads, g_none, g1
+    out["remat_exact"] = exact
+    print(f"[long] remat_exact {json.dumps(exact)}")
+
+    # dropout off under "full": kernels + flash against plain + dense at the
+    # longest window that fits (164 s first)
+    qcfg = quiet(SpeechT5Config(vocab_size=256))
+    qmodel = st5.asr_model_init(qcfg, seed=0, device=dev).train()
+    vs_plain = None
+
+    def flash_and_dense(n):
+        res = {}
+        for impl in ("flash", "dense"):
+            for p in qmodel.parameters():
+                p.grad = None
+            loss, _ = st5.asr_loss(qmodel, wav[:, :n], mask[:, :n], labels, attn_impl=impl,
+                                   remat="full")
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = {k: p.grad.detach().clone() for k, p in qmodel.named_parameters()
+                     if p.grad is not None}
+            res[impl] = (loss.item(), train.global_norm(list(grads.values())).item(), grads)
+        return res
+
+    for seconds in (LONG_SECONDS, 120, 80):
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            res = flash_and_dense(seconds * 16000)
+        except torch.cuda.OutOfMemoryError:
+            res = None
+        if res is None:   # the frames of the failed call are gone: free their cache
+            for p in qmodel.parameters():
+                p.grad = None
+            torch.cuda.empty_cache()
+            print(f"[long] plain + dense at {seconds} s does not fit in device memory")
+            continue
+        (fl, fg, fgr), (dl, dg, dgr) = res["flash"], res["dense"]
+        check(abs(fl - dl) <= LOSS_RTOL * abs(dl), f"long step: loss flash {fl} dense {dl}")
+        check(abs(fg - dg) <= GNORM_RTOL * abs(dg), f"long step: grad_norm {fg} dense {dg}")
+        worst, worst_name, grad_max_abs = grads_against(fgr, dgr, f"long step {seconds} s")
+        vs_plain = dict(seconds=seconds, loss_flash=fl, loss_dense=dl, grad_norm_flash=fg,
+                        grad_norm_dense=dg, grad_max_abs_diff=grad_max_abs,
+                        grad_worst_excess=worst, grad_worst=worst_name,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del res, fgr, dgr
+        break
+    check(vs_plain is not None, "plain + dense fits at no window")
+    out["long_vs_plain"] = vs_plain
+    print(f"[long] vs_plain {json.dumps(vs_plain)}")
+    del qmodel
+
+    # each policy's train step: launches, median ms of 6 steps taken in two
+    # turns (none .. lite, then lite .. none, 3 steps a turn, so that drift
+    # of the card or host between turns falls on every policy alike),
+    # audio-s/s, peak memory, busy share and device time by kernel group
+    per_policy = {spec: dict(step_ms=[], peak_mem_gb=0.0) for spec in POLICIES}
+    n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
+    for spec in POLICIES + POLICIES[::-1]:
+        rec = per_policy[spec]
+        tx = train.adamw(1e-4)
+        opt = tx.init(train.trainable_params(model))
+        step = train.make_asr_train_step(cfg, tx, attn_impl="flash", remat=spec)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        reset_counts()
+        m = step(model, opt, long_batch, gen)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        check(np.isfinite(m["loss"].item()), f"long step {spec}: loss {m['loss'].item()}")
+        recompute = n_enc if spec in ("full", "dots", "hybrid") else 0
+        want = {"B1": n_enc + n_dec + recompute, "B2": 0, "B3/B4": n_enc + n_dec, "B5": n_dec,
+                "B5_bwd": n_dec}
+        check(launches == want, f"long step {spec} launched {launches}, expected {want}")
+        rec["launches"] = launches
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(model, opt, long_batch, gen)
+            loss = m["loss"].item()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(loss), f"long step {spec}: loss {loss}")
+        rec["peak_mem_gb"] = max(rec["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
+        if "busy_share" not in rec:
+            prof = device_breakdown(lambda: step(model, opt, long_batch, gen))
+            rec.update(busy_share=prof["busy_share"], device_ms=prof["kernel_ms_sum"],
+                       kernels=prof["kernels"], groups_ms=prof["groups_ms"])
+        del opt, step
+    for spec, rec in per_policy.items():
+        med = statistics.median(rec["step_ms"])
+        rec.update(median_step_ms=med, audio_s_per_wall_s=LONG_SECONDS / (med / 1e3), card=smi)
+        print(f"[long] step {spec} {json.dumps(rec)}")
+    out["per_policy"] = per_policy
+    out["long_shape"] = dict(samples=LONG_SECONDS * 16000, labels=LONG_LABELS,
+                             frames=conv_frames(LONG_SECONDS * 16000, cfg))
+    del model, wav, mask, labels, long_batch
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+
+    # (d) train_asr --conversation_seconds 164 --attn_impl flash --remat lite
+    with tempfile.TemporaryDirectory() as tmp:
+        long_dir = long_corpus(corpus["train"], os.path.join(tmp, "long"))
+        out_dir = os.path.join(tmp, "asr164")
+        flags = ["--train_dir", long_dir, "--dev_dir", long_dir, "--out_dir", out_dir,
+                 "--conversation_seconds", str(LONG_SECONDS), "--attn_impl", "flash",
+                 "--remat", "lite", "--batch_size", "1", "--eval_every", "1000",
+                 "--eval_batches", "1", "--decode_max_len", "64"]
+        seen = []
+        real_make = train.make_asr_train_step
+
+        def recording_make(*a, **kw):   # each step's loss and batch shape
+            step = real_make(*a, **kw)
+
+            def recorded(model, opt_state, batch, generator=None):
+                m = step(model, opt_state, batch, generator)
+                seen.append(dict(loss=m["loss"].item(),
+                                 samples=int(batch["input_values"].shape[1]),
+                                 labels=int((batch["labels"] != -100).sum().item()),
+                                 label_cols=int(batch["labels"].shape[1])))
+                return m
+            return recorded
+
+        train.make_asr_train_step = recording_make
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = train_asr.main([*flags, "--steps", "8"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_launches = kernel_counts()
+            check(rc == 0, f"train_asr 164 s returned {rc}")
+            t0 = time.perf_counter()
+            rc = train_asr.main([*flags, "--steps", "10", "--resume"])
+            resume_wall = time.perf_counter() - t0
+            check(rc == 0, f"train_asr 164 s --resume returned {rc}")
+        finally:
+            train.make_asr_train_step = real_make
+        ckpt = os.path.join(out_dir, "ckpt")
+        with open(os.path.join(ckpt, "status.json")) as f:
+            check(json.load(f)["latest"] == 10, "the 164 s run's resume did not reach step 10")
+        with np.load(os.path.join(ckpt, "step_10.npz")) as z:
+            check(int(z["opt_state.count"]) == 10, "optimizer count after resume")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            evals = [json.loads(line) for line in f if "dev_loss" in line]
+        check(len(seen) == 10 and all(np.isfinite(s["loss"]) for s in seen),
+              f"164 s steps {seen}")
+        check(all(s["samples"] <= LONG_SECONDS * 16000 and s["label_cols"] <= 16 * LONG_SECONDS
+                  for s in seen), f"164 s batches {seen}")
+        check(evals and all(np.isfinite(r["dev_loss"]) for r in evals), f"dev metrics {evals}")
+        # 8 steps under lite (no B1 recompute), then one dev batch: its loss
+        # and its encode (each with B2: no gradient there)
+        n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
+        want = {"B1": 9 * (n_enc + n_dec) + n_enc, "B2": 2, "B3/B4": 8 * (n_enc + n_dec),
+                "B5": 9 * n_dec, "B5_bwd": 8 * n_dec}
+        check(run_launches == want, f"train_asr 164 s launched {run_launches}, expected {want}")
+        ds = ConversationAsrDataset(long_dir, window_seconds=LONG_SECONDS)
+        out["train_asr_164"] = dict(launches=run_launches, steps=seen, wall_s=wall,
+                                    resume_wall_s=resume_wall, dev=evals[-1],
+                                    windows=len(ds),
+                                    window_seconds=[w.seconds for w in ds.windows],
+                                    recordings=len(set(w.reco_id for w in ds.windows)),
+                                    card=smi)
+        print(f"[long] train_asr_164 {json.dumps(out['train_asr_164'])}")
+    out["wall_s"] = dict(a=t_a - t_phase, b=t_b - t_a, c=t_c - t_b,
+                         d=time.perf_counter() - t_c, total=time.perf_counter() - t_phase)
+    print(f"[long] phase wall s {json.dumps(out['wall_s'])}")
+    return out
+
+
 def asr_host_batches(train_dir: str, n: int = 31) -> list:
     """``n`` host batches of 8 conversation windows of <= 10 s (the char
     tokenizer, vocabulary 256), epochs 0-2 shuffled by their seeds."""
@@ -2638,8 +3303,8 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print(f"[build] {line.strip()}")
-    for rec in (b1_build_records(_build) + b34_build_records(_build)
-                + b2_b7_build_records(_build)):
+    b34_recs = b34_build_records(_build)
+    for rec in b1_build_records(_build) + b34_recs + b2_b7_build_records(_build):
         print(f"[build] {rec['kernel']} {json.dumps(rec)}")
 
     # the committed ASR corpus, with its wav.scp pointing into this checkout
@@ -3358,9 +4023,13 @@ def main() -> int:
     tmp_corpus = tempfile.TemporaryDirectory()
     corpus = relocate_corpus(tmp_corpus.name)
     mixed = mixed_precision_phase(corpus, host_batches, smi, dev)
+
+    # -- 17. conversation-scale ASR training: B3/B4 at every head dim, the
+    # remat policies, train_asr --conversation_seconds 164 ----------------
+    long = long_context_phase(corpus, b34_recs, smi, dev)
     tmp_corpus.cleanup()
 
-    # -- 17. summary -------------------------------------------------------
+    # -- 18. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3377,15 +4046,27 @@ def main() -> int:
         plain column is the whole plain backward (one function computes dq,
         dk, dv and dpe together).  No PyTorch call computes the rel-band
         backward, so the library column is null here; the mask-only and
-        causal cases above carry SDPA's."""
+        causal cases above carry SDPA's.  ``head_dims``: phase 17 (a)'s
+        forms at the other head dims; ``d8_launches``: phase 17 (b)'s
+        training runs at head dim 8; ``train_asr_164_launches``: phase 17
+        (d)'s long-context run."""
         main_rec = next(c for c in checks if c["kernel"] == "B3/B4" and c["case"] == "enc_padded")
         bms, by = main_rec[f"{which}_bound"]
+        dims = [dict(case=r["case"], shape=r["shape"], ms=r[f"{which}_ms"],
+                     wrapper_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                     bound_ms=r[f"{which}_bound"][0], bound_by=r[f"{which}_bound"][1],
+                     max_abs_err=r["max_abs_err"], build=r["build"].get(which.upper()))
+                for r in long["b34_dims"]]
         return dict(name=name, route="cuda", source="loco_asr_tpu_torch/csrc/flash_rel_bwd.cu",
                     replaces=replaces, tpu_kernel=tpu_kernel, launches=asr_launches["B3/B4"],
                     max_abs_err=max(c["max_abs_err"] for c in checks if c["kernel"] == "B3/B4"),
                     ms=main_rec[f"{which}_ms"], kernel_ms=main_rec[f"{which}_ms"],
                     wrapper_ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
-                    bound_ms=bms, bound_by=by, library_ms=main_rec["library_ms"])
+                    bound_ms=bms, bound_by=by, library_ms=main_rec["library_ms"],
+                    d8_launches=sum(r["by_head_dim"].get("B3/B4:d8:f32", 0)
+                                    for r in long["d8_runs"].values() if "by_head_dim" in r),
+                    train_asr_164_launches=long["train_asr_164"]["launches"]["B3/B4"],
+                    head_dims=dims)
 
     # B1's and B2's launches on the decode path: phase 12's six decode_asr
     # runs, phase 13's LoCo ASR stage and phase 15's decodes on the
@@ -3401,7 +4082,9 @@ def main() -> int:
              loco_reference_launches=reference_launches["B1"],
              intent_launches=intent_launches["B1"],
              d8_ms=d8["ms"], d8_device_ms=d8["device_ms"], d8_plain_ms=d8["plain_ms"],
-             d8_bound_ms=d8["bound_ms"]),
+             d8_bound_ms=d8["bound_ms"],
+             train_asr_164_launches=long["train_asr_164"]["launches"]["B1"],
+             d12_decode_launches=long["d8_runs"]["decode_asr_tiny"]["launches"]["B1"]),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
@@ -3409,9 +4092,10 @@ def main() -> int:
              loco_launches=lm_train_launches["loco_asr"]["B2"],
              loco_reference_launches=reference_launches["B2"],
              intent_launches=intent_launches["B2"]),
-        entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
-              "loco_asr_tpu/ops/pallas/flash_attention.py:40",
-              "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
+        dict(entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
+                   "loco_asr_tpu/ops/pallas/flash_attention.py:40",
+                   "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
+             train_asr_164_launches=long["train_asr_164"]["launches"]["B5"]),
         bwd_entry("flash_rel_backward (B3)", "loco_asr_tpu/ops/pallas/flash_attention.py:799",
                   "flash_attention.py::_rel_bwd_dq_kernel", "b3"),
         bwd_entry("flash_rel_backward (B4)", "loco_asr_tpu/ops/pallas/flash_attention.py:902",

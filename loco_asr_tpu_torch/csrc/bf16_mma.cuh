@@ -117,10 +117,11 @@ struct Bf16Rows {
 
 // acc += P . B: P [16, 8 NB] in registers in the C layout of mma_bt (NB
 // even), rounded to bf16 here; B the first 8 NB rows of a shared [*, LD]
-// tile, D columns, read as pairs of rows
-template <int NB, int D, int LD>
-__device__ __forceinline__ void mma_p_b_bf16(float (&acc)[D / 8][4], const float (&p)[NB][4],
-                                             const bf16* sB, int g, int t) {
+// tile, read as pairs of rows; acc holds NN column blocks of 8 from column
+// 8 n0 on (all D columns by default)
+template <int NB, int D, int LD, int NN = D / 8>
+__device__ __forceinline__ void mma_p_b_bf16(float (&acc)[NN][4], const float (&p)[NB][4],
+                                             const bf16* sB, int g, int t, int n0 = 0) {
   static_assert(NB % 2 == 0, "P is taken 16 columns at a time");
 #pragma unroll
   for (int kk = 0; kk < NB / 2; ++kk) {
@@ -128,9 +129,9 @@ __device__ __forceinline__ void mma_p_b_bf16(float (&acc)[D / 8][4], const float
                            round_pair(p[2 * kk][2], p[2 * kk][3]),
                            round_pair(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                            round_pair(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const bf16* br = sB + (16 * kk + 2 * t) * LD + g;
+    const bf16* br = sB + (16 * kk + 2 * t) * LD + g + 8 * n0;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < NN; ++n) {
       const unsigned b[2] = {pack_pair(br + 8 * n, br + LD + 8 * n),
                              pack_pair(br + 8 * LD + 8 * n, br + 9 * LD + 8 * n)};
       mma_bf16(acc[n], a, b);

@@ -38,14 +38,15 @@ Not ported yet, and refused with an error: the sequence-parallel ``ring``
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+import functools
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from ...ops import attention, layers
+from ...ops import attention, layers, remat as remat_lib
 from ...ops.cuda import flash_attention, flash_causal
 from ...utils.device import resolve_device
 
@@ -180,7 +181,7 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
                bias: Optional[torch.Tensor], attn_impl: str,
                kv_valid_len: Optional[torch.Tensor],
                kv_cache: Optional[Dict[str, torch.Tensor]], cache_index, write_mask,
-               drop: Callable[[torch.Tensor, float], torch.Tensor]) -> torch.Tensor:
+               generator: Optional[torch.Generator], training: bool) -> torch.Tensor:
     b, t, _ = h.shape
     q, k, v = (x.reshape(b, t, cfg.n_head, cfg.head_dim)
                for x in blk.attn.c_attn(h).split(cfg.n_embd, dim=-1))
@@ -197,12 +198,40 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
         if kv_cache is not None:
             attention._write_cache(kv_cache, k, v, cache_index, write_mask)
             k, v = kv_cache["k"], kv_cache["v"]
-        # float32 scores from operands of their own dtype, probabilities
-        # in v's dtype (JAX's preferred_element_type and astype)
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / cfg.head_dim ** 0.5
-        probs = drop(torch.softmax(scores + bias, dim=-1).to(v.dtype), cfg.attn_pdrop)
-        attn = torch.matmul(probs, v).transpose(1, 2)
-    return drop(blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd)), cfg.resid_pdrop)
+        attn = remat_lib.big(_dense_attention, q, k, v, bias, cfg.head_dim, cfg.attn_pdrop,
+                             training, generator=generator).transpose(1, 2)
+    return layers.dropout(blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd)), cfg.resid_pdrop,
+                          generator, training)
+
+
+def _dense_attention(q, k, v, bias, head_dim: int, p: float, training: bool, *,
+                     generator) -> torch.Tensor:
+    """The [B, H, T, K] chain of the dense path: scores, bias, softmax,
+    attention-prob dropout, probs.v."""
+    # float32 scores from operands of their own dtype, probabilities
+    # in v's dtype (JAX's preferred_element_type and astype)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / head_dim ** 0.5
+    probs = layers.dropout(torch.softmax(scores + bias, dim=-1).to(v.dtype), p, generator,
+                           training)
+    return torch.matmul(probs, v)
+
+
+def _mlp(mlp: MLP, h: torch.Tensor, act, *, generator=None) -> torch.Tensor:
+    """The [B, T, 4D] chain: dense, activation, dense (no dropout inside)."""
+    return mlp.c_proj(act(mlp.c_fc(h)))
+
+
+def _block(cfg: GPT2Config, blk: Block, x: torch.Tensor, *, bias, attn_impl, kv_valid_len,
+           kv_cache, cache_index, write_mask, training, generator) -> torch.Tensor:
+    """One pre-LN block: attention, then the MLP, each a residual branch."""
+    eps = cfg.layer_norm_epsilon
+    h = layers.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias, eps=eps)
+    x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len, kv_cache, cache_index,
+                       write_mask, generator, training)
+    h = layers.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias, eps=eps)
+    act = layers.ACTIVATIONS[cfg.activation]
+    h = remat_lib.big(_mlp, blk.mlp, h, act, generator=generator)
+    return x + layers.dropout(h, cfg.resid_pdrop, generator, training)
 
 
 def _causal_bias(past, t: int, k_len: int, dev) -> torch.Tensor:
@@ -220,7 +249,8 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
                  kv_caches: Optional[KVCache] = None, cache_index=None,
                  kv_write_mask: Optional[torch.Tensor] = None,
                  deterministic: bool = True, attn_impl: str = "dense",
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 remat: remat_lib.RematSpec = None
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Token ids [B, T] -> (hidden [B, T, D], ``kv_caches``), on the model's
     device.
@@ -242,6 +272,11 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
     it is False leave their caches as they were (a finished stream of the
     conversation batcher).  ``attn_impl`` is ignored there: the attention
     is dense, as in JAX.
+
+    ``remat`` ("none", "full", "dots", "hybrid", "lite" or a bool;
+    ``ops/remat.py``) rematerializes each block's intermediates in the
+    backward, with the same numbers; ignored in incremental mode, where
+    there is no backward.
     """
     cfg = model.cfg
     if (kv_caches is None) != (cache_index is None):
@@ -279,11 +314,7 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
                              f"n_positions {cfg.n_positions}")
         pos_emb = model.wpe.weight[past:past + t][None]
     training = not deterministic
-
-    def drop(y, p):
-        return layers.dropout(y, p, generator, training)
-
-    x = drop(model.wte(ids) + pos_emb, cfg.embd_pdrop)
+    x = layers.dropout(model.wte(ids) + pos_emb, cfg.embd_pdrop, generator, training)
     mask = None if attention_mask is None else torch.as_tensor(attention_mask, device=dev)
     bias = kv_valid_len = None
     if kv_caches is not None:
@@ -296,16 +327,18 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
     if bias is not None and mask is not None:
         bias = bias + torch.where(mask.bool(), 0.0, NEG_INF)[:, None, None, :]
 
-    act = layers.ACTIVATIONS[cfg.activation]
-    eps = cfg.layer_norm_epsilon
+    block = functools.partial(_block, cfg, bias=bias, attn_impl=attn_impl,
+                              kv_valid_len=kv_valid_len, cache_index=cache_index,
+                              write_mask=kv_write_mask, training=training)
+    if kv_caches is None:
+        block = remat_lib.apply(functools.partial(block, kv_cache=None), remat)
     for i, blk in enumerate(model.h):
-        h = layers.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias, eps=eps)
-        x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len,
-                           None if kv_caches is None else kv_caches[str(i)],
-                           cache_index, kv_write_mask, drop)
-        h = layers.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias, eps=eps)
-        x = x + drop(blk.mlp.c_proj(act(blk.mlp.c_fc(h))), cfg.resid_pdrop)
-    return layers.layer_norm(x, model.ln_f.weight, model.ln_f.bias, eps=eps), kv_caches
+        if kv_caches is None:
+            x = block(blk, x, generator=generator)
+        else:
+            x = block(blk, x, kv_cache=kv_caches[str(i)], generator=generator)
+    return (layers.layer_norm(x, model.ln_f.weight, model.ln_f.bias,
+                              eps=cfg.layer_norm_epsilon), kv_caches)
 
 
 def gpt2_logits(model: GPT2Model, input_ids: ArrayLike, **kw

@@ -5,16 +5,18 @@ relative-position key table, as in
 takes the place of ``lax.scan``.  In training mode with a generator, the
 dropouts of the JAX encoder apply: hidden dropout after the input LN and
 after each residual branch, activation dropout inside the FFN, and
-attention-prob dropout on the dense path."""
+attention-prob dropout on the dense path.  ``remat`` runs the layers under
+a policy of ``ops/remat.py``, as the JAX encoder's scan body does."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 
-from ...ops import attention, layers
+from ...ops import attention, layers, remat as remat_lib
 from .config import SpeechT5Config
 
 
@@ -63,9 +65,17 @@ class Encoder(nn.Module):
     def forward(self, hidden: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None, *,
                 attn_impl: str = "flash",
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                remat: remat_lib.RematSpec = None) -> torch.Tensor:
         return encoder(self, hidden, attention_mask, attn_impl=attn_impl,
-                       generator=generator)
+                       generator=generator, remat=remat)
+
+
+def _feed_forward(ff: FeedForward, hidden: torch.Tensor, p: float, training: bool, *,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The [B, T, ffn] chain: dense, GELU, activation dropout, dense."""
+    x = layers.dropout(layers.gelu(ff.intermediate_dense(hidden)), p, generator, training)
+    return ff.output_dense(x)
 
 
 def _layer_body(cfg: SpeechT5Config, layer: EncoderLayer, hidden: torch.Tensor, *,
@@ -78,9 +88,9 @@ def _layer_body(cfg: SpeechT5Config, layer: EncoderLayer, hidden: torch.Tensor, 
     hidden = layers.layer_norm(hidden + drop(attn_out, cfg.hidden_dropout),
                                layer.layer_norm.weight, layer.layer_norm.bias,
                                eps=cfg.layer_norm_eps)
-    ff = layer.feed_forward
-    x = drop(layers.gelu(ff.intermediate_dense(hidden)), cfg.activation_dropout)
-    x = drop(ff.output_dense(x), cfg.hidden_dropout)
+    x = remat_lib.big(_feed_forward, layer.feed_forward, hidden, cfg.activation_dropout,
+                      training, generator=generator)
+    x = drop(x, cfg.hidden_dropout)
     return layers.layer_norm(hidden + x, layer.final_layer_norm.weight,
                              layer.final_layer_norm.bias, eps=cfg.layer_norm_eps)
 
@@ -88,13 +98,17 @@ def _layer_body(cfg: SpeechT5Config, layer: EncoderLayer, hidden: torch.Tensor, 
 def encoder(module: Encoder, hidden: torch.Tensor,
             attention_mask: Optional[torch.Tensor] = None, *,
             attn_impl: str = "flash",
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            remat: remat_lib.RematSpec = None) -> torch.Tensor:
     """[B, T, H] prenet features -> [B, T, H] encodings.
 
     ``attention_mask`` is a right-padded [B, T] 1/0 mask at frame
     resolution.  ``attn_impl`` "flash" runs every layer through kernel B1;
     "dense" materialises the [T, T] scores.  Dropout draws from
-    ``generator`` when the module is in training mode.
+    ``generator`` when the module is in training mode.  ``remat`` ("none",
+    "full", "dots", "hybrid", "lite" or a bool; ``ops/remat.py``)
+    rematerializes each layer's intermediates in the backward, with the
+    same numbers.
     """
     cfg = module.cfg
     training = module.training
@@ -106,8 +120,9 @@ def encoder(module: Encoder, hidden: torch.Tensor,
         kv_valid_len = None
     else:
         kv_valid_len = attention_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+    body = remat_lib.apply(functools.partial(
+        _layer_body, cfg, rel_pe=rel_pe, kv_valid_len=kv_valid_len,
+        attn_impl=attn_impl, training=training), remat)
     for layer in module.layers:
-        hidden = _layer_body(cfg, layer, hidden, rel_pe=rel_pe,
-                             kv_valid_len=kv_valid_len, attn_impl=attn_impl,
-                             generator=generator, training=training)
+        hidden = body(layer, hidden, generator=generator)
     return hidden

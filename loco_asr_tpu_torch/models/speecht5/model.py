@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ...ops import layers
+from ...ops.remat import RematSpec
 from ...utils.device import resolve_device
 from . import decoder as dec
 from . import encoder as enc
@@ -50,14 +51,15 @@ class SpeechEncoder(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None, *,
                 use_kernels: bool = True,
                 generator: Optional[torch.Generator] = None,
-                freeze_feature_encoder: bool = False
+                freeze_feature_encoder: bool = False,
+                remat: RematSpec = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         hidden, mask = self.prenet(input_values, attention_mask,
                                    use_kernels=use_kernels, generator=generator,
                                    freeze_feature_encoder=freeze_feature_encoder)
         hidden = self.wrapped_encoder(hidden, mask,
                                       attn_impl="flash" if use_kernels else "dense",
-                                      generator=generator)
+                                      generator=generator, remat=remat)
         return hidden, mask
 
 
@@ -136,19 +138,22 @@ def asr_forward(model: AsrModel, input_values: torch.Tensor,
                 decoder_attention_mask: Optional[torch.Tensor] = None, *,
                 attn_impl: str = "dense",
                 generator: Optional[torch.Generator] = None,
-                freeze_feature_encoder: bool = False) -> torch.Tensor:
+                freeze_feature_encoder: bool = False,
+                remat: RematSpec = None) -> torch.Tensor:
     """Teacher-forced ASR forward -> vocabulary logits [B, L, V].
 
     ``attn_impl="flash"`` runs kernel B1 in the encoder and both decoder
     attentions through the kernels (B5 causal self-attention, B1 mask-only
     cross-attention); ``"dense"`` materialises every score matrix and runs
     kernel B2's plain version when the feature encoder takes no gradient.
-    Dropout and SpecAugment draw from ``generator`` in training mode."""
+    Dropout and SpecAugment draw from ``generator`` in training mode.
+    ``remat`` (``ops/remat.py``) applies to the encoder stack only, as in
+    the JAX model."""
     cfg = model.cfg
     flash = attn_impl == "flash"
     encoder_hidden, enc_mask = model.encoder(
         input_values, attention_mask, use_kernels=flash, generator=generator,
-        freeze_feature_encoder=freeze_feature_encoder)
+        freeze_feature_encoder=freeze_feature_encoder, remat=remat)
     dec_in = prenets.text_decoder_prenet(model.decoder.prenet, decoder_input_ids)
     dec_in = layers.dropout(dec_in, cfg.positional_dropout, generator, model.training)
     hidden = dec.decoder(model.decoder.wrapped_decoder, dec_in, encoder_hidden,
@@ -162,7 +167,7 @@ def asr_loss(model: AsrModel, input_values: torch.Tensor,
              attention_mask: torch.Tensor, labels: torch.Tensor, *,
              label_pad_id: int = -100, attn_impl: str = "dense",
              generator: Optional[torch.Generator] = None,
-             freeze_feature_encoder: bool = False
+             freeze_feature_encoder: bool = False, remat: RematSpec = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-mean cross-entropy with the HF shift-right convention (decoder
     inputs ``[decoder_start, labels[:-1]]``, ``label_pad_id`` -> pad) ->
@@ -174,7 +179,7 @@ def asr_loss(model: AsrModel, input_values: torch.Tensor,
     shifted = shifted.masked_fill(shifted == label_pad_id, cfg.pad_token_id)
     logits = asr_forward(model, input_values, shifted, attention_mask,
                          attn_impl=attn_impl, generator=generator,
-                         freeze_feature_encoder=freeze_feature_encoder)
+                         freeze_feature_encoder=freeze_feature_encoder, remat=remat)
     valid = labels != label_pad_id
     tgt = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)

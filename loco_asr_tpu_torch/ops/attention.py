@@ -17,6 +17,9 @@ the same function:
   causal self-attention.  The kernels have no attention-prob dropout, so
   flash is taken only when that dropout is off, and never with a KV cache
   or precomputed cross K/V (decoding), as in the JAX package.
+
+Under the "lite" remat policy the dense path's score chain runs under a
+checkpoint of its own (``ops/remat.py``; JAX tags it ``big``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Dict, Optional, Union
 import torch
 from torch import nn
 
-from . import layers
+from . import layers, remat
 from .cuda import flash_attention as flash
 
 NEG_INF = -1e9  # additive mask of the dense path
@@ -183,6 +186,15 @@ def multi_head_attention(
                                     rel_pe=rel_pe, kv_valid_len=kv_valid_len)
         return module.out_proj(merge_heads(out))
 
+    out = remat.big(_dense_attention, q, k, v, rel_pe, attention_bias, kv_valid_len,
+                    dropout_p, training, generator=generator)
+    return module.out_proj(merge_heads(out))
+
+
+def _dense_attention(q, k, v, rel_pe, attention_bias, kv_valid_len, dropout_p, training, *,
+                     generator):
+    """The [B, H, Tq, Tk] chain of the dense path: scores, band, mask,
+    softmax, attention-prob dropout, probs.v."""
     # scores in float32 from operands of their own dtype (JAX's
     # preferred_element_type=float32; bf16 products are exact in float32)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -197,4 +209,4 @@ def multi_head_attention(
         scores = scores.masked_fill(~keep[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     probs = layers.dropout(probs, dropout_p, generator, training)
-    return module.out_proj(merge_heads(torch.matmul(probs, v)))
+    return torch.matmul(probs, v)

@@ -45,9 +45,9 @@ _SIGNATURES = {
     "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], _I),
     "loco_flash_rel_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     "loco_flash_rel_blocks_per_sm": ([_I] * 4, _I),
-    "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 7 + [_F, _I, _P], _I),
-    "loco_flash_rel_bwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
-    "loco_flash_rel_bwd_blocks_per_sm": ([_I] * 4, _I),
+    "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 8 + [_F, _I, _P], _I),
+    "loco_flash_rel_bwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    "loco_flash_rel_bwd_blocks_per_sm": ([_I] * 5, _I),
     "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _I, _P], _I),
     "loco_conv_frontend_blocks_per_sm": ([_I, _I], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,

@@ -40,9 +40,14 @@ The kernels read q, k, v (and, backward, the cotangent) through their
 strides (the transposed views of ``split_heads`` and a GPT-2 layer's qkv
 column views, in place) and write ``out``, dq, dk and dv into [B, T, H, D]
 buffers returned as [B, H, T, D] views, so that merging the heads and the
-gradient of splitting them are views too.  B1 takes the head dims B5 takes
-(``flash_causal.HEAD_DIMS``, 8 to 128); B3 + B4 take 64 only.  A mask-only forward's backward
-runs the mask-only B3 + B4 and has no band gradient.
+gradient of splitting them are views too.  B1 and B3 + B4 are
+instantiated at the head dims B5 is (``flash_causal.HEAD_DIMS``, 8 to
+128); any other head dim up to 128 runs the next one up on operands
+zero-padded in the head dim (exact: zero columns add nothing to q.k^T or
+q.pe^T, the padded output columns are dropped, and ``scale`` stays the
+caller's), which costs a copy of each operand; above 128 the wrappers
+raise.  A mask-only forward's backward runs the mask-only B3 + B4 and has
+no band gradient.
 :func:`flash_attention` is the JAX package's public dispatch: B1 when
 ``rel_pe`` or ``kv_valid_len`` is given, else kernel B5
 (``flash_causal.flash_forward``).
@@ -58,8 +63,6 @@ import torch
 from . import _build, flash_causal
 
 NEG_INF = -1e30
-HEAD_DIMS = flash_causal.HEAD_DIMS   # B1's instantiations in csrc/flash_rel.cu
-BWD_HEAD_DIM = 64                    # B3 + B4's, csrc/flash_rel_bwd.cu
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 
 _CONSTANTS: dict = {}   # (kind, device, ...) -> a tensor no caller writes to
@@ -158,11 +161,9 @@ def _check_smem(what: str, smem: int, two_l: int) -> None:
                          "block may use")
 
 
-def _check_cuda(what: str, q: torch.Tensor, head_dims) -> None:
+def _kernel_head_dim(what: str, q: torch.Tensor) -> int:
     _build.require_cuda(q, what)
-    if q.shape[-1] not in head_dims:
-        raise ValueError(f"{what}: the CUDA kernel takes head dims {tuple(head_dims)}, "
-                         f"got {q.shape[-1]}")
+    return flash_causal.kernel_head_dim(q.shape[-1], what)
 
 
 def _contiguous(what: str, name: str, t: torch.Tensor, dev,
@@ -198,28 +199,29 @@ def _heads_view_buffer(b: int, h: int, t: int, d: int, device,
 def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
     """B1 on the current stream (counted): q, k, v read through their
     strides, out written into a [B, Tq, H, D] buffer and returned as a
-    [B, H, Tq, D] view."""
+    [B, H, Tq, D] view (of the first D columns where D was padded)."""
     what = "flash_rel_forward"
-    _check_cuda(what, q, HEAD_DIMS)
+    b, h, tq, d = q.shape
+    kd = _kernel_head_dim(what, q)
+    pe = _table_of(what, pe, q)
+    q, k, v, pe = (flash_causal.pad_head_dim(x, kd) for x in (q, k, v, pe))
     strides = flash_causal.operand_strides((("q", q), ("k", k), ("v", v)), 2, what)
     bf16 = _build.bf16_flag(q.dtype, what)
-    pe = _table_of(what, pe, q)
-    b, h, tq, d = q.shape
     two_l = pe.shape[0]
-    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only), d,
+    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only), kd,
                                   bf16), two_l)
     vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-    out = _heads_view_buffer(b, h, tq, d, q.device, q.dtype)
+    out = _heads_view_buffer(b, h, tq, kd, q.device, q.dtype)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     strides += out.stride()[:3]
     code = _build.call_on_stream(
         _build.library().loco_flash_rel_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
         out.data_ptr(), lse.data_ptr(), flash_causal.stride_buffer(tuple(strides)),
-        b, h, tq, k.shape[2], d, two_l, int(causal), int(mask_only), float(scale), bf16)
+        b, h, tq, k.shape[2], kd, two_l, int(causal), int(mask_only), float(scale), bf16)
     _build.check(code, what)
     flash_rel_forward.launches += 1
-    return out, lse
+    return out[..., :d], lse
 
 
 def flash_rel_backward_plain(q, k, v, pe, valid_len, out, lse, g, *,
@@ -252,25 +254,27 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
                      mask_only: bool):
     """B3 + B4 on the current stream (counted): q, k, v and g (float32 or
     bf16, one dtype) read through their strides, dq, dk, dv written in
-    float32 into [B, T, H, 64] buffers and returned as [B, H, T, 64] views,
-    dqpe [B, H, Tq, 2L] (None when ``mask_only``) written whole by B3."""
+    float32 into [B, T, H, D] buffers and returned as [B, H, T, D] views
+    (of the first D columns where D was padded), dqpe [B, H, Tq, 2L] (None
+    when ``mask_only``) written whole by B3."""
     what = "flash_rel_backward"
-    _check_cuda(what, q, (BWD_HEAD_DIM,))
+    b, h, tq, d = q.shape
+    kd = _kernel_head_dim(what, q)
+    pe = _table_of(what, pe, q)
+    q, k, v, g, pe = (flash_causal.pad_head_dim(x, kd) for x in (q, k, v, g, pe))
     strides = flash_causal.operand_strides(
         (("q", q), ("k", k), ("v", v), ("g", g)), 2, what)
     bf16 = _build.bf16_flag(q.dtype, what)
     dev = q.device
-    pe = _table_of(what, pe, q)
     lse, delta = (_contiguous(what, n, t, dev) for n, t in (("lse", lse), ("delta", delta)))
-    b, h, tq, d = q.shape
     tk, two_l = k.shape[2], pe.shape[0]
     _check_smem(what, max(_smem_bytes("loco_flash_rel_bwd_smem_bytes", two_l,
-                                      int(mask_only), kernel, bf16) for kernel in (0, 1)),
+                                      int(mask_only), kernel, kd, bf16) for kernel in (0, 1)),
                 two_l)
     vl = valid_len.to(device=dev, dtype=torch.int32).contiguous()
-    dq = _heads_view_buffer(b, h, tq, d, dev)
-    dk = _heads_view_buffer(b, h, tk, d, dev)
-    dv = _heads_view_buffer(b, h, tk, d, dev)
+    dq = _heads_view_buffer(b, h, tq, kd, dev)
+    dk = _heads_view_buffer(b, h, tk, kd, dev)
+    dv = _heads_view_buffer(b, h, tk, kd, dev)
     dqpe = None if mask_only else torch.empty((b, h, tq, two_l), dtype=torch.float32,
                                               device=dev)
     for x in (dq, dk, dv):
@@ -280,11 +284,11 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), g.data_ptr(), dq.data_ptr(),
         0 if dqpe is None else dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        flash_causal.stride_buffer(tuple(strides)), b, h, tq, tk, two_l, int(causal),
+        flash_causal.stride_buffer(tuple(strides)), b, h, tq, tk, kd, two_l, int(causal),
         int(mask_only), float(scale), bf16)
     _build.check(code, what)
     flash_rel_backward.launches += 1
-    return dq, dk, dv, dqpe
+    return dq[..., :d], dk[..., :d], dv[..., :d], dqpe
 
 
 def flash_rel_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -301,8 +305,9 @@ def flash_rel_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``torch.matmul`` either way, skipped for dpe unless ``need_dpe``.  With
     ``mask_only`` (the forward ran without a table; ``pe`` is the zero
     table) the kernels skip the band and neither matmul runs: dpe is None.
-    On the card q, k, v and g are read in place and dq, dk, dv are
-    [B, H, T, 64] views of [B, T, H, 64] buffers."""
+    On the card q, k, v and g are read in place (copied where the head dim
+    is padded) and dq, dk, dv are [B, H, T, D] views of [B, T, H, D]
+    buffers."""
     _check(q, k, v, pe, valid_len)
     if q.device.type == "cpu":
         dq, dk, dv, dqpe = flash_rel_backward_plain(
@@ -369,8 +374,9 @@ def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B,H,Tq,D], k/v [B,H,Tk,D], pe [2L,D] or None (mask-only),
     valid_len [B] int -> (out [B,H,Tq,D], lse [B,H,Tq] float32).  ``out``
-    is differentiable in q, k, v and pe (``lse`` is not); on the card the
-    forward takes D in ``HEAD_DIMS``, its backward D = 64."""
+    is differentiable in q, k, v and pe (``lse`` is not); on the card
+    forward and backward take any D up to 128 (``flash_causal.HEAD_DIMS``
+    in place, the rest padded)."""
     mask_only = pe is None
     if mask_only:
         pe = _zero_table(q.shape[-1], q.dtype, q.device)

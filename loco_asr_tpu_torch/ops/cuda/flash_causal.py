@@ -28,7 +28,10 @@ The kernel addresses q, k, v and out through (batch, head, time) strides
 with a contiguous head dim, so neither layout, nor the column slices of a
 fused qkv projection, is copied before the launch.  Both wrappers launch
 it for CUDA tensors and take their plain version only for CPU tensors;
-each counts its own launches in ``launches``.
+each counts its own launches in ``launches``.  The kernel is instantiated
+at ``HEAD_DIMS``; any other head dim up to 128 runs the next one up on
+operands zero-padded in the head dim (a copy, exact), and above 128 the
+wrappers raise.
 
 Both are differentiable through one ``torch.autograd.Function`` whose
 backward is :func:`flash_backward_blockwise`, the counterpart of the JAX
@@ -50,6 +53,25 @@ from . import _build
 NEG_INF = -1e30
 BLOCK_K = 512                      # key block of the blockwise backward
 HEAD_DIMS = (8, 16, 32, 64, 128)   # instantiated in csrc/flash_causal.cu
+
+
+def kernel_head_dim(d: int, what: str) -> int:
+    """The instantiated head dim that a launch at head dim ``d`` runs: ``d``
+    itself, else the next one up (12 -> 16, 80 -> 128), on operands
+    zero-padded in the head dim.  That is exact: zero columns add nothing
+    to q.k^T (or q.pe^T), the padded output columns are dropped, and the
+    caller's ``scale`` is kept.  Above the largest it raises."""
+    for kd in HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"{what}: the CUDA kernels take head dims up to {HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_head_dim(x: torch.Tensor, kd: int) -> torch.Tensor:
+    """``x`` as it is when its head dim (the last) is ``kd``, else a
+    contiguous copy zero-padded to ``kd``."""
+    d = x.shape[-1]
+    return x if d == kd else torch.nn.functional.pad(x, (0, kd - d))
 
 
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -151,12 +173,14 @@ def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
     """Check the CUDA operands, allocate out (q's layout, and q's strides
     where q is dense: a transposed view of a contiguous tensor gets the
     same transposed layout, so merging its heads is a view) and lse, and
-    launch the kernel on the current stream."""
+    launch the kernel on the current stream.  A head dim without an
+    instantiation runs the next one up on padded copies
+    (:func:`kernel_head_dim`); out is then a view of the first D columns."""
     dev = q.device
     _build.require_cuda(q, what)
     b, h, tq, tk, d = dims
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
+    kd = kernel_head_dim(d, what)
+    q, k, v = (pad_head_dim(x, kd) for x in (q, k, v))
     strides = operand_strides((("q", q), ("k", k), ("v", v)), t_axis, what)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
@@ -165,10 +189,10 @@ def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
     code = _build.call_on_stream(
         _build.library().loco_flash_causal_fwd, dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        stride_buffer(tuple(strides)), b, h, tq, tk, d, int(causal), float(scale),
+        stride_buffer(tuple(strides)), b, h, tq, tk, kd, int(causal), float(scale),
         _build.bf16_flag(q.dtype, what))
     _build.check(code, what)
-    return out, lse
+    return out[..., :d], lse
 
 
 def flash_backward_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -26,13 +26,14 @@
   batch and divides once by the total token count (exactly the full-batch
   token mean); ``freeze_feature_encoder`` gives the conv stack neither
   gradients nor updates, weight decay included; ``compute_dtype`` runs
-  the loss under :func:`cast_compute`.
+  the loss under :func:`cast_compute`; ``remat`` runs the encoder layers
+  under a policy of ``ops/remat.py``.
 * :func:`make_lm_train_step` -- the GPT-2 causal-LM step: token-mean NLL
   over tokens 1..len-1 of each row, the lm head chunked with recompute
   (default) or dense; ``attn_impl="flash"`` zeroes ``attn_pdrop`` with the
   same warning and runs kernel B6 (B5 where the head dim is not 64 or the
-  head count is odd) and its blockwise backward; ``grad_accum`` and
-  ``compute_dtype`` as above.
+  head count is odd) and its blockwise backward; ``grad_accum``,
+  ``compute_dtype`` and ``remat`` (over the blocks) as above.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from torch import nn
 from ..models.gpt2 import model as g
 from ..models.speecht5 import model as st5
 from ..models.speecht5.config import SpeechT5Config
+from ..ops.remat import RematSpec
 
 FROZEN_PREFIX = "encoder.prenet.feature_encoder."
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adamw's defaults
@@ -284,7 +286,8 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
                         attn_impl: str = "dense",
                         freeze_feature_encoder: bool = False,
                         grad_accum: int = 1,
-                        compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                        compute_dtype: Optional[torch.dtype] = None,
+                        remat: RematSpec = None) -> Callable:
     """Returns ``step(model, opt_state, batch, generator) -> metrics``:
     the model (an ``AsrModel`` on the batch's device) and ``opt_state``
     (``tx.init(trainable_params(model, freeze_feature_encoder))``) are
@@ -295,7 +298,11 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
 
     ``attn_impl="flash"`` runs the kernels (B1, B3/B4, B5 and its
     backward; B2 under ``freeze_feature_encoder``), in their bf16 forms
-    under ``compute_dtype=torch.bfloat16`` (:func:`cast_compute`)."""
+    under ``compute_dtype=torch.bfloat16`` (:func:`cast_compute`).
+    ``remat`` ("none", "full", "dots", "hybrid", "lite" or a bool;
+    ``ops/remat.py``) rematerializes the encoder layers in the backward:
+    "full" keeps only their inputs, "lite" all but the FFN chain; the
+    step's numbers do not change."""
     cfg = _zero_attention_dropout(cfg, "attention_dropout", attn_impl)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -304,7 +311,7 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
         _, aux = st5.asr_loss(model, batch["input_values"], batch["attention_mask"],
                               batch["labels"], attn_impl=attn_impl,
                               generator=generator,
-                              freeze_feature_encoder=freeze_feature_encoder)
+                              freeze_feature_encoder=freeze_feature_encoder, remat=remat)
         return aux["nll_sum"], aux["ntokens"]
 
     loss_parts = _with_compute_dtype(loss_parts, compute_dtype)
@@ -324,7 +331,8 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
 
 def make_lm_train_step(cfg: g.GPT2Config, tx: AdamW, *, attn_impl: str = "dense",
                        loss_impl: str = "chunked", grad_accum: int = 1,
-                       compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                       compute_dtype: Optional[torch.dtype] = None,
+                       remat: RematSpec = None) -> Callable:
     """Returns ``step(model, opt_state, batch, generator) -> metrics`` for
     a ``GPT2Model`` on the batch's device, updated in place with
     ``opt_state = tx.init(dict(model.named_parameters()))``.  ``batch``
@@ -338,7 +346,8 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: AdamW, *, attn_impl: str = "dense"
     (``token_nll_from_hidden(checkpoint_chunks=True)``), so the [B, L, V]
     logits never live in memory; ``"dense"`` materialises them.
     ``attn_impl="flash"`` runs B6 in every layer, forward, and its
-    blockwise PyTorch backward."""
+    blockwise PyTorch backward.  ``remat`` as :func:`make_asr_train_step`'s,
+    over the blocks."""
     cfg = _zero_attention_dropout(cfg, "attn_pdrop", attn_impl)
     if loss_impl not in ("dense", "chunked"):
         raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {loss_impl!r}")
@@ -347,7 +356,8 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: AdamW, *, attn_impl: str = "dense"
 
     def loss_parts(model, batch, generator):
         ids = batch["ids"]
-        kw = dict(deterministic=False, generator=generator, attn_impl=attn_impl)
+        kw = dict(deterministic=False, generator=generator, attn_impl=attn_impl,
+                  remat=remat)
         if loss_impl == "chunked":
             hidden, _ = g.gpt2_forward(model, ids, **kw)
             nll = g.token_nll_from_hidden(model.wte.weight, hidden, ids,

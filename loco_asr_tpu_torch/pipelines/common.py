@@ -18,8 +18,8 @@ from ..models.speecht5.config import SpeechT5Config
 def refuse_unported(args, jax_pipeline: str, **extra: bool) -> None:
     """SystemExit naming every flag of a trainer's ``args`` that this
     package does not support yet: the JAX trainers' common ones (adafactor,
-    a mesh of more than one device, sequence parallelism, remat, NaN
-    recovery) and ``extra`` (a description of the flag -> whether it was
+    a mesh of more than one device, sequence parallelism, NaN recovery) and
+    ``extra`` (a description of the flag -> whether it was
     given)."""
     dims = [int(x) for x in args.mesh.split(",")]
     refused = {
@@ -27,7 +27,6 @@ def refuse_unported(args, jax_pipeline: str, **extra: bool) -> None:
         "--mesh with more than one device": any(d not in (-1, 1) for d in dims),
         f"--attn_impl {args.attn_impl}": args.attn_impl in ("ring", "ulysses"),
         "--sp_devices": bool(args.sp_devices),
-        f"--remat {args.remat}": args.remat != "none",
         "--nan_recovery": args.nan_recovery,
         "--nan_inject_step": args.nan_inject_step is not None,
         **extra,

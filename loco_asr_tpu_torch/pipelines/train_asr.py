@@ -25,10 +25,15 @@ in the promotion of its operands' dtypes; ``--opt_mu_dtype bfloat16``
 stores Adam's first moment in bf16.  Checkpoints hold bf16 leaves as the
 JAX package's ``.npz`` does, and ``--resume`` reads them back.
 
+``--remat {full,dots,hybrid,lite}`` (bare ``--remat``: full) runs the
+encoder layers under a rematerialization policy of ``ops/remat.py``, with
+the same numbers.  The long-context recipe of the JAX trainer runs as it
+is: ``--conversation_seconds 164 --attn_impl flash --remat lite``.
+
 Refused with an error (not ported): ``--optimizer adafactor``,
 a ``--mesh`` of more than one device, ``--attn_impl ring|ulysses``,
-``--sp_devices``, ``--remat`` other than none, ``--nan_recovery``,
-``--nan_inject_step`` and a ``--checkpoint`` that is not a JAX ``.npz``.
+``--sp_devices``, ``--nan_recovery``, ``--nan_inject_step`` and a
+``--checkpoint`` that is not a JAX ``.npz``.
 """
 
 from __future__ import annotations
@@ -88,7 +93,11 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--remat", nargs="?", const="full", default="none",
                    choices=["none", "full", "dots", "hybrid", "lite"],
-                   help="only 'none' is ported")
+                   help="rematerialize encoder intermediates on backward: "
+                        "'full' keeps only each layer's input (bare --remat), "
+                        "'dots' the matrix products, 'hybrid' those and the "
+                        "dropout masks, 'lite' all but the FFN chain "
+                        "(ops/remat.py); the numbers do not change")
     p.add_argument("--nan_recovery", action="store_true", help="not ported (refused)")
     p.add_argument("--nan_inject_step", type=int, default=None,
                    help="not ported (refused)")
@@ -182,7 +191,8 @@ def main(argv=None) -> int:
         cfg, tx, attn_impl=args.attn_impl,
         freeze_feature_encoder=args.freeze_feature_encoder,
         grad_accum=args.grad_accum,
-        compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None)
+        compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
+        remat=args.remat)
 
     ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
     metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))

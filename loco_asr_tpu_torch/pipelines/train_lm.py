@@ -31,10 +31,13 @@ and backward in bf16 (kernel B6's bf16 form under ``--attn_impl flash``)
 on float32 master weights and optimizer state; ``--opt_mu_dtype bfloat16``
 stores Adam's first moment in bf16 (read back by ``--resume``).
 
-Refused with an error (not ported): ``--optimizer adafactor``, ``--remat``
-other than none, ``--nan_recovery``, ``--nan_inject_step``, a ``--mesh``
-of more than one device, ``--attn_impl ring|ulysses`` and
-``--sp_devices``.
+``--remat {full,dots,hybrid,lite}`` (bare ``--remat``: full) runs the
+blocks under a rematerialization policy of ``ops/remat.py``, with the same
+numbers.
+
+Refused with an error (not ported): ``--optimizer adafactor``,
+``--nan_recovery``, ``--nan_inject_step``, a ``--mesh`` of more than one
+device, ``--attn_impl ring|ulysses`` and ``--sp_devices``.
 """
 
 from __future__ import annotations
@@ -73,7 +76,9 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--remat", nargs="?", const="full", default="none",
                    choices=["none", "full", "dots", "hybrid", "lite"],
-                   help="only 'none' is ported")
+                   help="rematerialize block intermediates on backward "
+                        "(ops/remat.py; bare --remat: full); the numbers do "
+                        "not change")
     p.add_argument("--nan_recovery", action="store_true", help="not ported (refused)")
     p.add_argument("--nan_inject_step", type=int, default=None,
                    help="not ported (refused)")
@@ -241,7 +246,8 @@ def main(argv=None) -> int:
     step_fn = train.make_lm_train_step(
         cfg, tx, attn_impl=args.attn_impl, loss_impl=args.loss_impl,
         grad_accum=args.grad_accum,
-        compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None)
+        compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
+        remat=args.remat)
 
     train_ds = lm_datasets.MaxLenTextDataset(args.train_file, tokenizer,
                                              max_len=args.seq_len)

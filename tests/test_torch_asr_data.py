@@ -296,7 +296,7 @@ def test_train_asr_precision_flags_match_jax(flag, dev_dir, tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--optimizer", "adafactor"], ["--mesh", "2,1,1"],
     ["--attn_impl", "ring"], ["--attn_impl", "ulysses"], ["--sp_devices", "2"],
-    ["--remat", "full"], ["--nan_recovery"], ["--nan_inject_step", "3"],
+    ["--mesh", "1,2,1"], ["--nan_recovery"], ["--nan_inject_step", "3"],
     ["--checkpoint", "weights.safetensors"]])
 def test_unported_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not supported by this package yet"):

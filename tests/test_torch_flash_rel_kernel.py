@@ -297,14 +297,23 @@ def test_cuda_kernel_head_dims_match_plain(case, cuda_f32):
 
 @pytest.mark.cuda
 def test_cuda_refuses_head_dims_not_built(cuda_f32):
-    """A head dim outside B1's instantiations raises before any launch; B3
-    + B4 take 64 only, so the backward at D = 8 raises too."""
+    """A head dim without an instantiation up to 128 (24 here) runs the
+    next one up on zero-padded operands, forward and backward, with the
+    plain version's numbers; above 128 nothing is built and the wrappers
+    raise before any launch."""
     q, k, v, pe = _inputs(1, 2, 20, 20, 8, seed=0, device=cuda_f32, d=24)
     vl = torch.tensor([20], dtype=torch.int32, device=cuda_f32)
-    with pytest.raises(ValueError, match="head dims"):
-        tfa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=1.0)
-    q, k, v, pe = _inputs(1, 2, 20, 20, 8, seed=0, device=cuda_f32, d=8)
     out, lse = tfa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=1.0)
-    with pytest.raises(ValueError, match="head dims"):
+    pout, plse = tfa.flash_rel_forward_plain(q, k, v, pe, vl, causal=False, scale=1.0)
+    assert out.shape == pout.shape
+    assert max((out - pout).abs().max().item(), (lse - plse).abs().max().item()) <= 1e-4
+    got = tfa.flash_rel_backward(q, k, v, pe, vl, out, lse, torch.ones_like(out),
+                                 causal=False, scale=1.0)
+    assert [tuple(x.shape) for x in got] == [tuple(q.shape)] * 3 + [tuple(pe.shape)]
+    q, k, v, pe = _inputs(1, 2, 20, 20, 8, seed=0, device=cuda_f32, d=136)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        tfa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=1.0)
+    out, lse = tfa.flash_rel_forward_plain(q, k, v, pe, vl, causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="head dims up to 128"):
         tfa.flash_rel_backward(q, k, v, pe, vl, out, lse, torch.ones_like(out),
                                causal=False, scale=1.0)

@@ -405,7 +405,7 @@ def test_cli_precision_flags_match_jax(flag, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--optimizer", "adafactor"],
-                                   ["--remat"], ["--nan_recovery"],
+                                   ["--mesh", "1,2,1"], ["--nan_recovery"],
                                    ["--nan_inject_step", "3"], ["--mesh", "2,1,1"],
                                    ["--attn_impl", "ring"], ["--attn_impl", "ulysses"],
                                    ["--sp_devices", "2"]])
