@@ -13,9 +13,11 @@ shallow fusion and conversation carry-over (``decode_asr``), GPT-2 LM
 training (``train_lm --attn_impl flash``), the LoCo experiment
 (``loco_experiment``, its tiny models trained on the card, and its decodes
 on the reference's trained weights), SLURP intent classification
-(``extract_embeddings`` -> ``train_classifier`` -> ``slurp_sweep``) and
+(``extract_embeddings`` -> ``train_classifier`` -> ``slurp_sweep``),
 conversation-scale ASR training (``train_asr --conversation_seconds 164
---attn_impl flash --remat lite``).
+--attn_impl flash --remat lite``), long-form episode transcription
+(``transcribe_episodes``) and the trainers' Adafactor, NaN recovery and
+HF-weight options.
 Phases, in order (any failure raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
@@ -125,10 +127,11 @@ Phases, in order (any failure raises and exits non-zero):
    dev utterances at the pipeline's batch shapes ([8, 16000] and the
    batcher's admission buckets [4 | 2 | 1, 16000]), kernel path against
    plain path within 1e-3 (max) and 1e-4 (mean); ``decode_asr`` on the
-   dev corpus (12 recordings, 120 utterances of <= 1 s, ``--max_seconds
-   1`` so that static batches and the batcher pad alike) with a seeded
-   gpt2-width LM ``.npz``, in six modes (static greedy and beam 5, ``--continuous`` greedy and beam 5,
-   ``--continuous --conversation`` greedy and beam 5): 120 hyp.text lines,
+   dev corpus's first 8 batches (``--limit_batches 8``: 64 of its 120
+   utterances of <= 1 s, ``--max_seconds 1`` so that static batches and
+   the batcher pad alike) with a seeded gpt2-width LM ``.npz``, in six
+   modes (static greedy and beam 5, ``--continuous`` greedy and beam 5,
+   ``--continuous --conversation`` greedy and beam 5): 64 hyp.text lines,
    a finite wer.json, continuous hypotheses equal to static ones, B1/B2
    launches, RTFx and wall seconds per mode;
 13. LM training and the LoCo experiment: (a) one ``make_lm_train_step``
@@ -241,13 +244,49 @@ Phases, in order (any failure raises and exits non-zero):
    directory of the committed train utterances concatenated into
    recording-channels of >= 200 s: finite losses, windows of <= 164 s,
    labels up to 2,624, its launches (no B1 recompute under lite);
-18. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+18. long-form episodes and the rest of the trainer options: (a)
+   ``transcribe_episodes --vocab_size 50257 --lm_model gpt2 --attn_impl
+   flash --batch_seconds 120 --max_decode_len 300`` at SpeechT5-base +
+   gpt2 width (random weights from seed 0) on two seeded WAV episodes
+   (noise bursts between silences): one with manifest timestamps and
+   texts, three bursts of 122-130 s (each cropped to 120 s), one left to
+   the energy endpointer (9.3 s, padded to 10 s).  Per episode: 12 B1 and 1 B2 a segment and nothing
+   else, one cross-attention projection a segment, two or more refreshes
+   of the conversation cache (its re-primings counted), RTFx; every greedy
+   step's two best fused candidates traced, and the kernel path's tokens
+   held to the plain path's (``use_kernels=False`` through
+   ``transcribe_long_audio``, its decoder K projections counted) by phase
+   12's near-tie rule.  ``--continuous --slots 4`` greedy: B1/B2 an
+   admission, one projection an admission, two or more refreshes, its
+   tokens on the manifest episode held by the same rule to the per-episode
+   ones (each of those segments fills the bucket, so both modes encode it
+   alike; per episode pads to whole seconds, and the padding enters the
+   first conv layer's instance norm); ``--beam_size 4``; corpus RTFx and
+   WER.  B1's device time at
+   the 120 s segment (B = 1), the busy share of one segment's decode, and
+   dense attention's peak memory at 120, 240 and 480 s until it runs out;
+   (b) one Adafactor step at SpeechT5-base width (dropout off, B = 2 x 4
+   s) on the card against the CPU (loss rtol 1e-5, parameters atol 1e-5
+   where the CPU gradient is live, noise-driven entries within lr); the
+   full-width ASR step at B = 8 x 10 s under AdamW and Adafactor in
+   turns; gpt2-xl widths (vocabulary 256) at [4, 1024] under AdamW and
+   Adafactor (peak memory, state bytes, ms, 48 B5 launches a forward:
+   25 heads), ``train_lm --model gpt2-xl --optimizer adafactor --attn_impl
+   flash`` for 3 steps; ``train_asr --optimizer adafactor --attn_impl
+   flash --checkpoint <HF .safetensors> --nan_recovery --nan_inject_step
+   3 --save_every 2 --steps 6``: one ``nan_rollback`` at step 3, the live
+   parameters after it equal to step 2's save and the optimizer's count
+   2, every other loss finite, its launches, then ``average_last_k``;
+19. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
    ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
    ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
    phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches,
    B1, B3/B4 and B5 with phase 17 (d)'s launches, B3/B4 with phase 17
-   (a)'s head dims and phase 17 (b)'s head-dim-8 launches; then the six
-   bf16 forms with phase 16's launches, times and bounds), then last
+   (a)'s head dims and phase 17 (b)'s head-dim-8 launches, B1 and B2 with
+   phase 18's episode launches, B1 with its 120 s decode time, B1 and
+   B3/B4 with the Adafactor ``train_asr`` run's, B5 with the gpt2-xl
+   steps'; then the six bf16 forms with phase 16's launches, times and
+   bounds), then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -301,6 +340,7 @@ TTS_TOL = 1e-3        # teacher-forced mels / stop logits, kernel vs plain path
 DECODE_SCORE_TOL = 1e-4   # beam scores, kernel path vs plain path (atol and rtol)
 DECODE_TIE_ATOL = 1e-3    # a beam near-tie: the parting candidates' gap and drift
 ENC_MAX_TOL, ENC_MEAN_TOL = 1e-3, 1e-4   # encoder output, kernel path vs plain path
+DECODE_ASR_BATCHES = 8    # phase 12's decode_asr runs: 64 of the dev corpus's 120 utterances
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1292,8 +1332,11 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
                                    seed=1, device=dev), lm_path)
         # the corpus's utterances last <= 1 s: static batches and the
         # batcher's bucket both pad them to 1 s, so both encode the same input
+        # (the first 8 batches, 64 of the 120 utterances: the depth cut to
+        # keep the whole script inside its time limit)
         common = ["--data_dir", corpus["dev"], "--lm_model", "gpt2", "--lm_checkpoint", lm_path,
-                  "--max_decode_len", "64", "--batch_size", "8", "--max_seconds", "1"]
+                  "--max_decode_len", "64", "--batch_size", "8", "--max_seconds", "1",
+                  "--limit_batches", str(DECODE_ASR_BATCHES)]
         modes = {"static_greedy": ["--beam_size", "1"], "static_beam5": ["--beam_size", "5"],
                  "continuous_greedy": ["--continuous", "--beam_size", "1"],
                  "continuous_beam5": ["--continuous", "--beam_size", "5"],
@@ -1312,7 +1355,7 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
                 lines = f.read().splitlines()
             with open(os.path.join(out_dir, "wer.json")) as f:
                 details = json.load(f)
-            check(len(lines) == 120, f"{name}: {len(lines)} lines in hyp.text")
+            check(len(lines) == 8 * DECODE_ASR_BATCHES, f"{name}: {len(lines)} lines in hyp.text")
             check(np.isfinite(details["wer"]) and np.isfinite(details["rtfx"]),
                   f"{name}: wer.json {details}")
             check(run_launches["B1"] > 0 and run_launches["B2"] > 0
@@ -3236,6 +3279,639 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
     return out
 
 
+# ---- phase 18: long-form episodes, the rest of the trainer options ----------
+
+EPISODE_SEED = 18
+EPISODE_BATCH_SECONDS = 120          # transcribe_episodes --batch_seconds
+EPISODE_DECODE_LEN = 400             # --max_decode_len: gpt2's 1,024 positions less
+                                     # the 408 reserved: every segment after the
+                                     # first refreshes the context
+# the bursts, in seconds, between 1.5 s silences: the manifest episode's
+# each past --batch_seconds (cropped to it, so that both modes encode them
+# at one padding), the endpointer's one, padded to whole seconds per episode
+EPISODE_BURSTS = {"ep_manifest": (122.0, 130.0, 125.0), "ep_endpointer": (9.3,)}
+EPISODE_GAP = 1.5
+EPISODE_WORDS = ("so", "we", "talked", "about", "the", "model", "and", "then", "it",
+                 "was", "long", "context", "really", "good", "you", "know")
+XL_BATCH = 4                         # gpt2-xl training rows of 1,024 tokens
+
+
+def write_episodes(root: str, seed: int = EPISODE_SEED, sr: int = 16000):
+    """Seeded speech-like episodes as 16-bit WAVs and a manifest: amplitude-
+    modulated noise bursts between silences.  ``ep_manifest`` carries each
+    burst's timestamps and a reference text, ``ep_endpointer`` none.
+    Returns (manifest path, {episode: (waveform, [(start, end)])})."""
+    from loco_asr_tpu_torch.data import podcasts
+
+    rng = np.random.default_rng(seed)
+    episodes, waves = [], {}
+    for eid, bursts in EPISODE_BURSTS.items():
+        parts, spans, t = [], [], 0.0
+        for sec in bursts:
+            parts.append(np.zeros(int(EPISODE_GAP * sr), np.float32))
+            t += EPISODE_GAP
+            n = int(sec * sr)
+            env = 0.4 + 0.6 * np.abs(np.sin(np.linspace(0.0, 3.0 * sec * np.pi, n)))
+            parts.append((rng.standard_normal(n) * 0.2 * env).astype(np.float32))
+            spans.append((t, t + sec))
+            t += sec
+        parts.append(np.zeros(int(EPISODE_GAP * sr), np.float32))
+        wav = np.concatenate(parts)
+        path = os.path.join(root, f"{eid}.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes((np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16).tobytes())
+        segs = ([podcasts.EpisodeSegment(a, b, " ".join(rng.choice(EPISODE_WORDS, 12)))
+                 for a, b in spans] if eid == "ep_manifest" else [])
+        episodes.append(podcasts.Episode(eid, f"{eid}.wav", duration=len(wav) / sr,
+                                         segments=segs))
+        # the waveform as the pipeline reads it back (16-bit rounding)
+        from loco_asr_tpu_torch.ops.audio import load_audio
+        waves[eid] = (load_audio(path, sr)[0], spans)
+    manifest = os.path.join(root, "manifest.jsonl")
+    podcasts.write_manifest(manifest, episodes)
+    return manifest, waves
+
+
+@contextlib.contextmanager
+def greedy_trace():
+    """For every step of the B = 1 greedy loops with fusion run inside, the
+    top two fused candidates (the decoder's log-probs plus the LM's weighted
+    ones, the sum ``greedy_decode`` takes its argmax of), as lists per
+    decode (a new list where the step index is 0): [[(values [2], ids [2])
+    per step] per decode], on the device."""
+    import torch
+
+    from loco_asr_tpu_torch.decode import fusion as fusion_mod
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+
+    trace, pending = [], []
+    step_fn, lm_step = st5.asr_decode_step, fusion_mod.FusionLM.step
+
+    def asr_step(model, tok, t, *a, **kw):
+        logits = step_fn(model, tok, t, *a, **kw)
+        if isinstance(t, int) and t == 0:
+            trace.append([])
+        pending.append(torch.log_softmax(logits.float(), dim=-1))
+        return logits
+
+    def fused_step(self, *a, **kw):
+        lm_logp, cache = lm_step(self, *a, **kw)
+        if pending:
+            vals, ids = torch.topk(pending.pop() + lm_logp, 2, dim=-1)
+            trace[-1].append((vals[0], ids[0]))
+        return lm_logp, cache
+
+    st5.asr_decode_step, fusion_mod.FusionLM.step = asr_step, fused_step
+    try:
+        yield trace
+    finally:
+        st5.asr_decode_step, fusion_mod.FusionLM.step = step_fn, lm_step
+
+
+def greedy_agreement(got_ids, want_ids, got_trace, want_trace, what: str):
+    """Segment token ids of one greedy path against another's, in order,
+    over one conversation (the LM context carries, so a parting changes
+    every later segment): equal, or parting at a near-tie, the rule of
+    :func:`beam_agreement` for K = 1.  At the first step where the two
+    argmaxes differ, the token taken on the ``got`` path is the ``want``
+    path's second candidate, the ``want`` path's two candidates lie within
+    DECODE_TIE_ATOL, and (where ``got_trace`` is given) the two paths'
+    scores of both candidates within DECODE_TIE_ATOL of each other; until
+    then the chosen scores agree within DECODE_SCORE_TOL.  Returns
+    [segment, step, gap, drift] of the parting, or None."""
+    for s, (gi, wi) in enumerate(zip(got_ids, want_ids)):
+        wt = want_trace[s]
+        gt = got_trace[s] if got_trace is not None else None
+        if gt is not None:
+            n = min(len(gt), len(wt))
+            gids = [int(gt[t][1][0]) for t in range(n)]
+        else:   # the ids the other path emitted (no trace of it)
+            n = min(len(gi), len(wt))
+            gids = list(gi[:n])
+        for t in range(n):
+            wv, wids = wt[t]
+            if gids[t] == int(wids[0]):
+                if gt is not None:
+                    err = abs(gt[t][0][0].item() - wv[0].item())
+                    check(err <= DECODE_SCORE_TOL * (1 + abs(wv[0].item())),
+                          f"{what}: segment {s} step {t} score drift {err}")
+                continue
+            gap = (wv[0] - wv[1]).item()
+            check(gids[t] == int(wids[1]) and gap <= DECODE_TIE_ATOL,
+                  f"{what}: segment {s} parts at step {t} where the candidates lie "
+                  f"{gap} apart (or on a third candidate): not a near-tie")
+            drift = 0.0
+            if gt is not None:
+                gv, g_ids = gt[t]
+                drift = max(abs(gv[j].item() - wv[int((wids == g_ids[j]).nonzero()[0])].item())
+                            for j in range(2) if bool((wids == g_ids[j]).any()))
+                check(drift <= DECODE_TIE_ATOL, f"{what}: segment {s} step {t} drift {drift}")
+            return [s, t, gap, drift]
+        check(list(gi) == list(wi), f"{what}: segment {s} token ids differ past the trace")
+    check(len(got_ids) == len(want_ids), f"{what}: {len(got_ids)} against {len(want_ids)} "
+                                         "segments")
+    return None
+
+
+@contextlib.contextmanager
+def cross_projections():
+    """Rows of every projection of the decoder's cross-attention K/V made
+    inside (``decoder.init_cross_cache``: each layer's k and v of those
+    rows), a list of row counts, one per call, whatever model makes them."""
+    from loco_asr_tpu_torch.models.speecht5 import decoder as dec
+
+    calls, real = [], dec.init_cross_cache
+
+    def counted(module, encoder_hidden):
+        calls.append(int(encoder_hidden.shape[0]))
+        return real(module, encoder_hidden)
+
+    dec.init_cross_cache = counted
+    try:
+        yield calls
+    finally:
+        dec.init_cross_cache = real
+
+
+@contextlib.contextmanager
+def k_projections(model):
+    """Calls of the decoder's cross-attention K projections of ``model``
+    inside (forward hooks): a per-step projection would show here."""
+    calls = []
+    hooks = [lyr.encoder_attn.k_proj.register_forward_hook(
+        lambda mod, inp, out: calls.append(int(inp[0].shape[0])))
+        for lyr in model.decoder.wrapped_decoder.layers]
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def episode_outputs(out_dir: str, episodes) -> tuple:
+    """({episode: [token ids per segment]}, {episode: [(start, end)]},
+    {episode: metrics row}) of a ``transcribe_episodes`` run."""
+    ids, spans = {}, {}
+    for eid in episodes:
+        with open(os.path.join(out_dir, f"{eid}.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        ids[eid] = [r["token_ids"] for r in lines]
+        spans[eid] = [(r["start"], r["end"]) for r in lines]
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = {r["episode"]: r for r in map(json.loads, f) if "episode" in r}
+    return ids, spans, rows
+
+
+def episodes_phase(smi: str, dev) -> dict:
+    """Phase 18 (a): ``transcribe_episodes`` at SpeechT5-base + gpt2 width
+    (vocabulary 50257, random weights from seed 0) on seeded episodes,
+    ``--attn_impl flash --batch_seconds 120``, per episode and
+    ``--continuous --slots 4`` (greedy and beam 4)."""
+    import torch
+
+    from loco_asr_tpu_torch.decode.fusion import FusionLM
+    from loco_asr_tpu_torch.decode.long_audio import transcribe_long_audio
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.pipelines import transcribe_episodes
+
+    t_phase = time.perf_counter()
+    sr, bs, L = 16000, EPISODE_BATCH_SECONDS, EPISODE_DECODE_LEN
+    cfg = SpeechT5Config(vocab_size=50257)
+    n_dec = cfg.decoder_layers
+    # the CLI's weights: both inits from seed 0
+    model = st5.asr_model_init(cfg, seed=0, device=dev)
+    lm = FusionLM(gm.gpt2_init(gm.PRESETS["gpt2"], seed=0, device=dev), weight=0.3)
+    tmp = tempfile.TemporaryDirectory()
+    manifest, waves = write_episodes(tmp.name)
+    flags = ["--manifest", manifest, "--vocab_size", "50257", "--lm_model", "gpt2",
+             "--attn_impl", "flash", "--batch_seconds", str(bs), "--max_decode_len", str(L)]
+    primes, real_prime = [], FusionLM.prime
+
+    def counted_prime(self, *a, **kw):   # a refresh re-primes the kept tail
+        primes.append(1)
+        return real_prime(self, *a, **kw)
+
+    def run(name, extra):
+        out_dir = os.path.join(tmp.name, name)
+        primes.clear()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with cross_projections() as proj:
+            t0 = time.perf_counter()
+            rc = transcribe_episodes.main([*flags, "--out_dir", out_dir, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(rc == 0, f"transcribe_episodes {extra} returned {rc}")
+        ids, spans, rows = episode_outputs(out_dir, waves)
+        return dict(ids=ids, spans=spans, rows=rows, wall_s=wall, launches=all_launches(),
+                    refreshes=len(primes), projections=list(proj),
+                    peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    FusionLM.prime = counted_prime
+    try:
+        # (a) per episode, kernel path: the CLI, every greedy step traced
+        with greedy_trace() as ktrace:
+            per = run("per_episode", [])
+        n_segs = sum(len(v) for v in per["ids"].values())
+        check([len(per["ids"][e]) for e in waves] == [len(b) for b in EPISODE_BURSTS.values()],
+              f"per-episode segments {[len(v) for v in per['ids'].values()]}")
+        want = {"B1": cfg.encoder_layers * n_segs, "B2": n_segs, "B3/B4": 0, "B5": 0,
+                "B5_bwd": 0, "B6": 0, "B7": 0}
+        check(per["launches"] == want,
+              f"per-episode launched {per['launches']}, expected {want}")
+        check(per["refreshes"] >= 2, f"the conversation cache refreshed {per['refreshes']}x")
+        check(per["projections"] == [1] * n_segs,
+              f"cross projections {per['projections']}: once a segment expected")
+        check(len(ktrace) == n_segs, f"{len(ktrace)} traced decodes for {n_segs} segments")
+        check(all(np.isfinite(r["rtfx"]) and r["rtfx"] > 0 for r in per["rows"].values()),
+              f"per-episode metrics {per['rows']}")
+
+        # the plain path on the same weights and segments: B2's plain
+        # version, dense attention; the decoder's K projections counted
+        plain_ids = {}
+        reset_all_launches()
+        with greedy_trace() as ptrace, k_projections(model) as kproj:
+            t0 = time.perf_counter()
+            for eid, (wav, _) in waves.items():
+                segs = transcribe_long_audio(model, wav, sr, segments=per["spans"][eid],
+                                             fusion=lm, max_decode_len=L, batch_seconds=bs,
+                                             use_kernels=False)
+                plain_ids[eid] = [s.token_ids for s in segs]
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+        check(all(v == 0 for v in all_launches().values()),
+              f"the plain path launched {all_launches()}")
+        check(kproj == [1] * (n_dec * n_segs), f"decoder K projections {len(kproj)} calls, "
+                                               f"expected {n_dec * n_segs} of one row")
+        ties, at = {}, 0
+        for eid in waves:
+            n = len(plain_ids[eid])
+            ties[eid] = greedy_agreement(per["ids"][eid], plain_ids[eid], ktrace[at:at + n],
+                                         ptrace[at:at + n], f"per-episode {eid}, kernel vs plain")
+            at += n
+
+        # (b) --continuous greedy.  Per episode pads each segment to whole
+        # seconds, the batcher to its bucket, and the padding enters the first
+        # conv layer's instance norm: the modes encode a segment alike only
+        # where it fills the bucket, as the manifest episode's cropped ones
+        # do.  There the per-episode decodes are the batcher's reference
+        # (the same carry-over, ``ConversationContext`` one segment at a time)
+        cont = run("continuous", ["--continuous", "--slots", "4"])
+        check(cont["refreshes"] >= 2, f"the continuous run refreshed {cont['refreshes']}x")
+        check(cont["launches"]["B1"] == cfg.encoder_layers * cont["launches"]["B2"] > 0
+              and all(cont["launches"][k] == 0 for k in ("B3/B4", "B5", "B5_bwd", "B6", "B7")),
+              f"continuous launched {cont['launches']}")
+        check(len(cont["projections"]) == cont["launches"]["B2"]
+              and n_segs <= sum(cont["projections"]) <= 2 * n_segs,
+              f"continuous cross projections {cont['projections']}: once an admission")
+        n_a = len(per["ids"]["ep_manifest"])
+        cont_tie = greedy_agreement(cont["ids"]["ep_manifest"], per["ids"]["ep_manifest"],
+                                    None, ktrace[:n_a], "continuous against per episode")
+
+        # --continuous --beam_size 4
+        beam = run("beam", ["--continuous", "--slots", "4", "--beam_size", "4"])
+        check(beam["launches"]["B1"] == cfg.encoder_layers * beam["launches"]["B2"] > 0
+              and all(beam["launches"][k] == 0 for k in ("B3/B4", "B5", "B5_bwd", "B6", "B7")),
+              f"beam launched {beam['launches']}")
+        check([len(beam["ids"][e]) for e in waves] == [len(cont["ids"][e]) for e in waves],
+              "beam segments")
+        for rows in (cont["rows"], beam["rows"]):
+            check(all(np.isfinite(r["corpus_rtfx"]) for r in rows.values())
+                  and np.isfinite(rows["ep_manifest"]["wer"])
+                  and "wer" not in rows["ep_endpointer"], f"continuous metrics {rows}")
+    finally:
+        FusionLM.prime = real_prime
+
+    # (c) B1 at the 120 s segment in decoding (B = 1, inference mode), the
+    # device's busy share over one segment's decode, and dense attention's
+    # peak memory by length until it stops fitting
+    wav, spans = waves["ep_manifest"]
+    a = int(spans[1][0] * sr)
+    xt = torch.from_numpy(np.ascontiguousarray(wav[None, a:a + bs * sr])).to(dev)
+    mt = torch.ones_like(xt, dtype=torch.int32)
+    dense = {}
+    with torch.inference_mode():
+        b1_ms = kernel_device_ms(lambda: st5.encode_speech(model, xt, mt, attn_impl="flash"),
+                                 ("flash_rel_fwd",), n=2)["flash_rel_fwd"]
+        enc_ms = time_ms(lambda: st5.encode_speech(model, xt, mt, attn_impl="flash"),
+                         reps=3, inner=1)
+        frames = int(st5.encode_speech(model, xt, mt)[1].sum())
+        hd = cfg.hidden_size // cfg.encoder_attention_heads
+        q = torch.empty(1, cfg.encoder_attention_heads, frames, hd, device="meta")
+        pe = torch.empty(2 * cfg.encoder_max_relative_position, hd, device="meta")
+        b1_bound = bound(*b1_work(q, q, pe, torch.tensor([frames]), False), products=True)
+        first = wav[int(spans[0][0] * sr): int(spans[0][1] * sr)]
+        prof = device_breakdown(lambda: transcribe_long_audio(
+            model, first, sr, fusion=lm, max_decode_len=min(64, L), batch_seconds=bs,
+            segments=[(0.0, len(first) / sr)], attn_impl="flash"))
+        for secs in (bs, 2 * bs, 4 * bs):
+            xd = torch.zeros((1, secs * sr), device=dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:   # a measurement: where dense stops fitting is its result
+                st5.encode_speech(model, xd, None, attn_impl="dense")
+                torch.cuda.synchronize()
+                dense[secs] = torch.cuda.max_memory_allocated() / 2 ** 30
+            except torch.cuda.OutOfMemoryError:
+                dense[secs] = "out of memory"
+                break
+            finally:
+                del xd
+    torch.cuda.empty_cache()
+    audio_s = sum(len(w) for w, _ in waves.values()) / sr
+    out = dict(
+        segments=n_segs, audio_s=audio_s, max_decode_len=L, batch_seconds=bs,
+        per_episode=dict(launches=per["launches"], refreshes=per["refreshes"],
+                         wall_s=per["wall_s"], rtfx={e: r["rtfx"] for e, r in per["rows"].items()},
+                         peak_gb=per["peak_gb"], cross_projection_calls=per["projections"],
+                         decode_steps=sum(len(t) for t in ktrace),
+                         ms_per_step=1e3 * per["wall_s"] / sum(len(t) for t in ktrace),
+                         kernel_vs_plain_parting=ties, plain_wall_s=plain_wall),
+        continuous=dict(launches=cont["launches"], refreshes=cont["refreshes"],
+                        wall_s=cont["wall_s"], corpus_rtfx=cont["rows"]["ep_manifest"]["corpus_rtfx"],
+                        wer=cont["rows"]["ep_manifest"]["wer"], peak_gb=cont["peak_gb"],
+                        cross_projection_rows=cont["projections"],
+                        against_per_episode_parting=cont_tie,
+                        segments_equal_to_per_episode={e: sum(
+                            x == y for x, y in zip(per["ids"][e], cont["ids"][e]))
+                            for e in waves}),
+        beam=dict(launches=beam["launches"], wall_s=beam["wall_s"], peak_gb=beam["peak_gb"],
+                  corpus_rtfx=beam["rows"]["ep_manifest"]["corpus_rtfx"],
+                  wer=beam["rows"]["ep_manifest"]["wer"]),
+        b1_120s=dict(frames=frames, device_ms=b1_ms, encode_ms=enc_ms, bound_ms=b1_bound[0],
+                     bound_by=b1_bound[1], device_bound_share=b1_bound[0] / b1_ms),
+        segment_decode=dict(steps=min(64, L), busy_share=prof["busy_share"], wall_ms=prof["wall_ms"],
+                            kernels=prof["kernels"], groups_ms=prof["groups_ms"]),
+        dense_peak_gb=dense, card=smi, wall_s=time.perf_counter() - t_phase)
+    print(f"[episodes] {json.dumps(out)}")
+    tmp.cleanup()
+    return out
+
+
+def state_bytes(opt_state) -> int:
+    """Bytes of an optimizer state's tensors."""
+    return sum(t.numel() * t.element_size() for k, v in opt_state.items() if k != "count"
+               for t in v.values())
+
+
+def trainer_options_phase(corpus: dict, smi: str, dev) -> dict:
+    """Phase 18 (b): Adafactor on the card against the CPU step; gpt2-xl
+    training under Adafactor (``train_lm``) beside AdamW's memory; and
+    ``train_asr --optimizer adafactor --checkpoint <HF .safetensors>
+    --nan_recovery --nan_inject_step 3`` at SpeechT5-base width, then
+    ``average_last_k`` over its checkpoints."""
+    import copy
+
+    import torch
+
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
+    from loco_asr_tpu_torch.models.speecht5 import convert
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.parallel import train
+    from loco_asr_tpu_torch.pipelines import common, train_asr, train_lm
+    from loco_asr_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) one Adafactor step at SpeechT5-base width, dropout and SpecAugment
+    # off, on the card (kernels, flash) against the CPU (plain versions,
+    # dense) from the same weights and batch: loss rtol 1e-5; parameters
+    # atol 1e-5 where the step is fixed by the gradient, that is where the
+    # CPU gradient exceeds 100 times its difference from the card's.
+    # Elsewhere the gradient is rounding noise (the key biases', whose exact
+    # gradient is 0 as the softmax cancels a shift), which Adafactor's first
+    # step normalises to a full step of either sign: there each side moves
+    # by no more than the CPU step's largest move in that tensor (and the
+    # rounding of p - lr u), on at most 1 % of the entries
+    cfg = dataclasses.replace(SpeechT5Config(vocab_size=256), hidden_dropout=0.0,
+                              attention_dropout=0.0, activation_dropout=0.0,
+                              feat_proj_dropout=0.0, positional_dropout=0.0,
+                              apply_spec_augment=False)
+    hb = asr_host_batches(corpus["train"], n=1)[0]
+    n_rows, n_samp = 2, 4 * 16000
+    small = {"input_values": hb["input_values"][:n_rows, :n_samp],
+             "attention_mask": hb["attention_mask"][:n_rows, :n_samp],
+             "labels": hb["labels"][:n_rows, :48]}
+    lr = 1e-4
+    runs = {}
+    for where, impl in ((dev, "flash"), (torch.device("cpu"), "dense")):
+        model = st5.asr_model_init(cfg, seed=5, device=where)
+        tx = train.adafactor(lr, weight_decay=0.01)
+        opt = tx.init(train.trainable_params(model))
+        step = train.make_asr_train_step(cfg, tx, attn_impl=impl)
+        batch = {k: torch.as_tensor(v, device=where) for k, v in small.items()}
+        t0 = time.perf_counter()
+        met = step(model, opt, batch)
+        loss = met["loss"].item()
+        runs[impl] = dict(loss=loss, s=time.perf_counter() - t0,
+                          params={k: p.detach().cpu() for k, p in model.named_parameters()},
+                          grads={k: (p.grad.detach().cpu() if p.grad is not None
+                                     else torch.zeros(p.shape)) for k, p in model.named_parameters()},
+                          state_bytes=state_bytes(opt))
+        del model, opt
+    init = {k: p.detach() for k, p in st5.asr_model_init(cfg, seed=5, device="cpu")
+            .named_parameters()}
+    card, cpu = runs["flash"], runs["dense"]
+    check(abs(card["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"]),
+          f"Adafactor step loss: card {card['loss']} against CPU {cpu['loss']}")
+    worst, dead, total = 0.0, 0, 0
+    for k, want in cpu["params"].items():
+        g = cpu["grads"][k]
+        live = (g - card["grads"][k]).abs() * 100 <= g.abs()
+        got = card["params"][k]
+        if live.any():
+            worst = max(worst, (got - want)[live].abs().max().item())
+        dead += int((~live).sum())
+        total += live.numel()
+        if not live.all():
+            widest = (want - init[k]).abs().max()
+            slack = 2.4e-7 * (1 + init[k][~live].abs())
+            check(bool(((got - init[k])[~live].abs() <= widest + slack).all()),
+                  f"Adafactor step {k}: a noise-driven entry moved past the CPU step's widest")
+    check(worst <= 1e-5, f"Adafactor step parameters: card against CPU max abs {worst}")
+    check(dead <= 0.01 * total, f"Adafactor step: {dead} of {total} entries noise-driven")
+    out["adafactor_step"] = dict(loss=card["loss"], cpu_loss=cpu["loss"], max_abs_param=worst,
+                                 noise_entries=dead, batch=[n_rows, n_samp],
+                                 state_bytes=card["state_bytes"], card_s=card["s"],
+                                 cpu_s=cpu["s"], card=smi)
+    print(f"[trainer] adafactor step {json.dumps(out['adafactor_step'])}")
+    del runs, init
+
+    # the full-width step at B = 8 x 10 s, flash, dropout on, under AdamW and
+    # Adafactor in turns of 3 steps: AdamW, Adafactor (warm-ups), then
+    # Adafactor, AdamW (timed)
+    model = st5.asr_model_init(SpeechT5Config(vocab_size=256), seed=5, device=dev)
+    batch = {k: torch.as_tensor(hb[k], device=dev)
+             for k in ("input_values", "attention_mask", "labels")}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    opts = {}
+    for name, tx in (("adamw", train.adamw(1e-4)), ("adafactor", train.adafactor(1e-4))):
+        opts[name] = (tx.init(train.trainable_params(model)),
+                      train.make_asr_train_step(model.cfg, tx, attn_impl="flash"))
+    timed = {"adamw": [], "adafactor": []}
+    for turn, name in enumerate(("adamw", "adafactor", "adafactor", "adamw")):
+        opt, step = opts[name]
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+            if turn in (2, 3):
+                timed[name].append((time.perf_counter() - t0) * 1e3)
+    out["asr_step_ms"] = {name: dict(median_ms=statistics.median(ms), ms=ms,
+                                     state_gb=state_bytes(opts[name][0]) / 2 ** 30)
+                          for name, ms in timed.items()}
+    out["asr_step_ms"].update(batch=list(batch["input_values"].shape), card=smi)
+    print(f"[trainer] asr step {json.dumps(out['asr_step_ms'])}")
+    del model, opts, batch
+    torch.cuda.empty_cache()
+
+    # (b) gpt2-xl widths (vocabulary 256) at [XL_BATCH, 1024]: 2 steps under
+    # AdamW and under Adafactor from the same init, peak memory, state
+    # bytes, ms a step; then train_lm --model gpt2-xl --optimizer adafactor
+    xl = gm.GPT2Config(**{**gm.PRESETS["gpt2-xl"].__dict__, "vocab_size": 256})
+    model = gm.gpt2_init(xl, seed=0, device=dev)
+    ids = torch.randint(0, 256, (XL_BATCH, 1024), generator=torch.Generator().manual_seed(1))
+    batch = {"ids": ids.to(dev), "lengths": torch.full((XL_BATCH,), 1024, device=dev)}
+    xl_runs = {}
+    for name, tx in (("adamw", train.adamw(1e-5)), ("adafactor", train.adafactor(1e-5))):
+        opt = tx.init(dict(model.named_parameters()))
+        step = train.make_lm_train_step(xl, tx, attn_impl="flash")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        ms, losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            met = step(model, opt, batch)
+            losses.append(met["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        xl_runs[name] = dict(peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             state_gb=state_bytes(opt) / 2 ** 30, ms=ms, losses=losses,
+                             launches=all_launches())
+        check(all(np.isfinite(losses)), f"gpt2-xl {name} losses {losses}")
+        del opt, step
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.empty_cache()
+    check(xl_runs["adafactor"]["launches"]["B5"] == 2 * xl.n_layer,
+          f"gpt2-xl steps launched {xl_runs['adafactor']['launches']} (B5: 25 heads, odd)")
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    lm_dir = os.path.join(ROOT, "exp", "loco", "lm_corpus")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = train_lm.main(["--train_file", os.path.join(lm_dir, "train.txt"),
+                            "--out_dir", tmp, "--model", "gpt2-xl", "--tokenizer", "char",
+                            "--optimizer", "adafactor", "--attn_impl", "flash",
+                            "--seq_len", "1024", "--batch_size", str(XL_BATCH), "--steps", "3",
+                            "--warmup_steps", "1", "--log_every", "1",
+                            "--eval_every", "1000", "--save_every", "1000"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"train_lm gpt2-xl returned {rc}")
+        cli_launches = all_launches()
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+        check(len(losses) == 3 and all(np.isfinite(losses)), f"train_lm gpt2-xl losses {losses}")
+        check(cli_launches["B5"] == 3 * xl.n_layer and cli_launches["B5_bwd"] == 3 * xl.n_layer,
+              f"train_lm gpt2-xl launched {cli_launches}")
+        with np.load(os.path.join(tmp, "ckpt", "step_3.npz")) as z:
+            saved = {k for k in z.files if k.startswith("opt_state.")}
+        check(any(k.startswith("opt_state.v_row.") for k in saved), "adafactor state not saved")
+        out["gpt2_xl"] = dict(params=n_params, batch=[XL_BATCH, 1024], steps=xl_runs,
+                              train_lm=dict(losses=losses, launches=cli_launches, wall_s=wall,
+                                            peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30),
+                              card=smi)
+    print(f"[trainer] gpt2-xl {json.dumps(out['gpt2_xl'])}")
+
+    # (c) train_asr at SpeechT5-base width: adafactor, flash, from an HF
+    # .safetensors, a NaN batch at step 3 rolled back to step 2's save;
+    # then average_last_k over its saves
+    with tempfile.TemporaryDirectory() as tmp:
+        seeded = st5.asr_model_init(SpeechT5Config(vocab_size=256), seed=9, device="cpu")
+        hf_path = os.path.join(tmp, "asr.safetensors")
+        save_safetensors(hf_path, hf_speecht5_state(convert.asr_to_jax_params(seeded)))
+        del seeded
+        out_dir = os.path.join(tmp, "asr")
+        seen, rollbacks = [], []
+        real_make, real_call = train.make_asr_train_step, common.NanRollback.__call__
+
+        def recording_make(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def recorded(model, opt_state, batch, generator=None):
+                m = step(model, opt_state, batch, generator)
+                seen.append(m["loss"].item())
+                return m
+            return recorded
+
+        def checked_call(self, step, loss):
+            rolled = real_call(self, step, loss)
+            if rolled:   # the live state is the latest save's, exactly
+                saved = self.ckpt.restore()
+                live = convert.asr_to_jax_params(self.model)
+                flat = ckpt_lib.flatten(saved["params"])
+                same = all(np.array_equal(live[k], np.asarray(flat[k])) for k in live)
+                rollbacks.append(dict(step=step, restored=int(saved["step"]), same=same,
+                                      count=self.opt_state["count"]))
+            return rolled
+
+        train.make_asr_train_step, common.NanRollback.__call__ = recording_make, checked_call
+        try:
+            reset_all_launches()
+            t0 = time.perf_counter()
+            rc = train_asr.main(["--train_dir", corpus["train"], "--out_dir", out_dir,
+                                 "--checkpoint", hf_path, "--attn_impl", "flash",
+                                 "--optimizer", "adafactor", "--nan_recovery",
+                                 "--nan_inject_step", "3", "--save_every", "2",
+                                 "--steps", "6", "--warmup_steps", "1",
+                                 "--conversation_seconds", "10", "--batch_size", "8",
+                                 "--eval_every", "1000"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            train.make_asr_train_step, common.NanRollback.__call__ = real_make, real_call
+        check(rc == 0, f"train_asr adafactor returned {rc}")
+        asr_launches = all_launches()
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            events = [(r["step"], r["event"]) for r in map(json.loads, f) if "event" in r]
+        check(events == [(3, "nan_rollback")], f"rollback events {events}")
+        check(rollbacks == [dict(step=3, restored=2, same=True, count=2)],
+              f"rollback restored {rollbacks}")
+        check(len(seen) == 7 and not np.isfinite(seen[2])
+              and all(np.isfinite(seen[:2] + seen[3:])), f"train_asr losses {seen}")
+        ckpt = ckpt_lib.Checkpointer(os.path.join(out_dir, "ckpt"))
+        check(ckpt.steps() == [2, 4, 6], f"saved steps {ckpt.steps()}")
+        avg = ckpt_lib.flatten(ckpt_lib.average_last_k(ckpt, k=3))
+        states = [ckpt_lib.flatten(ckpt.restore(s)["params"]) for s in (2, 4, 6)]
+        key = "encoder.wrapped_encoder.layers.0.attention.q_proj.kernel"
+        mean = np.mean([np.asarray(s[key], np.float64) for s in states], axis=0)
+        check(np.array_equal(avg[key], mean.astype(np.float32))
+              and all(np.isfinite(np.asarray(v)).all() for v in avg.values()),
+              "average_last_k")
+        enc, dec = SpeechT5Config().encoder_layers, SpeechT5Config().decoder_layers
+        out["train_asr"] = dict(losses=seen, events=events, rollbacks=rollbacks,
+                                launches=asr_launches, wall_s=wall, averaged=len(avg),
+                                card=smi)
+        want = {"B1": 7 * (enc + dec), "B2": 0, "B3/B4": 7 * (enc + dec), "B5": 7 * dec,
+                "B5_bwd": 7 * dec, "B6": 0, "B7": 0}   # 6 steps and the rolled-back one
+        check(asr_launches == want, f"train_asr adafactor launched {asr_launches}, "
+                                    f"expected {want}")
+    print(f"[trainer] train_asr {json.dumps(out['train_asr'])}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def asr_host_batches(train_dir: str, n: int = 31) -> list:
     """``n`` host batches of 8 conversation windows of <= 10 s (the char
     tokenizer, vocabulary 256), epochs 0-2 shuffled by their seeds."""
@@ -4027,9 +4703,14 @@ def main() -> int:
     # -- 17. conversation-scale ASR training: B3/B4 at every head dim, the
     # remat policies, train_asr --conversation_seconds 164 ----------------
     long = long_context_phase(corpus, b34_recs, smi, dev)
+
+    # -- 18. long-form episodes (transcribe_episodes), Adafactor, NaN
+    # recovery, train_asr from HF weights, checkpoint averaging -----------
+    episodes = episodes_phase(smi, dev)
+    trainer = trainer_options_phase(corpus, smi, dev)
     tmp_corpus.cleanup()
 
-    # -- 18. summary -------------------------------------------------------
+    # -- 19. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -4066,12 +4747,18 @@ def main() -> int:
                     d8_launches=sum(r["by_head_dim"].get("B3/B4:d8:f32", 0)
                                     for r in long["d8_runs"].values() if "by_head_dim" in r),
                     train_asr_164_launches=long["train_asr_164"]["launches"]["B3/B4"],
+                    adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B3/B4"],
                     head_dims=dims)
 
     # B1's and B2's launches on the decode path: phase 12's six decode_asr
     # runs, phase 13's LoCo ASR stage and phase 15's decodes on the
     # reference weights; on the intent slice's audio extraction (phase 14);
     # B1's time at head dim 8 (the LoCo encoder's) beside the main case's
+    # phase 18's launches: B1 and B2 over the episode runs (per episode,
+    # continuous greedy and beam), B5 in the gpt2-xl steps and train_lm run,
+    # B3/B4 in the Adafactor train_asr run
+    ep_launches = {k: sum(episodes[m]["launches"][k] for m in ("per_episode", "continuous", "beam"))
+                   for k in ("B1", "B2")}
     d8 = next(c for c in checks if c["case"] == "loco_d8")
     kernels = [
         dict(entry("flash_rel_forward", "loco_asr_tpu_torch/csrc/flash_rel.cu",
@@ -4084,18 +4771,24 @@ def main() -> int:
              d8_ms=d8["ms"], d8_device_ms=d8["device_ms"], d8_plain_ms=d8["plain_ms"],
              d8_bound_ms=d8["bound_ms"],
              train_asr_164_launches=long["train_asr_164"]["launches"]["B1"],
-             d12_decode_launches=long["d8_runs"]["decode_asr_tiny"]["launches"]["B1"]),
+             d12_decode_launches=long["d8_runs"]["decode_asr_tiny"]["launches"]["B1"],
+             episode_launches=ep_launches["B1"],
+             episode_120s_device_ms=episodes["b1_120s"]["device_ms"],
+             adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B1"]),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
              decode_launches=decode_launches["B2"],
              loco_launches=lm_train_launches["loco_asr"]["B2"],
              loco_reference_launches=reference_launches["B2"],
-             intent_launches=intent_launches["B2"]),
+             intent_launches=intent_launches["B2"], episode_launches=ep_launches["B2"]),
         dict(entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
                    "loco_asr_tpu/ops/pallas/flash_attention.py:40",
                    "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
-             train_asr_164_launches=long["train_asr_164"]["launches"]["B5"]),
+             train_asr_164_launches=long["train_asr_164"]["launches"]["B5"],
+             gpt2_xl_train_launches=(trainer["gpt2_xl"]["steps"]["adafactor"]["launches"]["B5"]
+                                     + trainer["gpt2_xl"]["steps"]["adamw"]["launches"]["B5"]
+                                     + trainer["gpt2_xl"]["train_lm"]["launches"]["B5"])),
         bwd_entry("flash_rel_backward (B3)", "loco_asr_tpu/ops/pallas/flash_attention.py:799",
                   "flash_attention.py::_rel_bwd_dq_kernel", "b3"),
         bwd_entry("flash_rel_backward (B4)", "loco_asr_tpu/ops/pallas/flash_attention.py:902",

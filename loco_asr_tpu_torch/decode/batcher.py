@@ -10,7 +10,10 @@ no step inside a burst waits for the host.
 
 Slot state lives in tensors that the steps update in place (the JAX
 package threads new state through jitted programs instead; PyTorch has
-nothing to compile, so there is no program cache).
+nothing to compile, so there is no program cache).  The decoder's
+cross-attention K/V are slot state too: projected once an admitted
+utterance, from its encoder output, and read by every later step (the JAX
+batcher projects them at the top of every burst).
 
 Numerics: slots are independent rows of one batch, so each utterance
 decodes to the tokens of the static ``greedy_decode`` / ``beam_search``
@@ -47,12 +50,27 @@ def _zero_rows(cache: KVCache, sel: torch.Tensor) -> None:
             c.masked_fill_(_rows(sel, c), 0.0)
 
 
+def _zero_cross(cfg: SpeechT5Config, rows: int, enc_frames: int, device, dtype) -> KVCache:
+    heads = cfg.decoder_attention_heads
+    shape = (rows, heads, enc_frames, cfg.hidden_size // heads)
+    return {str(i): {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}
+            for i in range(cfg.decoder_layers)}
+
+
+def _put_rows(cache: KVCache, sel: torch.Tensor, new: KVCache) -> None:
+    """Rows ``sel`` of every layer's k and v of ``cache`` from ``new``."""
+    for layer, new_layer in zip(cache.values(), new.values()):
+        for name, c in layer.items():
+            layer[name] = torch.where(_rows(sel, c), new_layer[name], c)
+
+
 @dataclasses.dataclass
 class SlotState:
     """Device state of S decode slots."""
     enc: torch.Tensor        # [S, Tf, H] encoder hidden per slot
     enc_mask: torch.Tensor   # [S, Tf] frame validity
     caches: KVCache          # per-layer self-attention KV, [S, H, max_len+1, hd]
+    cross: KVCache           # per-layer cross-attention KV, [S, H, Tf, hd]
     step: torch.Tensor       # [S] per-slot decode position
     last: torch.Tensor       # [S, 1] last token (the next step's input)
     done: torch.Tensor       # [S] bool
@@ -67,21 +85,23 @@ def init_slots(cfg: SpeechT5Config, slots: int, enc_frames: int, max_len: int,
         enc=torch.zeros((slots, enc_frames, cfg.hidden_size), dtype=dtype, device=device),
         enc_mask=torch.zeros((slots, enc_frames), dtype=torch.int32, device=device),
         caches=dec.init_decode_cache(cfg, slots, max_len + 1, device, dtype),
+        cross=_zero_cross(cfg, slots, enc_frames, device, dtype),
         step=full((slots,), 0), last=full((slots, 1), cfg.decoder_start_token_id),
         done=torch.ones(slots, dtype=torch.bool, device=device),
         out=full((slots, max_len), cfg.pad_token_id))
 
 
 def _insert_many(cfg: SpeechT5Config, state: SlotState, sel: torch.Tensor,
-                 enc_new: torch.Tensor, mask_new: torch.Tensor,
+                 enc_new: torch.Tensor, mask_new: torch.Tensor, cross_new: KVCache,
                  lm_cache: Optional[KVCache] = None,
                  keep_lm: Optional[torch.Tensor] = None) -> None:
     """Admit utterances into every slot with ``sel[s]`` (fresh step, cache
-    and output), in place.  ``enc_new`` / ``mask_new`` are [S, ...]; their
-    unselected rows are ignored.  ``keep_lm`` [S] bool: slots whose LM
-    cache survives the admission (conversation carry-over); decoder caches
-    always reset."""
+    and output), in place.  ``enc_new`` / ``mask_new`` / ``cross_new`` (the
+    cross-attention K/V of ``enc_new``) are [S, ...]; their unselected rows
+    are ignored.  ``keep_lm`` [S] bool: slots whose LM cache survives the
+    admission (conversation carry-over); decoder caches always reset."""
     state.enc = torch.where(_rows(sel, enc_new), enc_new, state.enc)
+    _put_rows(state.cross, sel, cross_new)
     state.enc_mask = torch.where(_rows(sel, mask_new), mask_new.to(state.enc_mask.dtype),
                                  state.enc_mask)
     _zero_rows(state.caches, sel)
@@ -105,10 +125,9 @@ def _run_chunk(cfg: SpeechT5Config, model: st5.AsrModel, n_steps: int, max_len: 
     not write the LM cache: with carry-over a post-EOS write would land
     where the next utterance's first token goes (JAX's ``freeze_lm``)."""
     rows = torch.arange(state.step.shape[0], device=state.step.device)
-    cross = st5.asr_cross_cache(model, state.enc)   # loop-invariant
     for _ in range(n_steps):
         logits = st5.asr_decode_step(model, state.last, state.step, state.enc,
-                                     state.enc_mask, state.caches, cross_caches=cross)
+                                     state.enc_mask, state.caches, cross_caches=state.cross)
         logp = torch.log_softmax(logits.float(), dim=-1)
         if fusion is not None:
             pos = state.step if lm_off is None else lm_off + state.step
@@ -130,6 +149,7 @@ class BeamSlotState:
     enc: torch.Tensor        # [S*K, Tf, H]
     enc_mask: torch.Tensor   # [S*K, Tf]
     caches: KVCache          # [S*K, H, max_len+1, hd] per layer
+    cross: KVCache           # [S*K, H, Tf, hd] per layer
     step: torch.Tensor       # [S] per-slot decode position
     tokens: torch.Tensor     # [S, K, max_len]
     scores: torch.Tensor     # [S, K] raw log-prob sums
@@ -145,6 +165,7 @@ def _beam_init_slots(cfg: SpeechT5Config, slots: int, k: int, enc_frames: int,
         enc=torch.zeros((slots * k, enc_frames, cfg.hidden_size), dtype=dtype, device=device),
         enc_mask=torch.zeros((slots * k, enc_frames), dtype=torch.int32, device=device),
         caches=dec.init_decode_cache(cfg, slots * k, max_len + 1, device, dtype),
+        cross=_zero_cross(cfg, slots * k, enc_frames, device, dtype),
         step=full((slots,), 0), tokens=full((slots, k, max_len), cfg.pad_token_id),
         scores=beam_init_scores(slots, k, device), lengths=full((slots, k), 0),
         done=torch.ones((slots, k), dtype=torch.bool, device=device),
@@ -153,15 +174,18 @@ def _beam_init_slots(cfg: SpeechT5Config, slots: int, k: int, enc_frames: int,
 
 def _beam_insert_many(cfg: SpeechT5Config, k: int, state: BeamSlotState,
                       sel: torch.Tensor, enc_new: torch.Tensor, mask_new: torch.Tensor,
-                      lm_cache: Optional[KVCache] = None,
+                      cross_new: KVCache, lm_cache: Optional[KVCache] = None,
                       keep_lm: Optional[torch.Tensor] = None) -> None:
     """Admit new utterances into the selected slots, in place (``sel`` [S];
-    ``enc_new`` / ``mask_new`` [S, ...] are repeated over each slot's K
-    beams).  ``keep_lm`` [S] bool: slots whose LM rows survive (beam
-    conversation carry-over); decoder caches always reset."""
+    ``enc_new`` / ``mask_new`` / ``cross_new`` [S, ...] are repeated over
+    each slot's K beams).  ``keep_lm`` [S] bool: slots whose LM rows
+    survive (beam conversation carry-over); decoder caches always reset."""
     sel_flat = sel.repeat_interleave(k)
     enc_t, mask_t = enc_new.repeat_interleave(k, dim=0), mask_new.repeat_interleave(k, dim=0)
     state.enc = torch.where(_rows(sel_flat, enc_t), enc_t, state.enc)
+    _put_rows(state.cross, sel_flat, {i: {n: c.repeat_interleave(k, dim=0)
+                                          for n, c in layer.items()}
+                                      for i, layer in cross_new.items()})
     state.enc_mask = torch.where(_rows(sel_flat, mask_t), mask_t.to(state.enc_mask.dtype),
                                  state.enc_mask)
     _zero_rows(state.caches, sel_flat)
@@ -203,14 +227,13 @@ def _beam_run_chunk(cfg: SpeechT5Config, model: st5.AsrModel, k: int, n_steps: i
     pad_row = torch.full((v,), NEG_INF, device=dev)
     pad_row[cfg.pad_token_id] = 0.0
     base = torch.arange(s, device=dev)[:, None] * k
-    cross = st5.asr_cross_cache(model, state.enc)   # loop-invariant
     q = lambda L: ((5.0 + L) / 6.0) ** early_stop_lp
     for _ in range(n_steps):
         slot_done = state.done.all(dim=1)                              # [S]
         step_flat = state.step.repeat_interleave(k)                    # [S*K]
         last_flat = state.last.reshape(s * k, 1)
         logits = st5.asr_decode_step(model, last_flat, step_flat, state.enc,
-                                     state.enc_mask, state.caches, cross_caches=cross)
+                                     state.enc_mask, state.caches, cross_caches=state.cross)
         logp = torch.log_softmax(logits.float(), dim=-1)
         if fusion is not None:
             pos = step_flat if lm_off is None else lm_off.repeat_interleave(k) + step_flat
@@ -258,12 +281,12 @@ def _new_state(cfg: SpeechT5Config, slots: int, k: int, enc: torch.Tensor, max_l
     return init_slots(cfg, slots, enc.shape[1], max_len, enc.device, enc.dtype)
 
 
-def _insert(cfg: SpeechT5Config, k: int, state, sel, enc, enc_mask, lm_cache,
+def _insert(cfg: SpeechT5Config, k: int, state, sel, enc, enc_mask, cross, lm_cache,
             keep_lm=None) -> None:
     if k > 1:
-        _beam_insert_many(cfg, k, state, sel, enc, enc_mask, lm_cache, keep_lm)
+        _beam_insert_many(cfg, k, state, sel, enc, enc_mask, cross, lm_cache, keep_lm)
     else:
-        _insert_many(cfg, state, sel, enc, enc_mask, lm_cache, keep_lm)
+        _insert_many(cfg, state, sel, enc, enc_mask, cross, lm_cache, keep_lm)
 
 
 def _run(cfg: SpeechT5Config, model, k: int, n_steps: int, max_len: int, state,
@@ -292,10 +315,11 @@ def _admission_bucket(n: int, slots: int) -> int:
 def _encode_pending(encode_fn: Callable, model, pending, slots: int,
                     audio_samples: int, device):
     """Encode one admission round's utterances in a [bucket, T] batch ->
-    (sel [S] bool, enc [S, ...], mask [S, ...]) on ``device``.  ``pending``
-    holds (slot, waveform) pairs; row ``slot`` of enc / mask carries that
-    slot's utterance, unselected rows repeat row 0 and are masked off by
-    ``sel`` in the insert."""
+    (sel [S] bool, enc [S, ...], mask [S, ...], cross) on ``device``, with
+    ``cross`` the decoder's cross-attention K/V of the bucket's rows, [S,
+    ...] per layer.  ``pending`` holds (slot, waveform) pairs; row ``slot``
+    of enc / mask / cross carries that slot's utterance, unselected rows
+    repeat row 0 and are masked off by ``sel`` in the insert."""
     bucket = _admission_bucket(len(pending), slots)
     w = np.zeros((bucket, audio_samples), np.float32)
     m = np.zeros((bucket, audio_samples), np.int32)
@@ -308,8 +332,10 @@ def _encode_pending(encode_fn: Callable, model, pending, slots: int,
         inv[slot] = r
     enc, mask = encode_fn(model, w, m)
     inv_t = torch.as_tensor(inv, device=device)
+    cross = {i: {n: c.index_select(0, inv_t) for n, c in layer.items()}
+             for i, layer in st5.asr_cross_cache(model, enc).items()}
     return (torch.as_tensor(sel, device=device), enc.index_select(0, inv_t),
-            mask.index_select(0, inv_t))
+            mask.index_select(0, inv_t), cross)
 
 
 def _default_encode(model, wav: np.ndarray, mask: np.ndarray):
@@ -361,13 +387,13 @@ def _decode_stream(model: st5.AsrModel, utterances, *, slots: int, beam_size: in
             pending.append((slot, wav))
         if not pending:
             return state, lm_cache
-        sel, enc, enc_mask = _encode_pending(encode_fn, model, pending, slots,
-                                             audio_samples, dev)
+        sel, enc, enc_mask, cross = _encode_pending(encode_fn, model, pending, slots,
+                                                    audio_samples, dev)
         if state is None:
             state = _new_state(cfg, slots, k, enc, max_len)
             if fusion is not None:
                 lm_cache = fusion.init_cache(slots * k, max_len + 1)
-        _insert(cfg, k, state, sel, enc, enc_mask, lm_cache)
+        _insert(cfg, k, state, sel, enc, enc_mask, cross, lm_cache)
         return state, lm_cache
 
     state, lm_cache = admit(state, lm_cache)
@@ -513,14 +539,14 @@ def decode_conversations(
         keep = np.zeros((slots,), bool)
         for i, _, kp in pending:
             keep[i] = kp
-        sel, enc, enc_mask = _encode_pending(encode_fn, model,
-                                             [(i, wav) for i, wav, _ in pending],
-                                             slots, audio_samples, dev)
+        sel, enc, enc_mask, cross = _encode_pending(encode_fn, model,
+                                                    [(i, wav) for i, wav, _ in pending],
+                                                    slots, audio_samples, dev)
         keep_t = torch.as_tensor(keep, device=dev)
         if state is None:
             state = _new_state(cfg, slots, k, enc, max_len)
             lm_cache = fusion.init_cache(slots * k, max_positions)
-        _insert(cfg, k, state, sel, enc, enc_mask, lm_cache, keep_t)
+        _insert(cfg, k, state, sel, enc, enc_mask, cross, lm_cache, keep_t)
         return state, lm_cache
 
     def refresh_slot(i):

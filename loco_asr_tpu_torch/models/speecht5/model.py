@@ -52,13 +52,17 @@ class SpeechEncoder(nn.Module):
                 use_kernels: bool = True,
                 generator: Optional[torch.Generator] = None,
                 freeze_feature_encoder: bool = False,
-                remat: RematSpec = None
+                remat: RematSpec = None, attn_impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``attn_impl`` None follows ``use_kernels`` (flash with them,
+        dense without); ``use_kernels=False`` always runs the plain
+        versions (dense attention, B2's plain version)."""
+        if attn_impl is None or not use_kernels:
+            attn_impl = "flash" if use_kernels else "dense"
         hidden, mask = self.prenet(input_values, attention_mask,
                                    use_kernels=use_kernels, generator=generator,
                                    freeze_feature_encoder=freeze_feature_encoder)
-        hidden = self.wrapped_encoder(hidden, mask,
-                                      attn_impl="flash" if use_kernels else "dense",
+        hidden = self.wrapped_encoder(hidden, mask, attn_impl=attn_impl,
                                       generator=generator, remat=remat)
         return hidden, mask
 
@@ -112,15 +116,17 @@ ArrayLike = Union[torch.Tensor, np.ndarray]
 
 def encode_speech(model: Union[SpeechEncoder, AsrModel], input_values: ArrayLike,
                   attention_mask: Optional[ArrayLike] = None, *,
-                  use_kernels: bool = True
+                  use_kernels: bool = True, attn_impl: Optional[str] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Raw waveform [B, T] -> ([B, frames, H], [B, frames] frame mask or
     None), on the model's device.
 
     ``use_kernels`` runs the main path: kernel B2 for the first conv layer
-    and kernel B1 (``attn_impl="flash"``) in every encoder layer; False
-    runs their plain PyTorch versions with dense attention.  An
-    :class:`AsrModel` runs its encoder.
+    and, under ``attn_impl`` "flash" (the default with kernels), kernel B1
+    in every encoder layer; ``attn_impl="dense"`` keeps B2 and
+    materialises the encoder's scores.  ``use_kernels=False`` runs the
+    plain PyTorch versions with dense attention.  An :class:`AsrModel`
+    runs its encoder.
     """
     if isinstance(model, AsrModel):
         model = model.encoder
@@ -129,7 +135,7 @@ def encode_speech(model: Union[SpeechEncoder, AsrModel], input_values: ArrayLike
     mask = (None if attention_mask is None
             else torch.as_tensor(attention_mask, device=dev))
     with torch.no_grad():
-        return model(wav, mask, use_kernels=use_kernels)
+        return model(wav, mask, use_kernels=use_kernels, attn_impl=attn_impl)
 
 
 def asr_forward(model: AsrModel, input_values: torch.Tensor,

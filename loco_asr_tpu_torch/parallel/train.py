@@ -9,6 +9,12 @@
   ``mu_dtype=torch.bfloat16`` stores the first moment in bf16 in optax's
   order (updated from the float32 gradient, the step built from the
   float32 moment, the moment then stored rounded).
+* :func:`adafactor` -- the JAX ``adafactor``: optax's factored second
+  moments (no first moment), block-RMS clipping, the same schedule, the
+  learning-rate-scaled decoupled decay and optional global-norm clipping.
+  :func:`load_opt_state`, :func:`host_snapshot` and
+  :func:`restore_snapshot` read back a checkpoint's, copy to the host and
+  put back either optimizer's state (``--resume`` and NaN rollback).
 * :func:`cast_compute` -- mixed precision, the JAX ``_cast_compute``:
   inside the differentiated loss the float parameters and batch entries
   are cast to the compute dtype (bf16 copies swapped in for the call by
@@ -43,6 +49,7 @@ import math
 import warnings
 from typing import Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -50,6 +57,7 @@ from ..models.gpt2 import model as g
 from ..models.speecht5 import model as st5
 from ..models.speecht5.config import SpeechT5Config
 from ..ops.remat import RematSpec
+from ..utils.checkpoint import flatten
 
 FROZEN_PREFIX = "encoder.prenet.feature_encoder."
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adamw's defaults
@@ -57,20 +65,19 @@ B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adamw's defaults
 OptState = Dict[str, object]
 
 
-class AdamW:
-    """AdamW over a dict of named tensors, updated in place.
+class Optimizer:
+    """The JAX optimizers' learning-rate schedule and gradient clipping.
 
     ``learning_rate_at(count)`` is optax's ``warmup_cosine_decay_schedule(
     0, lr, warmup, total)`` when ``warmup_steps`` or ``total_steps`` is
-    given (warmup clamped below the total, as the JAX ``adamw`` does), else
-    the constant ``lr``; step n (counting from 1) uses the rate at n-1."""
+    given (warmup clamped below the total, as the JAX ``adamw`` and
+    ``adafactor`` do), else the constant ``lr``; step n (counting from 1)
+    uses the rate at n-1.  ``clip_norm`` scales the gradients down to that
+    global norm first (``optax.clip_by_global_norm``)."""
 
-    def __init__(self, learning_rate: float = 1e-4, weight_decay: float = 0.01,
-                 warmup_steps: int = 0, total_steps: Optional[int] = None,
-                 clip_norm: Optional[float] = None,
-                 mu_dtype: Optional[torch.dtype] = None):
+    def __init__(self, learning_rate: float, weight_decay: float, warmup_steps: int,
+                 total_steps: Optional[int], clip_norm: Optional[float]):
         self.lr, self.weight_decay, self.clip_norm = learning_rate, weight_decay, clip_norm
-        self.mu_dtype = mu_dtype
         self.scheduled = bool(warmup_steps or total_steps)
         self.total = total_steps or warmup_steps * 10
         self.warmup = min(warmup_steps, max(self.total - 1, 0))
@@ -84,15 +91,9 @@ class AdamW:
         t = min(count - self.warmup, decay)
         return self.lr * 0.5 * (1.0 + math.cos(math.pi * t / decay)) if decay > 0 else self.lr
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
-        return {"count": 0,
-                "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype) for k, p in params.items()},
-                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
-
-    @torch.no_grad()
-    def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, Optional[torch.Tensor]], state: OptState) -> None:
-        """One step on ``params`` (in place) from ``grads`` (None = zeros)."""
+    def _gradients(self, params: Mapping[str, torch.Tensor],
+                   grads: Mapping[str, Optional[torch.Tensor]]):
+        """(names, parameters, gradients: None as zeros, clipped)."""
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] if grads.get(k) is not None else torch.zeros_like(params[k])
@@ -102,6 +103,30 @@ class AdamW:
             factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                  self.clip_norm / norm)
             g = torch._foreach_mul(g, factor)
+        return names, p, g
+
+
+class AdamW(Optimizer):
+    """AdamW over a dict of named tensors, updated in place, on the
+    schedule of :class:`Optimizer`."""
+
+    def __init__(self, learning_rate: float = 1e-4, weight_decay: float = 0.01,
+                 warmup_steps: int = 0, total_steps: Optional[int] = None,
+                 clip_norm: Optional[float] = None,
+                 mu_dtype: Optional[torch.dtype] = None):
+        super().__init__(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm)
+        self.mu_dtype = mu_dtype
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, Optional[torch.Tensor]], state: OptState) -> None:
+        """One step on ``params`` (in place) from ``grads`` (None = zeros)."""
+        names, p, g = self._gradients(params, grads)
         stored = [state["mu"][k] for k in names]
         narrow = any(m.dtype != x.dtype for m, x in zip(stored, g))
         if narrow:
@@ -145,6 +170,93 @@ def adamw(learning_rate: float = 1e-4, weight_decay: float = 0.01,
                  mu_dtype)
 
 
+class Adafactor(Optimizer):
+    """What the JAX ``adafactor`` computes (``optax.adafactor(learning_rate=
+    sched, multiply_by_parameter_scale=False, momentum=None,
+    weight_decay_rate=None)`` at optax's other defaults, then the decoupled
+    decay, with global-norm clipping in front), over a dict of named
+    tensors, updated in place, on the schedule of :class:`Optimizer`.
+
+    Per tensor, with d = 1 - (t+1)^-0.8 at step index t (0 first) and
+    g2 = g^2 + 1e-30: where the two largest dims (``numpy.argsort`` order)
+    are both >= 128 the second moment is factored, a row statistic
+    ``v_row`` (g2's mean over the largest dim) and a column one ``v_col``
+    (over the second largest), each ``d * old + (1 - d) * new``, and
+    u = g (v_row / mean(v_row))^-1/2 v_col^-1/2; else the full second
+    moment ``v`` and u = g v^-1/2.  Then u / max(1, rms(u)) (optax's
+    ``clip_by_block_rms(1)``), and p <- p - lr_t u - lr_t wd p.  State: the
+    count and, per tensor, ``v_row``, ``v_col`` and ``v`` as optax keeps
+    them (a (1,) zero where a form is not used), in the parameter's dtype:
+    a + b floats for an [a, b] matrix where AdamW keeps 2ab."""
+
+    MIN_DIM_TO_FACTOR, DECAY_RATE, EPS = 128, 0.8, 1e-30
+
+    @classmethod
+    def factored_dims(cls, shape) -> Optional[tuple]:
+        """(second largest dim, largest dim), or None where the moment is
+        kept whole (optax's ``_factored_dims``)."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < cls.MIN_DIM_TO_FACTOR:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for k, p in params.items():
+            dims = self.factored_dims(tuple(p.shape))
+            one = lambda: torch.zeros(1, dtype=p.dtype, device=p.device)
+            if dims is None:
+                state["v_row"][k], state["v_col"][k] = one(), one()
+                state["v"][k] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                state["v_row"][k] = p.new_zeros(shape[:d0] + shape[d0 + 1:])
+                state["v_col"][k] = p.new_zeros(shape[:d1] + shape[d1 + 1:])
+                state["v"][k] = one()
+        return state
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, Optional[torch.Tensor]], state: OptState) -> None:
+        """One step on ``params`` (in place) from ``grads`` (None = zeros)."""
+        names, p, g = self._gradients(params, grads)
+        t = torch.tensor(state["count"] + 1, dtype=torch.float32)
+        decay = float(1.0 - t ** -self.DECAY_RATE)     # float32, as optax
+        lr = self.learning_rate_at(state["count"])
+        state["count"] += 1
+        for k, param, grad in zip(names, p, g):
+            g2 = grad * grad + self.EPS
+            dims = self.factored_dims(tuple(param.shape))
+            if dims is None:
+                v = state["v"][k]
+                v.mul_(decay).add_(g2, alpha=1.0 - decay)
+                u = grad * v.rsqrt()
+            else:
+                d1, d0 = dims
+                v_row, v_col = state["v_row"][k], state["v_col"][k]
+                v_row.mul_(decay).add_(g2.mean(dim=d0), alpha=1.0 - decay)
+                v_col.mul_(decay).add_(g2.mean(dim=d1), alpha=1.0 - decay)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+                u = grad * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+            u = u / torch.clamp(u.square().mean().sqrt(), min=1.0) * -lr
+            if self.weight_decay:   # on the parameter before this step
+                u.sub_(param, alpha=lr * self.weight_decay)
+            param.add_(u)
+
+
+def adafactor(learning_rate: float = 1e-3, weight_decay: float = 0.01,
+              warmup_steps: int = 0, total_steps: Optional[int] = None,
+              clip_norm: Optional[float] = None) -> Adafactor:
+    """Adafactor with the warmup-cosine schedule, the learning-rate-scaled
+    decoupled weight decay and optional global-norm clipping (the JAX
+    ``adafactor``): no first moment, factored second moments."""
+    return Adafactor(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm)
+
+
 def _in_dtype(x: float, dtype: torch.dtype) -> float:
     """``x`` rounded to ``dtype``, as a Python float."""
     return float(torch.tensor(x, dtype=dtype))
@@ -171,6 +283,46 @@ class ReferenceAdam(AdamW):
 def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> ReferenceAdam:
     """The intent classifier's optimizer, the JAX ``reference_adam``."""
     return ReferenceAdam(learning_rate, weight_decay)
+
+
+@torch.no_grad()
+def load_opt_state(opt_state: OptState, saved: Mapping) -> None:
+    """Copy a checkpoint's optimizer state (the nested dicts of
+    ``utils.checkpoint.load_npz``: ``mu``/``nu`` of AdamW,
+    ``v_row``/``v_col``/``v`` of Adafactor, and the count) into
+    ``opt_state``, in place."""
+    for key, tensors in opt_state.items():
+        if key == "count":
+            continue
+        flat = flatten(saved[key])
+        for name, t in tensors.items():
+            t.copy_(torch.as_tensor(flat[name]))
+    opt_state["count"] = int(saved["count"])
+
+
+@torch.no_grad()
+def host_snapshot(model: nn.Module, opt_state: OptState) -> Dict:
+    """Copies on the host of ``model``'s parameters and buffers and of
+    ``opt_state``, for :func:`restore_snapshot`."""
+    return {"model": {k: v.detach().to("cpu", copy=True)
+                      for k, v in model.state_dict().items()},
+            "opt_state": {k: v if k == "count" else
+                          {n: t.to("cpu", copy=True) for n, t in v.items()}
+                          for k, v in opt_state.items()}}
+
+
+@torch.no_grad()
+def restore_snapshot(model: nn.Module, opt_state: OptState, snap: Dict) -> None:
+    """Put a :func:`host_snapshot` back into ``model`` and ``opt_state``,
+    in place (the tensors the step updates stay the same objects)."""
+    for k, v in model.state_dict().items():
+        v.copy_(snap["model"][k])
+    for key, value in snap["opt_state"].items():
+        if key == "count":
+            opt_state["count"] = value
+        else:
+            for name, t in value.items():
+                opt_state[key][name].copy_(t)
 
 
 def cast_compute(model: nn.Module, batch: Mapping[str, torch.Tensor],
@@ -254,7 +406,7 @@ def _zero_attention_dropout(cfg, field: str, attn_impl: str):
 
 
 def _sum_form_update(loss_parts, model, params: Dict[str, torch.Tensor],
-                     tx: AdamW, opt_state: OptState, batch: Mapping[str, torch.Tensor],
+                     tx: Optimizer, opt_state: OptState, batch: Mapping[str, torch.Tensor],
                      keys, grad_accum: int, generator) -> Dict[str, torch.Tensor]:
     """Sum-form gradients of ``loss_parts(model, micro, generator) ->
     (nll_sum, ntokens)`` over a strided split of ``batch`` into
@@ -282,7 +434,7 @@ def _sum_form_update(loss_parts, model, params: Dict[str, torch.Tensor],
             "nll_sum": nll_sum, "ntokens": torch.as_tensor(ntok)}
 
 
-def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
+def make_asr_train_step(cfg: SpeechT5Config, tx: Optimizer, *,
                         attn_impl: str = "dense",
                         freeze_feature_encoder: bool = False,
                         grad_accum: int = 1,
@@ -329,7 +481,7 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: AdamW, *,
     return step
 
 
-def make_lm_train_step(cfg: g.GPT2Config, tx: AdamW, *, attn_impl: str = "dense",
+def make_lm_train_step(cfg: g.GPT2Config, tx: Optimizer, *, attn_impl: str = "dense",
                        loss_impl: str = "chunked", grad_accum: int = 1,
                        compute_dtype: Optional[torch.dtype] = None,
                        remat: RematSpec = None) -> Callable:

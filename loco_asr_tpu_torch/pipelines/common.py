@@ -1,10 +1,11 @@
 """Shared pipeline utilities: the trainers' refusal of flags not ported,
-batch rounding and SpeechT5 weight loading from every source the JAX
-package reads."""
+batch rounding, SpeechT5 weight loading from every source the JAX package
+reads, and the trainers' NaN rollback."""
 
 from __future__ import annotations
 
 import os
+import sys
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -13,23 +14,19 @@ import torch
 from ..models.speecht5 import convert
 from ..models.speecht5 import model as st5
 from ..models.speecht5.config import SpeechT5Config
+from ..parallel import train
 
 
-def refuse_unported(args, jax_pipeline: str, **extra: bool) -> None:
+def refuse_unported(args, jax_pipeline: str) -> None:
     """SystemExit naming every flag of a trainer's ``args`` that this
-    package does not support yet: the JAX trainers' common ones (adafactor,
-    a mesh of more than one device, sequence parallelism, NaN recovery) and
-    ``extra`` (a description of the flag -> whether it was
-    given)."""
+    package does not support yet: the multi-device ones of the JAX
+    trainers (a mesh of more than one device, ring / Ulysses attention,
+    ``--sp_devices``)."""
     dims = [int(x) for x in args.mesh.split(",")]
     refused = {
-        "--optimizer adafactor": args.optimizer != "adamw",
         "--mesh with more than one device": any(d not in (-1, 1) for d in dims),
         f"--attn_impl {args.attn_impl}": args.attn_impl in ("ring", "ulysses"),
         "--sp_devices": bool(args.sp_devices),
-        "--nan_recovery": args.nan_recovery,
-        "--nan_inject_step": args.nan_inject_step is not None,
-        **extra,
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -154,3 +151,32 @@ def _merge(base: Dict[str, np.ndarray], loaded: Dict[str, np.ndarray]
             raise ValueError(f"shape mismatch for {k}: {np.shape(out[k])} vs {np.shape(v)}")
         out[k] = v
     return out
+
+
+class NanRollback:
+    """The JAX trainers' ``--nan_recovery``: after a step whose loss is not
+    finite, log ``event="nan_rollback"`` at that step and put back the
+    latest checkpoint's parameters and optimizer state (``load(restored)``
+    reads a ``Checkpointer.restore()`` state into the live ones) or, with
+    none saved yet, the host snapshot of the state the run started from.
+    The step updated the parameters and the optimizer state in place, NaN
+    and all, so both are restored whole, the optimizer's count included."""
+
+    def __init__(self, model, opt_state, ckpt, metrics, load: Callable[[Dict], None]):
+        self.model, self.opt_state, self.ckpt, self.metrics = model, opt_state, ckpt, metrics
+        self.load = load
+        self.snapshot = train.host_snapshot(model, opt_state)
+
+    def __call__(self, step: int, loss) -> bool:
+        """Whether step ``step`` (1-based) was rolled back."""
+        if np.isfinite(float(loss)):
+            return False
+        print(f"step {step}: non-finite loss; rolling back", file=sys.stderr)
+        self.metrics.log(step=step, event="nan_rollback")
+        restored = self.ckpt.restore()
+        if restored is not None:
+            self.load(restored)
+        else:
+            print("no checkpoint yet; restoring initial state", file=sys.stderr)
+            train.restore_snapshot(self.model, self.opt_state, self.snapshot)
+        return True

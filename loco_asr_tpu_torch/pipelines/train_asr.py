@@ -2,12 +2,13 @@
 ``loco_asr_tpu.pipelines.train_asr``.
 
 CLI (the JAX trainer's flags, plus ``--device``):
-  --train_dir --dev_dir --out_dir --checkpoint (JAX .npz) --tokenizer
+  --train_dir --dev_dir --out_dir --checkpoint --tokenizer
   --vocab_size --batch_size --steps --lr --warmup_steps --weight_decay
   --grad_clip --grad_accum --eval_every --save_every --max_seconds
   --max_label_len --conversation_seconds --resume --attn_impl {dense,flash}
   --freeze_feature_encoder --seed --tiny --config_json --decode_max_len
-  --eval_batches --device (default cuda; cpu runs the plain versions)
+  --eval_batches --optimizer {adamw,adafactor} --nan_recovery
+  --nan_inject_step --device (default cuda; cpu runs the plain versions)
 
 Each step is ``parallel.train.make_asr_train_step`` (with ``--attn_impl
 flash``: kernels B1, B3/B4 and B5 in every step, B2 when the feature
@@ -30,10 +31,17 @@ encoder layers under a rematerialization policy of ``ops/remat.py``, with
 the same numbers.  The long-context recipe of the JAX trainer runs as it
 is: ``--conversation_seconds 164 --attn_impl flash --remat lite``.
 
-Refused with an error (not ported): ``--optimizer adafactor``,
-a ``--mesh`` of more than one device, ``--attn_impl ring|ulysses``,
-``--sp_devices``, ``--nan_recovery``, ``--nan_inject_step`` and a
-``--checkpoint`` that is not a JAX ``.npz``.
+``--checkpoint`` takes every source of ``common.load_speecht5_params``:
+a JAX ``.npz``, a training directory, an HF directory, ``.safetensors`` or
+torch state dict, a fairseq checkpoint.  ``--optimizer adafactor`` is the
+JAX ``adafactor`` (``parallel/train.py``; its state is checkpointed and
+resumed as AdamW's).  ``--nan_recovery``: a step whose loss is not finite
+is logged (``event="nan_rollback"``), its batch skipped and the latest
+checkpoint (or, before the first save, the starting state) put back;
+``--nan_inject_step N`` fills step N's waveform with NaN, once.
+
+Refused with an error (not ported, multi-device): a ``--mesh`` of more
+than one device, ``--attn_impl ring|ulysses`` and ``--sp_devices``.
 """
 
 from __future__ import annotations
@@ -54,8 +62,9 @@ def parse_args(argv=None):
     p.add_argument("--dev_dir", default=None, help="Kaldi data dir (dev)")
     p.add_argument("--out_dir", default="exp/asr")
     p.add_argument("--checkpoint", default=None,
-                   help="init weights: a .npz of the JAX package's params "
-                        "(utils.checkpoint.save_npz); random if omitted")
+                   help="init weights: a .npz of the JAX package's params, a "
+                        "training directory, HF weights (directory, .safetensors, "
+                        "torch state dict) or a fairseq checkpoint; random if omitted")
     p.add_argument("--tokenizer", default="char")
     p.add_argument("--vocab_size", type=int, default=256)
     p.add_argument("--batch_size", type=int, default=8)
@@ -66,7 +75,7 @@ def parse_args(argv=None):
     p.add_argument("--grad_clip", type=float, default=None,
                    help="global-norm gradient clipping threshold")
     p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw",
-                   help="adafactor is not ported (refused)")
+                   help="adafactor: factored second moments, no first moment")
     p.add_argument("--opt_mu_dtype", choices=["float32", "bfloat16"],
                    default="float32", help="dtype of Adam's first moment")
     p.add_argument("--grad_accum", type=int, default=1,
@@ -98,9 +107,11 @@ def parse_args(argv=None):
                         "'dots' the matrix products, 'hybrid' those and the "
                         "dropout masks, 'lite' all but the FFN chain "
                         "(ops/remat.py); the numbers do not change")
-    p.add_argument("--nan_recovery", action="store_true", help="not ported (refused)")
+    p.add_argument("--nan_recovery", action="store_true",
+                   help="on a non-finite loss, skip the batch and restore the "
+                        "last checkpoint (or the starting state)")
     p.add_argument("--nan_inject_step", type=int, default=None,
-                   help="not ported (refused)")
+                   help="fault injection: step N's waveform is NaN (once)")
     p.add_argument("--attn_impl", default="dense",
                    choices=["dense", "flash", "ring", "ulysses"],
                    help="'flash' runs the attention kernels (B1, B3/B4, B5); "
@@ -149,10 +160,7 @@ def build_config(args):
 def main(argv=None) -> int:
     args = parse_args(argv)
     from . import common
-    common.refuse_unported(
-        args, "train_asr",
-        **{"--checkpoint other than a JAX .npz": (args.checkpoint is not None
-                                                  and not args.checkpoint.endswith(".npz"))})
+    common.refuse_unported(args, "train_asr")
 
     import torch
 
@@ -182,9 +190,13 @@ def main(argv=None) -> int:
         model = st5.asr_model_init(cfg, seed=args.seed, device=dev)
     if args.dtype == "bfloat16":
         cast_parameters(model, torch.bfloat16)
-    tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
-                     clip_norm=args.grad_clip,
-                     mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
+    if args.optimizer == "adafactor":
+        tx = train.adafactor(args.lr, args.weight_decay, args.warmup_steps, args.steps,
+                             clip_norm=args.grad_clip)
+    else:
+        tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
+                         clip_norm=args.grad_clip,
+                         mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
     params = train.trainable_params(model, args.freeze_feature_encoder)
     opt_state = tx.init(params)
     step_fn = train.make_asr_train_step(
@@ -197,17 +209,16 @@ def main(argv=None) -> int:
     ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
     metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))
     start_step = 0
+
+    def load_state(restored):
+        model.load_state_dict(convert.asr_from_jax_params(flatten(restored["params"]), cfg),
+                              strict=True)
+        train.load_opt_state(opt_state, restored["opt_state"])
+
     if args.resume:
         restored = ckpt.restore()
         if restored is not None:
-            state = convert.asr_from_jax_params(flatten(restored["params"]), cfg)
-            model.load_state_dict(state, strict=True)
-            os_ = restored["opt_state"]
-            for key in ("mu", "nu"):
-                saved = flatten(os_[key])
-                for name, t in opt_state[key].items():
-                    t.copy_(torch.as_tensor(saved[name]))
-            opt_state["count"] = int(os_["count"])
+            load_state(restored)
             start_step = int(restored["step"])
             print(f"resumed at step {start_step}", file=sys.stderr)
 
@@ -282,6 +293,8 @@ def main(argv=None) -> int:
     trunc = {"samples": 0, "label_tokens": 0, "utterances": 0}
     trunc_warned = False
     t0 = time.perf_counter()
+    rollback = (common.NanRollback(model, opt_state, ckpt, metrics, load_state)
+                if args.nan_recovery else None)
     while step < args.steps:
         try:
             batch = next(stream)
@@ -298,7 +311,14 @@ def main(argv=None) -> int:
                   f"(max_seconds={args.max_seconds}, max_label_len="
                   f"{args.max_label_len}): {tr}; running totals are logged "
                   "as trunc_* in metrics.jsonl", file=sys.stderr)
+        if args.nan_inject_step is not None and step + 1 == args.nan_inject_step:
+            # fault injection: a poisoned batch (NaN waveform -> NaN loss)
+            batch = dict(batch, input_values=np.full_like(
+                np.asarray(batch["input_values"], np.float32), np.nan))
+            args.nan_inject_step = None
         m = step_fn(model, opt_state, to_device(batch), gen)
+        if rollback is not None and rollback(step + 1, m["loss"]):
+            continue
         step += 1
         if step % 50 == 0:
             dt = time.perf_counter() - t0
@@ -315,8 +335,7 @@ def main(argv=None) -> int:
         if step % args.save_every == 0 or step == args.steps:
             ckpt.save(step, {
                 "params": convert.asr_to_jax_params(model),
-                "opt_state": {"count": np.asarray(opt_state["count"]),
-                              "mu": opt_state["mu"], "nu": opt_state["nu"]},
+                "opt_state": opt_state,
                 "step": np.asarray(step)})
     run_eval(step)
     print("Training done!", file=sys.stderr)

@@ -12,6 +12,7 @@ CLI (the JAX trainer's flags, plus ``--device``):
   --weight_decay --eval_every --save_every --log_every --resume
   --attn_impl {dense,flash} --grad_clip --grad_accum --eos_id
   --tiny_n_embd --tiny_n_layer --tiny_n_head --loss_impl {chunked,dense}
+  --optimizer {adamw,adafactor} --nan_recovery --nan_inject_step
   --seed --rng_impl (accepted, ignored) --device (default cuda; cpu runs
   the plain PyTorch versions)
 
@@ -35,9 +36,16 @@ stores Adam's first moment in bf16 (read back by ``--resume``).
 blocks under a rematerialization policy of ``ops/remat.py``, with the same
 numbers.
 
-Refused with an error (not ported): ``--optimizer adafactor``,
-``--nan_recovery``, ``--nan_inject_step``, a ``--mesh`` of more than one
-device, ``--attn_impl ring|ulysses`` and ``--sp_devices``.
+``--optimizer adafactor`` is the JAX ``adafactor`` (``parallel/train.py``):
+no first moment and factored second moments, a + b floats for an [a, b]
+matrix, which is what fits gpt2-xl training beside its weights.
+``--nan_recovery``: a step whose loss is not finite is logged
+(``event="nan_rollback"``), its batch skipped and the latest checkpoint (or,
+before the first save, the starting state) put back; ``--nan_inject_step
+N`` multiplies the parameters by NaN before step N, once.
+
+Refused with an error (not ported, multi-device): a ``--mesh`` of more
+than one device, ``--attn_impl ring|ulysses`` and ``--sp_devices``.
 """
 
 from __future__ import annotations
@@ -79,9 +87,12 @@ def parse_args(argv=None):
                    help="rematerialize block intermediates on backward "
                         "(ops/remat.py; bare --remat: full); the numbers do "
                         "not change")
-    p.add_argument("--nan_recovery", action="store_true", help="not ported (refused)")
+    p.add_argument("--nan_recovery", action="store_true",
+                   help="on a non-finite loss, skip the batch and restore the "
+                        "last checkpoint (or the starting state)")
     p.add_argument("--nan_inject_step", type=int, default=None,
-                   help="not ported (refused)")
+                   help="fault injection: the parameters times NaN before step N "
+                        "(once)")
     p.add_argument("--attn_impl", default="dense",
                    choices=["dense", "flash", "ring", "ulysses"],
                    help="causal self-attention in training: 'flash' runs kernel "
@@ -98,7 +109,7 @@ def parse_args(argv=None):
     p.add_argument("--grad_clip", type=float, default=None,
                    help="global-norm gradient clipping threshold")
     p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw",
-                   help="adafactor is not ported (refused)")
+                   help="adafactor: factored second moments, no first moment")
     p.add_argument("--opt_mu_dtype", choices=["float32", "bfloat16"],
                    default="float32", help="dtype of Adam's first moment")
     p.add_argument("--grad_accum", type=int, default=1,
@@ -239,9 +250,13 @@ def main(argv=None) -> int:
     model = load_gpt2(args.checkpoint, cfg, dev)
     cfg = model.cfg
     params = dict(model.named_parameters())
-    tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
-                     clip_norm=args.grad_clip,
-                     mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
+    if args.optimizer == "adafactor":
+        tx = train.adafactor(args.lr, args.weight_decay, args.warmup_steps, args.steps,
+                             clip_norm=args.grad_clip)
+    else:
+        tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
+                         clip_norm=args.grad_clip,
+                         mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
     opt_state = tx.init(params)
     step_fn = train.make_lm_train_step(
         cfg, tx, attn_impl=args.attn_impl, loss_impl=args.loss_impl,
@@ -261,17 +276,16 @@ def main(argv=None) -> int:
     ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
     metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))
     start_step = 0
+
+    def load_state(restored):
+        model.load_state_dict(convert.from_jax_params(flatten(restored["params"]), cfg),
+                              strict=True)
+        train.load_opt_state(opt_state, restored["opt_state"])
+
     if args.resume:
         restored = ckpt.restore()
         if restored is not None:
-            model.load_state_dict(convert.from_jax_params(flatten(restored["params"]), cfg),
-                                  strict=True)
-            saved = restored["opt_state"]
-            for key in ("mu", "nu"):
-                flat = flatten(saved[key])
-                for name, t in opt_state[key].items():
-                    t.copy_(torch.as_tensor(flat[name]))
-            opt_state["count"] = int(saved["count"])
+            load_state(restored)
             start_step = int(restored["step"])
             print(f"resumed at step {start_step}", file=sys.stderr)
 
@@ -295,6 +309,8 @@ def main(argv=None) -> int:
     step, epoch = start_step, 0
     stream = batches(epoch)
     t0 = time.perf_counter()
+    rollback = (common.NanRollback(model, opt_state, ckpt, metrics, load_state)
+                if args.nan_recovery else None)
     while step < args.steps:
         try:
             batch = next(stream)
@@ -304,7 +320,15 @@ def main(argv=None) -> int:
             continue
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in pad_rows(batch, args.grad_accum).items()}
+        if args.nan_inject_step is not None and step + 1 == args.nan_inject_step:
+            # fault injection: NaN-poisoned parameters -> non-finite loss
+            with torch.no_grad():
+                for p in params.values():
+                    p.mul_(float("nan"))
+            args.nan_inject_step = None
         m = step_fn(model, opt_state, batch, gen)
+        if rollback is not None and rollback(step + 1, m["loss"]):
+            continue
         step += 1
         if step % args.log_every == 0:
             dt = time.perf_counter() - t0
@@ -318,8 +342,7 @@ def main(argv=None) -> int:
         if step % args.save_every == 0 or step == args.steps:
             ckpt.save(step, {
                 "params": convert.to_jax_params(model),
-                "opt_state": {"count": np.asarray(opt_state["count"]),
-                              "mu": opt_state["mu"], "nu": opt_state["nu"]},
+                "opt_state": opt_state,
                 "step": np.asarray(step)})
     run_eval(step)
     print("Training done!", file=sys.stderr)

@@ -10,6 +10,9 @@ flat with ``.``-joined keys: the trainer stores ``params.<JAX flat key>``
 state under ``opt_state.count``, ``opt_state.mu.<name>``,
 ``opt_state.nu.<name>`` with the port's parameter names.
 
+:func:`average_checkpoints` and :func:`average_last_k` average saved
+parameter trees, as the JAX module's do.
+
 A bfloat16 tensor (a ``--opt_mu_dtype bfloat16`` first moment, a
 ``--dtype bfloat16`` parameter) is saved as the JAX package's ``.npz``
 holds one: its raw 2-byte values as a void (``|V2``) array, since the
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -117,3 +120,48 @@ class Checkpointer:
         if step is None:
             step = self.status()["latest"]
         return None if step is None else load_npz(self.step_path(step))
+
+    def steps(self) -> List[int]:
+        """Every saved step number, ascending."""
+        return sorted(int(name[len("step_"):].split(".")[0])
+                      for name in os.listdir(self.directory)
+                      if name.startswith("step_") and not name.endswith(".tmp.npz"))
+
+
+def _float64(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().double().numpy()
+    return np.asarray(leaf, np.float64)
+
+
+def _like(values: np.ndarray, leaf):
+    """``values`` in ``leaf``'s dtype (a tensor for a tensor leaf)."""
+    if isinstance(leaf, torch.Tensor):
+        return torch.from_numpy(values).to(leaf.dtype)
+    return values.astype(np.asarray(leaf).dtype)
+
+
+def average_checkpoints(states: List[Dict]) -> Dict:
+    """Leafwise mean of parameter trees (ASR checkpoint averaging over the
+    last saves): summed in float64, cast back to each leaf's dtype.  Pass
+    parameter trees (``[s["params"] for s in ...]``)."""
+    if not states:
+        raise ValueError("no states to average")
+    flats = [flatten(s) for s in states]
+    if any(f.keys() != flats[0].keys() for f in flats):
+        raise ValueError("the trees to average hold different keys")
+    out = {}
+    for key, first in flats[0].items():
+        acc = _float64(first)
+        for f in flats[1:]:
+            acc = acc + _float64(f[key])
+        out[key] = _like(acc / float(len(flats)), first)
+    return unflatten(out)
+
+
+def average_last_k(ckpt: Checkpointer, k: int = 5) -> Optional[Dict]:
+    """The mean parameters of the last ``k`` saved steps, or None."""
+    steps = ckpt.steps()[-k:]
+    if not steps:
+        return None
+    return average_checkpoints([ckpt.restore(s)["params"] for s in steps])
