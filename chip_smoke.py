@@ -16,8 +16,10 @@ on the reference's trained weights), SLURP intent classification
 (``extract_embeddings`` -> ``train_classifier`` -> ``slurp_sweep``),
 conversation-scale ASR training (``train_asr --conversation_seconds 164
 --attn_impl flash --remat lite``), long-form episode transcription
-(``transcribe_episodes``) and the trainers' Adafactor, NaN recovery and
-HF-weight options.
+(``transcribe_episodes``), the trainers' Adafactor, NaN recovery and
+HF-weight options, and Fisher corpus ingest (shorten-coded SPHERE through
+``fisher_prep`` and its ``sph_decode`` pipes into ``train_asr``,
+``decode_asr`` and ``eval_ppl``) with the generic feature encoder.
 Phases, in order (any failure raises and exits non-zero):
 
 1. environment: card name and power limit, torch / CUDA versions, TF32
@@ -277,7 +279,33 @@ Phases, in order (any failure raises and exits non-zero):
    3 --save_every 2 --steps 6``: one ``nan_rollback`` at step 3, the live
    parameters after it equal to step 2's save and the optimizer's count
    2, every other loss finite, its launches, then ``average_last_k``;
-19. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+19. Fisher corpus ingest at SpeechT5-base width (``fisher_phase``): (a)
+   an LDC-layout tree of 4 calls (``fe_03_00001-4``) from the committed
+   train recordings resampled to 8 kHz, 6 a channel (~59 s), shorten-coded
+   by the port's encoder (three ``pcm,embedded-shorten-v2.00``, one
+   ``ulaw,...``), with LDC transcripts, ``calldata.tbl``,
+   ``filetable.txt`` and ``{train,dev}.recids``; (b) ``python -m
+   loco_asr_tpu_torch.pipelines.fisher_prep --calldata --split_dir
+   --strict``: every wav.scp line names the port's ``sph_decode``, every
+   channel's pipe returns the seeded samples exactly, the pipe process
+   loads no torch, JAX or ``loco_asr_tpu`` (``-X importtime``), and the
+   native core (which must build) equals the pure-Python decoder bit for
+   bit on each file's first 10 s; M samples/s of both, seconds a pipe and
+   the extrapolation to 11,699 ten-minute calls; (c) ``train_asr
+   --attn_impl flash --batch_size 8 --max_seconds 10 --steps 8
+   --eval_every 4 --eval_batches 1`` on the train split (finite losses,
+   18 B1 and 18 B3/B4 a step, 12 B1 + 1 B2 a dev encode; median step ms,
+   the last step's busy share, the seconds the loop waits on the
+   prefetching stream after its first batch, the recordings its pipes
+   load; then the input stream alone, seconds a batch); (d)
+   ``decode_asr --beam_size 4`` of the dev split on (c)'s checkpoint,
+   kernel path against plain path by phase 12's near-tie rule, WER; (e)
+   ``eval_ppl --model gpt2 --context_type max_len`` on the dev text, flash
+   against dense (NLL 1e-4, B6's launches); (f) ``encode_speech`` with the
+   generic feature encoder (``feat_extract_norm="layer"``,
+   ``conv_bias``) at B = 16 x 5 s, kernels against plain (1e-3 max, 1e-4
+   mean; 12 B1, 0 B2);
+20. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
    ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
    ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
    phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches,
@@ -285,7 +313,8 @@ Phases, in order (any failure raises and exits non-zero):
    (a)'s head dims and phase 17 (b)'s head-dim-8 launches, B1 and B2 with
    phase 18's episode launches, B1 with its 120 s decode time, B1 and
    B3/B4 with the Adafactor ``train_asr`` run's, B5 with the gpt2-xl
-   steps'; then the six bf16 forms with phase 16's launches, times and
+   steps', B1, B2, B3/B4 and B6 with phase 19's ``fisher_launches``;
+   then the six bf16 forms with phase 16's launches, times and
    bounds), then last
    ``{"ok": true, "device": {...}}``.
 
@@ -303,6 +332,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -406,6 +436,21 @@ KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
 )
 
 
+def busy_ms(prof):
+    """(device-busy ms of a profiled window, kernels recorded): the union
+    of its CUDA kernel intervals (cuDNN may run kernels concurrently)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3, len(spans)
+
+
 def device_breakdown(fn) -> dict:
     """Device time of one ``fn()`` by kernel group (torch.profiler, CUDA
     activity; summed kernel durations), the kernels recorded, and the
@@ -414,7 +459,6 @@ def device_breakdown(fn) -> dict:
     the group sums can exceed it).  A window that recorded no kernel is
     profiled again, as in :func:`kernel_device_ms`."""
     import torch
-    from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
@@ -435,15 +479,9 @@ def device_breakdown(fn) -> dict:
         groups[group] = groups.get(group, 0.0) + us / 1e3
         top.append((us / 1e3, e.count, name[:90]))
     top.sort(reverse=True)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    return dict(kernel_ms_sum=sum(groups.values()), busy_ms=busy_us / 1e3,
-                wall_ms=wall_ms, busy_share=busy_us / 1e3 / wall_ms, kernels=len(spans),
+    busy, n_kernels = busy_ms(prof)
+    return dict(kernel_ms_sum=sum(groups.values()), busy_ms=busy,
+                wall_ms=wall_ms, busy_share=busy / wall_ms, kernels=n_kernels,
                 groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                 top_kernels=[dict(ms=ms, count=n, name=k) for ms, n, k in top[:12]])
 
@@ -2003,25 +2041,30 @@ def counted_forms():
         _build.bf16_flag = real
 
 
-def bf16_held(what: str, got, plain, exact, lse=None, plain_lse=None) -> dict:
-    """A bf16 kernel's output against its plain version (max |d| <= 2^-7
-    max |plain|, lse within 1e-3) and both against a float64 evaluation on
-    the same bf16 inputs (the kernel's error at most twice the plain
-    version's)."""
+def held(what: str, got, plain, exact, lse=None, plain_lse=None, *,
+         f32_tol: float = B1_TOL) -> dict:
+    """A kernel's output against its plain version on the same inputs.
+    bf16: max |d| <= 2^-7 max |plain|, lse within 1e-3, and both against a
+    float64 evaluation (the kernel's error at most twice the plain
+    version's).  f32: max |d| and the lse's within ``f32_tol``, the limits
+    of phases 3 and 8; the float64 errors are recorded."""
     import torch
 
     check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite output")
     check(got.dtype == plain.dtype, f"{what}: dtype {got.dtype}, plain {plain.dtype}")
+    bf16 = got.dtype == torch.bfloat16
     err = (got.float() - plain.float()).abs().max().item()
-    lim = BF16_REL_TOL * plain.float().abs().max().item()
+    lim = BF16_REL_TOL * plain.float().abs().max().item() if bf16 else f32_tol
     check(err <= lim, f"{what}: max abs err {err} > {lim}")
     k_err = (got.double() - exact).abs().max().item()
     p_err = (plain.double() - exact).abs().max().item()
-    check(k_err <= 2 * p_err, f"{what}: error against float64 {k_err} > 2 x plain {p_err}")
+    check(not bf16 or k_err <= 2 * p_err,
+          f"{what}: error against float64 {k_err} > 2 x plain {p_err}")
     rec = dict(max_abs_err=err, tol=lim, f64_err=k_err, plain_f64_err=p_err)
     if lse is not None:
         rec["lse_err"] = (lse - plain_lse).abs().max().item()
-        check(rec["lse_err"] <= BF16_LSE_TOL, f"{what}: lse err {rec['lse_err']}")
+        lse_lim = BF16_LSE_TOL if bf16 else f32_tol
+        check(rec["lse_err"] <= lse_lim, f"{what}: lse err {rec['lse_err']} > {lse_lim}")
     return rec
 
 
@@ -2038,7 +2081,8 @@ def b1_f64(q, k, v, table, vl, causal: bool, scale: float, dtype=None):
 
 
 def hold_b1(what: str, q, k, v, pe, vl, *, causal: bool, scale: float) -> dict:
-    """B1 (``pe`` None: mask-only) on these inputs, held by :func:`bf16_held`."""
+    """B1 (``pe`` None: mask-only) on these inputs, held by :func:`held`
+    (f32: within B1_TOL)."""
     import torch
 
     from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
@@ -2046,33 +2090,38 @@ def hold_b1(what: str, q, k, v, pe, vl, *, causal: bool, scale: float) -> dict:
     table = pe if pe is not None else torch.zeros(2, q.shape[-1], dtype=q.dtype, device=q.device)
     out, lse = fa.flash_rel_forward(q, k, v, pe, vl, causal=causal, scale=scale)
     pout, plse = fa.flash_rel_forward_plain(q, k, v, table, vl, causal=causal, scale=scale)
-    return bf16_held(what, out, pout, b1_f64(q, k, v, table, vl, causal, scale), lse, plse)
+    return held(what, out, pout, b1_f64(q, k, v, table, vl, causal, scale), lse, plse)
 
 
 def hold_b34(what: str, q, k, v, pe, vl, out, lse, g, *, causal: bool, scale: float,
              mask_only: bool) -> dict:
     """B3 + B4 (the wrapper's dq, dk, dv) against the plain backward and the
-    float64 gradient of :func:`b1_f64`, each by :func:`bf16_held`."""
+    float64 gradient of :func:`b1_f64`, each by :func:`held` (f32: within
+    B34_TOL, and with the band, dpe relative to its max within B34_TOL)."""
     import torch
 
     from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
 
+    with_dpe = q.dtype == torch.float32 and not mask_only
     got = fa.flash_rel_backward(q, k, v, pe, vl, out, lse, g, causal=causal, scale=scale,
-                                need_dpe=False, mask_only=mask_only)
-    dq, dk, dv, dqpe = fa.flash_rel_backward_plain(q, k, v, pe, vl, out, lse, g,
-                                                   causal=causal, scale=scale)
-    if not mask_only:
-        dq = dq + (dqpe @ pe.float()) * scale
+                                need_dpe=with_dpe, mask_only=mask_only)
+    dq, dk, dv, dpe = rel_bwd_reference(q, k, v, pe, vl, out, lse, g, causal, scale, mask_only)
     plain = tuple(x.to(q.dtype) for x in (dq, dk, dv))
     leaves = [x.double().requires_grad_() for x in (q, k, v)]
     exact = torch.autograd.grad(b1_f64(*leaves, pe, vl, causal, scale), leaves, g.double())
-    errs = {n: bf16_held(f"{what} {n}", a, p_, e)
+    errs = {n: held(f"{what} {n}", a, p_, e, f32_tol=B34_TOL)
             for n, a, p_, e in zip(("dq", "dk", "dv"), got, plain, exact)}
-    return dict(max_abs_err=max(r["max_abs_err"] for r in errs.values()), errs=errs)
+    rec = dict(max_abs_err=max(r["max_abs_err"] for r in errs.values()), errs=errs)
+    if with_dpe:
+        rel = (got[3] - dpe).abs().max().item() / dpe.abs().max().item()
+        check(rel <= B34_TOL, f"{what} dpe: error {rel} of its max > {B34_TOL}")
+        errs["dpe"] = dict(max_abs_err=rel)
+    return rec
 
 
 def hold_b5(what: str, q, k, v, *, causal: bool, scale: float, nhd: bool = False) -> dict:
-    """B5 ([B, H, T, D]) or B6 (``nhd``: [B, T, H, D]) by :func:`bf16_held`."""
+    """B5 ([B, H, T, D]) or B6 (``nhd``: [B, T, H, D]) by :func:`held`
+    (f32: within B56_TOL)."""
     import torch
 
     from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
@@ -2087,11 +2136,12 @@ def hold_b5(what: str, q, k, v, *, causal: bool, scale: float, nhd: bool = False
         s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).triu(1),
                           -1e30)
     exact = torch.softmax(s, -1) @ vs
-    return bf16_held(what, out, pout, exact.transpose(1, 2) if nhd else exact, lse, plse)
+    return held(what, out, pout, exact.transpose(1, 2) if nhd else exact, lse, plse,
+                f32_tol=B56_TOL)
 
 
 def hold_b2(what: str, wav, w, sc, bi, *, stride: int = 5) -> dict:
-    """B2 by :func:`bf16_held`; the float64 evaluation is the plain version
+    """B2 by :func:`held`; the float64 evaluation is the plain version
     on float64 copies."""
     from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
 
@@ -2099,7 +2149,7 @@ def hold_b2(what: str, wav, w, sc, bi, *, stride: int = 5) -> dict:
     pout = cf.conv1_instance_norm_gelu_plain(wav, w, sc, bi, stride=stride)
     exact = cf.conv1_instance_norm_gelu_plain(*(t.double() for t in (wav, w, sc, bi)),
                                               stride=stride)
-    return bf16_held(what, out, pout, exact)
+    return held(what, out, pout, exact, f32_tol=B2_TOL)
 
 
 @contextlib.contextmanager
@@ -2159,7 +2209,8 @@ def hold_captured(cases: dict) -> list:
     wrapper and held against its plain version by the ``hold_*`` checks."""
     recs = []
     for key, c in cases.items():
-        what = f"{key[0]} bf16 at the step's {' '.join(map(str, key[1:]))}"
+        dtype = next(t.dtype for t in c.values() if hasattr(t, "dtype"))
+        what = f"{key[0]} {dtype} at the step's {' '.join(map(str, key[1:]))}"
         if key[0] == "B1":
             rec = hold_b1(what, c["q"], c["k"], c["v"], c["pe"], c["vl"], causal=c["causal"],
                           scale=c["scale"])
@@ -2173,7 +2224,7 @@ def hold_captured(cases: dict) -> list:
             rec = hold_b5(what, c["q"], c["k"], c["v"], causal=c["causal"], scale=c["scale"],
                           nhd=c["nhd"])
         recs.append(dict(kernel=key[0], case=[str(x) for x in key[1:]],
-                         dtype=str(next(t.dtype for t in c.values() if hasattr(t, "dtype"))),
+                         dtype=str(dtype),
                          **{n: rec[n] for n in ("max_abs_err", "tol", "f64_err",
                                                 "plain_f64_err") if n in rec},
                          **({"errs": {n: r["max_abs_err"] for n, r in rec["errs"].items()}}
@@ -3912,6 +3963,606 @@ def trainer_options_phase(corpus: dict, smi: str, dev) -> dict:
     return out
 
 
+# ---- phase 19: Fisher corpus ingest (shorten SPHERE -> fisher_prep -> train,
+# decode, perplexity), then the generic feature encoder ----------------------
+
+FISHER_CALLS = 4            # fe_03_00001-4: three pcm-shorten, the last ulaw-shorten
+FISHER_RECS_PER_CHANNEL = 6
+FISHER_FULL_CALLS = 11699   # the full corpus (pipelines/fisher_prep.py --strict)
+FISHER_CALL_S = 600.0       # the extrapolation's call length
+FISHER_PY_SECONDS = 10.0    # the pure-Python decoder's share of each file
+
+
+def linear_to_ulaw(pcm: np.ndarray) -> np.ndarray:
+    """int16 PCM -> G.711 mu-law bytes."""
+    bias, clip = 0x84, 32635
+    x = pcm.astype(np.int32)
+    sign = np.where(x < 0, 0x80, 0)
+    x = np.clip(np.abs(x), 0, clip) + bias
+    exponent = np.clip(np.floor(np.log2(x / 128.0)).astype(np.int32), 0, 7)
+    mantissa = (x >> (exponent + 3)) & 0x0F
+    return (~(sign | (exponent << 4) | mantissa)).astype(np.uint8)
+
+
+def encode_call(x: np.ndarray, ulaw: bool) -> bytes:
+    """A call's [n, 2] internal samples as one shorten stream (``TYPE_AU2``
+    for mu-law, else ``TYPE_S16LH``), every command the codec has in use."""
+    from loco_asr_tpu_torch.ops import shorten as shn
+
+    return shn.encode(x, shn.TYPE_AU2 if ulaw else shn.TYPE_S16LH, nmean=4, maxnlpc=2,
+                      qlpc=[56, -24], commands=[shn.FN_DIFF1, shn.FN_DIFF2, shn.FN_QLPC,
+                                                shn.FN_DIFF3])
+
+
+def write_shorten_sphere(path: str, stream: bytes, n: int, ulaw: bool) -> None:
+    """A two-channel 8 kHz SPHERE file of ``n`` samples a channel around a
+    shorten ``stream``: ``pcm,embedded-shorten-v2.00`` (16-bit) or
+    ``ulaw,embedded-shorten-v2.00``."""
+    coding = ("ulaw" if ulaw else "pcm") + ",embedded-shorten-v2.00"
+    header = (f"NIST_1A\n   1024\nchannel_count -i 2\nsample_count -i {n}\n"
+              f"sample_rate -i 8000\nsample_n_bytes -i {1 if ulaw else 2}\n"
+              f"sample_coding -s{len(coding)} {coding}\nend_head\n")
+    with open(path, "wb") as f:
+        f.write(header.encode().ljust(1024, b" ") + stream)
+
+
+def write_fisher(root: str) -> dict:
+    """An LDC-layout Fisher tree of ``FISHER_CALLS`` calls from the committed
+    train recordings (16 kHz WAV, ~9.8 s, 10 segments each), resampled to 8
+    kHz with the port's resampler, ``FISHER_RECS_PER_CHANNEL`` back to back
+    a channel: shorten-coded SPHERE (``pcm,embedded-shorten-v2.00``, 16-bit
+    ``TYPE_S16LH``; the last call ``ulaw,embedded-shorten-v2.00``,
+    ``TYPE_AU2``), transcripts ``# fe_03_0000N.sph`` then ``start end
+    A|B: words`` shifted by each recording's offset, a ``calldata.tbl`` row
+    for call 3 (its utterances take the speakers' pins), a
+    ``filetable.txt``, and ``train.recids`` (calls 1-3, and call 3's pins,
+    which the remapped utterance ids carry as their recording id) /
+    ``dev.recids`` (call 4).  Returns the seeded internal samples by call,
+    the calls' paths, the split dir and the encode seconds."""
+    from loco_asr_tpu_torch.data import kaldi
+    from loco_asr_tpu_torch.ops import audio_io
+    from loco_asr_tpu_torch.ops import shorten as shn
+
+    src = os.path.join(ROOT, "exp", "loco", "asr_corpus", "train")
+    texts = kaldi.read_key_value_file(os.path.join(src, "text"))
+    segments = kaldi.read_segments(os.path.join(src, "segments"))
+    by_reco: dict = {}
+    for utt, (reco, start, end) in segments.items():
+        by_reco.setdefault(reco, []).append((start, end, texts[utt]))
+    recos = sorted(by_reco)[:FISHER_CALLS * 2 * FISHER_RECS_PER_CHANNEL]
+    trans = os.path.join(root, "fe_03_p1_tran", "data", "trans", "000")
+    audio = os.path.join(root, "fe_03_p1_sph1", "audio", "000")
+    doc = os.path.join(root, "fe_03_p1_tran", "doc")
+    splits = os.path.join(root, "splits")
+    for d in (trans, audio, doc, splits):
+        os.makedirs(d)
+    samples, paths, encode_s, seconds = {}, {}, 0.0, 0.0
+    for c in range(FISHER_CALLS):
+        call = f"fe_03_{c + 1:05d}"
+        chans, lines = [], []
+        for ch, side in enumerate("AB"):
+            pcm, offset = [], 0.0
+            for j in range(FISHER_RECS_PER_CHANNEL):
+                reco = recos[(2 * c + ch) * FISHER_RECS_PER_CHANNEL + j]
+                wav, sr = audio_io.read_wav(os.path.join(src, "wav", f"{reco}.wav"))
+                x = audio_io.resample(wav, sr, 8000)
+                pcm.append(np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int32))
+                for start, end, words in sorted(by_reco[reco]):
+                    lines.append((offset + start, offset + end, side, words))
+                offset += len(pcm[-1]) / 8000.0
+            chans.append(np.concatenate(pcm))
+        n = max(len(x) for x in chans)
+        x = np.stack([np.pad(v, (0, n - len(v))) for v in chans], axis=1)   # [n, 2]
+        ulaw = c == FISHER_CALLS - 1
+        if ulaw:   # mu-law bytes, stored as their G.711 expansion
+            x = np.stack([shn.ulaw_bytes_to_internal(linear_to_ulaw(x[:, k])) for k in (0, 1)], 1)
+        t0 = time.perf_counter()
+        stream = encode_call(x, ulaw)
+        encode_s += time.perf_counter() - t0
+        paths[call] = os.path.join(audio, f"{call}.sph")
+        write_shorten_sphere(paths[call], stream, n, ulaw)
+        with open(os.path.join(trans, f"{call}.txt"), "w") as f:
+            f.write(f"# {call}.sph\n\n")
+            for start, end, side, words in sorted(lines):
+                f.write(f"{start:.2f} {end:.2f} {side}: {words}\n")
+        samples[call] = x
+        seconds += n / 8000.0
+    with open(os.path.join(doc, "fe_03_p1_calldata.tbl"), "w") as f:
+        f.write("00003,x,x,x,x, 71003 ,x,x,x,x, 72003 ,x\n")
+    with open(os.path.join(root, "fe_03_p1_sph1", "filetable.txt"), "w") as f:
+        for c, g in enumerate(("fm", "mm", "ff", "mf")):
+            f.write(f"pin{c} fe_03_{c + 1:05d}.sph {g}\n")
+    with open(os.path.join(splits, "train.recids"), "w") as f:
+        f.write("fe_03_00001\nfe_03_00002\nfe_03_00003\nfe_03_71003\nfe_03_72003\n")
+    with open(os.path.join(splits, "dev.recids"), "w") as f:
+        f.write("fe_03_00004\n")
+    return dict(samples=samples, paths=paths, splits=splits, encode_s=encode_s,
+                channel_seconds=seconds / FISHER_CALLS, recordings=len(recos))
+
+
+def pipe_env() -> dict:
+    """The environment the port's dataset gives a wav.scp pipe."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def release_call_load(tmp: str, corpus: dict, pipe_line: str) -> dict:
+    """One recording load of the port's ``KaldiAsrDataset`` on a call of the
+    release's length (``FISHER_CALL_S`` a channel: call 1's samples
+    repeated, shorten-coded as call 1), as a trainer meets it on the
+    shuffled corpus, where nearly every utterance misses the 5-recording
+    cache: the wav.scp pipe ``fisher_prep`` wrote for call 1 (``sph_decode``
+    of the whole file) pointed at it, then the 8 -> 16 kHz resampler, each
+    timed; and a pipe's start-up, timed on a call of 0.1 s."""
+    from loco_asr_tpu_torch.data.asr_dataset import KaldiAsrDataset
+    from loco_asr_tpu_torch.ops import audio_io
+
+    src = corpus["paths"]["fe_03_00001"]
+    check(src in pipe_line, f"call 1's pipe does not name its file: {pipe_line}")
+    x = corpus["samples"]["fe_03_00001"]
+    n = int(FISHER_CALL_S * 8000)
+    long = np.tile(x, (-(-n // len(x)), 1))[:n]
+    t0 = time.perf_counter()
+    stream = encode_call(long, False)
+    encode_s = time.perf_counter() - t0
+    release, short = os.path.join(tmp, "fe_03_90000.sph"), os.path.join(tmp, "fe_03_90001.sph")
+    write_shorten_sphere(release, stream, n, False)
+    write_shorten_sphere(short, encode_call(long[:800], False), 800, False)
+    start_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = subprocess.run(pipe_line.replace(src, short).rstrip()[:-1], shell=True,
+                             capture_output=True, cwd=ROOT, env=pipe_env(), timeout=120)
+        start_s.append(time.perf_counter() - t0)
+        check(out.returncode == 0, f"the 0.1 s pipe returned {out.returncode}")
+    data = os.path.join(tmp, "release")
+    os.makedirs(data)
+    utt = "fe_03_90000-A-000000-000100"
+    for name, line in (("wav.scp", f"fe_03_90000-A {pipe_line.replace(src, release)}"),
+                       ("text", f"{utt} words"), ("segments", f"{utt} fe_03_90000-A 0.00 1.00")):
+        with open(os.path.join(data, name), "w") as f:
+            f.write(line.rstrip("\n") + "\n")
+    ds = KaldiAsrDataset(data)
+    real, spent = audio_io.resample, []
+
+    def timed_resample(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    audio_io.resample = timed_resample
+    try:
+        t0 = time.perf_counter()
+        wav = ds._load_recording("fe_03_90000-A")
+        load_s = time.perf_counter() - t0
+    finally:
+        audio_io.resample = real
+    check(len(spent) == 1 and np.array_equal(
+        wav, real(long[:, 0].astype(np.float32) / 32768.0, 8000, 16000)),
+        "the release-length load differs from the seeded channel resampled")
+    return dict(release_call_s=FISHER_CALL_S, release_encode_s=encode_s,
+                release_load_s=load_s, release_resample_s=spent[0],
+                release_pipe_s=load_s - spent[0], pipe_start_s=statistics.median(start_s),
+                pipe_start_s_all=start_s)
+
+
+def fisher_ingest(tmp: str, smi: str):
+    """Phase 19 (a) and (b), host work only: the shorten-coded LDC tree
+    (:func:`write_fisher`) under ``tmp``; ``fisher_prep --calldata
+    --split_dir --strict`` into ``tmp/data``; every wav.scp pipe against the
+    seeded samples, the pipe process's imports, and the native core (which
+    must build) against the pure-Python decoder.  Returns (the Kaldi data
+    dir, the record printed)."""
+    from loco_asr_tpu_torch import native
+    from loco_asr_tpu_torch.data import kaldi
+    from loco_asr_tpu_torch.ops import shorten as shn
+
+    root, data = os.path.join(tmp, "ldc"), os.path.join(tmp, "data")
+    corpus = write_fisher(root)
+    print(f"[fisher] corpus {json.dumps(dict(calls=FISHER_CALLS, recordings=corpus['recordings'], channel_seconds=corpus['channel_seconds'], encode_s=corpus['encode_s'], codings=['pcm'] * (FISHER_CALLS - 1) + ['ulaw']))}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "loco_asr_tpu_torch.pipelines.fisher_prep", root,
+                           "--out_dir", os.path.join(data, "train_all"), "--calldata",
+                           "--split_dir", corpus["splits"], "--split_out", data,
+                           "--sets", "train", "dev", "--expected_count", str(FISHER_CALLS),
+                           "--strict"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env=pipe_env())
+    prep_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"fisher_prep returned {proc.returncode}: {proc.stderr[-2000:]}")
+    scp = {}
+    for split in ("train_all", "train", "dev"):
+        scp[split] = kaldi.read_key_value_file(os.path.join(data, split, "wav.scp"))
+        check(scp[split] and all("-m loco_asr_tpu_torch.pipelines.sph_decode " in v
+                                 for v in scp[split].values()),
+              f"{split}/wav.scp does not name the port's sph_decode: {list(scp[split].values())[:2]}")
+    check(len(scp["train_all"]) == 2 * FISHER_CALLS and len(scp["dev"]) == 2,
+          f"wav.scp lines: {[len(v) for v in scp.values()]}")
+    utts = {s: len(kaldi.read_key_value_file(os.path.join(data, s, "text")))
+            for s in ("train_all", "train", "dev")}
+    check(utts["train"] + utts["dev"] == utts["train_all"] and utts["dev"] > 0,
+          f"utterances by split {utts}")
+    check(any(k.startswith("fe_03_71003-00003-A") for k in kaldi.read_key_value_file(
+        os.path.join(data, "train", "text"))), "the calldata remap is missing from train")
+    pipe_s = []
+    for reco, cmd in sorted(scp["train_all"].items()):
+        call, side = reco.rsplit("-", 1)
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd.rstrip()[:-1], shell=True, capture_output=True, cwd=ROOT,
+                             env=pipe_env(), timeout=120)
+        pipe_s.append(time.perf_counter() - t0)
+        check(out.returncode == 0, f"pipe of {reco} returned {out.returncode}: {out.stderr[-500:]}")
+        with wave.open(io.BytesIO(out.stdout)) as w:
+            check(w.getframerate() == 8000 and w.getnchannels() == 1, f"pipe of {reco}: header")
+            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        want = corpus["samples"][call][:, "AB".index(side)]
+        check(np.array_equal(pcm.astype(np.int32), want),
+              f"pipe of {reco}: decoded samples differ from the seeded ones")
+    probe = subprocess.run(f"{sys.executable} -X importtime -m "
+                           f"loco_asr_tpu_torch.pipelines.sph_decode -c 1 "
+                           f"{corpus['paths']['fe_03_00001']} {os.path.join(tmp, 'probe.wav')}",
+                           shell=True, capture_output=True, text=True, cwd=ROOT, env=pipe_env(),
+                           timeout=120)
+    loaded = {line.split("|")[-1].strip() for line in probe.stderr.splitlines()
+              if line.startswith("import time:")}
+    heavy = sorted(m for m in loaded if m.split(".")[0] in ("torch", "jax", "loco_asr_tpu"))
+    check(probe.returncode == 0 and "loco_asr_tpu_torch.native" in loaded and not heavy,
+          f"the sph_decode process: rc {probe.returncode}, loaded {heavy}")
+    check(native.available(), f"the native ingest core did not build: {native.build_error}")
+    n_py = int(FISHER_PY_SECONDS * 8000)
+    nat_s = py_s = 0.0
+    nat_samples = py_samples = 0
+    for call, path in sorted(corpus["paths"].items()):
+        t0 = time.perf_counter()
+        native.read_sphere(path, None)           # decodes both channels
+        nat_s += time.perf_counter() - t0
+        nat_samples += corpus["samples"][call].size
+        with open(path, "rb") as f:
+            raw = f.read()[1024:]
+        t0 = time.perf_counter()
+        dec, ftype = shn.decode(raw, max_samples=n_py)
+        py_s += time.perf_counter() - t0
+        py_samples += dec.size
+        ref = shn.internal_to_float(dec[:n_py], ftype)
+        for ch in (0, 1):
+            got = native.read_sphere(path, ch)[0][:n_py]
+            check(np.array_equal(got, ref[:, ch]),
+                  f"{call} channel {ch}: native and Python decoders differ on the first "
+                  f"{FISHER_PY_SECONDS:.0f} s")
+    nat_rate, py_rate = nat_samples / nat_s, py_samples / py_s
+    full = 2 * FISHER_CALL_S * 8000            # samples a 10-minute call's pipe decodes
+    release = release_call_load(tmp, corpus, scp["train_all"]["fe_03_00001-A"])
+    rec = dict(prep_s=prep_s, utterances=utts, pipes=len(pipe_s),
+               pipe_s_median=statistics.median(pipe_s), pipe_s_max=max(pipe_s),
+               channel_seconds=corpus["channel_seconds"],
+               native_msamples_per_s=nat_rate / 1e6, python_msamples_per_s=py_rate / 1e6,
+               native_equals_python_s=FISHER_PY_SECONDS, pipe_loads=sorted(
+                   m for m in loaded if m.startswith("loco_asr_tpu_torch")),
+               **release,
+               corpus_pipe_hours_native=FISHER_FULL_CALLS * 2 * release["release_pipe_s"] / 3600,
+               corpus_pipe_hours_python=FISHER_FULL_CALLS * 2 * (
+                   release["pipe_start_s"] + full / py_rate) / 3600,
+               card=smi)
+    print(f"[fisher] preparation and pipes {json.dumps(rec)}")
+    return data, rec
+
+
+def fisher_phase(smi: str, dev) -> dict:
+    """Phase 19: the port's Fisher ingest path at SpeechT5-base width.  (a)
+    a shorten-coded LDC tree (:func:`write_fisher`); (b) ``python -m
+    loco_asr_tpu_torch.pipelines.fisher_prep --calldata --split_dir
+    --strict``: every wav.scp pipe names the port's ``sph_decode``, decodes
+    its channel losslessly and loads no torch, JAX or ``loco_asr_tpu``; the
+    native core (which must build) equals the pure-Python decoder on each
+    file's first 10 s; (c) ``train_asr --attn_impl flash`` on the prepared
+    train split (18 B1, 18 B3/B4 a step, 12 B1 + 1 B2 a dev encode); (d)
+    ``decode_asr --beam_size 4`` of the dev split on its checkpoint, kernel
+    path against plain by phase 12's near-tie rule; (e) ``eval_ppl --model
+    gpt2 --context_type max_len`` on the dev text, flash against dense;
+    (f) ``encode_speech`` with the generic feature encoder
+    (``feat_extract_norm="layer"``, ``conv_bias``), kernels against plain.
+    Returns the launches by kernel."""
+    import torch
+
+    from loco_asr_tpu_torch.data.asr_dataset import KaldiAsrDataset
+    from loco_asr_tpu_torch.data.tokenizer import load_tokenizer
+    from loco_asr_tpu_torch.decode import beam as beam_mod
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.parallel import train
+    from loco_asr_tpu_torch.pipelines import decode_asr, eval_ppl, train_asr
+    from loco_asr_tpu_torch.utils import prefetch as prefetch_mod
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in all_launches()}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    tmp = tempfile.TemporaryDirectory()
+    # -- (a), (b): the corpus, its preparation, the pipes and decoders
+    data, prep_rec = fisher_ingest(tmp.name, smi)
+    utts = prep_rec["utterances"]
+
+    # -- (c) train_asr on the prepared train split, through the prefetch
+    steps, waits, step_ms, losses, step_counts, enc_counts, busy = [], [], [], [], [], [], []
+    misses, captured = [], {}
+    real_make, real_next = train.make_asr_train_step, prefetch_mod.PrefetchIterator.__next__
+    real_encode, real_load = st5.encode_speech, KaldiAsrDataset._load_recording
+
+    def make_step(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def counted_step(*sa, **skw):
+            torch.cuda.synchronize()
+            before = all_launches()
+            t0 = time.perf_counter()
+            if len(steps) == 7:   # the last step inside a profiler window
+                out = []
+                prof, wall_ms = profiled(lambda: out.append(step(*sa, **skw)))
+                busy_ms_, n_kernels = busy_ms(prof)
+                busy.append((busy_ms_ / wall_ms if n_kernels else None, n_kernels))
+                m = out[0]
+            elif not steps:       # the first step's launches, replayed after the run
+                with captured_launches() as cases:
+                    m = step(*sa, **skw)
+                    torch.cuda.synchronize()
+                captured.update(cases)
+            else:
+                m = step(*sa, **skw)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = all_launches()
+            step_counts.append({k: after[k] - before[k] for k in after})
+            steps.append(1)
+            return m
+        return counted_step
+
+    def timed_next(self):
+        t0 = time.perf_counter()
+        try:
+            return real_next(self)
+        finally:
+            waits.append(time.perf_counter() - t0)
+
+    def counted_encode(*a, **kw):
+        before = all_launches()
+        out = real_encode(*a, **kw)
+        torch.cuda.synchronize()
+        after = all_launches()
+        enc_counts.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def counted_load(self, reco):
+        if reco not in self._reco_cache:
+            t0 = time.perf_counter()
+            wav = real_load(self, reco)
+            misses.append((reco, time.perf_counter() - t0))
+            return wav
+        return real_load(self, reco)
+
+    cfg = SpeechT5Config(vocab_size=256)
+    run_dir = os.path.join(tmp.name, "asr")
+    train.make_asr_train_step, prefetch_mod.PrefetchIterator.__next__ = make_step, timed_next
+    st5.encode_speech, KaldiAsrDataset._load_recording = counted_encode, counted_load
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        rc = train_asr.main(["--train_dir", os.path.join(data, "train"),
+                             "--dev_dir", os.path.join(data, "dev"), "--out_dir", run_dir,
+                             "--attn_impl", "flash", "--batch_size", "8", "--max_seconds", "10",
+                             "--steps", "8", "--eval_every", "4", "--eval_batches", "1",
+                             "--vocab_size", "256"])
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        train_launches = all_launches()
+    finally:
+        train.make_asr_train_step, prefetch_mod.PrefetchIterator.__next__ = real_make, real_next
+        st5.encode_speech, KaldiAsrDataset._load_recording = real_encode, real_load
+    check(rc == 0 and len(steps) == 8, f"train_asr returned {rc} after {len(steps)} steps")
+    check(all(np.isfinite(losses)), f"train_asr losses {losses}")
+    bad = [c for c in step_counts if not (c["B1"] == 18 and c["B3/B4"] == 18 and c["B2"] == 0)]
+    check(not bad, f"train_asr steps launched {bad[:2]}")
+    # dev evals at steps 4 and 8, and the closing one after the loop
+    check(len(enc_counts) == 3 and all(c["B1"] == cfg.encoder_layers and c["B2"] == 1
+                                       for c in enc_counts),
+          f"dev encodes launched {enc_counts}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        evals = [json.loads(line) for line in f if "dev_wer" in line]
+    check(len(evals) >= 2 and all(np.isfinite(r["dev_loss"]) for r in evals), f"dev {evals}")
+    add(train_launches)
+    # every kernel form of the first step, at the step's own shapes (~49
+    # frames of B = 8 x 1 s: one partial tile with key padding), replayed
+    # against its plain version at the limits of phases 3 and 8
+    check(sorted({(key[0], key[1]) if key[0] in ("B1", "B3/B4") else (key[0],)
+                  for key in captured})
+          == [("B1", "band"), ("B1", "mask-only"), ("B3/B4", "band"), ("B3/B4", "mask-only"),
+              ("B5",)], f"the Fisher step captured {sorted(captured)}")
+    step_holds = hold_captured(captured)
+    for r in step_holds:
+        print(f"[fisher_step_kernels] {json.dumps(r)}")
+    del captured
+    # one step's loss and gradients on a prepared Fisher batch (dropout
+    # off): kernels + flash against plain + dense, at phase 8's limits
+    tok = load_tokenizer("char")
+    tok.vocab_size = cfg.vocab_size
+    hb = next(KaldiAsrDataset(os.path.join(data, "train")).batches(
+        tok, 8, max_seconds=10, max_label_len=128, shuffle=True, seed=0,
+        eos_id=cfg.eos_token_id))
+    quiet = dataclasses.replace(cfg, positional_dropout=0.0, hidden_dropout=0.0,
+                                attention_dropout=0.0, activation_dropout=0.0,
+                                apply_spec_augment=False)
+    model = st5.asr_model_init(quiet, seed=0, device=dev).train()
+    batch = {k: torch.as_tensor(hb[k], device=dev)
+             for k in ("input_values", "attention_mask", "labels")}
+    grad_runs = {}
+    for impl in ("flash", "dense"):
+        for p in model.parameters():
+            p.grad = None
+        reset_all_launches()
+        loss, _ = st5.asr_loss(model, batch["input_values"], batch["attention_mask"],
+                               batch["labels"], attn_impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+        grad_runs[impl] = (loss.item(), train.global_norm(list(grads.values())).item(), grads,
+                           all_launches())
+    (fl, fg, fgr, fcnt), (dl, dg, dgr, dcnt) = grad_runs["flash"], grad_runs["dense"]
+    check(np.isfinite(fl) and abs(fl - dl) <= LOSS_RTOL * abs(dl),
+          f"Fisher step: loss flash {fl} dense {dl}")
+    check(abs(fg - dg) <= GNORM_RTOL * abs(dg), f"Fisher step: grad_norm flash {fg} dense {dg}")
+    g_worst, g_name, g_max = grads_against(fgr, dgr, "Fisher step")
+    check(fcnt["B1"] == fcnt["B3/B4"] == 18 and not any(dcnt.values()),
+          f"Fisher step launched {fcnt} (flash), {dcnt} (dense)")
+    step_check = dict(samples_max=int(hb["attention_mask"].sum(1).max()), loss=fl,
+                      loss_dense=dl, grad_norm=fg, grad_norm_dense=dg, grad_worst_excess=g_worst,
+                      grad_worst=g_name, grad_max_abs=g_max)
+    print(f"[fisher] step against plain + dense {json.dumps(step_check)}")
+    del model, grad_runs, fgr, dgr, batch
+    timed = step_ms[2:7]
+    train_loads = [t for reco, t in misses if not reco.startswith("fe_03_00004")]
+    # the input stream alone: the shuffled train split's first 8 batches
+    # through the same prefetch, with no step to hide behind
+    t0 = time.perf_counter()
+    n_stream = sum(1 for _ in itertools.islice(prefetch_mod.prefetch(KaldiAsrDataset(
+        os.path.join(data, "train")).batches(tok, 8, max_seconds=10, max_label_len=128,
+                                              shuffle=True, seed=0, eos_id=cfg.eos_token_id),
+        depth=4), 8))
+    stream_s = (time.perf_counter() - t0) / n_stream
+    train_rec = dict(train_utterances=utts["train"], steps=len(steps), losses=losses,
+                     median_step_ms=statistics.median(timed), step_ms=step_ms,
+                     busy_share=busy[0][0], busy_kernels=busy[0][1],
+                     prefetch_first_s=waits[0], prefetch_wait_after_first_s=sum(waits[1:len(steps)]),
+                     prefetch_waits_s=waits[:len(steps)],
+                     train_recording_loads=len(train_loads),
+                     dev_recording_loads=len(misses) - len(train_loads),
+                     recording_load_s_median=statistics.median(s for _, s in misses),
+                     stream_alone_s_per_batch=stream_s,
+                     launches=train_launches, per_step=step_counts[0], per_dev_encode=enc_counts[0],
+                     step_kernels_held=len(step_holds), step_against_dense=step_check,
+                     dev=evals[-1], wall_s=train_wall, card=smi)
+    print(f"[fisher] train_asr {json.dumps(train_rec)}")
+    ckpt = os.path.join(run_dir, "ckpt")
+
+    # -- (d) decode_asr of the dev split on (c)'s checkpoint, kernels vs plain
+    runs = {}
+    for path in ("kernels", "plain"):
+        calls, encodes = [], []
+        real_search = beam_mod.beam_search
+
+        def plain_encode(model, wav, mask=None, use_kernels=True, **kw):
+            encodes.append(1)
+            return real_encode(model, wav, mask, use_kernels=path == "kernels", **kw)
+
+        with beam_trace() as trace:
+            def traced_search(*a, **kw):
+                start = len(trace)
+                hyp = real_search(*a, **kw)
+                calls.append(dict(hyp=hyp, trace=trace[start:]))
+                return hyp
+
+            beam_mod.beam_search, st5.encode_speech = traced_search, plain_encode
+            try:
+                reset_all_launches()
+                t0 = time.perf_counter()
+                out_dir = os.path.join(tmp.name, f"dec_{path}")
+                rc = decode_asr.main(["--data_dir", os.path.join(data, "dev"), "--out_dir",
+                                      out_dir, "--checkpoint", ckpt, "--beam_size", "4",
+                                      "--max_decode_len", "64", "--limit_batches", "4"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                dl = all_launches()
+            finally:
+                beam_mod.beam_search, st5.encode_speech = real_search, real_encode
+        check(rc == 0, f"decode_asr ({path}) returned {rc}")
+        with open(os.path.join(out_dir, "wer.json")) as f:
+            details = json.load(f)
+        with open(os.path.join(out_dir, "hyp.text")) as f:
+            lines = f.read().splitlines()
+        n = len(encodes)
+        want = (dict({k: 0 for k in dl}, B1=cfg.encoder_layers * n, B2=n) if path == "kernels"
+                else {k: 0 for k in dl})
+        check(n == 4 and len(calls) == 4 and dl == want,
+              f"decode_asr ({path}): {n} encodes, {len(calls)} searches, launched {dl}")
+        runs[path] = dict(calls=calls, lines=lines, wer=details["wer"], rtfx=details["rtfx"],
+                          wall_s=wall, launches=dl)
+    ties, score_err = [], 0.0
+    for i, (kern, plain) in enumerate(zip(runs["kernels"]["calls"], runs["plain"]["calls"])):
+        t, e = beam_agreement(kern, plain)
+        ties += [[i, *tie] for tie in t]
+        score_err = max(score_err, e)
+    if not ties:
+        check(runs["kernels"]["lines"] == runs["plain"]["lines"], "decode_asr hypotheses differ")
+    add(runs["kernels"]["launches"])
+    dec_rec = dict(utterances=len(runs["kernels"]["lines"]), wer=runs["kernels"]["wer"],
+                   plain_wer=runs["plain"]["wer"], rtfx=runs["kernels"]["rtfx"],
+                   wall_s=runs["kernels"]["wall_s"], plain_wall_s=runs["plain"]["wall_s"],
+                   launches=runs["kernels"]["launches"], near_ties=ties,
+                   max_score_diff=score_err, card=smi)
+    print(f"[fisher] decode_asr {json.dumps(dec_rec)}")
+    del runs
+
+    # -- (e) eval_ppl on the dev text, flash against dense
+    nlls, ppl_launches = {}, {}
+    for impl in ("flash", "dense"):
+        out_dir = os.path.join(tmp.name, f"ppl_{impl}")
+        reset_all_launches()
+        rc = eval_ppl.main(["-i", os.path.join(data, "dev", "text"), "-o", out_dir, "--model",
+                            "gpt2", "--context_type", "max_len", "--attn_impl", impl])
+        torch.cuda.synchronize()
+        ppl_launches[impl] = all_launches()
+        check(rc == 0, f"eval_ppl ({impl}) on the Fisher dev text returned {rc}")
+        with open(os.path.join(out_dir, "rec_id2nlls.pkl"), "rb") as f:
+            nlls[impl] = pickle.load(f)
+    check(list(nlls["flash"]) == list(nlls["dense"]) == ["fe_03_00004"],
+          f"eval_ppl recordings {list(nlls['flash'])}")
+    nll_err = max(float(np.max(np.abs(np.asarray(nlls["flash"][r]) - np.asarray(nlls["dense"][r]))))
+                  for r in nlls["dense"])
+    check(nll_err <= NLL_TOL, f"eval_ppl on the Fisher dev text: flash vs dense NLL {nll_err}")
+    check(ppl_launches["flash"]["B6"] > 0 and not any(ppl_launches["dense"].values()),
+          f"eval_ppl launches {ppl_launches}")
+    add(ppl_launches["flash"])
+    ppl_rec = dict(tokens=sum(len(v) for v in nlls["flash"].values()), nll_max_abs=nll_err,
+                   tol=NLL_TOL, launches=ppl_launches["flash"], card=smi)
+    print(f"[fisher] eval_ppl {json.dumps(ppl_rec)}")
+    del nlls
+
+    # -- (f) the generic feature encoder, kernels against plain
+    gcfg = SpeechT5Config(vocab_size=256, feat_extract_norm="layer", conv_bias=True)
+    enc = st5.asr_init(gcfg, seed=0, device=dev)
+    g = torch.Generator().manual_seed(19)
+    wav = (torch.randn(16, 80000, generator=g) * 0.1).to(dev)
+    lengths = torch.tensor([80000] * 12 + [70000, 52000, 31000, 16000], device=dev)
+    mask = (torch.arange(80000, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+    with torch.inference_mode():
+        reset_all_launches()
+        hid, hmask = st5.encode_speech(enc, wav, mask)
+        torch.cuda.synchronize()
+        gl = all_launches()
+        phid, pmask = st5.encode_speech(enc, wav, mask, use_kernels=False)
+        check(torch.equal(hmask, pmask) and bool(torch.isfinite(hid).all()),
+              "generic encoder: frame masks differ or non-finite output")
+        err = encoder_error(hid, phid, hmask, "generic feature encoder")
+        check(gl == dict({k: 0 for k in gl}, B1=gcfg.encoder_layers),
+              f"generic encoder launched {gl}")
+        ms = time_ms(lambda: st5.encode_speech(enc, wav, mask), reps=5, inner=2)
+        plain_ms = time_ms(lambda: st5.encode_speech(enc, wav, mask, use_kernels=False),
+                           reps=3, inner=1)
+    add(gl)
+    gen_rec = dict(batch=[16, 80000], feat_extract_norm="layer", conv_bias=True,
+                   max_abs=err[0], mean_abs=err[1], launches=gl, forward_ms=ms,
+                   plain_forward_ms=plain_ms, rtfx=16 * 5.0 / (ms / 1e3), card=smi)
+    print(f"[fisher] generic encoder {json.dumps(gen_rec)}")
+    del enc, hid, phid
+    tmp.cleanup()
+    print(f"[fisher] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, prep=prep_rec, train=train_rec, decode=dec_rec,
+                ppl=ppl_rec, generic=gen_rec)
+
+
 def asr_host_batches(train_dir: str, n: int = 31) -> list:
     """``n`` host batches of 8 conversation windows of <= 10 s (the char
     tokenizer, vocabulary 256), epochs 0-2 shuffled by their seeds."""
@@ -4710,7 +5361,12 @@ def main() -> int:
     trainer = trainer_options_phase(corpus, smi, dev)
     tmp_corpus.cleanup()
 
-    # -- 19. summary -------------------------------------------------------
+    # -- 19. Fisher corpus ingest: shorten SPHERE, fisher_prep, the sph_decode
+    # pipes, train_asr / decode_asr / eval_ppl on the prepared splits; the
+    # generic feature encoder --------------------------------------------
+    fisher = fisher_phase(smi, dev)
+
+    # -- 20. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -4748,7 +5404,7 @@ def main() -> int:
                                     for r in long["d8_runs"].values() if "by_head_dim" in r),
                     train_asr_164_launches=long["train_asr_164"]["launches"]["B3/B4"],
                     adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B3/B4"],
-                    head_dims=dims)
+                    fisher_launches=fisher["launches"]["B3/B4"], head_dims=dims)
 
     # B1's and B2's launches on the decode path: phase 12's six decode_asr
     # runs, phase 13's LoCo ASR stage and phase 15's decodes on the
@@ -4774,14 +5430,16 @@ def main() -> int:
              d12_decode_launches=long["d8_runs"]["decode_asr_tiny"]["launches"]["B1"],
              episode_launches=ep_launches["B1"],
              episode_120s_device_ms=episodes["b1_120s"]["device_ms"],
-             adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B1"]),
+             adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B1"],
+             fisher_launches=fisher["launches"]["B1"]),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
              decode_launches=decode_launches["B2"],
              loco_launches=lm_train_launches["loco_asr"]["B2"],
              loco_reference_launches=reference_launches["B2"],
-             intent_launches=intent_launches["B2"], episode_launches=ep_launches["B2"]),
+             intent_launches=intent_launches["B2"], episode_launches=ep_launches["B2"],
+             fisher_launches=fisher["launches"]["B2"]),
         dict(entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
                    "loco_asr_tpu/ops/pallas/flash_attention.py:40",
                    "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
@@ -4799,7 +5457,8 @@ def main() -> int:
                    lm_launches["B6"]),
              train_step_launches=lm_train_launches["train_step"]["B6"],
              train_lm_launches=lm_train_launches["train_lm"]["B6"],
-             train_lm_backward_calls=lm_train_launches["train_lm"]["B6_bwd"]),
+             train_lm_backward_calls=lm_train_launches["train_lm"]["B6_bwd"],
+             fisher_launches=fisher["launches"]["B6"]),
         entry("fused_log_mel", "loco_asr_tpu_torch/csrc/logmel.cu",
               "loco_asr_tpu/ops/pallas/logmel.py:40",
               "logmel.py::_logmel_kernel", "B7", "corpus_10s", b7_launches),

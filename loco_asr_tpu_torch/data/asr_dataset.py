@@ -35,7 +35,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..ops import audio as audio_ops
+from ..ops import audio_io as audio_ops
 from . import kaldi
 
 
@@ -74,8 +74,9 @@ class KaldiAsrDataset:
             return self._reco_cache[reco_id]
         rxspec = self.wav_scp[reco_id].strip()
         if rxspec.endswith("|"):
-            # command pipes may invoke a module of this repository (the
-            # JAX package's sph_decode): make it importable from any cwd
+            # a pipe line runs as written; the ones data/fisher_prep.py
+            # writes call this package's sph_decode (no torch, no JAX), so
+            # the package is made importable from any cwd
             env = dict(os.environ)
             pkg_root = os.path.dirname(os.path.dirname(
                 os.path.dirname(os.path.abspath(__file__))))

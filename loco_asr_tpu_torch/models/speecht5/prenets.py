@@ -8,15 +8,21 @@ the text encoder prenet, the speech decoder prenet (whole sequence and one
 step) and the speech decoder postnet of the TTS and voice-conversion
 models.
 
-Layer 0 of the feature encoder (conv k=10/s=5 + instance norm + GELU) runs
+The feature encoder takes the JAX package's two routes.  Under
+``feat_extract_norm="group"`` with a first conv of kernel 2*stride (every
+SpeechT5 checkpoint: k=10/s=5 + instance norm + GELU), layer 0 runs
 through kernel B2 (``ops/cuda/conv_frontend.py``) when no gradient is
 wanted (inference, or a frozen feature encoder), and through the
 differentiable gram form :func:`conv1_instance_norm_gelu_gram` when its
 parameters train -- the route the JAX package's training takes too (its
 Pallas kernel has no VJP).  Either way it emits channel-major [B, C, F],
-so layers 1-6 run as ``F.conv1d`` directly.  Parameter names follow the
-JAX tree (``feature_encoder.conv_layers.{i}.conv.weight`` ...) so the
-weight bridge is a mechanical rename.
+so layers 1-6 run as ``F.conv1d`` directly.  Any other prenet -- a group
+norm after a first conv of another kernel, or ``feat_extract_norm="layer"``
+(a layer norm after every conv, with ``conv_bias``) -- runs the generic
+stack of the JAX ``feature_encoder``: conv, norm, GELU a layer, no
+kernel.  Parameter names follow the JAX tree
+(``feature_encoder.conv_layers.{i}.conv.weight``, ``.conv.bias``,
+``.layer_norm.weight`` ...) so the weight bridge is a mechanical rename.
 """
 
 from __future__ import annotations
@@ -53,16 +59,28 @@ class ConvLayer(nn.Module):
         in_ch = 1 if i == 0 else cfg.conv_dim[i - 1]
         self.conv = Conv(in_ch, cfg.conv_dim[i], cfg.conv_kernel[i],
                          bias=cfg.conv_bias, generator=generator)
-        if i == 0:   # instance norm (GroupNorm with groups == channels)
+        # group: instance norm (GroupNorm with groups == channels) after
+        # layer 0 only; layer: a layer norm over channels after every conv
+        if cfg.feat_extract_norm == "layer" or (cfg.feat_extract_norm == "group" and i == 0):
             self.layer_norm = layers.Norm(cfg.conv_dim[i])
 
 
-def _check_frontend(cfg: SpeechT5Config) -> None:
-    if cfg.feat_extract_norm != "group" or cfg.conv_kernel[0] != 2 * cfg.conv_stride[0]:
-        raise ValueError(
-            "the speech prenet needs feat_extract_norm='group' and a first "
-            f"conv of kernel 2*stride, got {cfg.feat_extract_norm!r}, "
-            f"kernel {cfg.conv_kernel[0]}, stride {cfg.conv_stride[0]}")
+def fused_frontend(cfg: SpeechT5Config) -> bool:
+    """Whether layer 0 runs the fused conv + instance norm + GELU (B2, or
+    its gram form): a group norm after a first conv of kernel 2*stride."""
+    return cfg.feat_extract_norm == "group" and cfg.conv_kernel[0] == 2 * cfg.conv_stride[0]
+
+
+def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over [B, C, T] with one group a channel (the JAX
+    ``group_norm(num_groups=C)``): statistics in float32, the affine in
+    the input's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * weight[None, :, None] + bias[None, :, None]
 
 
 def conv1_instance_norm_gelu_gram(wav: torch.Tensor, weight: torch.Tensor,
@@ -99,7 +117,9 @@ class FeatureEncoder(nn.Module):
 
     def __init__(self, cfg: SpeechT5Config, generator: Optional[torch.Generator]):
         super().__init__()
-        _check_frontend(cfg)
+        if cfg.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm {cfg.feat_extract_norm!r}: "
+                             "'group' or 'layer'")
         self.cfg = cfg
         self.conv_layers = nn.ModuleList(
             ConvLayer(cfg, i, generator) for i in range(len(cfg.conv_dim)))
@@ -107,23 +127,38 @@ class FeatureEncoder(nn.Module):
     def forward(self, wav: torch.Tensor, *, use_kernels: bool = True) -> torch.Tensor:
         cfg = self.cfg
         c0 = self.conv_layers[0]
-        if torch.is_grad_enabled() and any(p.requires_grad for p in c0.parameters()):
-            first = conv1_instance_norm_gelu_gram
-        elif use_kernels:
-            first = conv_frontend.conv1_instance_norm_gelu
+        if fused_frontend(cfg):
+            if torch.is_grad_enabled() and any(p.requires_grad for p in c0.parameters()):
+                first = conv1_instance_norm_gelu_gram
+            elif use_kernels:
+                first = conv_frontend.conv1_instance_norm_gelu
+            else:
+                first = conv_frontend.conv1_instance_norm_gelu_plain
+            # layer 0 in the promotion of the waveform's and weights' dtypes
+            # (JAX's: a float32 waveform with bfloat16 weights computes in
+            # float32); the kernel and the plain version take one dtype
+            dt = torch.promote_types(wav.dtype, c0.conv.weight.dtype)
+            x = first(wav.to(dt), c0.conv.weight.to(dt), c0.layer_norm.weight.to(dt),
+                      c0.layer_norm.bias.to(dt), stride=cfg.conv_stride[0])   # [B, C, F]
         else:
-            first = conv_frontend.conv1_instance_norm_gelu_plain
-        # layer 0 in the promotion of the waveform's and weights' dtypes
-        # (JAX's: a float32 waveform with bfloat16 weights computes in
-        # float32); the kernel and the plain version take one dtype
-        dt = torch.promote_types(wav.dtype, c0.conv.weight.dtype)
-        x = first(wav.to(dt), c0.conv.weight.to(dt), c0.layer_norm.weight.to(dt),
-                  c0.layer_norm.bias.to(dt), stride=cfg.conv_stride[0])   # [B, C, F]
+            # the JAX ``feature_encoder``'s layer 0: conv (with its bias),
+            # then the instance norm (group) or the layer norm (layer), GELU
+            x = layers.conv1d(wav[:, None, :], c0.conv.weight, c0.conv.bias,
+                              stride=cfg.conv_stride[0])
+            x = layers.gelu(self._layer_norm(c0, x) if cfg.feat_extract_norm == "layer"
+                            else instance_norm(x, c0.layer_norm.weight, c0.layer_norm.bias))
         for i in range(1, len(cfg.conv_dim)):
             p = self.conv_layers[i]
-            x = layers.gelu(layers.conv1d(x, p.conv.weight, p.conv.bias,
-                                          stride=cfg.conv_stride[i]))
+            x = layers.conv1d(x, p.conv.weight, p.conv.bias, stride=cfg.conv_stride[i])
+            if cfg.feat_extract_norm == "layer":   # a layer norm after every conv
+                x = self._layer_norm(p, x)
+            x = layers.gelu(x)
         return x.transpose(1, 2)
+
+    def _layer_norm(self, p: ConvLayer, x: torch.Tensor) -> torch.Tensor:
+        """A layer norm over the channels of [B, C, F]."""
+        return layers.layer_norm(x.transpose(1, 2), p.layer_norm.weight, p.layer_norm.bias,
+                                 eps=self.cfg.layer_norm_eps).transpose(1, 2)
 
 
 class FeatureProjection(nn.Module):

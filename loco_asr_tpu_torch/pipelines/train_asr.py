@@ -12,7 +12,10 @@ CLI (the JAX trainer's flags, plus ``--device``):
 
 Each step is ``parallel.train.make_asr_train_step`` (with ``--attn_impl
 flash``: kernels B1, B3/B4 and B5 in every step, B2 when the feature
-encoder is frozen).  Every ``--eval_every`` steps and at the end it logs
+encoder is frozen).  The training batches come through
+``utils.prefetch.prefetch(..., depth=4)``: a worker thread decodes (a
+wav.scp pipe such as ``fisher_prep``'s ``sph_decode`` lines), resamples
+and pads ahead of the steps.  Every ``--eval_every`` steps and at the end it logs
 dev loss and greedy-decode WER; ``metrics.jsonl`` gets a training line
 every 50 steps with the running ``trunc_*`` totals of data cut at the
 caps; ``{out_dir}/ckpt`` holds ``step_{N}.npz`` and ``status.json``, and
@@ -174,6 +177,7 @@ def main(argv=None) -> int:
     from ..ops.layers import cast_parameters
     from ..utils.device import resolve_device
     from ..utils.metrics import MetricsWriter
+    from ..utils.prefetch import prefetch
     from ..utils.wer import wer
 
     dev = resolve_device(args.device)
@@ -282,10 +286,11 @@ def main(argv=None) -> int:
         return out
 
     def batch_stream(epoch):
-        return train_ds.batches(tokenizer, args.batch_size,
-                                max_seconds=args.max_seconds,
-                                max_label_len=args.max_label_len, shuffle=True,
-                                seed=args.seed + epoch, eos_id=eos)
+        # decode, resample and pad on a worker thread, 4 batches ahead
+        return prefetch(train_ds.batches(tokenizer, args.batch_size,
+                                         max_seconds=args.max_seconds,
+                                         max_label_len=args.max_label_len, shuffle=True,
+                                         seed=args.seed + epoch, eos_id=eos), depth=4)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     step, epoch = start_step, 0

@@ -1,4 +1,5 @@
-"""The port's numpy audio decode/resample against loco_asr_tpu.ops.audio."""
+"""The port's numpy audio decode/resample against loco_asr_tpu.ops.audio
+(shorten-coded SPHERE included)."""
 
 import wave
 
@@ -50,11 +51,29 @@ def test_read_sphere(tmp_path, coding, n_bytes, channels):
         np.testing.assert_array_equal(got, want)
 
 
-def test_shorten_sphere_is_not_ported(tmp_path):
+@pytest.mark.parametrize("channels", [1, 2])
+def test_read_shorten_sphere(tmp_path, channels):
+    """Shorten-coded SPHERE reads as the JAX ``read_sphere`` does: every
+    channel, the mix, and the crop to the header's sample_count."""
+    from loco_asr_tpu.ops import shorten as jshn
+
+    rng = np.random.default_rng(channels)
+    n = 1300
+    x = (np.sin(np.arange(n) / 9.0)[:, None] * 6000
+         + rng.integers(-200, 200, (n, channels))).astype(np.int32)
+    stream = jshn.encode(x, jshn.TYPE_S16LH, nmean=4, commands=[jshn.FN_DIFF2, jshn.FN_DIFF1])
+    coding = "pcm,embedded-shorten-v2.00"
     path = str(tmp_path / "a.sph")
-    _write_sphere(path, b"\0" * 64, "pcm,embedded-shorten-v2.00", 2)
-    with pytest.raises(NotImplementedError, match="shorten"):
-        taudio.read_sphere(path)
+    header = (f"NIST_1A\n   1024\nsample_count -i {n - 100}\nchannel_count -i {channels}\n"
+              f"sample_rate -i 8000\nsample_n_bytes -i 2\n"
+              f"sample_coding -s{len(coding)} {coding}\nend_head\n").encode()
+    with open(path, "wb") as f:
+        f.write(header.ljust(1024, b" ") + stream)
+    for channel in (None, 0, 1) if channels > 1 else (None,):
+        got, sr = taudio.read_sphere(path, channel)
+        want, want_sr = jaudio.read_sphere(path, channel)
+        assert sr == want_sr == 8000 and len(got) == n - 100
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("sr_in", [8000, 22050, 16000])

@@ -1,8 +1,11 @@
 """loco_asr_tpu_torch imports neither jax nor loco_asr_tpu: every module of
 the package imports with jax blocked, loads no loco_asr_tpu module, and no
-source of the port (or chip_smoke.py) names either.  Packages the GPU
-machine lacks (regex, safetensors, transformers) are blocked as well: the
-port may import them only inside the function that needs them."""
+source of the port (or chip_smoke.py) names either, in an import or in a
+command it would run (``-m loco_asr_tpu.pipelines...``, as a wav.scp pipe
+is).  Packages the GPU machine lacks (regex, safetensors, transformers)
+are blocked as well: the port may import them only inside the function
+that needs them.  The wav.scp pipe CLI, ``sph_decode``, stays light: its
+process loads no torch."""
 
 import os
 import re
@@ -61,3 +64,42 @@ def test_no_source_names_jax_or_the_jax_package():
         assert not FORBIDDEN.search(text), f"{path}: {FORBIDDEN.search(text).group(0)}"
         checked += 1
     assert checked >= 20
+
+
+# a command that runs a module of the JAX package: "python -m loco_asr_tpu.x"
+JAX_COMMAND = re.compile(r"-m\s+loco_asr_tpu(?![_\w])")
+
+
+def test_no_source_runs_a_module_of_the_jax_package():
+    checked = 0
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        hit = JAX_COMMAND.search(text)
+        assert not hit, f"{path}: {text[max(0, hit.start() - 40):hit.end() + 40]!r}"
+        checked += 1
+    assert checked >= 20
+    assert JAX_COMMAND.search("python -m loco_asr_tpu.pipelines.sph_decode -c 1 a.sph |")
+    assert not JAX_COMMAND.search("python -m loco_asr_tpu_torch.pipelines.sph_decode -c 1 a.sph |")
+
+
+_LIGHT_PROBE = """
+import runpy, sys
+for name in ("torch", "jax", "loco_asr_tpu"):
+    sys.modules[name] = None
+sys.argv = ["sph_decode", "--help"]
+try:
+    runpy.run_module("loco_asr_tpu_torch.pipelines.sph_decode", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+from loco_asr_tpu_torch import native
+from loco_asr_tpu_torch.ops import audio_io, shorten
+print("light")
+"""
+
+
+def test_sph_decode_and_its_readers_import_without_torch():
+    proc = subprocess.run([sys.executable, "-c", _LIGHT_PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "light"
