@@ -174,8 +174,9 @@ Phases, in order (any failure raises and exits non-zero):
    seeded encoder (written and read without the safetensors package)
    loads the same weights and encoder output as the ``.npz`` route;
 15. the LoCo ASR stage's decodes (``loco_experiment --stage asr
-   --skip_training --fusion_weights 1.0``) on ``fixtures/loco_reference``,
-   the reference's trained weights: 2 B1 (head dim 8) and 1 B2 (64
+   --skip_training --fusion_weights 1.0``) on copies of the committed orbax
+   steps ``exp/loco/{asr,asr_lm}/ckpt`` (read by the port's own orbax
+   reader), the reference's trained weights: 2 B1 (head dim 8) and 1 B2 (64
    channels) an encode and nothing else, the ``nofusion``, ``carry``,
    ``nocarry`` and ``oracle`` entries of ``exp/loco/results.json`` to
    every digit, wall seconds; then the same decodes through the plain
@@ -305,7 +306,26 @@ Phases, in order (any failure raises and exits non-zero):
    generic feature encoder (``feat_extract_norm="layer"``,
    ``conv_bias``) at B = 16 x 5 s, kernels against plain (1e-3 max, 1e-4
    mean; 12 B1, 0 B2);
-20. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+20. orbax step directories, read without orbax, tensorstore or a zstd
+   module: (a) the five committed steps under ``exp/loco/*/ckpt`` through
+   ``utils/orbax.restore_step`` (``asr`` and ``asr_lm`` equal to
+   ``fixtures/loco_reference``'s ``.npz`` bit for bit, ``asr_lm2`` equal to
+   ``asr_lm``, ``asr_lm_big`` read whole), each step's read seconds and the
+   native Zstandard decoder's MB/s over every zstd value; (b) ``eval_ppl``
+   on the committed LoCo LM, read from orbax, with the LM stage's flags
+   (``--model tiny --tokenizer char --max_len 256 --bsize 32``) on
+   ``exp/loco/lm_corpus/dev.txt``, ``indep`` and ``max_len``, under
+   ``--attn_impl flash`` (its head dim of 16 routes to B5, as JAX's
+   ``flash_attention_nhd`` does; launches counted) and dense: every
+   recording's perplexity within 1e-4 relative of
+   ``fixtures/loco_reference/lm_ppl.json`` (the JAX ``eval_ppl`` on the CPU),
+   and the gap to the committed ``exp/loco/ppl_*/rec_id2ppl.json`` printed;
+   (c) phase 15 above reads its weights from orbax; (d)
+   ``utils/profiling.device_time_per_iter`` on B1 at phase 3's
+   ``rel_padded`` shape beside ``time_ms``; (e) the four examples
+   (``loco_asr_tpu_torch/examples/01-04 --tiny``) on the card, their lines
+   checked and their B1 / B2 launches counted;
+21. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
    ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
    ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
    phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches,
@@ -314,6 +334,8 @@ Phases, in order (any failure raises and exits non-zero):
    phase 18's episode launches, B1 with its 120 s decode time, B1 and
    B3/B4 with the Adafactor ``train_asr`` run's, B5 with the gpt2-xl
    steps', B1, B2, B3/B4 and B6 with phase 19's ``fisher_launches``;
+   B1 and B2 with phase 20's ``examples_launches``, B5 with its
+   ``orbax_eval_ppl_launches``;
    then the six bf16 forms with phase 16's launches, times and
    bounds), then last
    ``{"ok": true, "device": {...}}``.
@@ -324,8 +346,9 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
 runs only the build and phase 3's B2 and B7 cases, and ends with one
 ``{"kernel_cases": [...]}`` line.  Copied to the root of another checkout
-(an earlier commit unpacked with ``git archive``), it runs that
-checkout's B2 and B7 through the same cases and inputs.
+(an earlier commit unpacked with ``git archive``, from the one that added
+``loco_asr_tpu_torch/utils/profiling.py`` on, which times the cases), it
+runs that checkout's B2 and B7 through the same cases and inputs.
 """
 
 from __future__ import annotations
@@ -348,6 +371,11 @@ import time
 import wave
 
 import numpy as np
+
+# device time by kernel; PROFILER_WINDOWS counts the run's profiler windows
+# and the empty ones, which the summary prints
+from loco_asr_tpu_torch.utils.profiling import (PROFILER_WINDOWS, busy_ms, device_breakdown,
+                                                kernel_device_ms, profiled)
 
 # H100 SXM data-sheet peaks used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -421,71 +449,6 @@ def cores_ms(flops: float) -> float:
     return flops / F32_FLOP_PER_S * 1e3
 
 
-KERNEL_GROUPS = (   # kernel-name pattern -> group, first match wins
-    ("flash_rel_fwd", "B1 flash_rel"), ("flash_causal_fwd", "B5/B6 flash_causal"),
-    ("flash_rel_bwd_dq", "B3 flash_rel_bwd_dq"), ("flash_rel_bwd_dkv", "B4 flash_rel_bwd_dkv"),
-    ("logmel_", "B7 logmel"), ("multi_tensor_apply", "optimizer (foreach)"),
-    ("conv_stats_kernel", "B2 conv_frontend"), ("conv_out_kernel", "B2 conv_frontend"),
-    ("Memset", "memset"),
-    ("convolve", "cuDNN conv"), ("fprop", "cuDNN conv"), ("dgrad", "cuDNN conv"),
-    ("wgrad", "cuDNN conv"), ("conv", "cuDNN conv"),
-    ("gemm", "GEMM"), ("Kernel2", "GEMM"), ("cutlass", "GEMM"),
-    ("layer_norm", "layer norm"), ("softmax", "softmax"), ("reduce", "reductions"),
-    ("elementwise", "elementwise"), ("copy", "copies"), ("gather", "gather/index"),
-    ("index", "gather/index"),
-)
-
-
-def busy_ms(prof):
-    """(device-busy ms of a profiled window, kernels recorded): the union
-    of its CUDA kernel intervals (cuDNN may run kernels concurrently)."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    return busy_us / 1e3, len(spans)
-
-
-def device_breakdown(fn) -> dict:
-    """Device time of one ``fn()`` by kernel group (torch.profiler, CUDA
-    activity; summed kernel durations), the kernels recorded, and the
-    device-busy share of the profiled window: the union of kernel
-    intervals over its wall time (cuDNN may run kernels concurrently, so
-    the group sums can exceed it).  A window that recorded no kernel is
-    profiled again, as in :func:`kernel_device_ms`."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILER_TRIES):
-        prof, wall_ms = profiled(fn)
-        averages = [e for e in prof.key_averages() if e.device_time_total > 0]
-        if averages:
-            break
-        PROFILER_WINDOWS["empty"] += 1
-        PROFILER_WINDOWS["empty_of"].append({"*": 0})
-    check(bool(averages), f"the profiler recorded no kernel in {PROFILER_TRIES} windows")
-    groups: dict = {}
-    top = []
-    for e in averages:
-        us = e.device_time_total
-        name = e.key
-        group = next((g for pat, g in KERNEL_GROUPS if pat in name), "other")
-        groups[group] = groups.get(group, 0.0) + us / 1e3
-        top.append((us / 1e3, e.count, name[:90]))
-    top.sort(reverse=True)
-    busy, n_kernels = busy_ms(prof)
-    return dict(kernel_ms_sum=sum(groups.values()), busy_ms=busy,
-                wall_ms=wall_ms, busy_share=busy / wall_ms, kernels=n_kernels,
-                groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-                top_kernels=[dict(ms=ms, count=n, name=k) for ms, n, k in top[:12]])
-
-
 def visible(tq, tk, two_l, vl, causal):
     """(query-key pairs, distinct rel-table cells) one head of the batch
     needs: row i sees keys 0..jmax and reaches offsets i-jmax..i of the
@@ -528,68 +491,6 @@ def b34_work(q, k, pe, vl, causal):
     b3 = (reads + 4 * (q.numel() + b * h * tq * pe.shape[0]), h * 2 * d * (3 * keys + pe_cols))
     b4 = (reads + 4 * 2 * k.numel(), h * 2 * d * (4 * keys + pe_cols))
     return b3, b4
-
-
-# windows of kernel_device_ms / device_breakdown over the run, and those
-# that recorded no kernel of a pattern, with the patterns ("*": any
-# kernel) and what each recorded (printed in the summary)
-PROFILER_WINDOWS = {"windows": 0, "empty": 0, "empty_of": []}
-PROFILER_TRIES = 10
-PROFILER_LEAD_S = 0.05
-
-
-def profiled(fn, n: int = 1):
-    """(torch.profiler over ``n`` calls of ``fn``, CUDA activity, the calls'
-    wall ms).  The calls start ``PROFILER_LEAD_S`` after the window opens:
-    on the H100, windows of a few short launches opened just before them
-    recorded no kernel at all in ~2 % of cases, with the wait in 1 of 434
-    (``scripts/profiler_windows.py``).  Most windows lose their first
-    kernel record either way; callers profile again when a window
-    recorded nothing."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILER_LEAD_S)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    PROFILER_WINDOWS["windows"] += 1
-    return prof, wall_ms
-
-
-def kernel_device_ms(fn, patterns, n: int = 5, optional=()) -> dict:
-    """Mean device time of one launch of the kernels whose names contain
-    each pattern (torch.profiler over ``n`` calls of ``fn``, which launches
-    each once), divided by the launches the profiler recorded: a window
-    can lose kernel records (most often the first), and is profiled again
-    (up to ``PROFILER_TRIES`` windows) when it recorded none of a pattern;
-    then it fails.  A pattern of ``optional`` may match nothing, and then
-    counts 0."""
-    patterns = tuple(patterns) + tuple(optional)
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILER_TRIES):
-        prof, _ = profiled(fn, n)
-        total = {p: 0.0 for p in patterns}
-        count = {p: 0 for p in patterns}
-        for e in prof.key_averages():
-            for p in patterns:
-                if p in e.key and e.device_time_total > 0:
-                    total[p] += e.device_time_total / 1e3
-                    count[p] += e.count
-        required = [count[p] for p in patterns if p not in optional]
-        if all(required):
-            break
-        PROFILER_WINDOWS["empty"] += 1
-        PROFILER_WINDOWS["empty_of"].append(count)
-    check(all(required), f"the profiler recorded no launch of {patterns} "
-                         f"in {PROFILER_TRIES} windows")
-    return {p: total[p] / count[p] if count[p] else 0.0 for p in patterns}
 
 
 def warm_up(dev) -> None:
@@ -1939,7 +1840,8 @@ LOCO_LABELS = ("nofusion", "carry", "nocarry", "oracle")
 
 def loco_reference_phase(smi: str, dev) -> dict:
     """Phase 15: the LoCo ASR stage's decodes on the reference's own trained
-    weights (``fixtures/loco_reference``), through B1 at head dim 8 and B2 at
+    weights (the committed orbax steps ``exp/loco/{asr,asr_lm}/ckpt``, read by
+    ``utils/orbax.py``), through B1 at head dim 8 and B2 at
     64 channels, against ``exp/loco/results.json``; then the same decodes
     with the plain versions on the card, which must give the same entries
     and hypotheses.  Returns the kernel run's launches."""
@@ -1957,7 +1859,7 @@ def loco_reference_phase(smi: str, dev) -> dict:
         for path in ("kernels", "plain"):
             out = os.path.join(tmp, path)
             for name in ("asr", "asr_lm"):
-                shutil.copytree(os.path.join(ROOT, "fixtures", "loco_reference", name),
+                shutil.copytree(os.path.join(ROOT, "exp", "loco", name, "ckpt"),
                                 os.path.join(out, name, "ckpt"))
             encodes = []
 
@@ -2009,6 +1911,198 @@ def loco_reference_phase(smi: str, dev) -> dict:
                card=smi)
     print(f"[loco_reference] {json.dumps(rec)}")
     return kern["launches"]
+
+ORBAX_STEPS = ("asr", "asr_lm", "asr_lm2", "asr_lm_big", "lm")
+PPL_REL_TOL = 1e-4     # eval_ppl on the card against the JAX run's perplexities
+EXAMPLE_LINES = {      # each example's lines, as the JAX script prints them
+    "01_speecht5_demo": ("ASR beam tokens:", "TTS mel: (1, 20, 8) frames:",
+                         "Vocoder waveform: (1,", "VC mel: (1, 8, 8)"),
+    "02_shared_embedding_space": ("speech x text cosine similarity matrix:",) + (" [",) * 4
+    + ("per-frame PCA: speech (6396, 3), text (20, 3);",
+       "pooled PCA coordinates (first 4 rows = speech, last 4 = text):") + ("[",) * 8
+    + ("kmeans(k=2) over pooled space:",),
+    "03_slurp_embeddings": ("dataset: 8 utterances, 3 intents",
+                            "  slurp_id=0 frames=639 intent=alarm_set (class 3)",
+                            "  slurp_id=1 frames=639 intent=play_music (class 66)",
+                            "  slurp_id=2 frames=639 intent=weather_query (class 98)",
+                            "  slurp_id=3 frames=639 intent=alarm_set (class 3)"),
+    "04_checkpoint_mapping": ("HF import: strict key+shape match, 101 leaves",
+                              "fairseq encoder import: strict key+shape match,"),
+}
+
+
+def orbax_reads(smi: str) -> dict:
+    """Phase 20 (a): the five committed steps through the port's reader;
+    ``asr`` and ``asr_lm`` against the fixture ``.npz`` and ``asr_lm2``
+    against ``asr_lm``, bit for bit; the native decoder's MB/s over every
+    zstd value of the five."""
+    from loco_asr_tpu_torch import native
+    from loco_asr_tpu_torch.utils.checkpoint import flatten
+    from loco_asr_tpu_torch.utils.ocdbt import OcdbtStore
+    from loco_asr_tpu_torch.utils.orbax import restore_step
+
+    check(native.available(), f"the native core did not build: {native.build_error}")
+    steps, states = {}, {}
+    for name in ORBAX_STEPS:
+        ckpt = os.path.join(ROOT, "exp", "loco", name, "ckpt")
+        with open(os.path.join(ckpt, "status.json")) as f:
+            step_dir = os.path.join(ckpt, f"step_{json.load(f)['latest']}")
+        t0 = time.perf_counter()
+        state = restore_step(step_dir)
+        read_s = time.perf_counter() - t0
+        flat = flatten(state)
+        with open(os.path.join(step_dir, "_METADATA")) as f:
+            n_meta = len(json.load(f)["tree_metadata"])
+        check(len(flat) == n_meta, f"orbax {name}: {len(flat)} leaves, _METADATA names {n_meta}")
+        nbytes = sum(v.nbytes for v in flat.values() if isinstance(v, np.ndarray))
+        states[name] = flat
+        steps[name] = dict(step=os.path.basename(step_dir), leaves=len(flat),
+                           array_bytes=nbytes, read_s=read_s)
+    for name in ("asr", "asr_lm"):
+        (fixture,) = [f for f in os.listdir(os.path.join(ROOT, "fixtures", "loco_reference", name))
+                      if f.endswith(".npz")]
+        check(fixture[:-4] == steps[name]["step"], f"fixture {fixture} against {steps[name]}")
+        with np.load(os.path.join(ROOT, "fixtures", "loco_reference", name, fixture)) as z:
+            for key in z.files:
+                got = states[name][key]
+                check(got.dtype == z[key].dtype and got.tobytes() == z[key].tobytes(),
+                      f"orbax {name}: {key} differs from the fixture")
+            steps[name]["fixture_arrays_equal"] = len(z.files)
+    a, b = states["asr_lm"], states["asr_lm2"]
+    check(a.keys() == b.keys() and all(
+        (a[k] is None and b[k] is None) or a[k].tobytes() == b[k].tobytes() for k in a),
+        "orbax asr_lm2 differs from asr_lm")
+    values = []
+    for name in ORBAX_STEPS:
+        ckpt = os.path.join(ROOT, "exp", "loco", name, "ckpt")
+        store = OcdbtStore(os.path.join(ckpt, steps[name]["step"]))
+        values += [v for v in (store.read(k) for k in store.keys()) if v[:4] == b"\x28\xb5\x2f\xfd"]
+    t0 = time.perf_counter()
+    out_bytes = sum(len(native.zstd_decompress(v)) for v in values)
+    decode_s = time.perf_counter() - t0
+    rec = dict(steps=steps, zstd_values=len(values), zstd_in_mb=sum(map(len, values)) / 1e6,
+               zstd_out_mb=out_bytes / 1e6, zstd_decode_s=decode_s,
+               zstd_mb_per_s=out_bytes / 1e6 / decode_s, host_cpus=os.cpu_count(), card=smi)
+    print(f"[orbax] reads {json.dumps(rec)}")
+    return rec
+
+
+def orbax_eval_ppl(smi: str) -> dict:
+    """Phase 20 (b): ``eval_ppl`` on the committed LoCo LM, read from orbax,
+    at the LM stage's flags, ``indep`` and ``max_len``, flash and dense;
+    every perplexity within PPL_REL_TOL of the JAX run's (the fixture), and
+    the gap to the committed files.  Returns the flash runs' launches."""
+    import torch
+
+    from loco_asr_tpu_torch.pipelines import eval_ppl
+
+    with open(os.path.join(ROOT, "fixtures", "loco_reference", "lm_ppl.json")) as f:
+        jax_ppl = json.load(f)
+    runs, flash_launches = {}, {k: 0 for k in all_launches()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for context in ("indep", "max_len"):
+            with open(os.path.join(ROOT, "exp", "loco", f"ppl_{context}", "rec_id2ppl.json")) as f:
+                committed = json.load(f)
+            want = jax_ppl[context]
+            for impl in ("flash", "dense"):
+                out = os.path.join(tmp, f"{context}_{impl}")
+                reset_all_launches()
+                t0 = time.perf_counter()
+                rc = eval_ppl.main(["-i", os.path.join(ROOT, "exp", "loco", "lm_corpus", "dev.txt"),
+                                    "-o", out, "--model", "tiny", "--tokenizer", "char",
+                                    "--max_len", "256", "--bsize", "32", "--context_type", context,
+                                    "--attn_impl", impl,
+                                    "--checkpoint", os.path.join(ROOT, "exp", "loco", "lm", "ckpt")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = all_launches()
+                check(rc == 0, f"eval_ppl {context} {impl} returned {rc}")
+                with open(os.path.join(out, "rec_id2ppl.json")) as f:
+                    got = json.load(f)
+                check(sorted(got) == sorted(want), f"eval_ppl {context}: recordings differ")
+                rel = max(abs(got[k] - want[k]) / want[k] for k in want)
+                gap = max(abs(got[k] - committed[k]) / committed[k] for k in committed)
+                check(rel <= PPL_REL_TOL, f"eval_ppl {context} {impl}: perplexity {rel} relative "
+                                          f"from the JAX run's > {PPL_REL_TOL}")
+                if impl == "flash":
+                    check(launches["B5"] > 0 and launches["B6"] == 0,
+                          f"eval_ppl {context} flash launched {launches}")
+                    flash_launches = {k: flash_launches[k] + v for k, v in launches.items()}
+                else:
+                    check(not any(launches.values()), f"eval_ppl {context} dense launched {launches}")
+                runs[f"{context}_{impl}"] = dict(
+                    wall_s=wall, recordings=len(got), max_rel_to_jax=rel,
+                    max_rel_to_committed=gap, mean_ppl=float(np.mean(list(got.values()))),
+                    launches={k: v for k, v in launches.items() if v})
+    rec = dict(runs=runs, tol=PPL_REL_TOL, card=smi)
+    print(f"[orbax] eval_ppl {json.dumps(rec)}")
+    return flash_launches
+
+
+def examples_run(smi: str) -> dict:
+    """Phase 20 (e): the four examples at ``--tiny`` on the card, their
+    lines against the JAX scripts', B1 / B2 launches counted."""
+    import importlib
+
+    import torch
+
+    recs, total = {}, {k: 0 for k in all_launches()}
+    for name, want in EXAMPLE_LINES.items():
+        module = importlib.import_module(f"loco_asr_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(["--tiny"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        lines = buf.getvalue().splitlines()
+        check(rc == 0 and len(lines) == len(want)
+              and all(line.lstrip().startswith(w.lstrip()) for line, w in zip(lines, want)),
+              f"example {name}: {lines}")
+        encodes = name != "04_checkpoint_mapping"
+        check((launches["B1"] > 0 and launches["B2"] > 0) == encodes
+              and not any(v for k, v in launches.items() if k not in ("B1", "B2")),
+              f"example {name} launched {launches}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        recs[name] = dict(wall_s=wall, lines=lines[:2],
+                          launches={k: v for k, v in launches.items() if v})
+    print(f"[orbax] examples {json.dumps(dict(examples=recs, card=smi))}")
+    return total
+
+
+def orbax_phase(smi: str, dev) -> dict:
+    """Phase 20: orbax step directories and the A8 utilities on the card
+    ((a), (b), (d), (e) above; (c) is phase 15).  Returns the launches of
+    (b)'s flash runs and of (e)."""
+    import torch
+
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    reads = orbax_reads(smi)
+    ppl_launches = orbax_eval_ppl(smi)
+    # (d) B1 at phase 3's rel_padded shape: CUDA events around one call
+    # (device_time_per_iter) beside five back-to-back calls (time_ms)
+    g = torch.Generator().manual_seed(20)
+    q, k, v = ((torch.randn(16, 12, 249, 64, generator=g) * 0.3).to(dev) for _ in range(3))
+    pe = (torch.randn(320, 64, generator=g) * 0.3).to(dev)
+    vl = torch.tensor([249] * 10 + [230, 200, 180, 120, 60, 17], dtype=torch.int32, device=dev)
+    b1 = dict(shape=[16, 12, 249, 64], two_l=320,
+              device_time_per_iter_ms=1e3 * profiling.device_time_per_iter(
+                  lambda *a: fa.flash_rel_forward(*a, causal=False, scale=1.0),
+                  q, k, v, pe, vl, iters=50, warmup_iters=5),
+              time_ms=time_ms(lambda: fa.flash_rel_forward(q, k, v, pe, vl, causal=False,
+                                                           scale=1.0)),
+              card=smi)
+    print(f"[orbax] b1_timers {json.dumps(b1)}")
+    example_launches = examples_run(smi)
+    wall = time.perf_counter() - t0
+    print(f"[orbax] phase 20 {wall:.1f} s; decoder {reads['zstd_mb_per_s']:.1f} MB/s; card {smi}")
+    return dict(reads=reads, eval_ppl_launches=ppl_launches, examples_launches=example_launches,
+                b1_timers=b1, wall_s=wall)
 
 
 BF16_REL_TOL = 2.0 ** -7   # bf16 kernel vs its plain version, of max |plain|
@@ -5366,7 +5460,11 @@ def main() -> int:
     # generic feature encoder --------------------------------------------
     fisher = fisher_phase(smi, dev)
 
-    # -- 20. summary -------------------------------------------------------
+    # -- 20. orbax step directories (read without orbax), eval_ppl on the
+    # committed LM, the profiling timer on B1, the examples -----------------
+    orbax = orbax_phase(smi, dev)
+
+    # -- 21. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -5431,7 +5529,9 @@ def main() -> int:
              episode_launches=ep_launches["B1"],
              episode_120s_device_ms=episodes["b1_120s"]["device_ms"],
              adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B1"],
-             fisher_launches=fisher["launches"]["B1"]),
+             fisher_launches=fisher["launches"]["B1"],
+             examples_launches=orbax["examples_launches"]["B1"],
+             device_time_per_iter_ms=orbax["b1_timers"]["device_time_per_iter_ms"]),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
@@ -5439,14 +5539,16 @@ def main() -> int:
              loco_launches=lm_train_launches["loco_asr"]["B2"],
              loco_reference_launches=reference_launches["B2"],
              intent_launches=intent_launches["B2"], episode_launches=ep_launches["B2"],
-             fisher_launches=fisher["launches"]["B2"]),
+             fisher_launches=fisher["launches"]["B2"],
+             examples_launches=orbax["examples_launches"]["B2"]),
         dict(entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
                    "loco_asr_tpu/ops/pallas/flash_attention.py:40",
                    "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
              train_asr_164_launches=long["train_asr_164"]["launches"]["B5"],
              gpt2_xl_train_launches=(trainer["gpt2_xl"]["steps"]["adafactor"]["launches"]["B5"]
                                      + trainer["gpt2_xl"]["steps"]["adamw"]["launches"]["B5"]
-                                     + trainer["gpt2_xl"]["train_lm"]["launches"]["B5"])),
+                                     + trainer["gpt2_xl"]["train_lm"]["launches"]["B5"]),
+             orbax_eval_ppl_launches=orbax["eval_ppl_launches"]["B5"]),
         bwd_entry("flash_rel_backward (B3)", "loco_asr_tpu/ops/pallas/flash_attention.py:799",
                   "flash_attention.py::_rel_bwd_dq_kernel", "b3"),
         bwd_entry("flash_rel_backward (B4)", "loco_asr_tpu/ops/pallas/flash_attention.py:902",
@@ -5463,7 +5565,8 @@ def main() -> int:
               "loco_asr_tpu/ops/pallas/logmel.py:40",
               "logmel.py::_logmel_kernel", "B7", "corpus_10s", b7_launches),
     ] + bf16_entries(mixed)
-    print(f"[summary] card: {smi}; profiler windows {json.dumps(PROFILER_WINDOWS)}")
+    print(f"[summary] card: {smi}; profiler windows "
+          f"{json.dumps(PROFILER_WINDOWS)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

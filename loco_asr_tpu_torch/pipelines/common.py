@@ -17,11 +17,11 @@ from ..models.speecht5.config import SpeechT5Config
 from ..parallel import train
 
 
-def refuse_unported(args, jax_pipeline: str) -> None:
+def refuse_unported(args) -> None:
     """SystemExit naming every flag of a trainer's ``args`` that this
     package does not support yet: the multi-device ones of the JAX
     trainers (a mesh of more than one device, ring / Ulysses attention,
-    ``--sp_devices``)."""
+    ``--sp_devices``), which wait for multi-device (ROADMAP A9)."""
     dims = [int(x) for x in args.mesh.split(",")]
     refused = {
         "--mesh with more than one device": any(d not in (-1, 1) for d in dims),
@@ -31,7 +31,20 @@ def refuse_unported(args, jax_pipeline: str) -> None:
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise SystemExit(f"not supported by this package yet: {', '.join(bad)} "
-                         f"(use loco_asr_tpu.pipelines.{jax_pipeline})")
+                         "(multi-device, ROADMAP A9)")
+
+
+def restore_own_run(ckpt) -> Optional[Dict]:
+    """``--resume``: the latest state of this package's own run in ``ckpt``
+    (``.npz`` steps), or None.  An orbax step there (a JAX run) is refused:
+    its optimizer state is optax's, which the trainers do not take; its
+    weights start a run through ``--checkpoint``."""
+    latest = ckpt.status()["latest"]
+    if latest is not None and ckpt.is_orbax(latest):
+        raise SystemExit(f"{ckpt.directory}/step_{latest}: --resume continues this "
+                         "package's own runs (.npz steps); start from a JAX run's "
+                         "orbax weights with --checkpoint")
+    return ckpt.restore(latest)
 
 
 def round_up(n: int, multiple: int) -> int:

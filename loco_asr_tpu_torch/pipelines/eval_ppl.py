@@ -22,14 +22,15 @@ the head dim is not 64 or the head count is odd) in every layer.
 Artifacts: ``rec_id2nlls.pkl``, ``rec_id2ppl.json`` and the timestamped
 log with the reference's aggregate line.  Checkpoints: none (seeded random
 init), a JAX ``.npz``, a training directory (``status.json`` whose latest
-step is ``step_N.npz``: ``train_lm``'s, the port's or the JAX package's
-``.npz`` backend), or HF ``pytorch_model.bin`` / ``.safetensors`` files or
+step is ``step_N.npz`` or an orbax ``step_N/``: ``train_lm``'s, or the JAX
+package's on either backend; orbax steps through ``utils/orbax.py``,
+without orbax), or HF ``pytorch_model.bin`` / ``.safetensors`` files or
 directories (``.safetensors`` through ``utils/safetensors.py``, without
 the package).  ``--compute_dtype bfloat16`` casts the weights to bf16, as
 the JAX pipeline does (the attention kernels then run their bf16 forms;
 the lm head's logsumexp and the NLLs stay float32).  Not ported yet, and
-refused with an error: orbax step directories, ``--data_parallel > 1`` and
-``--sequence_parallel > 1``.
+refused with an error: ``--data_parallel > 1`` and ``--sequence_parallel
+> 1`` (multi-device, ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def parse_arguments(argv=None):
                         "half-overlap strided windows")
     p.add_argument("--checkpoint", default=None,
                    help="local GPT-2 weights (.npz of the JAX package, a "
-                        "train_lm ckpt dir of .npz steps, .bin/.safetensors "
+                        "training dir of .npz or orbax steps, .bin/.safetensors "
                         "or an HF dir); random init if omitted")
     p.add_argument("--tokenizer", default="char",
                    help="'char' or dir with vocab.json+merges.txt")
@@ -81,13 +82,17 @@ def parse_arguments(argv=None):
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--limit_recordings", type=int, default=None)
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="not ported yet: values above 1 are refused")
+                   help="not ported yet (multi-device, ROADMAP A9): values "
+                        "above 1 are refused")
     p.add_argument("--sequence_parallel", type=int, default=1,
-                   help="not ported yet: values above 1 are refused")
+                   help="not ported yet (multi-device, ROADMAP A9): values "
+                        "above 1 are refused")
     p.add_argument("--sp_impl", choices=["ring", "ulysses"], default="ring",
                    help="kept for CLI parity (sequence parallel is not ported)")
     p.add_argument("--compute_dtype", choices=["same", "bfloat16"],
-                   default="same", help="bfloat16 is not ported yet")
+                   default="same",
+                   help="bfloat16 casts the weights to bf16 (the attention "
+                        "kernels run their bf16 forms)")
     p.add_argument("--attn_impl", choices=["dense", "flash"], default="dense",
                    help="'flash' runs causal attention through kernel B6/B5")
     p.add_argument("--device", default="cuda",
@@ -97,21 +102,15 @@ def parse_arguments(argv=None):
 
 def training_dir_params(directory: str) -> Dict:
     """Flat JAX params of the latest step of a training directory
-    (``status.json`` + ``step_N.npz``, the ``.npz`` layout of both
-    packages' checkpointers: ``params.<flat key>`` entries)."""
+    (``status.json`` + ``step_N.npz`` or an orbax ``step_N/``, the layouts of
+    both packages' checkpointers: ``params.<flat key>`` entries)."""
     from ..utils.checkpoint import Checkpointer, flatten
 
     ckpt = Checkpointer(directory)
     step = ckpt.status()["latest"]
     if step is None:
         raise SystemExit(f"{directory}: status.json names no saved step")
-    if not os.path.exists(ckpt.step_path(step)):
-        orbax = os.path.join(directory, f"step_{step}")
-        raise SystemExit(f"{orbax}: orbax step directories are not ported yet "
-                         f"(no {os.path.basename(ckpt.step_path(step))}); this "
-                         "package reads training directories of .npz steps (the "
-                         "JAX Checkpointer with use_orbax=False)")
-    return flatten(ckpt.restore(step)["params"])
+    return flatten(ckpt.restore(step, "params")["params"])
 
 
 def read_checkpoint(checkpoint: str):
@@ -180,7 +179,7 @@ def main(argv=None) -> int:
     for flag, value in (("--data_parallel", args.data_parallel),
                         ("--sequence_parallel", args.sequence_parallel)):
         if value > 1:
-            raise SystemExit(f"{flag} > 1 is not ported yet")
+            raise SystemExit(f"{flag} > 1 is not ported yet (multi-device, ROADMAP A9)")
 
     import torch
 

@@ -21,9 +21,9 @@ Same flags, stages and ``results.json`` / ``asr_hyps.json`` keys as the JAX
 pipeline, plus ``--device`` (default cuda; cpu runs the plain PyTorch
 versions).  On the GPU every encode of the decodes runs kernels B2 and B1
 (head dim 8 here); the trainers run ``--attn_impl dense``, as in JAX.
-``--skip_training`` reuses ``asr/ckpt`` and ``asr_lm/ckpt`` when their
-latest step is a ``.npz`` (this package trains and reads ``.npz`` steps;
-an orbax directory there is refused, not overwritten).
+``--skip_training`` reuses ``asr/ckpt`` and ``asr_lm/ckpt`` when they hold
+a saved step: a ``.npz`` this package or the JAX ``.npz`` backend wrote, or
+an orbax step directory of a JAX run (read without orbax).
 """
 
 from __future__ import annotations
@@ -176,9 +176,9 @@ def _conv_name(texts: List[str]) -> str:
 
 def _reuse(args, run_dir: str) -> bool:
     """Whether ``--skip_training`` reuses ``run_dir/ckpt``: a training
-    directory whose latest step is a ``.npz`` (a checkpoint of another
-    format there is refused by ``eval_ppl.training_dir_params``, not
-    trained over)."""
+    directory whose latest step is a ``.npz`` or an orbax step directory
+    (one that does not read is refused by ``eval_ppl.training_dir_params``,
+    not trained over)."""
     from .eval_ppl import training_dir_params
 
     if not (args.skip_training

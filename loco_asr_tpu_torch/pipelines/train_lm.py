@@ -223,7 +223,7 @@ def build_config(args):
 def main(argv=None) -> int:
     args = parse_args(argv)
     from . import common
-    common.refuse_unported(args, "train_lm")
+    common.refuse_unported(args)
 
     import torch
 
@@ -283,7 +283,7 @@ def main(argv=None) -> int:
         train.load_opt_state(opt_state, restored["opt_state"])
 
     if args.resume:
-        restored = ckpt.restore()
+        restored = common.restore_own_run(ckpt)
         if restored is not None:
             load_state(restored)
             start_step = int(restored["step"])

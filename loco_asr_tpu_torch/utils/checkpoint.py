@@ -1,7 +1,10 @@
-"""Step-indexed training checkpoints, the ``.npz`` backend of
-``loco_asr_tpu.utils.checkpoint.Checkpointer``.
+"""Step-indexed training checkpoints: the ``.npz`` backend of
+``loco_asr_tpu.utils.checkpoint.Checkpointer``, which this package writes,
+and the orbax step directories that backend writes where orbax is
+installed, which this package reads (``utils/orbax.py``, without orbax).
 
-Layout: ``{dir}/step_{N}.npz`` plus ``{dir}/status.json``, whose
+Layout: ``{dir}/step_{N}.npz`` (or an orbax ``{dir}/step_{N}/``) plus
+``{dir}/status.json``, whose
 ``latest`` names the newest step (the JAX file's ``best`` keys are kept
 as they are; nothing here tracks a best step).  A state is a nested dict of arrays, saved
 flat with ``.``-joined keys: the trainer stores ``params.<JAX flat key>``
@@ -25,18 +28,21 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 
-def flatten(tree: Dict, prefix: str = "") -> Dict[str, Any]:
-    """{"a": {"b": x}} -> {"a.b": x}."""
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """{"a": {"b": x}, "c": [y]} -> {"a.b": x, "c.0": y}: dicts, and the
+    lists and tuples of an orbax restore (optax's state), are nodes; a list
+    comes back from :func:`unflatten` as an index-keyed dict."""
     out: Dict[str, Any] = {}
-    for k, v in tree.items():
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
         key = f"{prefix}.{k}" if prefix else str(k)
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list, tuple)):
             out.update(flatten(v, key))
         else:
             out[key] = v
@@ -82,15 +88,18 @@ def save_npz(path: str, tree: Dict) -> None:
     os.replace(tmp, path)
 
 
-def load_npz(path: str) -> Dict:
+def load_npz(path: str, subtree: Optional[str] = None) -> Dict:
     """The tree of :func:`save_npz`: numpy arrays, and bfloat16 tensors for
-    the 2-byte void arrays that hold bfloat16 values."""
+    the 2-byte void arrays that hold bfloat16 values; with ``subtree`` only
+    ``{subtree: ...}``."""
     with np.load(path, allow_pickle=False) as z:
-        return unflatten({k: _tensor_or_array(z[k]) for k in z.files})
+        return unflatten({k: _tensor_or_array(z[k]) for k in z.files
+                          if subtree is None or k.startswith(f"{subtree}.")})
 
 
 class Checkpointer:
-    """``{dir}/step_{N}.npz`` checkpoints with resume."""
+    """``{dir}/step_{N}.npz`` checkpoints with resume; reads orbax
+    ``{dir}/step_{N}/`` steps too (saving stays ``.npz``)."""
 
     def __init__(self, directory: str):
         self.directory = directory
@@ -108,6 +117,11 @@ class Checkpointer:
     def step_path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}.npz")
 
+    def is_orbax(self, step: int) -> bool:
+        """Whether ``step`` is an orbax step directory (and no ``.npz``)."""
+        return (not os.path.exists(self.step_path(step))
+                and os.path.isdir(os.path.join(self.directory, f"step_{step}")))
+
     def save(self, step: int, state: Dict) -> None:
         save_npz(self.step_path(step), state)
         st = self.status()
@@ -115,17 +129,27 @@ class Checkpointer:
         with open(self._status_path(), "w") as f:
             json.dump(st, f)
 
-    def restore(self, step: Optional[int] = None) -> Optional[Dict]:
-        """The state of ``step`` (default: latest), or None if none saved."""
+    def restore(self, step: Optional[int] = None,
+                subtree: Optional[str] = None) -> Optional[Dict]:
+        """The state of ``step`` (default: latest), or None if none saved;
+        with ``subtree`` (``"params"``) only that part of it is read."""
         if step is None:
             step = self.status()["latest"]
-        return None if step is None else load_npz(self.step_path(step))
+        if step is None:
+            return None
+        if self.is_orbax(step):
+            from .orbax import restore_step
+            return restore_step(os.path.join(self.directory, f"step_{step}"), subtree)
+        return load_npz(self.step_path(step), subtree)
 
     def steps(self) -> List[int]:
-        """Every saved step number, ascending."""
-        return sorted(int(name[len("step_"):].split(".")[0])
-                      for name in os.listdir(self.directory)
-                      if name.startswith("step_") and not name.endswith(".tmp.npz"))
+        """Every saved step number, ``.npz`` or orbax, ascending."""
+        out = set()
+        for name in os.listdir(self.directory):
+            m = re.fullmatch(r"step_(\d+)(\.npz)?", name)
+            if m and (m.group(2) or os.path.isdir(os.path.join(self.directory, name))):
+                out.add(int(m.group(1)))
+        return sorted(out)
 
 
 def _float64(leaf) -> np.ndarray:
@@ -164,4 +188,4 @@ def average_last_k(ckpt: Checkpointer, k: int = 5) -> Optional[Dict]:
     steps = ckpt.steps()[-k:]
     if not steps:
         return None
-    return average_checkpoints([ckpt.restore(s)["params"] for s in steps])
+    return average_checkpoints([ckpt.restore(s, "params")["params"] for s in steps])

@@ -144,7 +144,7 @@ def test_eval_ppl_precision_flag_matches_jax(flag, fisher_text, tiny_npz, tmp_pa
 
 @pytest.mark.parametrize("flags", [["--data_parallel", "2"],
                                    ["--sequence_parallel", "2"],
-                                   ["--checkpoint", LM_CKPT]])
+                                   ["--data_parallel", "2", "--sequence_parallel", "2"]])
 def test_unported_options_raise(flags, fisher_text, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
         teval.main(["-i", fisher_text, "-o", str(tmp_path), "--model", "tiny",

@@ -1,11 +1,13 @@
 """loco_asr_tpu_torch imports neither jax nor loco_asr_tpu: every module of
-the package imports with jax blocked, loads no loco_asr_tpu module, and no
-source of the port (or chip_smoke.py) names either, in an import or in a
-command it would run (``-m loco_asr_tpu.pipelines...``, as a wav.scp pipe
-is).  Packages the GPU machine lacks (regex, safetensors, transformers)
-are blocked as well: the port may import them only inside the function
-that needs them.  The wav.scp pipe CLI, ``sph_decode``, stays light: its
-process loads no torch."""
+the package (the examples included) imports with jax blocked, loads no
+loco_asr_tpu module, and no source of the port (or chip_smoke.py) names
+either, in an import or in a command it would run (``-m
+loco_asr_tpu.pipelines...``, as a wav.scp pipe is).  Packages the GPU
+machine lacks (regex, safetensors, transformers) are blocked as well: the
+port may import them only inside the function that needs them; orbax,
+tensorstore and zstandard it never imports (its orbax reader is its own).
+The wav.scp pipe CLI, ``sph_decode``, stays light: its process loads no
+torch."""
 
 import os
 import re
@@ -21,7 +23,8 @@ PKG = os.path.join(ROOT, "loco_asr_tpu_torch")
 
 _PROBE = """
 import importlib, pkgutil, sys
-for name in ("jax", "regex", "safetensors", "transformers"):
+for name in ("jax", "regex", "safetensors", "transformers", "orbax", "tensorstore",
+             "zstandard"):
     sys.modules[name] = None
 import loco_asr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(loco_asr_tpu_torch.__path__,
@@ -31,7 +34,7 @@ for name in names:
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "loco_asr_tpu" or m.startswith("loco_asr_tpu.")
                      or m == "jax" or m.startswith("jax.")))
-print(len(names), leaked)
+print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
 """
 
@@ -42,6 +45,7 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 20
+    assert "loco_asr_tpu_torch.examples.04_checkpoint_mapping" in proc.stdout
 
 
 def _sources():
@@ -64,6 +68,20 @@ def test_no_source_names_jax_or_the_jax_package():
         assert not FORBIDDEN.search(text), f"{path}: {FORBIDDEN.search(text).group(0)}"
         checked += 1
     assert checked >= 20
+
+
+NEVER = re.compile(r"^\s*(import|from)\s+(orbax|tensorstore|zstandard)\b", re.M)
+
+
+def test_no_source_imports_orbax_tensorstore_or_zstandard():
+    checked = 0
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        assert not NEVER.search(text), f"{path}: {NEVER.search(text).group(0)}"
+        checked += 1
+    assert checked >= 20
+    assert NEVER.search("    import zstandard\n") and NEVER.search("from orbax import x")
 
 
 # a command that runs a module of the JAX package: "python -m loco_asr_tpu.x"

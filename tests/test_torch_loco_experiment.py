@@ -11,7 +11,8 @@ package on the CPU.
 * LM stage: the port's ``eval_ppl`` on a directory ``train_lm`` wrote
   equals the JAX ``eval_ppl`` on it within 1e-4, and ``read_checkpoint``
   reads what the JAX ``load_gpt2_params`` reads there and in a directory of
-  the JAX ``.npz`` backend; orbax step directories are refused by name.
+  the JAX ``.npz`` backend, and what orbax restores from the committed
+  orbax step directory; an incomplete orbax step is refused by name.
 
 The JAX ``Checkpointer`` defaults to orbax where orbax is installed; the
 tests that have the JAX side read ``.npz`` steps set ``use_orbax=False``
@@ -126,7 +127,7 @@ def test_skip_training_refuses_an_orbax_step(tmp_path):
     ckpt = tmp_path / "asr" / "ckpt"
     (ckpt / "step_5").mkdir(parents=True)
     (ckpt / "status.json").write_text(json.dumps({"latest": 5}))
-    with pytest.raises(SystemExit, match="step_5.npz"):
+    with pytest.raises(SystemExit, match="step_5: incomplete orbax step directory, no _METADATA"):
         tloco.main(["--out_dir", str(tmp_path), *ASR_FLAGS, "--device", "cpu"])
 
 
@@ -171,8 +172,8 @@ def test_eval_ppl_on_a_trained_directory_matches_jax(ctx, trained_lm, tmp_path,
 def test_read_checkpoint_reads_what_jax_reads(trained_lm, tmp_path, jax_npz_checkpointer):
     """The latest step of a port-trained directory and of one the JAX
     ``.npz`` checkpointer wrote: the flat params of ``read_checkpoint``
-    equal the JAX ``load_gpt2_params`` tree; orbax steps are refused by
-    name."""
+    equal the JAX ``load_gpt2_params`` tree; on the committed orbax
+    directory they equal orbax's restore, bit for bit."""
     ckpt, _ = trained_lm
     jdir = str(tmp_path / "jax_ckpt")
     cfg = jg.tiny_gpt2_config(vocab_size=256, n_positions=64, n_embd=32, n_layer=2,
@@ -188,8 +189,13 @@ def test_read_checkpoint_reads_what_jax_reads(trained_lm, tmp_path, jax_npz_chec
             np.testing.assert_array_equal(flat[k], v, err_msg=k)
     with open(os.path.join(ckpt, "status.json")) as f:
         assert json.load(f)["latest"] == 6
-    with pytest.raises(SystemExit, match=r"step_4000: orbax step directories"):
-        teval.read_checkpoint(LM_CKPT)
+    ocp = pytest.importorskip("orbax.checkpoint")
+    kind, flat = teval.read_checkpoint(LM_CKPT)
+    state = ocp.PyTreeCheckpointer().restore(os.path.join(LM_CKPT, "step_4000"))
+    want = {k: np.asarray(v) for k, v in flatten_with_paths(state["params"]).items()}
+    assert kind == "jax" and sorted(flat) == sorted(want)
+    for k, v in want.items():
+        assert flat[k].dtype == v.dtype and flat[k].tobytes() == v.tobytes(), k
 
 
 def test_loco_experiment_needs_a_gpu_unless_asked_for_cpu(tmp_path, monkeypatch):

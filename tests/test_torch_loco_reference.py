@@ -5,7 +5,8 @@
 as ``.npz`` training directories, parameters only: ``status.json`` and
 ``step_N.npz`` with ``params.<JAX flat key>`` entries, the layout both
 packages' ``.npz`` checkpointers write and ``eval_ppl.training_dir_params``
-reads.  The port reads no orbax, so this is how the weights reach it.
+reads.  The port also reads the orbax steps themselves, without orbax
+(``utils/orbax.py``); the decodes run from both.
 
 * The fixture equals what the JAX ``Checkpointer`` restores from the orbax
   steps, array for array (pins where it came from); its ``asr_init.npz``
@@ -15,7 +16,7 @@ reads.  The port reads no orbax, so this is how the weights reach it.
   --fusion_weights 1.0 --device cpu`` on the fixture, its dev corpus cut to
   two recordings on the test side (keeping the decodes' padding bucket),
   gives the hypotheses of ``exp/loco/asr_hyps.json`` for their 20
-  utterances.
+  utterances; so does the same on copies of the orbax steps.
 * The experiment's ASR training recipe gives the same parameters in both
   packages' ``train_asr`` from one init once dropout and SpecAugment are
   off: the trainers part only in the random streams.
@@ -120,12 +121,15 @@ def test_shared_init_is_the_jax_init():
             np.testing.assert_array_equal(z[key], np.asarray(value), err_msg=key)
 
 
-def _stage_out(tmp_path) -> str:
+def _stage_out(tmp_path, source: str = "fixture") -> str:
     """An experiment directory whose ``asr/ckpt`` and ``asr_lm/ckpt`` are
-    copies of the fixture's training directories."""
+    copies of the fixture's training directories (``.npz``) or, for
+    ``source="orbax"``, of the committed orbax ones."""
     out = str(tmp_path / "loco")
     for name in STEPS:
-        shutil.copytree(os.path.join(FIXTURE, name), os.path.join(out, name, "ckpt"))
+        src = os.path.join(FIXTURE, name) if source == "fixture" else \
+            os.path.join(EXP, name, "ckpt")
+        shutil.copytree(src, os.path.join(out, name, "ckpt"))
     return out
 
 
@@ -179,8 +183,16 @@ def _run_port(out: str) -> None:
 
 
 def test_decode_of_two_recordings_gives_the_recorded_hypotheses(tmp_path, monkeypatch):
+    _decode_two_recordings(tmp_path, monkeypatch, "fixture")
+
+
+def test_decode_of_two_recordings_from_the_orbax_steps(tmp_path, monkeypatch):
+    _decode_two_recordings(tmp_path, monkeypatch, "orbax")
+
+
+def _decode_two_recordings(tmp_path, monkeypatch, source: str) -> None:
     _two_recordings(monkeypatch)
-    out = _stage_out(tmp_path)
+    out = _stage_out(tmp_path, source)
     _run_port(out)
     with open(os.path.join(out, "asr_hyps.json")) as f:
         got = json.load(f)
@@ -414,8 +426,9 @@ def test_random_streams_match_in_distribution(tmp_path, monkeypatch):
 
 
 @pytest.mark.slow
-def test_decode_of_all_recordings_reproduces_the_recorded_results(tmp_path):
-    out = _stage_out(tmp_path)
+@pytest.mark.parametrize("source", ["fixture", "orbax"])
+def test_decode_of_all_recordings_reproduces_the_recorded_results(tmp_path, source):
+    out = _stage_out(tmp_path, source)
     _run_port(out)
     with open(os.path.join(out, "results.json")) as f:
         got = json.load(f)["asr"]
