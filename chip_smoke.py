@@ -129,11 +129,11 @@ Phases, in order (any failure raises and exits non-zero):
    dev utterances at the pipeline's batch shapes ([8, 16000] and the
    batcher's admission buckets [4 | 2 | 1, 16000]), kernel path against
    plain path within 1e-3 (max) and 1e-4 (mean); ``decode_asr`` on the
-   dev corpus's first 8 batches (``--limit_batches 8``: 64 of its 120
+   dev corpus's first 3 batches (``--limit_batches 3``: 24 of its 120
    utterances of <= 1 s, ``--max_seconds 1`` so that static batches and
    the batcher pad alike) with a seeded gpt2-width LM ``.npz``, in six
    modes (static greedy and beam 5, ``--continuous`` greedy and beam 5,
-   ``--continuous --conversation`` greedy and beam 5): 64 hyp.text lines,
+   ``--continuous --conversation`` greedy and beam 5): 24 hyp.text lines,
    a finite wer.json, continuous hypotheses equal to static ones, B1/B2
    launches, RTFx and wall seconds per mode;
 13. LM training and the LoCo experiment: (a) one ``make_lm_train_step``
@@ -325,7 +325,27 @@ Phases, in order (any failure raises and exits non-zero):
    ``rel_padded`` shape beside ``time_ms``; (e) the four examples
    (``loco_asr_tpu_torch/examples/01-04 --tiny``) on the card, their lines
    checked and their B1 / B2 launches counted;
-21. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+21. the (data, fsdp, tensor) mesh (``loco_asr_tpu_torch/parallel/``):
+   four ranks on the one card over gloo (a card a rank would take NCCL;
+   here ranks share it, so every collective is staged through host
+   memory, and their times say nothing of NCCL): (a) the sharded ASR step
+   at SpeechT5-base width (vocabulary 256, flash, dropout on) on 8 corpus
+   windows of <= 10 s under meshes (2, 1, 2) and (1, 2, 2), 3 steps each
+   held to the single-device step on the card (loss 1e-4, ``grad_norm``
+   1e-3 relative), each rank's launches of one step (18 B1, 18 B3/B4, 6
+   B5, all at 6 heads), step ms, peak memory and the exact bytes of its
+   parameters plus AdamW state (the partition rules' figure); (b) the
+   gpt2-width LM step at [8, 1024] under (1, 2, 2), 2 steps (the second
+   holds the first's sharded AdamW update), 12 B6 at 6 heads a rank,
+   held the same way; (c) ``train_asr --mesh 2,1,2 --attn_impl flash`` 4
+   steps and ``--resume`` to 6 on the committed corpus, run by the same
+   ranks, then the single-device trainer resumes the saved step; (e)
+   ``dryrun_multichip(4)`` on the same ranks; (d) on ranks 0 and 1 of
+   the same start, regrouped as two, ``decode_asr`` (greedy, 16 dev
+   utterances: equal tokens but at near-ties), ``extract_embeddings -m
+   audio`` (24 seeded wavs, 1e-5) and ``eval_ppl --context_type max_len``
+   (gpt2 width, char, 1e-6 relative) at ``--data_parallel 2`` against 1;
+22. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
    ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
    ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
    phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches,
@@ -335,7 +355,8 @@ Phases, in order (any failure raises and exits non-zero):
    B3/B4 with the Adafactor ``train_asr`` run's, B5 with the gpt2-xl
    steps', B1, B2, B3/B4 and B6 with phase 19's ``fisher_launches``;
    B1 and B2 with phase 20's ``examples_launches``, B5 with its
-   ``orbax_eval_ppl_launches``;
+   ``orbax_eval_ppl_launches``; B1, B3/B4, B5 and B6 with phase 21's
+   ``mesh_rank_step_launches``;
    then the six bf16 forms with phase 16's launches, times and
    bounds), then last
    ``{"ok": true, "device": {...}}``.
@@ -349,11 +370,17 @@ runs only the build and phase 3's B2 and B7 cases, and ends with one
 (an earlier commit unpacked with ``git archive``, from the one that added
 ``loco_asr_tpu_torch/utils/profiling.py`` on, which times the cases), it
 runs that checkout's B2 and B7 through the same cases and inputs.
+
+    python3 chip_smoke.py --mesh-phase
+
+runs only the build and phase 21, and ends with one ``{"mesh_phase":
+{...}}`` line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import itertools
@@ -398,7 +425,7 @@ TTS_TOL = 1e-3        # teacher-forced mels / stop logits, kernel vs plain path
 DECODE_SCORE_TOL = 1e-4   # beam scores, kernel path vs plain path (atol and rtol)
 DECODE_TIE_ATOL = 1e-3    # a beam near-tie: the parting candidates' gap and drift
 ENC_MAX_TOL, ENC_MEAN_TOL = 1e-3, 1e-4   # encoder output, kernel path vs plain path
-DECODE_ASR_BATCHES = 8    # phase 12's decode_asr runs: 64 of the dev corpus's 120 utterances
+DECODE_ASR_BATCHES = 3    # phase 12's decode_asr runs: 24 of the dev corpus's 120 utterances
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1271,7 +1298,7 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
                                    seed=1, device=dev), lm_path)
         # the corpus's utterances last <= 1 s: static batches and the
         # batcher's bucket both pad them to 1 s, so both encode the same input
-        # (the first 8 batches, 64 of the 120 utterances: the depth cut to
+        # (the first 3 batches, 24 of the 120 utterances: the depth cut to
         # keep the whole script inside its time limit)
         common = ["--data_dir", corpus["dev"], "--lm_model", "gpt2", "--lm_checkpoint", lm_path,
                   "--max_decode_len", "64", "--batch_size", "8", "--max_seconds", "1",
@@ -4680,6 +4707,454 @@ def extract_store(path: str) -> list:
     return [store[i][1] for i in range(len(store))]
 
 
+# -- phase 21: the (data, fsdp, tensor) mesh on one card ---------------------
+
+MESH_RANKS = 4                 # ranks of phase 21, all on cuda:0 over gloo
+MESH_STEPS = 3                 # sharded ASR steps held to the single-device step
+MESH_LM_STEPS = 2              # sharded LM steps (the second reads the first's update)
+MESH_LOSS_ATOL, MESH_GNORM_RTOL = 1e-4, 1e-3   # the JAX dry run's bounds
+MESH_LR = 1e-4
+MESH_HEADS = 12                # SpeechT5-base's and gpt2's attention heads
+DP_EMB_ATOL, DP_PPL_RTOL = 1e-5, 1e-6          # --data_parallel 2 against 1
+
+
+_MESH_INITS: dict = {}
+
+
+def mesh_models(kind: str, meta: bool = False):
+    """(config, whole model on the host, step factory) of phase 21 (a)/(b):
+    SpeechT5-base with a 256 vocabulary, or gpt2 width, seeded; dropout on
+    (a copy of one seeded draw a process).  ``meta``: the model's shapes
+    only."""
+    import torch
+
+    from loco_asr_tpu_torch.models.gpt2 import model as gm
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+    from loco_asr_tpu_torch.parallel import train
+
+    if kind == "asr":
+        cfg = SpeechT5Config(vocab_size=256)
+        if meta:
+            with torch.device("meta"):
+                return cfg, st5.AsrModel(cfg), None
+        if kind not in _MESH_INITS:
+            _MESH_INITS[kind] = st5.asr_model_init(cfg, seed=21, device="cpu")
+        return cfg, copy.deepcopy(_MESH_INITS[kind]), train.make_asr_train_step
+    cfg = dataclasses.replace(gm.PRESETS["gpt2"], vocab_size=256)
+    if meta:
+        with torch.device("meta"):
+            return cfg, gm.GPT2Model(cfg), None
+    return cfg, gm.gpt2_init(cfg, seed=21, device="cpu"), train.make_lm_train_step
+
+
+@contextlib.contextmanager
+def launches_by_heads():
+    """Attention-kernel launches by ``kernel:heads:head dim`` while the
+    block runs (B1, B3/B4 and B5 read [B, H, T, D], B6 [B, T, H, D])."""
+    from loco_asr_tpu_torch.ops.cuda import flash_attention as fa
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
+    real = (fa._launch_forward, fa._launch_backward, fc._launch)
+    tally: dict = {}
+
+    def count(kern, heads, d):
+        key = f"{kern}:h{heads}:d{d}"
+        tally[key] = tally.get(key, 0) + 1
+
+    def b1(q, *a, **kw):
+        count("B1", q.shape[1], q.shape[-1])
+        return real[0](q, *a, **kw)
+
+    def b34(q, *a, **kw):
+        count("B3/B4", q.shape[1], q.shape[-1])
+        return real[1](q, *a, **kw)
+
+    def b5(q, *a, t_axis, **kw):
+        count("B5" if t_axis == 2 else "B6", q.shape[1 if t_axis == 2 else 2], q.shape[-1])
+        return real[2](q, *a, t_axis=t_axis, **kw)
+
+    fa._launch_forward, fa._launch_backward, fc._launch = b1, b34, b5
+    try:
+        yield tally
+    finally:
+        fa._launch_forward, fa._launch_backward, fc._launch = real
+
+
+def mesh_steps(kind: str, batches: list, dev, mesh=None) -> dict:
+    """``len(batches)`` flash steps of AdamW(1e-4) from the seeded init,
+    sharded on ``mesh`` (this rank's rows) or on one device; per step the
+    loss, grad_norm, ms (CUDA-synchronised wall time) and, for the first
+    step, the launches by kernel and head count; the peak memory and the
+    bytes of the local parameters plus optimizer state."""
+    import torch
+
+    from loco_asr_tpu_torch.parallel import partition, train
+
+    cfg, model, make = mesh_models(kind)
+    if mesh is None:
+        model.to(dev)
+    else:
+        partition.shard_params(model, mesh)
+    tx = train.adamw(MESH_LR)
+    params = train.trainable_params(model)
+    opt_state = tx.init(params, layout=train.layout(model))
+    state_bytes = partition.local_bytes(list(params.values()) + list(opt_state["mu"].values())
+                                        + list(opt_state["nu"].values()))
+    step = make(cfg, tx, attn_impl="flash", mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = {"loss": [], "grad_norm": [], "ms": [], "state_bytes": state_bytes}
+    for i, host in enumerate(batches):
+        batch = (train.shard_batch(host, mesh) if mesh is not None
+                 else {k: torch.as_tensor(v, device=dev) for k, v in host.items()})
+        reset_all_launches()
+        with launches_by_heads() as heads:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(model, opt_state, batch, gen)
+            loss = float(m["loss"])
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            rec["launches"], rec["by_head_dim"] = all_launches(), dict(heads)
+        rec["loss"].append(loss)
+        rec["grad_norm"].append(float(m["grad_norm"]))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    if mesh is not None:
+        rec["expected_state_bytes"] = 3 * partition.local_param_bytes(
+            mesh_models(kind, meta=True)[1], mesh)
+    return rec
+
+
+def mesh_rank_cases(out: str, cases: list, batches_path: str, train_runs: list,
+                    dp: tuple) -> int:
+    """Phase 21 on one rank: each case ``(name, kind, dims)`` of (a) and (b)
+    runs :func:`mesh_steps` sharded on that mesh; then each argv of
+    ``train_runs`` through ``train_asr.main`` (these ranks are its ranks, as
+    ``torchrun``'s would be), then ``dryrun_multichip(4)``; the rank writes
+    its record.  Then (d): ranks 0 and 1 leave the group of four for one of
+    their own, as a start of two ranks would give them, and run
+    :func:`dp_ranks` on ``dp`` ``(runs, trace_path)``, while ranks 2 and 3
+    wait to form the group of four again (which the rank's exit closes)."""
+    import torch
+    import torch.distributed as dist
+
+    from loco_asr_tpu_torch.parallel import launch
+    from loco_asr_tpu_torch.parallel import mesh as meshlib
+    from loco_asr_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    no_tf32()
+    batches = pickle.load(open(batches_path, "rb"))
+    recs = {}
+    for name, kind, dims in cases:
+        mesh = meshlib.make_mesh(*dims, device=dev)
+        recs[name] = mesh_steps(kind, batches[kind], dev, mesh)
+        recs[name]["mesh"] = dict(mesh.shape)
+        torch.cuda.empty_cache()
+    from loco_asr_tpu_torch.pipelines import train_asr
+
+    for i, argv in enumerate(train_runs):
+        t0 = time.perf_counter()
+        check(train_asr.main(argv) == 0, f"train_asr {argv}")
+        recs[f"train_asr_{i}_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    no_tf32()
+    t0 = time.perf_counter()
+    recs["dryrun"] = {**dryrun_multichip(dist.get_world_size(), "cuda"),
+                      "s": time.perf_counter() - t0}
+    rank = dist.get_rank()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(recs, f)
+
+    def regroup(world: int, store: str) -> None:
+        os.environ.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(out, store),
+                                rank=rank, world_size=world, timeout=launch.TIMEOUT)
+
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank < 2:
+        regroup(2, "dp_store")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2 * threads)       # two ranks now share the cores
+        t0 = time.perf_counter()
+        dp_ranks(*dp)
+        dist.barrier()
+        if rank == 0:
+            with open(os.path.join(out, "dp_s.json"), "w") as f:
+                json.dump(time.perf_counter() - t0, f)
+        torch.set_num_threads(threads)
+        dist.destroy_process_group()
+    regroup(MESH_RANKS, "end_store")
+    return 0
+
+
+def no_tf32() -> None:
+    """Float32 products and convolutions, as the rest of the script runs."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dp_ranks(runs: list, trace_path: str) -> int:
+    """Phase 21 (d) on one started rank (as under ``torchrun``), TF32 off as
+    in this process: each ``(module, argv)`` pipeline's ``main`` in turn,
+    ``decode_asr`` with each decode step's top two log-probs per row
+    recorded (:func:`row_trace`) for the near-tie rule."""
+    import importlib
+
+    import torch.distributed as dist
+
+    no_tf32()
+    for module, argv in runs:
+        with row_trace() as trace:
+            check(importlib.import_module(module).main(argv) == 0, f"{module} {argv}")
+        if module.endswith("decode_asr"):
+            with open(f"{trace_path}.rank{dist.get_rank()}", "wb") as f:
+                pickle.dump(trace, f)
+    return 0
+
+
+@contextlib.contextmanager
+def row_trace():
+    """For every static greedy decode run inside: per step the top two
+    log-probs and ids of every row ([B, 2] each, on the host)."""
+    import torch
+
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+
+    trace, real = [], st5.asr_decode_step
+
+    def step(model, tok, t, *a, **kw):
+        logits = real(model, tok, t, *a, **kw)
+        if isinstance(t, int) and t == 0:
+            trace.append([])
+        vals, ids = torch.topk(torch.log_softmax(logits.float(), dim=-1), 2, dim=-1)
+        trace[-1].append((vals.cpu(), ids.cpu()))
+        return logits
+
+    st5.asr_decode_step = step
+    try:
+        yield trace
+    finally:
+        st5.asr_decode_step = real
+
+
+def rows_agree(got_rows, want_rows, eos: int, what: str):
+    """Traced greedy rows (:func:`traced_rows`) of a data-parallel decode
+    against the single run's, each cut at its first EOS: equal, or parting
+    at a near-tie (phase 12's rule, K = 1: the ``got`` token is ``want``'s
+    second candidate and ``want``'s two candidates lie within
+    DECODE_TIE_ATOL).  Returns the partings [(row, step, gap)]."""
+    def tokens(row):
+        ids = [int(i[0]) for _, i in row]
+        return ids[:ids.index(eos) + 1] if eos in ids else ids
+
+    parts = []
+    for r, (grow, wrow) in enumerate(zip(got_rows, want_rows)):
+        g, w = tokens(grow), tokens(wrow)
+        if g == w:
+            continue
+        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        check(t < min(len(g), len(w)), f"{what}: row {r} ends at another step")
+        vals, ids = wrow[t]
+        gap = float(vals[0] - vals[1])
+        check(int(g[t]) == int(ids[1]) and gap <= DECODE_TIE_ATOL,
+              f"{what}: row {r} parts at step {t} where the candidates lie {gap} "
+              "apart (or on a third candidate): not a near-tie")
+        parts.append([r, t, gap])
+    return parts
+
+
+def traced_rows(trace, batch_rows: list) -> list:
+    """Per utterance (in batch order) its steps' (values, ids) from a
+    :func:`row_trace` of the decodes of consecutive batches."""
+    rows = []
+    for steps, n in zip(trace, batch_rows):
+        for r in range(n):
+            rows.append([(v[r], i[r]) for v, i in steps])
+    return rows
+
+
+def mesh_phase(corpus: dict, smi: str, dev) -> dict:
+    """Phase 21: four ranks on one card over gloo (``parallel/launch.py``:
+    ranks share the card, so collectives are staged through host memory;
+    their times say nothing of NCCL).  One start of four ranks runs (a),
+    (b), (c) and (e), then two of them (d)."""
+    import torch
+
+    from loco_asr_tpu_torch.parallel import launch
+    from loco_asr_tpu_torch.pipelines import train_asr
+
+    t_phase = time.perf_counter()
+    res = {"card": smi, "collectives": "gloo, staged through host memory, 4 ranks on one card"}
+    host = asr_host_batches(corpus["train"], MESH_STEPS)
+    rng = np.random.default_rng(21)
+    lm = [{"ids": rng.integers(0, 256, (8, 1024)), "lengths": np.full(8, 1024)}
+          for _ in range(MESH_LM_STEPS)]
+    batches = {"asr": [{k: b[k] for k in ("input_values", "attention_mask", "labels")}
+                       for b in host], "lm": lm}
+    cases = [("asr_2,1,2", "asr", (2, 1, 2)), ("asr_1,2,2", "asr", (1, 2, 2)),
+             ("lm_1,2,2", "lm", (1, 2, 2))]
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a), (b): the single-device steps on the card, (d)'s single runs,
+        # then the ranks, which go on with (c), (e) and (d)
+        t0 = time.perf_counter()
+        single = {kind: mesh_steps(kind, batches[kind], dev) for kind in ("asr", "lm")}
+        torch.cuda.empty_cache()
+        res["single_s"] = time.perf_counter() - t0
+        dp = dp_single(corpus, tmp)
+        path = os.path.join(tmp, "batches.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(batches, f)
+        out = os.path.join(tmp, "asr")
+        common = ["--train_dir", corpus["train"], "--out_dir", out, "--attn_impl", "flash",
+                  "--batch_size", "8", "--conversation_seconds", "10", "--eval_every", "100",
+                  "--warmup_steps", "2", "--lr", "1e-4"]
+        train_runs = [[*common, "--mesh", "2,1,2", "--steps", "4", "--save_every", "4"],
+                      [*common, "--mesh", "2,1,2", "--steps", "6", "--resume",
+                       "--save_every", "6"]]
+        t0 = time.perf_counter()
+        launch.spawn(mesh_rank_cases, (tmp, cases, path, train_runs,
+                                       (dp["runs"], dp["trace_path"])), MESH_RANKS, "cuda")
+        res["ranks_wall_s"] = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(MESH_RANKS)]
+        dp["res"]["data_parallel_s"] = json.load(open(os.path.join(tmp, "dp_s.json")))
+        res["dp"] = dp_check(dp, smi)
+        # (c): the single-device trainer resumes the mesh run's step 6
+        # (strict loads of the parameters and the optimizer state), no step
+        t0 = time.perf_counter()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            check(train_asr.main([*common, "--steps", "6", "--resume"]) == 0,
+                  "single-device train_asr --resume of the mesh run")
+        check("resumed at step 6" in err.getvalue(), "the single trainer did not resume")
+        with np.load(os.path.join(out, "ckpt", "step_6.npz")) as z6:
+            check(int(z6["opt_state.count"]) == 6, "the resumed mesh run's count")
+            keys = [k for k in z6.files if k.startswith("params.")]
+            check(all(np.isfinite(z6[k]).all() for k in keys), "non-finite saved params")
+        res["train_asr"] = {"mesh_run_s": ranks[0]["train_asr_0_s"],
+                            "resume_run_s": ranks[0]["train_asr_1_s"],
+                            "single_resume_s": time.perf_counter() - t0, "params": len(keys)}
+        print(f"[mesh] train_asr --mesh 2,1,2: 4 steps + --resume to 6, resumed by the "
+              f"single trainer: {json.dumps(res['train_asr'])}; card {smi}")
+    for name, kind, dims in cases:
+        ref = single[kind]
+        per = [r[name] for r in ranks]
+        for r, rec in enumerate(per):
+            for i, (a, b) in enumerate(zip(rec["loss"], ref["loss"])):
+                check(abs(a - b) <= MESH_LOSS_ATOL, f"{name} rank {r} step {i}: loss {a} vs {b}")
+            for i, (a, b) in enumerate(zip(rec["grad_norm"], ref["grad_norm"])):
+                check(abs(a - b) <= MESH_GNORM_RTOL * b,
+                      f"{name} rank {r} step {i}: grad_norm {a} vs {b}")
+            check(rec["state_bytes"] == rec["expected_state_bytes"],
+                  f"{name} rank {r}: {rec['state_bytes']} bytes of state, the rules give "
+                  f"{rec['expected_state_bytes']}")
+            h = MESH_HEADS // dims[2]
+            want = ({f"B1:h{h}:d64": 18, f"B3/B4:h{h}:d64": 18, f"B5:h{h}:d64": 6}
+                    if kind == "asr" else {f"B6:h{h}:d64": 12})
+            check(rec["by_head_dim"] == want, f"{name} rank {r}: launches {rec['by_head_dim']}")
+        res[name] = {
+            "mesh": per[0]["mesh"], "heads_per_rank": MESH_HEADS // dims[2],
+            "loss": per[0]["loss"], "single_loss": ref["loss"],
+            "d_loss": max(abs(a - b) for rec in per for a, b in zip(rec["loss"], ref["loss"])),
+            "d_grad_norm_rel": max(abs(a - b) / b for rec in per
+                                   for a, b in zip(rec["grad_norm"], ref["grad_norm"])),
+            "launches_per_rank_step": per[0]["launches"], "by_head_dim": per[0]["by_head_dim"],
+            "step_ms_by_rank": [rec["ms"] for rec in per], "single_step_ms": ref["ms"],
+            "max_memory_allocated_by_rank": [rec["max_memory_allocated"] for rec in per],
+            "single_max_memory_allocated": ref["max_memory_allocated"],
+            "state_bytes_by_rank": [rec["state_bytes"] for rec in per],
+            "single_state_bytes": ref["state_bytes"]}
+        print(f"[mesh] {name} {json.dumps(res[name])} (card {smi}; collectives gloo, "
+              "staged through host memory)")
+    # (e) ran on the same ranks after (a) and (b)
+    dry = ranks[0]["dryrun"]
+    check(dry["sharded"]["d_loss"] < 1e-4 and dry["sharded"]["d_grad_norm_rel"] < 1e-3,
+          f"dryrun_multichip(4): {dry}")
+    res["dryrun"] = dry
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase 21 {res['wall_s']:.1f} s; dryrun {json.dumps(res['dryrun'])}; "
+          f"card {smi}")
+    return res
+
+
+def dp_single(corpus: dict, tmp: str) -> dict:
+    """Phase 21 (d), first half: ``decode_asr`` (greedy, a full-width random
+    model), ``extract_embeddings -m audio`` and ``eval_ppl --context_type
+    max_len`` at ``--data_parallel 1`` in this process (``decode_asr``'s
+    rows traced); returns the ``--data_parallel 2`` runs for the ranks
+    (:func:`mesh_rank_cases`) and what :func:`dp_check` holds them to."""
+    from loco_asr_tpu_torch.pipelines import decode_asr, eval_ppl, extract_embeddings
+
+    res = {}
+    slurp = os.path.join(tmp, "slurp")
+    write_slurp(slurp, 24, seed=21)
+    argv = {
+        "decode_asr": ["--data_dir", corpus["dev"], "--beam_size", "1",
+                       "--max_decode_len", "24", "--batch_size", "8",
+                       "--limit_batches", "2", "--max_seconds", "10"],
+        "extract_embeddings": ["-m", "audio", "-s", "train", "--data_path", slurp,
+                               "--batch_size", "8"],
+        "eval_ppl": ["-i", os.path.join(ROOT, "exp", "loco", "lm_corpus", "dev.txt"),
+                     "--model", "gpt2", "--tokenizer", "char", "--context_type", "max_len",
+                     "--max_len", "256", "--bsize", "8", "--limit_recordings", "2"]}
+    outs = {(name, n): ["--out_dir" if name != "eval_ppl" else "-o",
+                        os.path.join(tmp, f"{name}{n}"), "--data_parallel", str(n)]
+            for name in argv for n in (1, 2)}
+    t0 = time.perf_counter()
+    with row_trace() as one_trace:
+        check(decode_asr.main([*argv["decode_asr"], *outs["decode_asr", 1]]) == 0,
+              "decode_asr")
+    check(extract_embeddings.main([*argv["extract_embeddings"],
+                                   *outs["extract_embeddings", 1]]) == 0,
+          "extract_embeddings")
+    check(eval_ppl.main([*argv["eval_ppl"], *outs["eval_ppl", 1]]) == 0, "eval_ppl")
+    res["single_s"] = time.perf_counter() - t0
+    return {"res": res, "tmp": tmp, "one_trace": one_trace,
+            "trace_path": os.path.join(tmp, "trace"),
+            "runs": [(f"loco_asr_tpu_torch.pipelines.{name}", [*argv[name], *outs[name, 2]])
+                     for name in argv]}
+
+
+def dp_check(dp: dict, smi: str) -> dict:
+    """Phase 21 (d), second half: each ``--data_parallel 2`` run (on two
+    ranks) held to its single run."""
+    res, tmp, one_trace, trace_path = dp["res"], dp["tmp"], dp["one_trace"], dp["trace_path"]
+    hyp = lambda d: [l.split(None, 1) for l in open(os.path.join(tmp, d, "hyp.text"))]
+    h1, h2 = hyp("decode_asr1"), hyp("decode_asr2")
+    check([a[0] for a in h1] == [a[0] for a in h2], "decode_asr: utterance order")
+    ties = []
+    if h1 != h2:     # hold the rows to the near-tie rule
+        want_rows = traced_rows(one_trace, [8] * len(one_trace))
+        rank_traces = [pickle.load(open(f"{trace_path}.rank{r}", "rb")) for r in range(2)]
+        got_rows = []
+        for b in range(len(one_trace)):
+            for r in range(2):
+                got_rows += [[(v[i], ids[i]) for v, ids in rank_traces[r][b]]
+                             for i in range(4)]
+        ties = rows_agree(got_rows, want_rows, 2, "decode_asr --data_parallel 2")
+    res["decode_asr"] = {"utterances": len(h1), "equal_hyps": h1 == h2, "near_ties": ties}
+
+    emb = {n: extract_store(os.path.join(tmp, f"extract_embeddings{n}")) for n in (1, 2)}
+    err = max(float(np.abs(a - b).max()) for a, b in zip(emb[1], emb[2]))
+    check(len(emb[1]) == len(emb[2]) == 24 and err <= DP_EMB_ATOL,
+          f"extract_embeddings --data_parallel 2: max |diff| {err}")
+    res["extract_embeddings"] = {"records": 24, "max_abs_err": err}
+
+    ppl = {n: json.load(open(os.path.join(tmp, f"eval_ppl{n}", "rec_id2ppl.json")))
+           for n in (1, 2)}
+    rel = max(abs(ppl[2][k] - v) / v for k, v in ppl[1].items())
+    check(ppl[1].keys() == ppl[2].keys() and rel <= DP_PPL_RTOL,
+          f"eval_ppl --data_parallel 2: relative PPL gap {rel}")
+    res["eval_ppl"] = {"recordings": len(ppl[1]), "max_rel_ppl_gap": rel}
+    print(f"[mesh] data parallel {json.dumps(res)}; card {smi}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4702,6 +5177,7 @@ def main() -> int:
     from loco_asr_tpu_torch.parallel import train
     from loco_asr_tpu_torch.pipelines import eval_ppl, extract_embeddings, train_asr
 
+    t_run = time.perf_counter()
     # -- 1. environment ---------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4715,6 +5191,7 @@ def main() -> int:
     print(f"[env] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    print(f"[time] phase 2 from {time.perf_counter() - t_run:.1f} s")
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     path = _build.build()
@@ -4733,6 +5210,7 @@ def main() -> int:
     corpus = relocate_corpus(tmp_corpus.name)
     win_wav, win_lengths, win_texts = corpus_windows(corpus["train"], 8)
 
+    print(f"[time] phase 3 from {time.perf_counter() - t_run:.1f} s")
     # -- 3. kernel checks -------------------------------------------------
     warm_up(dev)
     g = torch.Generator().manual_seed(0)
@@ -4999,6 +5477,7 @@ def main() -> int:
     print("[kernels] autograd: B1/B5/B6 CUDA outputs carry grad_fn; B2 raises under grad")
     del x, y, outs, q, k, v, gg, got, want, leaves
 
+    print(f"[time] phase 4 from {time.perf_counter() - t_run:.1f} s")
     # -- 4. encoder -------------------------------------------------------
     cfg = SpeechT5Config()
     model = st5.asr_init(cfg, seed=0, device=dev)
@@ -5038,6 +5517,7 @@ def main() -> int:
     print(f"[encoder] device breakdown of one forward: {json.dumps(prof)}")
     del model, hid, phid
 
+    print(f"[time] phase 5 from {time.perf_counter() - t_run:.1f} s")
     # -- 5. pipeline (the main path through its user entry point) ---------
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "slurp")
@@ -5064,6 +5544,7 @@ def main() -> int:
             check(bool(np.isfinite(emb).all()), f"record {i}: non-finite")
         print(f"[pipeline] {json.dumps(dict(records=len(store), launches=launches, wall_s=wall, audio_s=sum(utt_lengths) / 16000.0))}")
 
+    print(f"[time] phase 6 from {time.perf_counter() - t_run:.1f} s")
     # -- 6. GPT-2 scoring -------------------------------------------------
     def b56_launches():
         return {"B5": fc.flash_forward.launches, "B6": fc.flash_forward_nhd.launches}
@@ -5122,6 +5603,7 @@ def main() -> int:
                 print(f"[gpt2] {json.dumps(dict(padded_rows=[700, 301], b1_launches=cfg.n_layer, nll_max_abs=pad_err))}")
         del lm, nll, nll_dense
 
+    print(f"[time] phase 7 from {time.perf_counter() - t_run:.1f} s")
     # -- 7. LM-scoring pipeline (the B5/B6 main path) ---------------------
     dev_text = os.path.join(ROOT, "exp", "loco", "lm_corpus", "dev.txt")
     n_recs = len({u.split("-")[0] for u in lm_datasets.load_key_text(dev_text)})
@@ -5173,6 +5655,7 @@ def main() -> int:
               f"gpt2-xl max_len flash run launched {xl_run['launches']}")
         lm_launches["B5"] = xl_run["launches"]["B5"]
 
+    print(f"[time] phase 8 from {time.perf_counter() - t_run:.1f} s")
     # -- 8. ASR train step: kernels + flash against plain + dense -----------
     def counts():
         return {"B1": fa.flash_rel_forward.launches, "B2": cf.conv1_instance_norm_gelu.launches,
@@ -5244,6 +5727,7 @@ def main() -> int:
     print(f"[train_step] {json.dumps(step_rec)}")
     del model
 
+    print(f"[time] phase 9 from {time.perf_counter() - t_run:.1f} s")
     # -- 9. training throughput ------------------------------------------
     model = st5.asr_model_init(cfg, seed=0, device=dev)
     tx = train.adamw(1e-4)                      # constant rate, no warmup
@@ -5274,6 +5758,7 @@ def main() -> int:
     print(f"[train] device breakdown of one step: {json.dumps(prof)}")
     del model, opt, dev_batches
 
+    print(f"[time] phase 10 from {time.perf_counter() - t_run:.1f} s")
     # -- 10. ASR training pipeline (the B3/B4 main path) --------------------
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = os.path.join(tmp, "asr")
@@ -5310,6 +5795,7 @@ def main() -> int:
         with np.load(os.path.join(ckpt, "step_12.npz")) as z:
             check(int(z["opt_state.count"]) == 12, "optimizer count after resume")
         print(f"[asr_pipeline] {json.dumps(dict(launches=asr_launches, wall_s=wall, dev=evals[-1], resume_wall_s=resume_wall))}")
+    print(f"[time] phase 11 from {time.perf_counter() - t_run:.1f} s")
     # -- 11. TTS / voice conversion (the B7 main path) ------------------------
     cfg = SpeechT5Config(vocab_size=256)
     tts = st5.tts_init(cfg, seed=0, device=dev)
@@ -5427,44 +5913,63 @@ def main() -> int:
         b7_launches = tf_launches["B7"] + copy_b7
         del copy, tts, s2s, voc
 
+    print(f"[time] phase 12 from {time.perf_counter() - t_run:.1f} s")
     # -- 12. ASR decoding with GPT-2 fusion and carry-over ------------------
     decode_launches = decode_phase(corpus, win_wav, win_lengths, smi, dev)
     tmp_corpus.cleanup()
 
+    print(f"[time] phase 13 from {time.perf_counter() - t_run:.1f} s")
     # -- 13. LM training at gpt2 width, the LoCo experiment ------------------
     lm_train_launches = lm_training_phase(smi, dev)
 
+    print(f"[time] phase 14 from {time.perf_counter() - t_run:.1f} s")
     # -- 14. SLURP intent classification at full width -----------------------
     intent_launches = intent_phase(smi, dev)
 
+    print(f"[time] phase 15 from {time.perf_counter() - t_run:.1f} s")
     # -- 15. the LoCo decodes on the reference's trained weights -------------
     reference_launches = loco_reference_phase(smi, dev)
 
+    print(f"[time] phase 16 from {time.perf_counter() - t_run:.1f} s")
     # -- 16. mixed precision: the bf16 forms of B1-B6 ----------------------
     tmp_corpus = tempfile.TemporaryDirectory()
     corpus = relocate_corpus(tmp_corpus.name)
     mixed = mixed_precision_phase(corpus, host_batches, smi, dev)
 
+    print(f"[time] phase 17 from {time.perf_counter() - t_run:.1f} s")
     # -- 17. conversation-scale ASR training: B3/B4 at every head dim, the
     # remat policies, train_asr --conversation_seconds 164 ----------------
     long = long_context_phase(corpus, b34_recs, smi, dev)
 
+    print(f"[time] phase 18 from {time.perf_counter() - t_run:.1f} s")
     # -- 18. long-form episodes (transcribe_episodes), Adafactor, NaN
     # recovery, train_asr from HF weights, checkpoint averaging -----------
     episodes = episodes_phase(smi, dev)
     trainer = trainer_options_phase(corpus, smi, dev)
     tmp_corpus.cleanup()
 
+    print(f"[time] phase 19 from {time.perf_counter() - t_run:.1f} s")
     # -- 19. Fisher corpus ingest: shorten SPHERE, fisher_prep, the sph_decode
     # pipes, train_asr / decode_asr / eval_ppl on the prepared splits; the
     # generic feature encoder --------------------------------------------
     fisher = fisher_phase(smi, dev)
 
+    print(f"[time] phase 20 from {time.perf_counter() - t_run:.1f} s")
     # -- 20. orbax step directories (read without orbax), eval_ppl on the
     # committed LM, the profiling timer on B1, the examples -----------------
     orbax = orbax_phase(smi, dev)
 
-    # -- 21. summary -------------------------------------------------------
+    print(f"[time] phase 21 from {time.perf_counter() - t_run:.1f} s")
+    # -- 21. the (data, fsdp, tensor) mesh: four ranks on the card over gloo
+    tmp_corpus = tempfile.TemporaryDirectory()
+    mesh = mesh_phase(relocate_corpus(tmp_corpus.name), smi, dev)
+    tmp_corpus.cleanup()
+    mesh_launches = {k: mesh[name]["by_head_dim"].get(f"{k}:h6:d64", 0)
+                     for name, kinds in (("asr_2,1,2", ("B1", "B3/B4", "B5")),
+                                         ("lm_1,2,2", ("B6",))) for k in kinds}
+
+    print(f"[time] phase 22 from {time.perf_counter() - t_run:.1f} s")
+    # -- 22. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -5502,7 +6007,8 @@ def main() -> int:
                                     for r in long["d8_runs"].values() if "by_head_dim" in r),
                     train_asr_164_launches=long["train_asr_164"]["launches"]["B3/B4"],
                     adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B3/B4"],
-                    fisher_launches=fisher["launches"]["B3/B4"], head_dims=dims)
+                    fisher_launches=fisher["launches"]["B3/B4"], head_dims=dims,
+                    mesh_rank_step_launches=mesh_launches["B3/B4"])
 
     # B1's and B2's launches on the decode path: phase 12's six decode_asr
     # runs, phase 13's LoCo ASR stage and phase 15's decodes on the
@@ -5531,7 +6037,8 @@ def main() -> int:
              adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B1"],
              fisher_launches=fisher["launches"]["B1"],
              examples_launches=orbax["examples_launches"]["B1"],
-             device_time_per_iter_ms=orbax["b1_timers"]["device_time_per_iter_ms"]),
+             device_time_per_iter_ms=orbax["b1_timers"]["device_time_per_iter_ms"],
+             mesh_rank_step_launches=mesh_launches["B1"]),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
@@ -5548,7 +6055,8 @@ def main() -> int:
              gpt2_xl_train_launches=(trainer["gpt2_xl"]["steps"]["adafactor"]["launches"]["B5"]
                                      + trainer["gpt2_xl"]["steps"]["adamw"]["launches"]["B5"]
                                      + trainer["gpt2_xl"]["train_lm"]["launches"]["B5"]),
-             orbax_eval_ppl_launches=orbax["eval_ppl_launches"]["B5"]),
+             orbax_eval_ppl_launches=orbax["eval_ppl_launches"]["B5"],
+             mesh_rank_step_launches=mesh_launches["B5"]),
         bwd_entry("flash_rel_backward (B3)", "loco_asr_tpu/ops/pallas/flash_attention.py:799",
                   "flash_attention.py::_rel_bwd_dq_kernel", "b3"),
         bwd_entry("flash_rel_backward (B4)", "loco_asr_tpu/ops/pallas/flash_attention.py:902",
@@ -5560,7 +6068,8 @@ def main() -> int:
              train_step_launches=lm_train_launches["train_step"]["B6"],
              train_lm_launches=lm_train_launches["train_lm"]["B6"],
              train_lm_backward_calls=lm_train_launches["train_lm"]["B6_bwd"],
-             fisher_launches=fisher["launches"]["B6"]),
+             fisher_launches=fisher["launches"]["B6"],
+             mesh_rank_step_launches=mesh_launches["B6"]),
         entry("fused_log_mel", "loco_asr_tpu_torch/csrc/logmel.cu",
               "loco_asr_tpu/ops/pallas/logmel.py:40",
               "logmel.py::_logmel_kernel", "B7", "corpus_10s", b7_launches),
@@ -5606,5 +6115,31 @@ def kernel_cases_main() -> int:
     return 0
 
 
+def mesh_phase_main() -> int:
+    """``--mesh-phase``: the build, then phase 21 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from loco_asr_tpu_torch.ops.cuda import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[env] nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    _build.build()
+    _build.library()
+    print(f"[env] build {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        res = mesh_phase(relocate_corpus(tmp), smi, torch.device("cuda"))
+    print(json.dumps({"mesh_phase": res}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(kernel_cases_main() if sys.argv[1:] == ["--kernel-cases"] else main())
+    sys.exit(kernel_cases_main() if sys.argv[1:] == ["--kernel-cases"]
+             else mesh_phase_main() if sys.argv[1:] == ["--mesh-phase"] else main())

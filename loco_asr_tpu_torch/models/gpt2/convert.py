@@ -5,7 +5,7 @@
   layout of its ``.npz`` checkpoints).  A dense ``kernel`` and a norm
   ``scale`` become ``weight``; dense weights are ``[in, out]`` on both
   sides, so nothing is transposed.  :func:`to_jax_params` is its
-  inverse, the layout ``train_lm`` saves.
+  inverse, the layout ``train_lm`` saves; :func:`jax_names` the renaming.
 * :func:`load_hf_gpt2`: an HF ``GPT2LMHeadModel`` / ``GPT2Model`` state
   dict, the counterpart of ``loco_asr_tpu.models.gpt2.import_torch``.  HF's
   ``Conv1D`` already stores ``[in, out]``; the ``transformer.`` prefix, the
@@ -17,7 +17,7 @@ unexpected key or a shape mismatch.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -62,17 +62,29 @@ def from_jax_params(flat: Mapping[str, np.ndarray], cfg: GPT2Config
     return _checked(state, cfg, "JAX GPT-2")
 
 
-def to_jax_params(model: GPT2Model) -> Dict[str, np.ndarray]:
-    """``GPT2Model`` -> flat JAX-layout float32 numpy params (the inverse
-    of :func:`from_jax_params`): a dense layer's ``weight`` is its
-    ``kernel``, a norm's its ``scale``; the tables keep ``weight``."""
+def jax_names(model: GPT2Model) -> Dict[str, tuple]:
+    """Port state name -> (JAX flat key, transpose): a dense layer's
+    ``weight`` is its ``kernel``, a norm's its ``scale``; the tables keep
+    ``weight``; nothing is transposed."""
     out = {}
-    for key, value in model.state_dict().items():
+    for key in model.state_dict():
         parts = key.split(".")
         if parts[-1] == "weight" and parts[0] not in ("wte", "wpe"):
             parts[-1] = "scale" if parts[-2].startswith("ln_") else "kernel"
-        out[".".join(parts)] = value.detach().to("cpu", torch.float32).numpy()
+        out[key] = (".".join(parts), False)
     return out
+
+
+def to_jax_params(model: GPT2Model, state: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> Dict[str, np.ndarray]:
+    """``GPT2Model`` -> flat JAX-layout float32 numpy params (the inverse
+    of :func:`from_jax_params`), from ``state`` when given (a whole state
+    dict, e.g. ``parallel.partition.gather_params`` of a sharded model)
+    else from the model's own."""
+    names = jax_names(model)
+    state = model.state_dict() if state is None else state
+    return {names[k][0]: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in state.items()}
 
 
 def strip_hf_prefix(key: str) -> str:

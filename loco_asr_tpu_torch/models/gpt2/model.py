@@ -31,8 +31,11 @@ as the JAX one does, and writes the new keys and values into it in place
 where the JAX one returns a new cache.  The LM of shallow fusion
 (``decode/fusion.py``) runs in this mode.
 
-Not ported yet, and refused with an error: the sequence-parallel ``ring``
-/ ``ulysses`` attention.
+Under tensor parallelism (``parallel/partition.py`` splits ``Attention``
+and ``MLP`` over ``tp`` ranks) a block computes its rank's heads from its
+``c_attn`` block, which holds their q | k | v columns, and its ``c_fc``
+columns; ``c_proj`` all-reduces.  Not ported yet, and refused with an error: the
+sequence-parallel ``ring`` / ``ulysses`` attention (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from torch import nn
 
 from ...ops import attention, layers, remat as remat_lib
 from ...ops.cuda import flash_attention, flash_causal
+from ...parallel import tensor_parallel
 from ...utils.device import resolve_device
 
 NEG_INF = -1e9   # additive mask of the dense path
@@ -102,14 +106,14 @@ class Conv1D(nn.Module):
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
-class Attention(nn.Module):
+class Attention(layers.ShardableBlock):
     def __init__(self, d: int):
         super().__init__()
         self.c_attn = Conv1D(d, 3 * d)
         self.c_proj = Conv1D(d, d)
 
 
-class MLP(nn.Module):
+class MLP(layers.ShardableBlock):
     def __init__(self, d: int):
         super().__init__()
         self.c_fc = Conv1D(d, 4 * d)
@@ -183,8 +187,15 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
                kv_cache: Optional[Dict[str, torch.Tensor]], cache_index, write_mask,
                generator: Optional[torch.Generator], training: bool) -> torch.Tensor:
     b, t, _ = h.shape
-    q, k, v = (x.reshape(b, t, cfg.n_head, cfg.head_dim)
-               for x in blk.attn.c_attn(h).split(cfg.n_embd, dim=-1))
+    # under tensor parallelism this rank's heads: its c_attn block holds
+    # their q | k | v columns (parallel.partition)
+    tp = blk.attn.tp
+    heads, width = cfg.n_head // tp, cfg.n_embd // tp
+    if tp > 1 and kv_cache is not None:
+        raise ValueError("tensor-parallel attention runs whole sequences")
+    q, k, v = (x.reshape(b, t, heads, cfg.head_dim)
+               for x in blk.attn.c_attn(blk.attn.enter(h))
+               .split(width, dim=-1))
     scale = cfg.head_dim ** -0.5
     if kv_cache is None and attn_impl == "flash" and kv_valid_len is None:
         # [B, T, H, D] views of the qkv projection, read in place
@@ -199,26 +210,28 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
             attention._write_cache(kv_cache, k, v, cache_index, write_mask)
             k, v = kv_cache["k"], kv_cache["v"]
         attn = remat_lib.big(_dense_attention, q, k, v, bias, cfg.head_dim, cfg.attn_pdrop,
-                             training, generator=generator).transpose(1, 2)
-    return layers.dropout(blk.attn.c_proj(attn.reshape(b, t, cfg.n_embd)), cfg.resid_pdrop,
+                             training, 1 if tp > 1 else None,
+                             generator=generator).transpose(1, 2)
+    return layers.dropout(blk.attn.c_proj(attn.reshape(b, t, width)), cfg.resid_pdrop,
                           generator, training)
 
 
-def _dense_attention(q, k, v, bias, head_dim: int, p: float, training: bool, *,
-                     generator) -> torch.Tensor:
+def _dense_attention(q, k, v, bias, head_dim: int, p: float, training: bool,
+                     tensor_dim=None, *, generator) -> torch.Tensor:
     """The [B, H, T, K] chain of the dense path: scores, bias, softmax,
-    attention-prob dropout, probs.v."""
+    attention-prob dropout (``tensor_dim`` 1: heads split over tensor),
+    probs.v."""
     # float32 scores from operands of their own dtype, probabilities
     # in v's dtype (JAX's preferred_element_type and astype)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / head_dim ** 0.5
     probs = layers.dropout(torch.softmax(scores + bias, dim=-1).to(v.dtype), p, generator,
-                           training)
+                           training, **layers.split_dim(tensor_dim))
     return torch.matmul(probs, v)
 
 
 def _mlp(mlp: MLP, h: torch.Tensor, act, *, generator=None) -> torch.Tensor:
     """The [B, T, 4D] chain: dense, activation, dense (no dropout inside)."""
-    return mlp.c_proj(act(mlp.c_fc(h)))
+    return mlp.c_proj(act(mlp.c_fc(mlp.enter(h))))
 
 
 def _block(cfg: GPT2Config, blk: Block, x: torch.Tensor, *, bias, attn_impl, kv_valid_len,
@@ -305,14 +318,14 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
             if lo < 0 or hi + t > cfg.n_positions:
                 raise ValueError(f"positions {lo}..{hi + t - 1} exceed "
                                  f"n_positions {cfg.n_positions}")
-        pos_emb = model.wpe.weight[past[:, None] + torch.arange(t, device=dev)]
+        pos_emb = tensor_parallel.weight(model.wpe)[past[:, None] + torch.arange(t, device=dev)]
     else:
         if cache_index is not None:
             past = int(cache_index)
         if past < 0 or past + t > cfg.n_positions:
             raise ValueError(f"positions {past}..{past + t - 1} exceed "
                              f"n_positions {cfg.n_positions}")
-        pos_emb = model.wpe.weight[past:past + t][None]
+        pos_emb = tensor_parallel.weight(model.wpe)[past:past + t][None]
     training = not deterministic
     x = layers.dropout(model.wte(ids) + pos_emb, cfg.embd_pdrop, generator, training)
     mask = None if attention_mask is None else torch.as_tensor(attention_mask, device=dev)
@@ -345,7 +358,7 @@ def gpt2_logits(model: GPT2Model, input_ids: ArrayLike, **kw
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Forward + tied lm head -> (logits [B, T, V], ``kv_caches``)."""
     hidden, caches = gpt2_forward(model, input_ids, **kw)
-    return torch.matmul(hidden, model.wte.weight.t()), caches
+    return torch.matmul(hidden, tensor_parallel.weight(model.wte).t()), caches
 
 
 def _chunk_nll(hid: torch.Tensor, wte_weight: torch.Tensor,
@@ -387,7 +400,7 @@ def score_tokens(model: GPT2Model, input_ids: ArrayLike, *, chunk: int = 256,
     eval_ppl hot path; the numbers of ``token_nll(gpt2_logits(...))``)."""
     ids = torch.as_tensor(input_ids, device=model.wte.weight.device).long()
     hidden, _ = gpt2_forward(model, ids, **kw)
-    return token_nll_from_hidden(model.wte.weight, hidden, ids, chunk=chunk)
+    return token_nll_from_hidden(tensor_parallel.weight(model.wte), hidden, ids, chunk=chunk)
 
 
 def token_nll(logits: torch.Tensor, targets: ArrayLike) -> torch.Tensor:

@@ -25,7 +25,7 @@ sides and every other name is kept.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -143,13 +143,16 @@ def jax_names(model: nn.Module, rename: bool = True) -> Dict[str, tuple]:
     return out
 
 
-def _to_jax_params(model: nn.Module, rename: bool = True) -> Dict[str, np.ndarray]:
+def _to_jax_params(model: nn.Module, rename: bool = True,
+                   state: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
     """Float32 numpy leaves, except that a bfloat16 model's stay bfloat16
     CPU tensors (numpy has no bfloat16; the checkpoint stores them as the
-    JAX package does)."""
+    JAX package does).  ``state``: a whole state dict to convert in place
+    of the model's own (``parallel.partition.gather_params`` of a sharded
+    model)."""
     names = jax_names(model, rename)
     out = {}
-    for name, t in model.state_dict().items():
+    for name, t in (model.state_dict() if state is None else state).items():
         key, transpose = names[name]
         t = t.detach().cpu()
         t = (t.t() if transpose else t).contiguous()
@@ -157,31 +160,31 @@ def _to_jax_params(model: nn.Module, rename: bool = True) -> Dict[str, np.ndarra
     return out
 
 
-def encoder_to_jax_params(model: SpeechEncoder) -> Dict[str, np.ndarray]:
+def encoder_to_jax_params(model: SpeechEncoder, state=None) -> Dict[str, np.ndarray]:
     """``SpeechEncoder`` -> its flat JAX-layout params under ``encoder.``
     (the inverse of :func:`from_jax_params`)."""
-    return {PREFIX + k: v for k, v in _to_jax_params(model).items()}
+    return {PREFIX + k: v for k, v in _to_jax_params(model, state=state).items()}
 
 
-def asr_to_jax_params(model: AsrModel) -> Dict[str, np.ndarray]:
+def asr_to_jax_params(model: AsrModel, state=None) -> Dict[str, np.ndarray]:
     """``AsrModel`` -> flat JAX-layout float32 numpy params (the inverse of
     :func:`asr_from_jax_params`)."""
-    return _to_jax_params(model)
+    return _to_jax_params(model, state=state)
 
 
-def tts_to_jax_params(model: TtsModel) -> Dict[str, np.ndarray]:
+def tts_to_jax_params(model: TtsModel, state=None) -> Dict[str, np.ndarray]:
     """``TtsModel`` -> flat JAX ``tts_init`` layout (inverse of
     :func:`tts_from_jax_params`)."""
-    return _to_jax_params(model)
+    return _to_jax_params(model, state=state)
 
 
-def s2s_to_jax_params(model: S2sModel) -> Dict[str, np.ndarray]:
+def s2s_to_jax_params(model: S2sModel, state=None) -> Dict[str, np.ndarray]:
     """``S2sModel`` -> flat JAX ``s2s_init`` layout (inverse of
     :func:`s2s_from_jax_params`)."""
-    return _to_jax_params(model)
+    return _to_jax_params(model, state=state)
 
 
-def hifigan_to_jax_params(model: HifiGan) -> Dict[str, np.ndarray]:
+def hifigan_to_jax_params(model: HifiGan, state=None) -> Dict[str, np.ndarray]:
     """``HifiGan`` -> flat JAX ``hifigan_init`` layout (inverse of
     :func:`hifigan_from_jax_params`)."""
-    return _to_jax_params(model, rename=False)
+    return _to_jax_params(model, rename=False, state=state)

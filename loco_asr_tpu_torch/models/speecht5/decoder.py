@@ -19,7 +19,7 @@ from torch import nn
 
 from ...ops import attention, layers
 from .config import SpeechT5Config
-from .encoder import FeedForward
+from .encoder import FeedForward, feed_forward
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -92,9 +92,9 @@ def _layer(cfg: SpeechT5Config, lyr: DecoderLayer, hidden, encoder_hidden, *,
     hidden = layers.layer_norm(hidden + drop(cross_out, cfg.hidden_dropout),
                                lyr.encoder_attn_layer_norm.weight,
                                lyr.encoder_attn_layer_norm.bias, eps=cfg.layer_norm_eps)
-    ff = lyr.feed_forward
-    x = drop(layers.gelu(ff.intermediate_dense(hidden)), cfg.activation_dropout)
-    x = drop(ff.output_dense(x), cfg.hidden_dropout)
+    x = feed_forward(lyr.feed_forward, hidden, cfg.activation_dropout, training,
+                     generator=generator)
+    x = drop(x, cfg.hidden_dropout)
     return layers.layer_norm(hidden + x, lyr.final_layer_norm.weight,
                              lyr.final_layer_norm.bias, eps=cfg.layer_norm_eps)
 

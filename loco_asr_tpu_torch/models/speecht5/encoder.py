@@ -20,7 +20,10 @@ from ...ops import attention, layers, remat as remat_lib
 from .config import SpeechT5Config
 
 
-class FeedForward(nn.Module):
+class FeedForward(layers.ShardableBlock):
+    """``intermediate_dense`` and ``output_dense``; ``tp`` ranks split its
+    width."""
+
     def __init__(self, cfg: SpeechT5Config, ffn_dim: Optional[int] = None):
         super().__init__()
         ffn_dim = ffn_dim or cfg.encoder_ffn_dim
@@ -71,10 +74,13 @@ class Encoder(nn.Module):
                        generator=generator, remat=remat)
 
 
-def _feed_forward(ff: FeedForward, hidden: torch.Tensor, p: float, training: bool, *,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    """The [B, T, ffn] chain: dense, GELU, activation dropout, dense."""
-    x = layers.dropout(layers.gelu(ff.intermediate_dense(hidden)), p, generator, training)
+def feed_forward(ff: FeedForward, hidden: torch.Tensor, p: float, training: bool, *,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The [B, T, ffn] chain: dense, GELU, activation dropout, dense (under
+    tensor parallelism on this rank's ffn columns)."""
+    split = ff.tp > 1
+    x = layers.gelu(ff.intermediate_dense(ff.enter(hidden)))
+    x = layers.dropout(x, p, generator, training, **layers.split_dim(-1 if split else None))
     return ff.output_dense(x)
 
 
@@ -88,7 +94,7 @@ def _layer_body(cfg: SpeechT5Config, layer: EncoderLayer, hidden: torch.Tensor, 
     hidden = layers.layer_norm(hidden + drop(attn_out, cfg.hidden_dropout),
                                layer.layer_norm.weight, layer.layer_norm.bias,
                                eps=cfg.layer_norm_eps)
-    x = remat_lib.big(_feed_forward, layer.feed_forward, hidden, cfg.activation_dropout,
+    x = remat_lib.big(feed_forward, layer.feed_forward, hidden, cfg.activation_dropout,
                       training, generator=generator)
     x = drop(x, cfg.hidden_dropout)
     return layers.layer_norm(hidden + x, layer.final_layer_norm.weight,

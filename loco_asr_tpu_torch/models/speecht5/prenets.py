@@ -33,11 +33,13 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
-from ...ops import layers
+from ...ops import act_sharding, layers
 from ...ops.audio import compute_mask_indices
 from ...ops.cuda import conv_frontend
+from ...parallel import tensor_parallel
 from .config import SpeechT5Config
 
 
@@ -261,26 +263,33 @@ def speech_prenet(prenet: SpeechPrenet, wav: torch.Tensor,
     hidden = fp.projection(hidden)
 
     if prenet.training and cfg.apply_spec_augment and generator is not None:
+        # masks of the global batch (a sharded step's rows are a block of
+        # it, act_sharding), this rank's rows taken
         b, t, h = hidden.shape
+        b_all, _ = act_sharding.batch_rows(b)
         if cfg.mask_time_prob > 0:
-            lengths = None if attention_mask is None else attention_mask.sum(-1)
-            m = compute_mask_indices(generator, (b, t), cfg.mask_time_prob,
+            lengths = (None if attention_mask is None
+                       else tensor_parallel.global_rows(attention_mask.sum(-1)))
+            m = compute_mask_indices(generator, (b_all, t), cfg.mask_time_prob,
                                      cfg.mask_time_length, lengths,
                                      cfg.mask_time_min_masks, device=hidden.device)
+            m = act_sharding.local_rows(m, b)
             hidden = torch.where(m[..., None], prenet.masked_spec_embed.to(hidden.dtype),
                                  hidden)
         if cfg.mask_feature_prob > 0:
-            m = compute_mask_indices(generator, (b, h), cfg.mask_feature_prob,
+            m = compute_mask_indices(generator, (b_all, h), cfg.mask_feature_prob,
                                      cfg.mask_feature_length, None,
                                      cfg.mask_feature_min_masks, device=hidden.device)
-            hidden = hidden.masked_fill(m[:, None, :], 0.0)
+            hidden = hidden.masked_fill(act_sharding.local_rows(m, b)[:, None, :], 0.0)
 
     conv = prenet.pos_conv_embed.conv
-    w = layers.weight_norm_conv1d_weight(conv.weight_g, conv.weight_v)
-    pos = layers.conv1d_nhc(hidden, w, padding=cfg.num_conv_pos_embeddings // 2,
-                            groups=cfg.num_conv_pos_embedding_groups, bias=conv.bias)
-    if cfg.num_conv_pos_embeddings % 2 == 0:
-        pos = pos[:, :-1]
+    if tensor_parallel.is_sharded(conv):
+        # a sharded weight_v is gathered inside a checkpoint, so its whole
+        # copy is not kept for the backward but gathered again there
+        pos = torch.utils.checkpoint.checkpoint(_pos_conv, cfg, conv, hidden,
+                                                use_reentrant=False)
+    else:
+        pos = _pos_conv(cfg, conv, hidden)
     hidden = hidden + layers.gelu(pos)
 
     table = prenet.sinusoidal_table
@@ -291,6 +300,15 @@ def speech_prenet(prenet: SpeechPrenet, wav: torch.Tensor,
              else torch.ones(hidden.shape[:2], dtype=torch.int32, device=hidden.device))
     pos_ids = layers.positions_from_padding(valid, cfg.pad_token_id)
     return hidden + table[pos_ids], attention_mask
+
+
+def _pos_conv(cfg: SpeechT5Config, conv: WeightNormConv, hidden: torch.Tensor) -> torch.Tensor:
+    """The weight-normed grouped positional conv (before its GELU)."""
+    w = layers.weight_norm_conv1d_weight(conv.weight_g,
+                                         tensor_parallel.weight(conv, "weight_v"))
+    pos = layers.conv1d_nhc(hidden, w, padding=cfg.num_conv_pos_embeddings // 2,
+                            groups=cfg.num_conv_pos_embedding_groups, bias=conv.bias)
+    return pos[:, :-1] if cfg.num_conv_pos_embeddings % 2 == 0 else pos
 
 
 def sinusoidal_text_table(cfg: SpeechT5Config, min_positions: int = 0) -> np.ndarray:

@@ -37,9 +37,9 @@ NEG_INF = -1e9  # additive mask of the dense path
 ATTN_IMPLS = ("dense", "flash")
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(layers.ShardableBlock):
     """q/k/v/out projections of one attention block (``nn.Linear`` weights,
-    ``[out, in]``)."""
+    ``[out, in]``); ``tp`` ranks split its heads."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -163,8 +163,20 @@ def multi_head_attention(
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
-    h = module.num_heads
-    head_dim = hidden.shape[-1] // h
+    tp = module.tp
+    h = module.num_heads // tp
+    head_dim = hidden.shape[-1] // module.num_heads
+    if tp > 1:
+        # this rank's heads: the block's inputs are shared by the tensor
+        # ranks, whose gradients each hold their heads' part
+        if kv_cache is not None or static_kv is not None:
+            raise ValueError("tensor-parallel attention runs whole sequences "
+                             "(decode on gathered weights)")
+        hidden = module.enter(hidden)
+        if key_value_states is not None:
+            key_value_states = module.enter(key_value_states)
+        if rel_pe is not None:
+            rel_pe = module.enter(rel_pe)
     q = split_heads(module.q_proj(hidden) * head_dim ** -0.5, h)  # [B,H,Tq,hd]
     if static_kv is not None:
         k, v = static_kv["k"], static_kv["v"]
@@ -187,14 +199,15 @@ def multi_head_attention(
         return module.out_proj(merge_heads(out))
 
     out = remat.big(_dense_attention, q, k, v, rel_pe, attention_bias, kv_valid_len,
-                    dropout_p, training, generator=generator)
+                    dropout_p, training, 1 if tp > 1 else None, generator=generator)
     return module.out_proj(merge_heads(out))
 
 
-def _dense_attention(q, k, v, rel_pe, attention_bias, kv_valid_len, dropout_p, training, *,
-                     generator):
+def _dense_attention(q, k, v, rel_pe, attention_bias, kv_valid_len, dropout_p, training,
+                     tensor_dim=None, *, generator):
     """The [B, H, Tq, Tk] chain of the dense path: scores, band, mask,
-    softmax, attention-prob dropout, probs.v."""
+    softmax, attention-prob dropout (``tensor_dim``: 1 when the heads
+    are split over the tensor axis), probs.v."""
     # scores in float32 from operands of their own dtype (JAX's
     # preferred_element_type=float32; bf16 products are exact in float32)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -208,5 +221,6 @@ def _dense_attention(q, k, v, rel_pe, attention_bias, kv_valid_len, dropout_p, t
                 < kv_valid_len.to(k.device)[:, None])
         scores = scores.masked_fill(~keep[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    probs = layers.dropout(probs, dropout_p, generator, training)
+    probs = layers.dropout(probs, dropout_p, generator, training,
+                           **layers.split_dim(tensor_dim))
     return torch.matmul(probs, v)

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import act_sharding
+
 _SQRT_HALF = 1.0 / math.sqrt(2.0)
 
 
@@ -81,6 +83,12 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"gelu": gelu, "gelu_new": gelu_new}
 
 
+def split_dim(tensor_dim: Optional[int]) -> dict:
+    """:func:`dropout`'s keyword for an activation split over the tensor
+    axis along ``tensor_dim`` (none when it is not split)."""
+    return {} if tensor_dim is None else {"tensor_dim": tensor_dim}
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ weight.T + bias`` with an ``nn.Linear``-layout ``[out, in]``
@@ -95,6 +103,19 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.weight, self.bias)
+
+
+class ShardableBlock(nn.Module):
+    """A block whose heads or width tensor parallelism may split: ``tp``
+    ranks share it and :meth:`enter` marks the input its heads read -- 1
+    and the identity here.  On a mesh ``parallel.partition.shard_params``
+    gives the block a subclass (``parallel/tensor_parallel.py``) whose
+    ``enter`` all-reduces its input's gradient over the tensor axis."""
+
+    tp = 1
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -167,14 +188,17 @@ def interleaved_sinusoidal_table(max_len: int, dim: int) -> np.ndarray:
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
-            training: bool) -> torch.Tensor:
+            training: bool, tensor_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout (``x / (1-p)`` on kept entries), as the JAX
     ``layers.dropout``: a no-op unless ``training`` with ``p > 0`` and a
-    ``generator`` (on ``x``'s device) to draw the mask from."""
+    ``generator`` (on ``x``'s device) to draw the mask from.  In a sharded
+    step the mask is this rank's block of the global draw
+    (``act_sharding.rand``); ``tensor_dim``: the dimension of ``x`` split
+    over the tensor axis, if any."""
     if not training or p == 0.0 or generator is None:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = act_sharding.rand(x.shape, generator, x.device, tensor_dim) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -1,1 +1,3 @@
-"""Training steps (one device)."""
+"""Training steps on one device or sharded over a (data, fsdp, tensor) mesh
+of ranks: ``train.py``, with ``mesh.py``, ``collectives.py``,
+``partition.py``, ``tensor_parallel.py``, ``launch.py`` and ``dryrun.py``."""

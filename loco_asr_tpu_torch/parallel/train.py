@@ -1,6 +1,7 @@
-"""ASR and LM training steps on one device, as ``loco_asr_tpu.parallel.train``'s
-``adamw``, ``make_asr_train_step`` and ``make_lm_train_step`` compute them
-(without the mesh: the port trains on one GPU).
+"""ASR and LM training steps, as ``loco_asr_tpu.parallel.train``'s
+``adamw``, ``make_asr_train_step`` and ``make_lm_train_step`` compute them:
+on one device, or with ``mesh=`` sharded over a (data, fsdp, tensor) mesh
+of ranks (``mesh.py``).
 
 * :func:`adamw` -- optax's ``adamw`` (b1 0.9, b2 0.999, eps 1e-8,
   decoupled weight decay on every trainable tensor) with the JAX
@@ -40,14 +41,30 @@
   same warning and runs kernel B6 (B5 where the head dim is not 64 or the
   head count is odd) and its blockwise backward; ``grad_accum``,
   ``compute_dtype`` and ``remat`` (over the blocks) as above.
+* With a mesh (``mesh=``; the model sharded by ``partition.shard_params``,
+  the batch this rank's rows from :func:`shard_batch`) each step computes
+  what JAX's pinned sharded step computes: ``nll_sum`` and ``ntokens`` are
+  summed over data x fsdp before the one division (under ``grad_accum``
+  too, on the same strided split of the global batch); gradients of
+  fsdp-sharded parameters are reduce-scattered in the backward
+  (``tensor_parallel.py``), every gradient is then summed over the data
+  axes its parameter is replicated on; the global norm counts each element
+  once; AdamW updates the local shards, and Adafactor reduces its factored
+  row / column statistics and its block RMS across the shard axes first,
+  so they are the whole matrix's.  Dropout and SpecAugment draw the
+  single-device step's masks (``ops/act_sharding.py``).  :func:`pad_batch`,
+  :func:`shard_batch`, :func:`init_sharded`, :func:`gather_opt_state` and
+  :func:`load_opt_state` (``layout=``) complete it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 import warnings
-from typing import Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -56,8 +73,16 @@ from torch import nn
 from ..models.gpt2 import model as g
 from ..models.speecht5 import model as st5
 from ..models.speecht5.config import SpeechT5Config
+from ..ops.act_sharding import activation_mesh
 from ..ops.remat import RematSpec
 from ..utils.checkpoint import flatten
+from . import collectives as coll
+from . import partition
+from .mesh import AXES, AxisGroup, Mesh, data_sharding
+from . import tensor_parallel
+from .tensor_parallel import ParamShard
+
+Layout = Optional[Mapping[str, ParamShard]]
 
 FROZEN_PREFIX = "encoder.prenet.feature_encoder."
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adamw's defaults
@@ -92,14 +117,16 @@ class Optimizer:
         return self.lr * 0.5 * (1.0 + math.cos(math.pi * t / decay)) if decay > 0 else self.lr
 
     def _gradients(self, params: Mapping[str, torch.Tensor],
-                   grads: Mapping[str, Optional[torch.Tensor]]):
-        """(names, parameters, gradients: None as zeros, clipped)."""
+                   grads: Mapping[str, Optional[torch.Tensor]],
+                   norm: Optional[torch.Tensor] = None):
+        """(names, parameters, gradients: None as zeros, clipped by their
+        global ``norm``, computed here when not given)."""
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] if grads.get(k) is not None else torch.zeros_like(params[k])
              for k in names]
         if self.clip_norm is not None:
-            norm = global_norm(g)
+            norm = global_norm(g) if norm is None else norm
             factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                  self.clip_norm / norm)
             g = torch._foreach_mul(g, factor)
@@ -117,16 +144,22 @@ class AdamW(Optimizer):
         super().__init__(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm)
         self.mu_dtype = mu_dtype
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+    def init(self, params: Mapping[str, torch.Tensor], layout: Layout = None) -> OptState:
         return {"count": 0,
                 "mu": {k: torch.zeros_like(p, dtype=self.mu_dtype) for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
+    def state_shards(self, ps: ParamShard) -> Dict[str, Optional[ParamShard]]:
+        """The shard of each of a parameter's state tensors."""
+        return {"mu": ps, "nu": ps}
+
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, Optional[torch.Tensor]], state: OptState) -> None:
-        """One step on ``params`` (in place) from ``grads`` (None = zeros)."""
-        names, p, g = self._gradients(params, grads)
+               grads: Mapping[str, Optional[torch.Tensor]], state: OptState,
+               norm: Optional[torch.Tensor] = None, layout: Layout = None) -> None:
+        """One step on ``params`` (in place) from ``grads`` (None = zeros);
+        ``norm``: their global norm (a sharded step's), for clipping."""
+        names, p, g = self._gradients(params, grads, norm)
         stored = [state["mu"][k] for k in names]
         narrow = any(m.dtype != x.dtype for m, x in zip(stored, g))
         if narrow:
@@ -202,10 +235,12 @@ class Adafactor(Optimizer):
             return None
         return int(order[-2]), int(order[-1])
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+    def init(self, params: Mapping[str, torch.Tensor], layout: Layout = None) -> OptState:
+        """State of the (local shards of) ``params``; ``layout``: their
+        shards, whose global shapes decide the factoring."""
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for k, p in params.items():
-            dims = self.factored_dims(tuple(p.shape))
+            dims = self.factored_dims(_global_shape(p, layout, k))
             one = lambda: torch.zeros(1, dtype=p.dtype, device=p.device)
             if dims is None:
                 state["v_row"][k], state["v_col"][k] = one(), one()
@@ -218,18 +253,30 @@ class Adafactor(Optimizer):
                 state["v"][k] = one()
         return state
 
+    def state_shards(self, ps: ParamShard) -> Dict[str, Optional[ParamShard]]:
+        dims = self.factored_dims(ps.shape)
+        if dims is None:
+            return {"v_row": None, "v_col": None, "v": ps}
+        d1, d0 = dims
+        return {"v_row": _drop_dim(ps, d0), "v_col": _drop_dim(ps, d1), "v": None}
+
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, Optional[torch.Tensor]], state: OptState) -> None:
-        """One step on ``params`` (in place) from ``grads`` (None = zeros)."""
-        names, p, g = self._gradients(params, grads)
+               grads: Mapping[str, Optional[torch.Tensor]], state: OptState,
+               norm: Optional[torch.Tensor] = None, layout: Layout = None) -> None:
+        """One step on ``params`` (in place) from ``grads`` (None = zeros);
+        ``norm``: their global norm (a sharded step's), for clipping;
+        ``layout``: the parameters' shards, across which the means run."""
+        names, p, g = self._gradients(params, grads, norm)
         t = torch.tensor(state["count"] + 1, dtype=torch.float32)
         decay = float(1.0 - t ** -self.DECAY_RATE)     # float32, as optax
         lr = self.learning_rate_at(state["count"])
         state["count"] += 1
         for k, param, grad in zip(names, p, g):
+            ps = None if layout is None else layout.get(k)
+            mean = functools.partial(_sharded_mean, ps)
             g2 = grad * grad + self.EPS
-            dims = self.factored_dims(tuple(param.shape))
+            dims = self.factored_dims(_global_shape(param, layout, k))
             if dims is None:
                 v = state["v"][k]
                 v.mul_(decay).add_(g2, alpha=1.0 - decay)
@@ -237,12 +284,13 @@ class Adafactor(Optimizer):
             else:
                 d1, d0 = dims
                 v_row, v_col = state["v_row"][k], state["v_col"][k]
-                v_row.mul_(decay).add_(g2.mean(dim=d0), alpha=1.0 - decay)
-                v_col.mul_(decay).add_(g2.mean(dim=d1), alpha=1.0 - decay)
+                v_row.mul_(decay).add_(mean(g2, d0), alpha=1.0 - decay)
+                v_col.mul_(decay).add_(mean(g2, d1), alpha=1.0 - decay)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+                row_mean = mean(v_row, reduced_d1, keepdim=True, param_dim=d1)
+                row = (v_row / row_mean).rsqrt()
                 u = grad * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
-            u = u / torch.clamp(u.square().mean().sqrt(), min=1.0) * -lr
+            u = u / torch.clamp(mean(u.square(), None).sqrt(), min=1.0) * -lr
             if self.weight_decay:   # on the parameter before this step
                 u.sub_(param, alpha=lr * self.weight_decay)
             param.add_(u)
@@ -255,6 +303,51 @@ def adafactor(learning_rate: float = 1e-3, weight_decay: float = 0.01,
     decoupled weight decay and optional global-norm clipping (the JAX
     ``adafactor``): no first moment, factored second moments."""
     return Adafactor(learning_rate, weight_decay, warmup_steps, total_steps, clip_norm)
+
+
+def _global_shape(p: torch.Tensor, layout: Layout, name: str) -> tuple:
+    ps = None if layout is None else layout.get(name)
+    return tuple(p.shape) if ps is None else ps.shape
+
+
+def _drop_dim(ps: ParamShard, dim: int) -> ParamShard:
+    """The shard of a statistic that reduces parameter dimension ``dim``."""
+    return ParamShard(ps.mesh, ps.shape[:dim] + ps.shape[dim + 1:],
+                      ps.spec[:dim] + ps.spec[dim + 1:])
+
+
+def axes_group(mesh: Mesh, axes) -> AxisGroup:
+    """The group of the ranks that differ along ``axes`` (fsdp, tensor or
+    both; the mesh's groups)."""
+    axes = {a for a in axes if mesh.size(a) > 1}
+    if not axes:
+        return AxisGroup(None, (mesh.rank,), 0)
+    if axes == {AXES.fsdp, AXES.tensor}:
+        return mesh.model
+    if len(axes) == 1:
+        return mesh.groups[axes.pop()]
+    raise ValueError(f"no group of the axes {sorted(axes)}")
+
+
+def _sharded_mean(ps: Optional[ParamShard], x: torch.Tensor, dim: Optional[int],
+                  keepdim: bool = False, param_dim: Optional[int] = None) -> torch.Tensor:
+    """``x.mean(dim)`` (every element for None) of the whole tensor whose
+    shard ``x`` is (``ps``: the parameter's shard; ``param_dim``: the
+    parameter dimension that ``dim`` of ``x`` is, when they differ)."""
+    if ps is None:
+        return x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+    if dim is None:
+        axes = partition.sharded_axes(ps)
+        n = float(np.prod(ps.shape))
+        s = x.sum()
+    else:
+        pd = dim if param_dim is None else param_dim
+        axes = tuple(a for a in partition.axis_names(ps.spec[pd]) if ps.mesh.size(a) > 1)
+        n = float(ps.shape[pd])
+        s = x.sum(dim=dim, keepdim=keepdim)
+    if not axes:
+        return x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+    return coll.all_reduce(s, axes_group(ps.mesh, axes), ps.mesh) / n
 
 
 def _in_dtype(x: float, dtype: torch.dtype) -> float:
@@ -274,10 +367,11 @@ class ReferenceAdam(AdamW):
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, Optional[torch.Tensor]], state: OptState) -> None:
+               grads: Mapping[str, Optional[torch.Tensor]], state: OptState,
+               **kw) -> None:
         g = {k: (grads[k] if grads.get(k) is not None else torch.zeros_like(p)) + self.l2 * p
              for k, p in params.items()}
-        super().update(params, g, state)
+        super().update(params, g, state, **kw)
 
 
 def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> ReferenceAdam:
@@ -286,18 +380,37 @@ def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> R
 
 
 @torch.no_grad()
-def load_opt_state(opt_state: OptState, saved: Mapping) -> None:
+def load_opt_state(opt_state: OptState, saved: Mapping, tx: Optional[Optimizer] = None,
+                   layout: Layout = None) -> None:
     """Copy a checkpoint's optimizer state (the nested dicts of
     ``utils.checkpoint.load_npz``: ``mu``/``nu`` of AdamW,
     ``v_row``/``v_col``/``v`` of Adafactor, and the count) into
-    ``opt_state``, in place."""
+    ``opt_state``, in place; with ``tx`` and ``layout`` (a sharded model's
+    ``_param_shards``) this rank's shards of the whole saved tensors."""
     for key, tensors in opt_state.items():
         if key == "count":
             continue
         flat = flatten(saved[key])
         for name, t in tensors.items():
-            t.copy_(torch.as_tensor(flat[name]))
+            src = torch.as_tensor(flat[name])
+            ps = None if layout is None else tx.state_shards(layout[name])[key]
+            t.copy_(src if ps is None else ps.local(src))
     opt_state["count"] = int(saved["count"])
+
+
+@torch.no_grad()
+def gather_opt_state(opt_state: OptState, tx: Optimizer, layout: Layout) -> OptState:
+    """``opt_state`` of a sharded model with every tensor whole, on the CPU
+    (what a single-device run keeps; a collective: every rank calls it)."""
+    out: OptState = {"count": opt_state["count"]}
+    for key, tensors in opt_state.items():
+        if key == "count":
+            continue
+        out[key] = {}
+        for name, t in tensors.items():
+            ps = None if layout is None else tx.state_shards(layout[name])[key]
+            out[key][name] = (t if ps is None else ps.full(t)).cpu()
+    return out
 
 
 @torch.no_grad()
@@ -373,6 +486,53 @@ def global_norm(tensors) -> torch.Tensor:
         torch.stack(torch._foreach_norm([t.float() for t in tensors])))
 
 
+def sharded_global_norm(grads: Mapping[str, torch.Tensor], layout: Mapping[str, ParamShard],
+                        mesh: Mesh) -> torch.Tensor:
+    """The global norm of a sharded model's gradients, each element counted
+    once: squares summed per class of shard axes, the sums added over the
+    fsdp x tensor group, each class divided by the ranks that hold the same
+    shard (a parameter replicated over tensor counts once, not tp times)."""
+    classes = [(), (AXES.fsdp,), (AXES.tensor,), (AXES.fsdp, AXES.tensor)]
+    sums = [[] for _ in classes]
+    for name, g in grads.items():
+        axes = tuple(a for a in (AXES.fsdp, AXES.tensor)
+                     if a in partition.sharded_axes(layout.get(name)))
+        sums[classes.index(axes)].append(torch.linalg.vector_norm(g.float()) ** 2)
+    dev = next(iter(grads.values())).device
+    vec = torch.stack([torch.stack(x).sum() if x else torch.zeros((), device=dev)
+                       for x in sums])
+    vec = coll.all_reduce(vec, mesh.model, mesh)
+    plane = mesh.size(AXES.fsdp) * mesh.size(AXES.tensor)
+    held = torch.tensor([plane / int(np.prod([mesh.size(a) for a in c])) for c in classes],
+                        device=dev)
+    return torch.sqrt((vec / held).sum())
+
+
+@torch.no_grad()
+def sync_gradients(grads: Mapping[str, torch.Tensor], layout: Mapping[str, ParamShard],
+                   mesh: Mesh) -> None:
+    """Sum each gradient over the data-parallel ranks that hold the same
+    shard, in place: over data for an fsdp-sharded parameter (whose fsdp sum
+    the backward's reduce-scatter made), over data x fsdp for the others.
+    One all-reduce per group and dtype."""
+    buckets: Dict[tuple, list] = {}
+    for name, g in grads.items():
+        sharded = AXES.fsdp in partition.sharded_axes(layout.get(name))
+        group = mesh.groups[AXES.data] if sharded else mesh.dp
+        buckets.setdefault((id(group), g.dtype), (group, []))[1].append(g)
+    for group, gs in buckets.values():
+        if group.group is None:
+            continue
+        flat = coll.all_reduce(torch.cat([g.reshape(-1) for g in gs]), group, mesh)
+        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+            g.copy_(part.view_as(g))
+
+
+def layout(model: nn.Module) -> Layout:
+    """A sharded model's parameter shards (None for an unsharded model)."""
+    return getattr(model, "_param_shards", None)
+
+
 def trainable_params(model: torch.nn.Module, freeze_feature_encoder: bool = False
                      ) -> Dict[str, torch.Tensor]:
     """Named parameters the optimizer updates: all, less the conv feature
@@ -407,29 +567,50 @@ def _zero_attention_dropout(cfg, field: str, attn_impl: str):
 
 def _sum_form_update(loss_parts, model, params: Dict[str, torch.Tensor],
                      tx: Optimizer, opt_state: OptState, batch: Mapping[str, torch.Tensor],
-                     keys, grad_accum: int, generator) -> Dict[str, torch.Tensor]:
+                     keys, grad_accum: int, generator,
+                     mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """Sum-form gradients of ``loss_parts(model, micro, generator) ->
     (nll_sum, ntokens)`` over a strided split of ``batch`` into
     ``grad_accum`` micro-batches (micro-batch j = rows j, j+accum, ..., as
     JAX), divided once by the total token count, then one ``tx`` update of
-    ``params``.  Returns the step's metrics."""
+    ``params``.  Returns the step's metrics.
+
+    With a ``mesh``, ``batch`` is this rank's rows of the global batch:
+    the sums and the gradients are summed over the data-parallel ranks
+    before the division (:func:`sync_gradients`), and the norm is the
+    sharded model's (:func:`sharded_global_norm`)."""
     for p in model.parameters():
         p.grad = None
     b = batch[keys[0]].shape[0]
     if b % grad_accum:
         raise ValueError(f"batch size {b} not divisible by grad_accum {grad_accum}")
     nll_sum = ntok = 0.0
-    for j in range(grad_accum):
-        micro = {k: batch[k][j::grad_accum] for k in keys}
-        nll, n = loss_parts(model, micro, generator)
-        nll.backward()
-        nll_sum, ntok = nll_sum + nll.detach(), ntok + n
+    with (activation_mesh(mesh) if mesh is not None else contextlib.nullcontext()):
+        for j in range(grad_accum):
+            micro = {k: batch[k][j::grad_accum] for k in keys}
+            nll, n = loss_parts(model, micro, generator)
+            nll.backward()
+            nll_sum, ntok = nll_sum + nll.detach(), ntok + n
+    shards = layout(model)
+    if mesh is not None:
+        sums = coll.all_reduce(torch.stack([torch.as_tensor(nll_sum).double(),
+                                            torch.as_tensor(ntok).double()]).to(mesh.device),
+                               mesh.dp, mesh)
+        nll_sum, ntok = sums[0].float(), sums[1].long()
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        sync_gradients({k: p.grad for k, p in params.items()}, shards, mesh)
     n = torch.clamp(torch.as_tensor(ntok, dtype=torch.float32), min=1.0)
     grads = {k: (p.grad.div_(n) if p.grad is not None else None)
              for k, p in params.items()}
-    present = [g for g in grads.values() if g is not None]
-    gnorm = global_norm(present) if present else torch.zeros(())
-    tx.update(params, grads, opt_state)
+    present = {k: g for k, g in grads.items() if g is not None}
+    if mesh is not None:
+        gnorm = sharded_global_norm(present, shards, mesh)
+    else:
+        gnorm = global_norm(list(present.values())) if present else torch.zeros(())
+    tx.update(params, grads, opt_state, norm=gnorm if mesh is not None else None,
+              layout=shards)
     return {"loss": nll_sum / n, "grad_norm": gnorm,
             "nll_sum": nll_sum, "ntokens": torch.as_tensor(ntok)}
 
@@ -439,7 +620,8 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: Optimizer, *,
                         freeze_feature_encoder: bool = False,
                         grad_accum: int = 1,
                         compute_dtype: Optional[torch.dtype] = None,
-                        remat: RematSpec = None) -> Callable:
+                        remat: RematSpec = None,
+                        mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``step(model, opt_state, batch, generator) -> metrics``:
     the model (an ``AsrModel`` on the batch's device) and ``opt_state``
     (``tx.init(trainable_params(model, freeze_feature_encoder))``) are
@@ -454,7 +636,12 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: Optimizer, *,
     ``remat`` ("none", "full", "dots", "hybrid", "lite" or a bool;
     ``ops/remat.py``) rematerializes the encoder layers in the backward:
     "full" keeps only their inputs, "lite" all but the FFN chain; the
-    step's numbers do not change."""
+    step's numbers do not change.
+
+    ``mesh``: the sharded step (the model from ``partition.shard_params``
+    on that mesh, ``batch`` this rank's rows from :func:`shard_batch`, the
+    same ``generator`` seed on every rank); None is the single-device
+    step."""
     cfg = _zero_attention_dropout(cfg, "attention_dropout", attn_impl)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -476,7 +663,7 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: Optimizer, *,
                                 trainable_params(model, freeze_feature_encoder), tx,
                                 opt_state, batch,
                                 ("input_values", "attention_mask", "labels"),
-                                grad_accum, generator)
+                                grad_accum, generator, mesh)
 
     return step
 
@@ -484,7 +671,8 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: Optimizer, *,
 def make_lm_train_step(cfg: g.GPT2Config, tx: Optimizer, *, attn_impl: str = "dense",
                        loss_impl: str = "chunked", grad_accum: int = 1,
                        compute_dtype: Optional[torch.dtype] = None,
-                       remat: RematSpec = None) -> Callable:
+                       remat: RematSpec = None,
+                       mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``step(model, opt_state, batch, generator) -> metrics`` for
     a ``GPT2Model`` on the batch's device, updated in place with
     ``opt_state = tx.init(dict(model.named_parameters()))``.  ``batch``
@@ -498,8 +686,8 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: Optimizer, *, attn_impl: str = "de
     (``token_nll_from_hidden(checkpoint_chunks=True)``), so the [B, L, V]
     logits never live in memory; ``"dense"`` materialises them.
     ``attn_impl="flash"`` runs B6 in every layer, forward, and its
-    blockwise PyTorch backward.  ``remat`` as :func:`make_asr_train_step`'s,
-    over the blocks."""
+    blockwise PyTorch backward.  ``remat`` and ``mesh`` as
+    :func:`make_asr_train_step`'s (``remat`` over the blocks)."""
     cfg = _zero_attention_dropout(cfg, "attn_pdrop", attn_impl)
     if loss_impl not in ("dense", "chunked"):
         raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {loss_impl!r}")
@@ -512,7 +700,7 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: Optimizer, *, attn_impl: str = "de
                   remat=remat)
         if loss_impl == "chunked":
             hidden, _ = g.gpt2_forward(model, ids, **kw)
-            nll = g.token_nll_from_hidden(model.wte.weight, hidden, ids,
+            nll = g.token_nll_from_hidden(tensor_parallel.weight(model.wte), hidden, ids,
                                           checkpoint_chunks=True)
         else:
             logits, _ = g.gpt2_logits(model, ids, **kw)
@@ -530,6 +718,47 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: Optimizer, *, attn_impl: str = "de
         model.train()
         return _sum_form_update(loss_parts, model, dict(model.named_parameters()), tx,
                                 opt_state, batch, ("ids", "lengths"), grad_accum,
-                                generator)
+                                generator, mesh)
 
     return step
+
+
+def pad_batch(batch: Mapping[str, Any], multiple: int,
+              label_pad_id: int = -100) -> Dict[str, Any]:
+    """Pad the batch axis to a multiple of the DP width.  Padded rows carry
+    zero attention mask and all-pad labels, so they contribute nothing to
+    the loss (numpy arrays or tensors, as given)."""
+    b = next(iter(batch.values())).shape[0]
+    pad = -b % multiple
+    if pad == 0:
+        return dict(batch)
+    out = {}
+    for k, v in batch.items():
+        fill = label_pad_id if k == "labels" else 0
+        if isinstance(v, torch.Tensor):
+            out[k] = torch.cat([v, v.new_full((pad,) + tuple(v.shape[1:]), fill)])
+        else:
+            v = np.asarray(v)
+            out[k] = np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1), constant_values=fill)
+    return out
+
+
+def shard_batch(batch: Mapping[str, Any], mesh: Mesh, grad_accum: int = 1
+                ) -> Dict[str, torch.Tensor]:
+    """Pad the batch to a multiple of the DP width (x ``grad_accum``, so
+    the micro-batch split divides evenly and every micro-batch stays a DP
+    multiple; padded rows carry zero masks / all-pad labels and contribute
+    no token) and return this rank's rows on its device: its block of the
+    data x fsdp split, as JAX's ``data_sharding`` places it."""
+    dp = mesh.size(AXES.data) * mesh.size(AXES.fsdp)
+    batch = pad_batch(batch, dp * max(grad_accum, 1))
+    sh = data_sharding(mesh)
+    return {k: sh.shard(torch.as_tensor(v)).to(mesh.device) for k, v in batch.items()}
+
+
+def init_sharded(init_fn: Callable, seed: int, cfg, mesh: Mesh,
+                 rules=partition.TRANSFORMER_RULES) -> nn.Module:
+    """``init_fn(cfg, seed=seed, device="cpu")`` (the same seeded weights on
+    every rank), sharded onto ``mesh`` (``partition.shard_params``): only
+    this rank's shards reach its device."""
+    return partition.shard_params(init_fn(cfg, seed=seed, device="cpu"), mesh, rules)

@@ -1,6 +1,7 @@
 """Shared pipeline utilities: the trainers' refusal of flags not ported,
 batch rounding, SpeechT5 weight loading from every source the JAX package
-reads, and the trainers' NaN rollback."""
+reads, the trainers' NaN rollback, and the row split of the data-parallel
+pipelines (:class:`DataParallel`)."""
 
 from __future__ import annotations
 
@@ -19,19 +20,17 @@ from ..parallel import train
 
 def refuse_unported(args) -> None:
     """SystemExit naming every flag of a trainer's ``args`` that this
-    package does not support yet: the multi-device ones of the JAX
-    trainers (a mesh of more than one device, ring / Ulysses attention,
-    ``--sp_devices``), which wait for multi-device (ROADMAP A9)."""
-    dims = [int(x) for x in args.mesh.split(",")]
+    package does not support yet: the sequence-parallel ones of the JAX
+    trainers (ring / Ulysses attention, ``--sp_devices``), which wait for
+    sequence parallelism (ROADMAP A9)."""
     refused = {
-        "--mesh with more than one device": any(d not in (-1, 1) for d in dims),
         f"--attn_impl {args.attn_impl}": args.attn_impl in ("ring", "ulysses"),
-        "--sp_devices": bool(args.sp_devices),
+        "--sp_devices": bool(getattr(args, "sp_devices", 0)),
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise SystemExit(f"not supported by this package yet: {', '.join(bad)} "
-                         "(multi-device, ROADMAP A9)")
+                         "(sequence parallelism, ROADMAP A9)")
 
 
 def restore_own_run(ckpt) -> Optional[Dict]:
@@ -175,14 +174,24 @@ class NanRollback:
     The step updated the parameters and the optimizer state in place, NaN
     and all, so both are restored whole, the optimizer's count included."""
 
-    def __init__(self, model, opt_state, ckpt, metrics, load: Callable[[Dict], None]):
+    def __init__(self, model, opt_state, ckpt, metrics, load: Callable[[Dict], None],
+                 mesh=None):
         self.model, self.opt_state, self.ckpt, self.metrics = model, opt_state, ckpt, metrics
-        self.load = load
+        self.load, self.mesh = load, mesh
         self.snapshot = train.host_snapshot(model, opt_state)
 
     def __call__(self, step: int, loss) -> bool:
-        """Whether step ``step`` (1-based) was rolled back."""
-        if np.isfinite(float(loss)):
+        """Whether step ``step`` (1-based) was rolled back (on a mesh, every
+        rank agrees through one all-reduce of the finite flag)."""
+        finite = bool(np.isfinite(float(loss)))
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            from ..parallel import collectives
+            flag = torch.tensor([int(finite)], device=self.mesh.device)
+            finite = bool(collectives.all_reduce(flag, self.mesh.world, self.mesh,
+                                                 op=dist.ReduceOp.MIN).item())
+        if finite:
             return False
         print(f"step {step}: non-finite loss; rolling back", file=sys.stderr)
         self.metrics.log(step=step, event="nan_rollback")
@@ -193,3 +202,114 @@ class NanRollback:
             print("no checkpoint yet; restoring initial state", file=sys.stderr)
             train.restore_snapshot(self.model, self.opt_state, self.snapshot)
         return True
+
+
+def trainer_mesh(args, module: str, argv):
+    """The trainers' ``--mesh``: (exit code, None, None) when this process
+    started the ranks (``parallel/launch.py``) and they have ended; else
+    (None, mesh or None, device): a mesh when this process is a rank,
+    None for the single-device run."""
+    from ..parallel import launch, mesh as meshlib
+    from ..utils.device import resolve_device
+
+    dims = [int(x) for x in args.mesh.split(",")]
+    rc = launch.run(module, argv, launch.ranks_wanted(dims), args.device)
+    if rc is not None:
+        return rc, None, None
+    if not launch.is_rank():
+        return None, None, resolve_device(args.device)
+    dev = launch.rank_device(args.device)
+    mesh = meshlib.make_mesh(*dims, device=dev)
+    if mesh.rank == 0:
+        print(f"mesh: {mesh.shape}", file=sys.stderr)
+    return None, mesh, dev
+
+
+def save_step(ckpt, step: int, model, opt_state, tx, mesh, to_jax: Callable) -> None:
+    """Save ``step``: on one device as before; on a mesh every rank gathers
+    the parameters and optimizer state whole and rank 0 writes them in the
+    single-device layout (``--resume``, ``eval_ppl`` and ``decode_asr`` read
+    it unchanged)."""
+    if mesh is None:
+        ckpt.save(step, {"params": to_jax(model), "opt_state": opt_state,
+                         "step": np.asarray(step)})
+        return
+    import torch.distributed as dist
+
+    from ..parallel import partition
+
+    params = to_jax(model, state=partition.gather_params(model))
+    opt = train.gather_opt_state(opt_state, tx, train.layout(model))
+    if mesh.rank == 0:
+        ckpt.save(step, {"params": params, "opt_state": opt, "step": np.asarray(step)})
+    dist.barrier()
+
+
+def load_step(restored: Dict, model, opt_state, tx, mesh, state: Dict) -> None:
+    """Put a restored step back: ``state`` its parameters as a whole port
+    state dict; on a mesh re-sharded (this rank's shards)."""
+    if mesh is None:
+        model.load_state_dict(state, strict=True)
+        train.load_opt_state(opt_state, restored["opt_state"])
+        return
+    from ..parallel import partition
+
+    partition.load_params(model, state)
+    train.load_opt_state(opt_state, restored["opt_state"], tx, train.layout(model))
+
+
+class DataParallel:
+    """``--data_parallel N`` of the inference pipelines: the ranks
+    (``parallel/launch.py``) hold the whole model each, and every batch is
+    split by rows, as JAX's ``data_sharding`` of a ``(N, 1, 1)`` mesh:
+    padded with zero rows to a multiple of N (``parallel.train.pad_batch``;
+    the batch already has one length, so every rank's rows keep it and the
+    encodings do not depend on N), rank r takes block r, and
+    :meth:`gather` puts the per-row results back in order, the padding
+    dropped.  With one process it is the identity."""
+
+    def __init__(self, n: int, device: str):
+        from ..parallel import launch, mesh as meshlib
+        from ..utils.device import resolve_device
+
+        self.mesh = None
+        if launch.is_rank():
+            self.device = launch.rank_device(device)
+            self.mesh = meshlib.make_mesh(data=n, device=self.device)
+        else:
+            self.device = resolve_device(device)
+
+    @property
+    def rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def rows(self, *arrays):
+        """This rank's rows of each [B, ...] array (numpy)."""
+        if self.mesh is None:
+            return arrays
+        from ..parallel import train
+
+        n = self.mesh.size("data")
+        padded = train.pad_batch({str(i): np.asarray(a) for i, a in enumerate(arrays)}, n)
+        k = self.mesh.index("data")
+        out = []
+        for i in range(len(arrays)):
+            a = padded[str(i)]
+            step = a.shape[0] // n
+            out.append(a[k * step:(k + 1) * step])
+        return tuple(out)
+
+    def gather(self, local: np.ndarray, total: int) -> np.ndarray:
+        """Every rank's rows of a [b, ...] array, in row order, cut to the
+        batch's ``total`` rows (trailing dimensions zero-padded to the
+        largest rank's)."""
+        local = np.asarray(local)
+        if self.mesh is None:
+            return local[:total]
+        from ..parallel import collectives
+
+        parts = collectives.all_gather_objects(local, self.mesh.groups["data"])
+        shape = np.max([p.shape for p in parts], axis=0)
+        parts = [np.pad(p, [(0, 0)] + [(0, int(m) - n) for m, n in zip(shape[1:], p.shape[1:])])
+                 for p in parts]
+        return np.concatenate(parts)[:total]

@@ -15,7 +15,11 @@ runs the continuous batcher (``decode/batcher.py``), and with
 ``--conversation`` each recording is one stream whose LM context carries
 across its utterances.  Artifacts: ``{out_dir}/hyp.text`` (Kaldi
 ``utt_id hypothesis`` lines), ``wer.json`` (corpus WER, its breakdown and
-RTFx), ``metrics.jsonl``.  ``--data_parallel > 1`` is refused.
+RTFx), ``metrics.jsonl``.  ``--data_parallel N`` splits each static
+batch's rows over N ranks (local ranks started by the command, or the
+``torchrun`` group; ``common.DataParallel``), each encoding and decoding
+its rows with the whole model; rank 0 writes the outputs.  As in JAX it
+excludes ``--continuous``.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ def parse_args(argv=None):
                         "utterances in start-time order (needs an LM); combines "
                         "with --beam_size > 1")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="not ported yet: values above 1 are refused")
+                   help="shard the decode batch over this many ranks (weights "
+                        "whole on each, batch rows split; static batches only)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch versions")
     return p.parse_args(argv)
@@ -102,11 +107,17 @@ def _hypothesis(tokenizer, eos_id: int, row, length: int) -> str:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.data_parallel > 1:
-        raise SystemExit("--data_parallel > 1 is not ported yet (ROADMAP A9: "
-                         "multi-GPU data parallelism)")
+    if args.continuous and args.data_parallel > 1:
+        raise SystemExit("--continuous and --data_parallel are mutually "
+                         "exclusive (the batcher owns its own device "
+                         "scheduling; DP decode uses static batches)")
     if args.conversation and not args.continuous:
         raise SystemExit("--conversation requires --continuous")
+    from ..parallel import launch
+    rc = launch.run("loco_asr_tpu_torch.pipelines.decode_asr", argv, args.data_parallel,
+                    args.device)
+    if rc is not None:
+        return rc
 
     import torch
 
@@ -115,12 +126,12 @@ def main(argv=None) -> int:
     from ..decode.beam import beam_search, greedy_decode
     from ..models.speecht5 import model as st5
     from ..models.speecht5.config import SpeechT5Config, tiny_config
-    from ..utils.device import resolve_device
     from ..utils.metrics import MetricsWriter, Stopwatch
     from ..utils.wer import wer_details
     from . import common
 
-    dev = resolve_device(args.device)
+    dp = common.DataParallel(args.data_parallel, args.device)
+    dev = dp.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.out_dir, exist_ok=True)
@@ -138,7 +149,7 @@ def main(argv=None) -> int:
                          "--lm_model): the carried state IS the LM context")
 
     ds = KaldiAsrDataset(args.data_dir)
-    metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))
+    metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl") if dp.rank0 else None)
     watch = Stopwatch()
     batches = ds.batches(tokenizer, args.batch_size, max_seconds=args.max_seconds,
                          eos_id=cfg.eos_token_id)
@@ -194,8 +205,8 @@ def main(argv=None) -> int:
     else:
         for batch in batches:
             audio_seconds += float(batch["attention_mask"].sum()) / 16000.0
-            enc, mask = st5.encode_speech(model, batch["input_values"],
-                                          batch["attention_mask"])
+            enc, mask = st5.encode_speech(model, *dp.rows(batch["input_values"],
+                                                          batch["attention_mask"]))
             if args.beam_size == 1:
                 toks, lens = greedy_decode(model, enc, mask, max_len=args.max_decode_len,
                                            fusion=fusion)
@@ -204,10 +215,15 @@ def main(argv=None) -> int:
                                   max_len=args.max_decode_len,
                                   length_penalty=args.length_penalty, fusion=fusion)
                 toks, lens = hyp.tokens[:, 0], hyp.lengths[:, 0]
+            n = len(batch["utt_ids"])     # data-parallel pad rows fall off
+            toks, lens = dp.gather(toks.cpu().numpy(), n), dp.gather(lens.cpu().numpy(), n)
             for utt_id, text, row, length in zip(batch["utt_ids"], batch["texts"],
-                                                 toks.cpu().numpy(), lens.tolist()):
+                                                 toks, lens.tolist()):
                 emit(utt_id, text, row, length)
-            print(f"\r decoded {len(refs)} utts", end=" ", file=sys.stderr)
+            if dp.rank0:
+                print(f"\r decoded {len(refs)} utts", end=" ", file=sys.stderr)
+    if not dp.rank0:
+        return 0
     print(file=sys.stderr)
 
     details = wer_details(refs, hyps)

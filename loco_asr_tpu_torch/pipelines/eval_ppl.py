@@ -28,9 +28,13 @@ without orbax), or HF ``pytorch_model.bin`` / ``.safetensors`` files or
 directories (``.safetensors`` through ``utils/safetensors.py``, without
 the package).  ``--compute_dtype bfloat16`` casts the weights to bf16, as
 the JAX pipeline does (the attention kernels then run their bf16 forms;
-the lm head's logsumexp and the NLLs stay float32).  Not ported yet, and
-refused with an error: ``--data_parallel > 1`` and ``--sequence_parallel
-> 1`` (multi-device, ROADMAP A9).
+the lm head's logsumexp and the NLLs stay float32).  ``--data_parallel
+N`` splits each scoring batch's rows over N ranks (local ranks started by
+the command, or the ``torchrun`` group; ``common.DataParallel``), as the
+JAX pipeline shards them; rank 0 writes the artifacts.  As in JAX it is
+dense only (``--attn_impl flash`` with it is refused).  Not ported yet,
+and refused with an error: ``--sequence_parallel > 1`` (sequence
+parallelism, ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import pickle
 import sys
@@ -82,13 +87,12 @@ def parse_arguments(argv=None):
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--limit_recordings", type=int, default=None)
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="not ported yet (multi-device, ROADMAP A9): values "
-                        "above 1 are refused")
+                   help="shard window batches over this many ranks")
     p.add_argument("--sequence_parallel", type=int, default=1,
-                   help="not ported yet (multi-device, ROADMAP A9): values "
-                        "above 1 are refused")
+                   help="sequence parallelism: not ported yet (ROADMAP A9); "
+                        "values above 1 are refused")
     p.add_argument("--sp_impl", choices=["ring", "ulysses"], default="ring",
-                   help="kept for CLI parity (sequence parallel is not ported)")
+                   help="kept for CLI parity (sequence parallelism is not ported)")
     p.add_argument("--compute_dtype", choices=["same", "bfloat16"],
                    default="same",
                    help="bfloat16 casts the weights to bf16 (the attention "
@@ -176,25 +180,41 @@ def main(argv=None) -> int:
     if args.download_only:
         print("download_only is a no-op in the egress-free build", file=sys.stderr)
         return 0
-    for flag, value in (("--data_parallel", args.data_parallel),
-                        ("--sequence_parallel", args.sequence_parallel)):
-        if value > 1:
-            raise SystemExit(f"{flag} > 1 is not ported yet (multi-device, ROADMAP A9)")
+    if args.sequence_parallel > 1:
+        raise SystemExit("--sequence_parallel > 1 is not ported yet (sequence "
+                         "parallelism, ROADMAP A9)")
+    if args.attn_impl != "dense" and args.data_parallel > 1:
+        # the JAX pipeline's refusal, kept: its Pallas kernel has no GSPMD
+        # partition rule
+        raise SystemExit("--attn_impl flash with --data_parallel is not "
+                         "supported (the Pallas kernel has no GSPMD "
+                         "partition rule); use dense for DP scoring")
+    from ..parallel import launch
+    rc = launch.run("loco_asr_tpu_torch.pipelines.eval_ppl", argv, args.data_parallel,
+                    "cpu" if args.no_cuda else args.device)
+    if rc is not None:
+        return rc
 
     import torch
 
     from ..data import lm_datasets, tokenizer as tok_lib
     from ..models.gpt2 import model as g
     from ..ops.layers import cast_parameters
-    from ..utils.device import resolve_device
     from ..utils.metrics import create_logger
+    from . import common
 
-    dev = resolve_device("cpu" if args.no_cuda else args.device)
+    dp = common.DataParallel(args.data_parallel, "cpu" if args.no_cuda else args.device)
+    dev = dp.device
     os.makedirs(args.out_dir, exist_ok=True)
     path_out_dir = Path(args.out_dir)
     base = os.path.basename(args.in_file).rsplit(".", 1)[0]
     pfx = f"{args.model}_{args.context_type}_{base}"
-    logger = create_logger(str(path_out_dir / f"{pfx}.log"), args.verbose)
+    if dp.rank0:
+        logger = create_logger(str(path_out_dir / f"{pfx}.log"), args.verbose)
+    else:           # the other ranks score their rows and write nothing
+        logger = logging.getLogger(f"loco_asr_tpu_torch.eval_ppl.rank{dp.mesh.rank}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
 
     tokenizer = tok_lib.load_tokenizer(args.tokenizer)
     if args.model == "tiny":
@@ -224,11 +244,13 @@ def main(argv=None) -> int:
         max_len = cfg.n_positions
 
     def score(ids: np.ndarray) -> np.ndarray:
-        """[B, T] ids -> [B, T-1] NLLs (chunked lm head)."""
-        ids_t = torch.from_numpy(np.array(ids, dtype=np.int64)).to(dev)
+        """[B, T] ids -> [B, T-1] NLLs (chunked lm head; under
+        ``--data_parallel`` each rank scores its rows)."""
+        (rows,) = dp.rows(np.array(ids, dtype=np.int64))
         with torch.inference_mode():
-            nll = g.score_tokens(model, ids_t, attn_impl=args.attn_impl)
-        return nll.cpu().numpy()
+            nll = g.score_tokens(model, torch.from_numpy(rows).to(dev),
+                                 attn_impl=args.attn_impl)
+        return dp.gather(nll.cpu().numpy(), len(ids))
 
     nlls: List[List[float]] = []
     stime = time.time()
@@ -358,6 +380,8 @@ def main(argv=None) -> int:
 
     if len(nlls) != len(ids_order):
         raise RuntimeError(f"nlls {len(nlls)} != ids {len(ids_order)}")
+    if not dp.rank0:
+        return 0
     rec_id2nlls, rec_id2ppl = lm_datasets.compute_ppl_per_recording(nlls, ids_order)
     ppls = list(rec_id2ppl.values())
     logger.info(

@@ -20,8 +20,10 @@ takes every source of ``common.load_speecht5_params``.  ``--dtype
 bfloat16`` casts the weights only, as the JAX pipeline does: the audio
 encoder then computes in float32 on bf16-rounded weights (every op
 promotes with the float32 waveform, as JAX's do) and the text encoder in
-bf16.  Embeddings are stored in float32.  Not ported yet, and refused with
-an error: ``--data_parallel > 1``.
+bf16.  Embeddings are stored in float32.  ``--data_parallel N`` splits
+each batch's rows over N ranks (local ranks started by the command, or the
+``torchrun`` group; ``common.DataParallel``), which encode their rows with
+the whole model; rank 0 writes the store.
 """
 
 from __future__ import annotations
@@ -56,7 +58,9 @@ def parse_args(argv=None):
                    help="'char', a dir with vocab.json+merges.txt or a "
                         "SentencePiece .model (text modality)")
     p.add_argument("--limit", type=int, default=None, help="cap utterances (smoke)")
-    p.add_argument("--data_parallel", type=int, default=1)
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="shard extraction batches over this many ranks "
+                        "(weights whole on each, batch rows split)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch versions")
     return p.parse_args(argv)
@@ -64,8 +68,11 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.data_parallel > 1:
-        raise SystemExit("--data_parallel > 1 is not supported by this package yet")
+    from ..parallel import launch
+    rc = launch.run("loco_asr_tpu_torch.pipelines.extract_embeddings", argv,
+                    args.data_parallel, args.device)
+    if rc is not None:
+        return rc
 
     import torch
 
@@ -80,20 +87,23 @@ def main(argv=None) -> int:
     folder = "extracted/speecht5" if args.version == "fine_tuned" else "extracted/speecht5_base"
     out_dir = args.out_dir or os.path.join(folder, args.split, args.modality)
 
+    dp = common.DataParallel(args.data_parallel, args.device)
+    log = (lambda *a, **k: print(*a, **k)) if dp.rank0 else (lambda *a, **k: None)
     ds = slurp.SlurpDataset(args.data_path, mode=args.split, task="intent")
     examples = ds.examples[: args.limit] if args.limit else ds.examples
-    print(f"{args.split} set size: {len(examples)}", file=sys.stderr)
+    log(f"{args.split} set size: {len(examples)}", file=sys.stderr)
 
     cfg = SpeechT5Config()
     variant = "encoder" if args.modality == "audio" else "tts"
-    model = common.load_speecht5_params(args.checkpoint, cfg, device=args.device,
+    model = common.load_speecht5_params(args.checkpoint, cfg, device=dp.device,
                                         variant=variant)
     if args.dtype == "bfloat16":
         cast_parameters(model, torch.bfloat16)
     dev = next(model.parameters()).device
     tok = tok_lib.load_tokenizer(args.tokenizer) if args.modality == "text" else None
 
-    writer = embedding_store.EmbeddingShardWriter(out_dir) if args.format == "npz" else None
+    writer = (embedding_store.EmbeddingShardWriter(out_dir)
+              if args.format == "npz" and dp.rank0 else None)
     pickle_records: List = []
 
     watch = Stopwatch()
@@ -112,8 +122,8 @@ def main(argv=None) -> int:
                 for i, w in enumerate(wavs):
                     x[i, :len(w)] = w
                     mask[i, :len(w)] = 1
-                hidden, fmask = st5.encode_speech(model, x, mask)
-                flens = fmask.sum(-1).cpu().numpy()
+                hidden, fmask = st5.encode_speech(model, *dp.rows(x, mask))
+                flens = dp.gather(fmask.sum(-1).cpu().numpy(), len(batch))
             else:
                 ids_list = [[cfg.bos_token_id] + tok(e.sentence)["input_ids"]
                             + [cfg.eos_token_id] for e in batch]
@@ -127,11 +137,12 @@ def main(argv=None) -> int:
                 for i, ids in enumerate(ids_list):
                     x[i, :len(ids)] = ids
                     mask[i, :len(ids)] = 1
+                xs, ms = dp.rows(x, mask)
                 with torch.inference_mode():
-                    hidden = st5.encode_text(model, torch.from_numpy(x).to(dev),
-                                             torch.from_numpy(mask).to(dev))
+                    hidden = st5.encode_text(model, torch.from_numpy(xs).to(dev),
+                                             torch.from_numpy(ms).to(dev))
                 flens = mask.sum(-1)
-            hidden = hidden.float().cpu().numpy()
+            hidden = dp.gather(hidden.float().cpu().numpy(), len(batch))
 
             for e, t, n, emb in zip(batch, targets, flens, hidden):
                 rec = emb[: int(n)]
@@ -140,8 +151,10 @@ def main(argv=None) -> int:
                 else:
                     pickle_records.append((e.slurp_id, rec, t))
             n_done += len(batch)
-            print(f"\r {n_done}/{len(examples)}", end=" ", file=sys.stderr)
-    print(file=sys.stderr)
+            log(f"\r {n_done}/{len(examples)}", end=" ", file=sys.stderr)
+    log(file=sys.stderr)
+    if not dp.rank0:
+        return 0
 
     if writer is not None:
         writer.close()

@@ -1,5 +1,5 @@
-"""Fine-tune SpeechT5 ASR on a Kaldi-format corpus on one GPU: the port of
-``loco_asr_tpu.pipelines.train_asr``.
+"""Fine-tune SpeechT5 ASR on a Kaldi-format corpus on one GPU or on a mesh
+of ranks: the port of ``loco_asr_tpu.pipelines.train_asr``.
 
 CLI (the JAX trainer's flags, plus ``--device``):
   --train_dir --dev_dir --out_dir --checkpoint --tokenizer
@@ -43,8 +43,18 @@ is logged (``event="nan_rollback"``), its batch skipped and the latest
 checkpoint (or, before the first save, the starting state) put back;
 ``--nan_inject_step N`` fills step N's waveform with NaN, once.
 
-Refused with an error (not ported, multi-device): a ``--mesh`` of more
-than one device, ``--attn_impl ring|ulysses`` and ``--sp_devices``.
+``--mesh data,fsdp,tensor`` of more than one rank trains sharded
+(``parallel/``): as a plain command the trainer starts that many local
+ranks itself, under ``torchrun`` each process is a rank
+(``parallel/launch.py``); each rank runs the kernels on its own batch rows
+and, under the tensor axis, its own heads.  Rank 0 writes
+``metrics.jsonl``, ``status.json`` and the gathered ``.npz`` steps in the
+single-device layout, and ``--resume`` re-shards them.  The dev
+evaluation decodes each rank's share of the dev batches on gathered
+weights, and rank 0 scores them (JAX decodes on the sharded weights).
+
+Refused with an error (not ported: sequence parallelism, ROADMAP A9):
+``--attn_impl ring|ulysses`` and ``--sp_devices``.
 """
 
 from __future__ import annotations
@@ -96,7 +106,8 @@ def parse_args(argv=None):
                         "audio and transcripts concatenated) instead of "
                         "single utterances")
     p.add_argument("--mesh", default="-1,1,1",
-                   help="data,fsdp,tensor mesh shape; only one device is ported")
+                   help="data,fsdp,tensor mesh shape; more than one rank trains "
+                        "sharded (local ranks, or the torchrun group)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                    help="dtype of the weights (and so of Adam's moments)")
     p.add_argument("--compute_dtype", choices=["same", "bfloat16"], default="same",
@@ -118,8 +129,9 @@ def parse_args(argv=None):
     p.add_argument("--attn_impl", default="dense",
                    choices=["dense", "flash", "ring", "ulysses"],
                    help="'flash' runs the attention kernels (B1, B3/B4, B5); "
-                        "ring/ulysses are not ported (refused)")
-    p.add_argument("--sp_devices", type=int, default=0, help="not ported (refused)")
+                        "ring/ulysses (sequence parallelism) are not ported (refused)")
+    p.add_argument("--sp_devices", type=int, default=0,
+                   help="sequence parallelism: not ported (refused)")
     p.add_argument("--freeze_feature_encoder", action="store_true",
                    help="freeze the conv feature extractor (no gradients, "
                         "no updates; its first layer then runs kernel B2)")
@@ -164,6 +176,10 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from . import common
     common.refuse_unported(args)
+    rc, mesh, dev = common.trainer_mesh(args, "loco_asr_tpu_torch.pipelines.train_asr",
+                                        argv)
+    if rc is not None:
+        return rc
 
     import torch
 
@@ -172,15 +188,15 @@ def main(argv=None) -> int:
     from ..decode.beam import greedy_decode
     from ..models.speecht5 import convert
     from ..models.speecht5 import model as st5
-    from ..parallel import train
+    from ..parallel import collectives, partition, train
     from ..utils.checkpoint import Checkpointer, flatten
     from ..ops.layers import cast_parameters
-    from ..utils.device import resolve_device
     from ..utils.metrics import MetricsWriter
     from ..utils.prefetch import prefetch
     from ..utils.wer import wer
 
-    dev = resolve_device(args.device)
+    rank0 = mesh is None or mesh.rank == 0
+    home = dev if mesh is None else "cpu"     # a sharded model is built whole on the host
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tokenizer = load_tokenizer(args.tokenizer)
@@ -189,11 +205,13 @@ def main(argv=None) -> int:
     cfg = build_config(args)
 
     if args.checkpoint:
-        model = common.load_speecht5_params(args.checkpoint, cfg, device=dev, variant="asr")
+        model = common.load_speecht5_params(args.checkpoint, cfg, device=home, variant="asr")
     else:
-        model = st5.asr_model_init(cfg, seed=args.seed, device=dev)
+        model = st5.asr_model_init(cfg, seed=args.seed, device=home)
     if args.dtype == "bfloat16":
         cast_parameters(model, torch.bfloat16)
+    if mesh is not None:
+        partition.shard_params(model, mesh)
     if args.optimizer == "adafactor":
         tx = train.adafactor(args.lr, args.weight_decay, args.warmup_steps, args.steps,
                              clip_norm=args.grad_clip)
@@ -202,29 +220,29 @@ def main(argv=None) -> int:
                          clip_norm=args.grad_clip,
                          mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
     params = train.trainable_params(model, args.freeze_feature_encoder)
-    opt_state = tx.init(params)
+    opt_state = tx.init(params, layout=train.layout(model))
     step_fn = train.make_asr_train_step(
         cfg, tx, attn_impl=args.attn_impl,
         freeze_feature_encoder=args.freeze_feature_encoder,
         grad_accum=args.grad_accum,
         compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
-        remat=args.remat)
+        remat=args.remat, mesh=mesh)
 
     ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
-    metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))
+    metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl") if rank0 else None)
     start_step = 0
 
     def load_state(restored):
-        model.load_state_dict(convert.asr_from_jax_params(flatten(restored["params"]), cfg),
-                              strict=True)
-        train.load_opt_state(opt_state, restored["opt_state"])
+        common.load_step(restored, model, opt_state, tx, mesh,
+                         convert.asr_from_jax_params(flatten(restored["params"]), cfg))
 
     if args.resume:
         restored = common.restore_own_run(ckpt)
         if restored is not None:
             load_state(restored)
             start_step = int(restored["step"])
-            print(f"resumed at step {start_step}", file=sys.stderr)
+            if rank0:
+                print(f"resumed at step {start_step}", file=sys.stderr)
 
     if args.conversation_seconds > 0:
         args.max_seconds = args.conversation_seconds
@@ -252,37 +270,67 @@ def main(argv=None) -> int:
     eval_impl = "dense" if args.attn_impl == "dense" else "flash"
 
     def to_device(batch):
-        return {k: torch.as_tensor(batch[k], device=dev)
-                for k in ("input_values", "attention_mask", "labels")}
+        b = {k: batch[k] for k in ("input_values", "attention_mask", "labels")}
+        if mesh is not None:
+            return train.shard_batch(b, mesh, args.grad_accum)
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    eval_model = [model]
+
+    def evaluator():
+        """The model the evaluation runs: on a mesh a whole copy on this
+        rank's device, loaded with the gathered weights."""
+        if mesh is None:
+            return model
+        state = partition.gather_params(model)
+        if eval_model[0] is model:
+            eval_model[0] = st5.asr_model_init(cfg, seed=args.seed, device="cpu")
+            if args.dtype == "bfloat16":
+                cast_parameters(eval_model[0], torch.bfloat16)
+            eval_model[0].to(dev)
+        eval_model[0].load_state_dict(state, strict=True)
+        return eval_model[0]
 
     def run_eval(step):
         if dev_ds is None:
             return {}
-        model.eval()
+        net = evaluator()
+        net.eval()
         refs, hyps, nll, ntok = [], [], 0.0, 0
+        share = (0, 1) if mesh is None else (mesh.world.index, mesh.world.size)
         with torch.no_grad():
             for bi, batch in enumerate(dev_ds.batches(
                     tokenizer, args.batch_size, max_seconds=args.max_seconds,
                     max_label_len=args.max_label_len, eos_id=eos)):
                 if bi >= args.eval_batches:
                     break
-                b = to_device(batch)
-                _, aux = st5.asr_loss(model, b["input_values"], b["attention_mask"],
+                if bi % share[1] != share[0]:      # another rank's share
+                    continue
+                b = {k: torch.as_tensor(batch[k], device=dev)
+                     for k in ("input_values", "attention_mask", "labels")}
+                _, aux = st5.asr_loss(net, b["input_values"], b["attention_mask"],
                                       b["labels"], attn_impl=eval_impl)
                 nll += float(aux["nll_sum"])
                 ntok += int(aux["ntokens"])
-                enc, msk = st5.encode_speech(model, b["input_values"],
+                enc, msk = st5.encode_speech(net, b["input_values"],
                                              b["attention_mask"],
                                              use_kernels=eval_impl == "flash")
-                toks, lens = greedy_decode(model, enc, msk, max_len=args.decode_max_len)
+                toks, lens = greedy_decode(net, enc, msk, max_len=args.decode_max_len)
                 for text, row, n in zip(batch["texts"], toks.cpu().numpy(),
                                         lens.cpu().numpy()):
                     ids = [int(t) for t in row[:n] if int(t) != eos]
-                    refs.append(text)
-                    hyps.append(tokenizer.decode(ids) if ids else "")
+                    refs.append((bi, text))
+                    hyps.append((bi, tokenizer.decode(ids) if ids else ""))
+        if mesh is not None:        # every rank's share, in batch order
+            parts = collectives.all_gather_objects((nll, ntok, refs, hyps), mesh.world)
+            nll, ntok = sum(p[0] for p in parts), sum(p[1] for p in parts)
+            refs = sorted((r for p in parts for r in p[2]), key=lambda x: x[0])
+            hyps = sorted((h for p in parts for h in p[3]), key=lambda x: x[0])
+        refs, hyps = [t for _, t in refs], [t for _, t in hyps]
         out = {"dev_loss": nll / max(ntok, 1), "dev_wer": wer(refs, hyps)}
         metrics.log(step=step, **out)
-        print(f"step {step}: {out}", file=sys.stderr)
+        if rank0:
+            print(f"step {step}: {out}", file=sys.stderr)
         return out
 
     def batch_stream(epoch):
@@ -298,7 +346,7 @@ def main(argv=None) -> int:
     trunc = {"samples": 0, "label_tokens": 0, "utterances": 0}
     trunc_warned = False
     t0 = time.perf_counter()
-    rollback = (common.NanRollback(model, opt_state, ckpt, metrics, load_state)
+    rollback = (common.NanRollback(model, opt_state, ckpt, metrics, load_state, mesh)
                 if args.nan_recovery else None)
     while step < args.steps:
         try:
@@ -310,7 +358,7 @@ def main(argv=None) -> int:
         tr = batch.get("truncation") or {}
         for k in trunc:
             trunc[k] += tr.get(k, 0)
-        if any(tr.values()) and not trunc_warned:
+        if any(tr.values()) and not trunc_warned and rank0:
             trunc_warned = True
             print(f"WARNING: batch truncated data at the caps "
                   f"(max_seconds={args.max_seconds}, max_label_len="
@@ -333,17 +381,17 @@ def main(argv=None) -> int:
                         trunc_samples=trunc["samples"],
                         trunc_label_tokens=trunc["label_tokens"],
                         trunc_utterances=trunc["utterances"])
-            print(f"step {step}: loss {float(m['loss']):.4f} "
-                  f"({50.0 / dt:.2f} steps/s)", file=sys.stderr)
+            if rank0:
+                print(f"step {step}: loss {float(m['loss']):.4f} "
+                      f"({50.0 / dt:.2f} steps/s)", file=sys.stderr)
         if step % args.eval_every == 0:
             run_eval(step)
         if step % args.save_every == 0 or step == args.steps:
-            ckpt.save(step, {
-                "params": convert.asr_to_jax_params(model),
-                "opt_state": opt_state,
-                "step": np.asarray(step)})
+            common.save_step(ckpt, step, model, opt_state, tx, mesh,
+                             convert.asr_to_jax_params)
     run_eval(step)
-    print("Training done!", file=sys.stderr)
+    if rank0:
+        print("Training done!", file=sys.stderr)
     return 0
 
 

@@ -1,5 +1,5 @@
-"""Train a GPT-2-class LM on Kaldi-format transcripts on one GPU: the port
-of ``loco_asr_tpu.pipelines.train_lm``.
+"""Train a GPT-2-class LM on Kaldi-format transcripts on one GPU or on a mesh
+of ranks: the port of ``loco_asr_tpu.pipelines.train_lm``.
 
 Each recording is rebuilt as one chronological token stream (the max_len
 dataset's conversation semantics) and the streams are cut into fixed
@@ -44,8 +44,16 @@ matrix, which is what fits gpt2-xl training beside its weights.
 before the first save, the starting state) put back; ``--nan_inject_step
 N`` multiplies the parameters by NaN before step N, once.
 
-Refused with an error (not ported, multi-device): a ``--mesh`` of more
-than one device, ``--attn_impl ring|ulysses`` and ``--sp_devices``.
+``--mesh data,fsdp,tensor`` of more than one rank trains sharded
+(``parallel/``; local ranks started by the command, or the ``torchrun``
+group): each rank runs B6 on its rows and, under the tensor axis, its
+heads' [B, T, H/tp, D] views of its local qkv buffer.  Rank 0 writes
+``metrics.jsonl`` and the gathered ``.npz`` steps in the single-device
+layout; ``--resume`` re-shards them; the dev evaluation scores each rank's
+share of the dev chunks on gathered weights.
+
+Refused with an error (not ported: sequence parallelism, ROADMAP A9):
+``--attn_impl ring|ulysses`` and ``--sp_devices``.
 """
 
 from __future__ import annotations
@@ -80,7 +88,8 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--mesh", default="-1,1,1",
-                   help="data,fsdp,tensor mesh shape; only one device is ported")
+                   help="data,fsdp,tensor mesh shape; more than one rank trains "
+                        "sharded (local ranks, or the torchrun group)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--remat", nargs="?", const="full", default="none",
                    choices=["none", "full", "dots", "hybrid", "lite"],
@@ -96,9 +105,10 @@ def parse_args(argv=None):
     p.add_argument("--attn_impl", default="dense",
                    choices=["dense", "flash", "ring", "ulysses"],
                    help="causal self-attention in training: 'flash' runs kernel "
-                        "B6 (B5) and its blockwise backward; ring/ulysses are "
-                        "not ported (refused)")
-    p.add_argument("--sp_devices", type=int, default=0, help="not ported (refused)")
+                        "B6 (B5) and its blockwise backward; ring/ulysses "
+                        "(sequence parallelism) are not ported (refused)")
+    p.add_argument("--sp_devices", type=int, default=0,
+                   help="sequence parallelism: not ported (refused)")
     p.add_argument("--rng_impl", default="rbg",
                    choices=["threefry", "rbg", "unsafe_rbg"],
                    help="the JAX trainer's PRNG; no counterpart here (torch "
@@ -185,10 +195,12 @@ def pad_rows(batch: Dict[str, np.ndarray], multiple: int) -> Dict[str, np.ndarra
 
 
 def dev_nll(model, chunks: List[np.ndarray], batch_size: int, seq_len: int,
-            attn_impl: str):
+            attn_impl: str, share=(0, 1)):
     """(summed NLL, token count) of ``chunks`` under ``model``, scored
     ``batch_size`` right-padded chunks at a time: the trainer's dev
-    evaluation (``exp(sum / count)`` is its ``dev_ppl``)."""
+    evaluation (``exp(sum / count)`` is its ``dev_ppl``).  ``share``
+    (index, count): score only every count-th batch from the index-th (a
+    rank's share)."""
     import torch
 
     from ..models.gpt2 import model as g
@@ -196,7 +208,7 @@ def dev_nll(model, chunks: List[np.ndarray], batch_size: int, seq_len: int,
     dev = model.wte.weight.device
     total, count = 0.0, 0
     with torch.no_grad():
-        for i in range(0, len(chunks), batch_size):
+        for i in range(share[0] * batch_size, len(chunks), share[1] * batch_size):
             b = _pack(chunks[i:i + batch_size], seq_len)
             nll = g.score_tokens(model, torch.as_tensor(b["ids"], device=dev),
                                  attn_impl=attn_impl)
@@ -224,19 +236,21 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from . import common
     common.refuse_unported(args)
+    rc, mesh, dev = common.trainer_mesh(args, "loco_asr_tpu_torch.pipelines.train_lm", argv)
+    if rc is not None:
+        return rc
 
     import torch
 
     from ..data import lm_datasets
     from ..data.tokenizer import load_tokenizer
     from ..models.gpt2 import convert
-    from ..parallel import train
+    from ..parallel import collectives, partition, train
     from ..utils.checkpoint import Checkpointer, flatten
-    from ..utils.device import resolve_device
     from ..utils.metrics import MetricsWriter
     from .eval_ppl import load_gpt2
 
-    dev = resolve_device(args.device)
+    rank0 = mesh is None or mesh.rank == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     tokenizer = load_tokenizer(args.tokenizer)
     cfg = build_config(args)
@@ -247,8 +261,10 @@ def main(argv=None) -> int:
     if args.seq_len > cfg.n_positions:
         raise SystemExit(f"--seq_len {args.seq_len} exceeds n_positions {cfg.n_positions}")
 
-    model = load_gpt2(args.checkpoint, cfg, dev)
+    model = load_gpt2(args.checkpoint, cfg, dev if mesh is None else "cpu")
     cfg = model.cfg
+    if mesh is not None:
+        partition.shard_params(model, mesh)
     params = dict(model.named_parameters())
     if args.optimizer == "adafactor":
         tx = train.adafactor(args.lr, args.weight_decay, args.warmup_steps, args.steps,
@@ -257,12 +273,12 @@ def main(argv=None) -> int:
         tx = train.adamw(args.lr, args.weight_decay, args.warmup_steps, args.steps,
                          clip_norm=args.grad_clip,
                          mu_dtype=torch.bfloat16 if args.opt_mu_dtype == "bfloat16" else None)
-    opt_state = tx.init(params)
+    opt_state = tx.init(params, layout=train.layout(model))
     step_fn = train.make_lm_train_step(
         cfg, tx, attn_impl=args.attn_impl, loss_impl=args.loss_impl,
         grad_accum=args.grad_accum,
         compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
-        remat=args.remat)
+        remat=args.remat, mesh=mesh)
 
     train_ds = lm_datasets.MaxLenTextDataset(args.train_file, tokenizer,
                                              max_len=args.seq_len)
@@ -274,32 +290,47 @@ def main(argv=None) -> int:
                                     tokenizer.eos_token_id)
 
     ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
-    metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))
+    metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl") if rank0 else None)
     start_step = 0
 
     def load_state(restored):
-        model.load_state_dict(convert.from_jax_params(flatten(restored["params"]), cfg),
-                              strict=True)
-        train.load_opt_state(opt_state, restored["opt_state"])
+        common.load_step(restored, model, opt_state, tx, mesh,
+                         convert.from_jax_params(flatten(restored["params"]), cfg))
 
     if args.resume:
         restored = common.restore_own_run(ckpt)
         if restored is not None:
             load_state(restored)
             start_step = int(restored["step"])
-            print(f"resumed at step {start_step}", file=sys.stderr)
+            if rank0:
+                print(f"resumed at step {start_step}", file=sys.stderr)
 
     eval_impl = "flash" if args.attn_impl == "flash" else "dense"
+
+    eval_model = []
 
     def run_eval(step):
         if dev_chunks is None:
             return
-        model.eval()
-        total, count = dev_nll(model, dev_chunks, args.batch_size, args.seq_len,
-                               eval_impl)
+        net, share = model, (0, 1)
+        if mesh is not None:      # a whole copy with the gathered weights
+            state = partition.gather_params(model)
+            if not eval_model:
+                eval_model.append(load_gpt2(None, cfg, "cpu").to(dev))
+            net, share = eval_model[0], (mesh.world.index, mesh.world.size)
+            net.load_state_dict(state, strict=True)
+        net.eval()
+        total, count = dev_nll(net, dev_chunks, args.batch_size, args.seq_len,
+                               eval_impl, share)
+        if mesh is not None:
+            sums = collectives.all_reduce(torch.tensor([total, float(count)],
+                                                       dtype=torch.float64, device=dev),
+                                          mesh.world, mesh)
+            total, count = float(sums[0]), int(sums[1])
         ppl = float(np.exp(total / max(count, 1)))
         metrics.log(step=step, dev_ppl=ppl, dev_tokens=count)
-        print(f"step {step}: dev PPL {ppl:.2f} over {count} tokens", file=sys.stderr)
+        if rank0:
+            print(f"step {step}: dev PPL {ppl:.2f} over {count} tokens", file=sys.stderr)
 
     def batches(epoch):
         return epoch_batches(train_ds.rec_id2tokens, args.seq_len, tokenizer.eos_token_id,
@@ -309,7 +340,7 @@ def main(argv=None) -> int:
     step, epoch = start_step, 0
     stream = batches(epoch)
     t0 = time.perf_counter()
-    rollback = (common.NanRollback(model, opt_state, ckpt, metrics, load_state)
+    rollback = (common.NanRollback(model, opt_state, ckpt, metrics, load_state, mesh)
                 if args.nan_recovery else None)
     while step < args.steps:
         try:
@@ -318,8 +349,11 @@ def main(argv=None) -> int:
             epoch += 1
             stream = batches(epoch)
             continue
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in pad_rows(batch, args.grad_accum).items()}
+        if mesh is not None:
+            batch = train.shard_batch(batch, mesh, args.grad_accum)
+        else:
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in pad_rows(batch, args.grad_accum).items()}
         if args.nan_inject_step is not None and step + 1 == args.nan_inject_step:
             # fault injection: NaN-poisoned parameters -> non-finite loss
             with torch.no_grad():
@@ -336,16 +370,15 @@ def main(argv=None) -> int:
             loss = float(m["loss"])
             metrics.log(step=step, loss=loss, grad_norm=float(m["grad_norm"]),
                         steps_per_sec=args.log_every / dt)
-            print(f"step {step}: loss {loss:.4f}", file=sys.stderr)
+            if rank0:
+                print(f"step {step}: loss {loss:.4f}", file=sys.stderr)
         if step % args.eval_every == 0:
             run_eval(step)
         if step % args.save_every == 0 or step == args.steps:
-            ckpt.save(step, {
-                "params": convert.to_jax_params(model),
-                "opt_state": opt_state,
-                "step": np.asarray(step)})
+            common.save_step(ckpt, step, model, opt_state, tx, mesh, convert.to_jax_params)
     run_eval(step)
-    print("Training done!", file=sys.stderr)
+    if rank0:
+        print("Training done!", file=sys.stderr)
     return 0
 
 

@@ -294,9 +294,11 @@ def test_train_asr_precision_flags_match_jax(flag, dev_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2,1,1"], ["--attn_impl", "ring"], ["--attn_impl", "ulysses"],
-    ["--sp_devices", "2"], ["--mesh", "1,2,1"]])
+    ["--mesh", "2,1,1", "--sp_devices", "2"], ["--attn_impl", "ring"],
+    ["--attn_impl", "ulysses"], ["--sp_devices", "2"],
+    ["--mesh", "1,2,1", "--attn_impl", "ring"]])
 def test_unported_flags_are_refused(flags):
+    """Sequence parallelism waits for ROADMAP A9 (a mesh trains sharded)."""
     with pytest.raises(SystemExit, match="not supported by this package yet"):
         train_asr.main(["--train_dir", "unused", "--device", "cpu", *flags])
 

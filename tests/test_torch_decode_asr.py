@@ -3,8 +3,8 @@ the same ``.npz`` ASR and tiny-LM checkpoints, on a relocated copy of the
 committed dev corpus, a static beam run and a ``--continuous
 --conversation`` run write the same ``hyp.text`` and the same ``wer.json``
 (all but the wall-clock RTFx); ``--continuous`` gives the static
-hypotheses; the pipeline needs a GPU unless ``--device cpu`` is given and
-refuses ``--data_parallel > 1``."""
+hypotheses; the pipeline needs a GPU unless ``--device cpu`` is given and,
+as JAX's, refuses ``--data_parallel`` with ``--continuous``."""
 
 import json
 import os
@@ -104,7 +104,8 @@ def test_decode_asr_needs_a_gpu_and_refuses_data_parallel(assets, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _run(decode_asr.main, assets, "nogpu", [])
-    with pytest.raises(SystemExit, match="A9"):
-        _run(decode_asr.main, assets, "dp", ["--data_parallel", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):   # JAX's refusal
+        _run(decode_asr.main, assets, "dp", ["--data_parallel", "2", "--continuous",
+                                             "--device", "cpu"])
     with pytest.raises(SystemExit, match="requires --continuous"):
         _run(decode_asr.main, assets, "conv", ["--conversation", "--device", "cpu"])

@@ -84,6 +84,26 @@ def test_no_source_imports_orbax_tensorstore_or_zstandard():
     assert NEVER.search("    import zstandard\n") and NEVER.search("from orbax import x")
 
 
+# ops/ importing the parallel layer ("from ..parallel", "loco_asr_tpu_torch.parallel")
+OPS_TO_PARALLEL = re.compile(r"^\s*(from|import)\s+(\.\.parallel|loco_asr_tpu_torch\.parallel)\b",
+                             re.M)
+
+
+def test_ops_do_not_import_the_parallel_layer():
+    """The layers know nothing of the mesh: ``parallel.partition`` gives
+    sharded modules their sharded subclasses instead."""
+    checked = 0
+    for path in _sources():
+        if os.sep + "ops" + os.sep not in path:
+            continue
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        assert not OPS_TO_PARALLEL.search(text), path
+        checked += 1
+    assert checked >= 10
+    assert OPS_TO_PARALLEL.search("    from ..parallel import tensor_parallel\n")
+
+
 # a command that runs a module of the JAX package: "python -m loco_asr_tpu.x"
 JAX_COMMAND = re.compile(r"-m\s+loco_asr_tpu(?![_\w])")
 

@@ -142,13 +142,6 @@ def test_extract_embeddings_bf16_matches_jax(modality, slurp_root, tmp_path, mon
         np.testing.assert_allclose(gemb, wemb, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("flags", [["-m", "audio", "--data_parallel", "2"]])
-def test_unported_options_raise(flags, slurp_root):
-    with pytest.raises(SystemExit, match="not supported"):
-        extract_embeddings.main([*flags, "-s", "train", "--data_path", slurp_root,
-                                 "--device", "cpu"])
-
-
 def test_entry_points_need_a_gpu_unless_asked_for_cpu(slurp_root, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
