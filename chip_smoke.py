@@ -129,11 +129,11 @@ Phases, in order (any failure raises and exits non-zero):
    dev utterances at the pipeline's batch shapes ([8, 16000] and the
    batcher's admission buckets [4 | 2 | 1, 16000]), kernel path against
    plain path within 1e-3 (max) and 1e-4 (mean); ``decode_asr`` on the
-   dev corpus's first 3 batches (``--limit_batches 3``: 24 of its 120
+   dev corpus's first 2 batches (``--limit_batches 2``: 16 of its 120
    utterances of <= 1 s, ``--max_seconds 1`` so that static batches and
    the batcher pad alike) with a seeded gpt2-width LM ``.npz``, in six
    modes (static greedy and beam 5, ``--continuous`` greedy and beam 5,
-   ``--continuous --conversation`` greedy and beam 5): 24 hyp.text lines,
+   ``--continuous --conversation`` greedy and beam 5): 16 hyp.text lines,
    a finite wer.json, continuous hypotheses equal to static ones, B1/B2
    launches, RTFx and wall seconds per mode;
 13. LM training and the LoCo experiment: (a) one ``make_lm_train_step``
@@ -249,7 +249,7 @@ Phases, in order (any failure raises and exits non-zero):
    labels up to 2,624, its launches (no B1 recompute under lite);
 18. long-form episodes and the rest of the trainer options: (a)
    ``transcribe_episodes --vocab_size 50257 --lm_model gpt2 --attn_impl
-   flash --batch_seconds 120 --max_decode_len 300`` at SpeechT5-base +
+   flash --batch_seconds 120 --max_decode_len 340`` at SpeechT5-base +
    gpt2 width (random weights from seed 0) on two seeded WAV episodes
    (noise bursts between silences): one with manifest timestamps and
    texts, three bursts of 122-130 s (each cropped to 120 s), one left to
@@ -330,22 +330,39 @@ Phases, in order (any failure raises and exits non-zero):
    here ranks share it, so every collective is staged through host
    memory, and their times say nothing of NCCL): (a) the sharded ASR step
    at SpeechT5-base width (vocabulary 256, flash, dropout on) on 8 corpus
-   windows of <= 10 s under meshes (2, 1, 2) and (1, 2, 2), 3 steps each
+   windows of <= 10 s under meshes (2, 1, 2) and (1, 2, 2), 2 steps each
    held to the single-device step on the card (loss 1e-4, ``grad_norm``
    1e-3 relative), each rank's launches of one step (18 B1, 18 B3/B4, 6
    B5, all at 6 heads), step ms, peak memory and the exact bytes of its
    parameters plus AdamW state (the partition rules' figure); (b) the
    gpt2-width LM step at [8, 1024] under (1, 2, 2), 2 steps (the second
    holds the first's sharded AdamW update), 12 B6 at 6 heads a rank,
-   held the same way; (c) ``train_asr --mesh 2,1,2 --attn_impl flash`` 4
-   steps and ``--resume`` to 6 on the committed corpus, run by the same
+   held the same way; (c) ``train_asr --mesh 2,1,2 --attn_impl flash`` 2
+   steps and ``--resume`` to 3 on the committed corpus, run by the same
    ranks, then the single-device trainer resumes the saved step; (e)
    ``dryrun_multichip(4)`` on the same ranks; (d) on ranks 0 and 1 of
    the same start, regrouped as two, ``decode_asr`` (greedy, 16 dev
    utterances: equal tokens but at near-ties), ``extract_embeddings -m
    audio`` (24 seeded wavs, 1e-5) and ``eval_ppl --context_type max_len``
    (gpt2 width, char, 1e-6 relative) at ``--data_parallel 2`` against 1;
-22. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
+22. sequence parallelism (``parallel/sp.py``), run by phase 21's four
+   ranks after (e) (the sequence axis; gloo through host memory): (a) the
+   SpeechT5-base ASR step (vocabulary 256, the feature encoder frozen,
+   dropout on) at B = 1 x 164.005 s (8,200 frames, the count nearest 164
+   s that divides 4; 2,048 labels), 2 steps under ring and 2 under
+   Ulysses, each held to the single-device flash step on the same batches
+   (loss and grad norm within 1e-5 relative), with each rank's step ms,
+   peak memory, bytes through gloo and launches (Ulysses: 12 B1 and 12
+   B3/B4 at 3 heads and B2; ring: B2 only); (b) ``eval_ppl
+   --sequence_parallel 4`` at gpt2 width ([8, 1024] windows, 16
+   recordings of the LM dev text) under both schemes against one device
+   (PPLs within 1e-5 relative; Ulysses' B5 at 3 heads counted) and
+   ``train_lm --attn_impl ring --sp_devices 4`` one step at [8, 1024]
+   against the flash step's loss; (c) phase 21 (e)'s dry run holds its
+   sequence-parallel sections; then the Ulysses launches' inputs (B1 and
+   B3/B4 at [1, 3, 8200, 64], B2, B5 at [8, 3, 1024, 64]), captured on
+   rank 0, against their plain versions;
+23. summary: one ``{"kernels": [...]}`` line (B1 and B2 also with their
    ``decode_launches`` of phase 12, ``loco_launches`` of phase 13 (d),
    ``intent_launches`` of phase 14 and ``loco_reference_launches`` of
    phase 15, B1 with its head-dim-8 time, B6 with its phase 13 launches,
@@ -356,7 +373,8 @@ Phases, in order (any failure raises and exits non-zero):
    steps', B1, B2, B3/B4 and B6 with phase 19's ``fisher_launches``;
    B1 and B2 with phase 20's ``examples_launches``, B5 with its
    ``orbax_eval_ppl_launches``; B1, B3/B4, B5 and B6 with phase 21's
-   ``mesh_rank_step_launches``;
+   ``mesh_rank_step_launches``; B1, B2, B3/B4 and B5 with phase 22's
+   launches a rank and the error of their captured Ulysses launches;
    then the six bf16 forms with phase 16's launches, times and
    bounds), then last
    ``{"ok": true, "device": {...}}``.
@@ -373,8 +391,8 @@ runs that checkout's B2 and B7 through the same cases and inputs.
 
     python3 chip_smoke.py --mesh-phase
 
-runs only the build and phase 21, and ends with one ``{"mesh_phase":
-{...}}`` line.
+runs only the build and phases 21-22, and ends with one
+``{"mesh_phase": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -425,7 +443,7 @@ TTS_TOL = 1e-3        # teacher-forced mels / stop logits, kernel vs plain path
 DECODE_SCORE_TOL = 1e-4   # beam scores, kernel path vs plain path (atol and rtol)
 DECODE_TIE_ATOL = 1e-3    # a beam near-tie: the parting candidates' gap and drift
 ENC_MAX_TOL, ENC_MEAN_TOL = 1e-3, 1e-4   # encoder output, kernel path vs plain path
-DECODE_ASR_BATCHES = 3    # phase 12's decode_asr runs: 24 of the dev corpus's 120 utterances
+DECODE_ASR_BATCHES = 2    # phase 12's decode_asr runs: 16 of the dev corpus's 120 utterances
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1298,7 +1316,7 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
                                    seed=1, device=dev), lm_path)
         # the corpus's utterances last <= 1 s: static batches and the
         # batcher's bucket both pad them to 1 s, so both encode the same input
-        # (the first 3 batches, 24 of the 120 utterances: the depth cut to
+        # (the first 2 batches, 16 of the 120 utterances: the depth cut to
         # keep the whole script inside its time limit)
         common = ["--data_dir", corpus["dev"], "--lm_model", "gpt2", "--lm_checkpoint", lm_path,
                   "--max_decode_len", "64", "--batch_size", "8", "--max_seconds", "1",
@@ -3455,9 +3473,10 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
 
 EPISODE_SEED = 18
 EPISODE_BATCH_SECONDS = 120          # transcribe_episodes --batch_seconds
-EPISODE_DECODE_LEN = 400             # --max_decode_len: gpt2's 1,024 positions less
-                                     # the 408 reserved: every segment after the
-                                     # first refreshes the context
+EPISODE_DECODE_LEN = 340             # --max_decode_len: gpt2's 1,024 positions less
+                                     # the 348 reserved: every segment after the
+                                     # first refreshes the context (400 before the
+                                     # depth cut of sequence parallelism's phase 22)
 # the bursts, in seconds, between 1.5 s silences: the manifest episode's
 # each past --batch_seconds (cropped to it, so that both modes encode them
 # at one padding), the endpointer's one, padded to whole seconds per episode
@@ -4710,7 +4729,7 @@ def extract_store(path: str) -> list:
 # -- phase 21: the (data, fsdp, tensor) mesh on one card ---------------------
 
 MESH_RANKS = 4                 # ranks of phase 21, all on cuda:0 over gloo
-MESH_STEPS = 3                 # sharded ASR steps held to the single-device step
+MESH_STEPS = 2                 # sharded ASR steps held to the single-device step
 MESH_LM_STEPS = 2              # sharded LM steps (the second reads the first's update)
 MESH_LOSS_ATOL, MESH_GNORM_RTOL = 1e-4, 1e-3   # the JAX dry run's bounds
 MESH_LR = 1e-4
@@ -4828,12 +4847,13 @@ def mesh_steps(kind: str, batches: list, dev, mesh=None) -> dict:
 
 
 def mesh_rank_cases(out: str, cases: list, batches_path: str, train_runs: list,
-                    dp: tuple) -> int:
+                    dp: tuple, sp_path: str) -> int:
     """Phase 21 on one rank: each case ``(name, kind, dims)`` of (a) and (b)
     runs :func:`mesh_steps` sharded on that mesh; then each argv of
     ``train_runs`` through ``train_asr.main`` (these ranks are its ranks, as
     ``torchrun``'s would be), then ``dryrun_multichip(4)``; the rank writes
-    its record.  Then (d): ranks 0 and 1 leave the group of four for one of
+    its record, then phase 22 (:func:`sp_rank_cases`, the batches in
+    ``sp_path``).  Then (d): ranks 0 and 1 leave the group of four for one of
     their own, as a start of two ranks would give them, and run
     :func:`dp_ranks` on ``dp`` ``(runs, trace_path)``, while ranks 2 and 3
     wait to form the group of four again (which the rank's exit closes)."""
@@ -4864,6 +4884,8 @@ def mesh_rank_cases(out: str, cases: list, batches_path: str, train_runs: list,
     t0 = time.perf_counter()
     recs["dryrun"] = {**dryrun_multichip(dist.get_world_size(), "cuda"),
                       "s": time.perf_counter() - t0}
+    no_tf32()
+    recs["sp"] = sp_rank_cases(out, sp_path)
     rank = dist.get_rank()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(recs, f)
@@ -4983,7 +5005,9 @@ def mesh_phase(corpus: dict, smi: str, dev) -> dict:
     """Phase 21: four ranks on one card over gloo (``parallel/launch.py``:
     ranks share the card, so collectives are staged through host memory;
     their times say nothing of NCCL).  One start of four ranks runs (a),
-    (b), (c) and (e), then two of them (d)."""
+    (b), (c), (e) and phase 22 (sequence parallelism, its single-device
+    references made here first), then two of them (d).  Phase 22's
+    record is ``res["sp"]``."""
     import torch
 
     from loco_asr_tpu_torch.parallel import launch
@@ -5007,6 +5031,7 @@ def mesh_phase(corpus: dict, smi: str, dev) -> dict:
         torch.cuda.empty_cache()
         res["single_s"] = time.perf_counter() - t0
         dp = dp_single(corpus, tmp)
+        sp = sp_single(tmp, smi, dev)
         path = os.path.join(tmp, "batches.pkl")
         with open(path, "wb") as f:
             pickle.dump(batches, f)
@@ -5014,14 +5039,23 @@ def mesh_phase(corpus: dict, smi: str, dev) -> dict:
         common = ["--train_dir", corpus["train"], "--out_dir", out, "--attn_impl", "flash",
                   "--batch_size", "8", "--conversation_seconds", "10", "--eval_every", "100",
                   "--warmup_steps", "2", "--lr", "1e-4"]
-        train_runs = [[*common, "--mesh", "2,1,2", "--steps", "4", "--save_every", "4"],
-                      [*common, "--mesh", "2,1,2", "--steps", "6", "--resume",
-                       "--save_every", "6"]]
+        train_runs = [[*common, "--mesh", "2,1,2", "--steps", "2", "--save_every", "2"],
+                      [*common, "--mesh", "2,1,2", "--steps", "3", "--resume",
+                       "--save_every", "3"]]
         t0 = time.perf_counter()
         launch.spawn(mesh_rank_cases, (tmp, cases, path, train_runs,
-                                       (dp["runs"], dp["trace_path"])), MESH_RANKS, "cuda")
+                                       (dp["runs"], dp["trace_path"]), sp["batches_path"]),
+                     MESH_RANKS, "cuda")
         res["ranks_wall_s"] = time.perf_counter() - t0
         ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        res["sp"] = sp_check(sp, [r["sp"] for r in ranks], tmp, smi)
+        res["sp"]["check_s"] = time.perf_counter() - t0
+        res["sp"]["wall_s"] = (res["sp"]["single_s"] + max(res["sp"]["ranks_sp_wall_s"])
+                               + res["sp"]["check_s"])
+        print(f"[sp] phase 22 {res['sp']['wall_s']:.1f} s (single-device references "
+              f"{res['sp']['single_s']:.1f} s, ranks {max(res['sp']['ranks_sp_wall_s']):.1f} s, "
+              f"checks {res['sp']['check_s']:.1f} s); card {smi}")
         dp["res"]["data_parallel_s"] = json.load(open(os.path.join(tmp, "dp_s.json")))
         res["dp"] = dp_check(dp, smi)
         # (c): the single-device trainer resumes the mesh run's step 6
@@ -5029,17 +5063,17 @@ def mesh_phase(corpus: dict, smi: str, dev) -> dict:
         t0 = time.perf_counter()
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
-            check(train_asr.main([*common, "--steps", "6", "--resume"]) == 0,
+            check(train_asr.main([*common, "--steps", "3", "--resume"]) == 0,
                   "single-device train_asr --resume of the mesh run")
-        check("resumed at step 6" in err.getvalue(), "the single trainer did not resume")
-        with np.load(os.path.join(out, "ckpt", "step_6.npz")) as z6:
-            check(int(z6["opt_state.count"]) == 6, "the resumed mesh run's count")
-            keys = [k for k in z6.files if k.startswith("params.")]
-            check(all(np.isfinite(z6[k]).all() for k in keys), "non-finite saved params")
+        check("resumed at step 3" in err.getvalue(), "the single trainer did not resume")
+        with np.load(os.path.join(out, "ckpt", "step_3.npz")) as z3:
+            check(int(z3["opt_state.count"]) == 3, "the resumed mesh run's count")
+            keys = [k for k in z3.files if k.startswith("params.")]
+            check(all(np.isfinite(z3[k]).all() for k in keys), "non-finite saved params")
         res["train_asr"] = {"mesh_run_s": ranks[0]["train_asr_0_s"],
                             "resume_run_s": ranks[0]["train_asr_1_s"],
                             "single_resume_s": time.perf_counter() - t0, "params": len(keys)}
-        print(f"[mesh] train_asr --mesh 2,1,2: 4 steps + --resume to 6, resumed by the "
+        print(f"[mesh] train_asr --mesh 2,1,2: 2 steps + --resume to 3, resumed by the "
               f"single trainer: {json.dumps(res['train_asr'])}; card {smi}")
     for name, kind, dims in cases:
         ref = single[kind]
@@ -5075,6 +5109,10 @@ def mesh_phase(corpus: dict, smi: str, dev) -> dict:
     dry = ranks[0]["dryrun"]
     check(dry["sharded"]["d_loss"] < 1e-4 and dry["sharded"]["d_grad_norm_rel"] < 1e-3,
           f"dryrun_multichip(4): {dry}")
+    check(dry["asr_ring"]["d_loss"] < 1e-4 and dry["asr_ring"]["d_grad_norm_rel"] < 1e-3
+          and abs(dry["ulysses_mean_nll"] - dry["ring_mean_nll"]) < 1e-4
+          and abs(dry["dp_sp_mean_nll"] - dry["ring_mean_nll"]) < 1e-4,
+          f"dryrun_multichip(4), sequence parallelism: {dry}")
     res["dryrun"] = dry
     res["wall_s"] = time.perf_counter() - t_phase
     print(f"[mesh] phase 21 {res['wall_s']:.1f} s; dryrun {json.dumps(res['dryrun'])}; "
@@ -5152,6 +5190,310 @@ def dp_check(dp: dict, smi: str) -> dict:
           f"eval_ppl --data_parallel 2: relative PPL gap {rel}")
     res["eval_ppl"] = {"recordings": len(ppl[1]), "max_rel_ppl_gap": rel}
     print(f"[mesh] data parallel {json.dumps(res)}; card {smi}")
+    return res
+
+
+# -- phase 22: sequence parallelism on the same four ranks --------------------
+
+SP_RANKS = 4                   # the sequence axis of phase 22: phase 21's ranks
+SP_STEPS = 2                   # ASR steps a scheme, each held to the single-device step
+SP_FRAMES = 8200               # ~164 s: the nearest frame count to 164 s that divides 4
+SP_LABELS = 2048               # the 164 s step's labels (phase 17's)
+SP_RTOL = 1e-5                 # loss, grad norm, PPL: relative to the single-device run
+SP_IMPLS = ("ring", "ulysses")
+
+
+def sp_samples(cfg, frames: int) -> int:
+    """The fewest samples whose conv frame count is ``frames``."""
+    n = frames * 320
+    while cfg.feat_extract_output_length(n) < frames:
+        n += 1
+    while cfg.feat_extract_output_length(n - 1) == frames:
+        n -= 1
+    return n
+
+
+def sp_asr_model():
+    """(config, seeded SpeechT5-base ASR model on the host): vocabulary 256,
+    dropout and SpecAugment at their defaults (a copy of one seeded draw a
+    process)."""
+    from loco_asr_tpu_torch.models.speecht5 import model as st5
+    from loco_asr_tpu_torch.models.speecht5.config import SpeechT5Config
+
+    cfg = SpeechT5Config(vocab_size=256)
+    if "sp_asr" not in _MESH_INITS:
+        _MESH_INITS["sp_asr"] = st5.asr_model_init(cfg, seed=22, device="cpu")
+    return cfg, copy.deepcopy(_MESH_INITS["sp_asr"])
+
+
+def sp_asr_steps(batches: list, dev, impl: str, mesh=None, capture: bool = False) -> dict:
+    """Phase 22 (a): ``SP_STEPS`` ASR steps (AdamW 1e-4, the feature encoder
+    frozen, dropout on) from the seeded init on ``batches`` (B = 1 at
+    ~164 s): ``impl`` "flash" on one device, or "ring" / "ulysses" over the
+    sequence axis of ``mesh``; per step the loss, grad norm, ms and bytes
+    through gloo, the first step's launches by kernel and head count (its
+    kernel inputs captured when ``capture``), and the peak memory."""
+    import torch
+
+    from loco_asr_tpu_torch.parallel import train
+
+    cfg, model = sp_asr_model()
+    model.to(dev)
+    tx = train.adamw(MESH_LR)
+    params = train.trainable_params(model, freeze_feature_encoder=True)
+    opt_state = tx.init(params)
+    step = train.make_asr_train_step(cfg, tx, attn_impl=impl, freeze_feature_encoder=True,
+                                     mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = {"loss": [], "grad_norm": [], "ms": [], "gloo_bytes": [], "captured": {}}
+    for i, host in enumerate(batches):
+        batch = (train.shard_batch(host, mesh) if mesh is not None
+                 else {k: torch.as_tensor(v, device=dev) for k, v in host.items()})
+        reset_all_launches()
+        grab = captured_launches() if capture and i == 0 else contextlib.nullcontext({})
+        with launches_by_heads() as heads, gloo_traffic() as traffic, grab as cases:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(model, opt_state, batch, gen)
+            loss = float(m["loss"])
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            rec["launches"], rec["by_head_dim"] = all_launches(), dict(heads)
+            rec["captured"] = cases
+        rec["loss"].append(loss)
+        rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["gloo_bytes"].append(traffic["bytes"])
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    del model, opt_state
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def gloo_traffic():
+    """Bytes this rank hands to ``torch.distributed`` while the block runs:
+    all-reduce and all-gather buffers, point-to-point sends (the ring's
+    shifts, gloo's all-to-all)."""
+    import torch.distributed as dist
+
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "batch_isend_irecv")}
+    tally = {"bytes": 0}
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def all_reduce(t, *a, **kw):
+        tally["bytes"] += nbytes(t)
+        return real["all_reduce"](t, *a, **kw)
+
+    def all_gather(parts, t, *a, **kw):
+        tally["bytes"] += nbytes(t)
+        return real["all_gather"](parts, t, *a, **kw)
+
+    def batch_isend_irecv(ops):
+        tally["bytes"] += sum(nbytes(op.tensor) for op in ops if op.op is dist.isend)
+        return real["batch_isend_irecv"](ops)
+
+    dist.all_reduce, dist.all_gather, dist.batch_isend_irecv = (all_reduce, all_gather,
+                                                                batch_isend_irecv)
+    try:
+        yield tally
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+
+
+def sp_text_argv(out: str) -> dict:
+    """Phase 22 (b)'s command lines: ``eval_ppl`` at gpt2 width on 16
+    recordings of the committed LM dev text (windows of 1,024), and one
+    ``train_lm`` step at [8, 1024]."""
+    text = os.path.join(ROOT, "exp", "loco", "lm_corpus", "dev.txt")
+    return {
+        "eval_ppl": ["-i", text, "--model", "gpt2", "--tokenizer", "char",
+                     "--context_type", "max_len", "--max_len", "1024", "--bsize", "8",
+                     "--limit_recordings", "16"],
+        "train_lm": ["--train_file", text, "--model", "gpt2", "--tokenizer", "char",
+                     "--seq_len", "1024", "--batch_size", "8", "--steps", "1", "--lr", "1e-4",
+                     "--warmup_steps", "1", "--log_every", "1", "--eval_every", "100",
+                     "--save_every", "100", "--out_dir", os.path.join(out, "lm_sp")]}
+
+
+def sp_single(tmp: str, smi: str, dev) -> dict:
+    """Phase 22, the single-device references, in this process before the
+    ranks start: (a)'s flash steps on the 164 s batches and (b)'s
+    ``eval_ppl`` and ``train_lm --attn_impl flash`` runs."""
+    import torch
+
+    from loco_asr_tpu_torch.pipelines import eval_ppl, train_lm
+
+    t0 = time.perf_counter()
+    cfg = sp_asr_model()[0]
+    n = sp_samples(cfg, SP_FRAMES)
+    rng = np.random.default_rng(22)
+    batches = [{"input_values": (rng.standard_normal((1, n)) * 0.1).astype(np.float32),
+                "attention_mask": np.ones((1, n), np.int32),
+                "labels": rng.integers(3, cfg.vocab_size, (1, SP_LABELS))}
+               for _ in range(SP_STEPS)]
+    path = os.path.join(tmp, "sp_batches.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(batches, f)
+    res = {"samples": n, "seconds": n / 16000, "frames": SP_FRAMES, "labels": SP_LABELS,
+           "batches_path": path}
+    # the flash step, and each scheme on a sequence axis of this one device:
+    # the same arithmetic as the four ranks' (ring: float32 matmul blocks;
+    # Ulysses: B1 and B3/B4 on all 12 heads), the decoder dense in both
+    for impl in ("flash",) + SP_IMPLS:
+        res[impl] = sp_asr_steps(batches, dev, impl)
+        res[impl].pop("captured")
+    argv = sp_text_argv(tmp)
+    out = os.path.join(tmp, "ppl_single")
+    check(eval_ppl.main([*argv["eval_ppl"], "-o", out]) == 0, "eval_ppl (single)")
+    res["ppl"] = json.load(open(os.path.join(out, "rec_id2ppl.json")))
+    lm_out = os.path.join(tmp, "lm_single")
+    lm_argv = [a if a != os.path.join(tmp, "lm_sp") else lm_out for a in argv["train_lm"]]
+    check(train_lm.main([*lm_argv, "--attn_impl", "flash"]) == 0, "train_lm (single)")
+    res["lm_loss"] = [json.loads(l)["loss"] for l in open(os.path.join(lm_out, "metrics.jsonl"))
+                      if '"loss"' in l][0]
+    torch.cuda.empty_cache()
+    res["single_s"] = time.perf_counter() - t0
+    return res
+
+
+def sp_rank_cases(out: str, batches_path: str) -> dict:
+    """Phase 22 on one of phase 21's ranks (the world of four is the
+    sequence axis): (a) the 164 s ASR steps under ring and Ulysses (rank
+    0 captures the Ulysses step's kernel inputs); (b) ``eval_ppl
+    --sequence_parallel 4`` under each scheme (rank 0 captures Ulysses'
+    B5 inputs) and ``train_lm --attn_impl ring --sp_devices 4``, each
+    launch counted on this rank.  Returns this rank's record."""
+    import torch
+    import torch.distributed as dist
+
+    from loco_asr_tpu_torch.parallel import mesh as meshlib
+    from loco_asr_tpu_torch.pipelines import eval_ppl, train_lm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    t_sp = time.perf_counter()
+    batches = pickle.load(open(batches_path, "rb"))
+    mesh = meshlib.make_sp_mesh(SP_RANKS, 1, device=dev)
+    rec, captured = {}, {}
+    for impl in SP_IMPLS:
+        r = sp_asr_steps(batches, dev, impl, mesh, capture=rank == 0 and impl == "ulysses")
+        captured.update(r.pop("captured"))
+        rec[impl] = r
+    argv = sp_text_argv(out)
+    for impl in SP_IMPLS:
+        reset_all_launches()
+        grab = (captured_launches() if rank == 0 and impl == "ulysses"
+                else contextlib.nullcontext({}))
+        with launches_by_heads() as heads, grab as cases:
+            t0 = time.perf_counter()
+            check(eval_ppl.main([*argv["eval_ppl"], "-o", os.path.join(out, f"ppl_{impl}"),
+                                 "--sequence_parallel", str(SP_RANKS), "--sp_impl", impl]) == 0,
+                  f"eval_ppl --sp_impl {impl}")
+            rec[f"eval_ppl_{impl}"] = {"s": time.perf_counter() - t0, "launches": all_launches(),
+                                       "by_head_dim": dict(heads)}
+        captured.update(cases)
+    reset_all_launches()
+    with gloo_traffic() as traffic:
+        t0 = time.perf_counter()
+        check(train_lm.main([*argv["train_lm"], "--attn_impl", "ring",
+                             "--sp_devices", str(SP_RANKS)]) == 0, "train_lm --attn_impl ring")
+        rec["train_lm"] = {"s": time.perf_counter() - t0, "launches": all_launches(),
+                           "gloo_bytes": traffic["bytes"]}
+    if rank == 0:
+        torch.save(captured, os.path.join(out, "sp_captured.pt"))
+    rec["wall_s"] = time.perf_counter() - t_sp
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sp_check(single: dict, ranks: list, out: str, smi: str) -> dict:
+    """Phase 22, held: every rank's losses and grad norms within
+    ``SP_RTOL`` of the same scheme's on one device (the same arithmetic),
+    and against the single-device flash step the losses within ``SP_RTOL``
+    and the grad norms within ``GNORM_RTOL`` (phases 8 and 17's bound
+    between the kernels' and the plain arithmetic: at 164 s flash and dense
+    differ by ~4e-5 in the grad norm, PR 13); the launches a rank and step
+    (ring: B2 only, the encoder's blocks are matmuls; Ulysses: 12 B1 and 12
+    B3/B4 at 3 heads, B2); the perplexities of both schemes and the ring
+    ``train_lm`` step's loss within ``SP_RTOL`` of the single-device runs,
+    Ulysses' B5 at 3 heads in ``eval_ppl``; then the captured kernel inputs
+    replayed against their plain versions."""
+    import torch
+
+    flash = single["flash"]
+    res = {"card": smi, "collectives": f"gloo, staged through host memory, {SP_RANKS} ranks "
+                                       "on one card",
+           "window": {k: single[k] for k in ("samples", "seconds", "frames", "labels")},
+           "single_s": single["single_s"]}
+    for impl in ("flash",) + SP_IMPLS:
+        res[f"single_{impl}"] = {k: single[impl][k] for k in (
+            "loss", "grad_norm", "ms", "max_memory_allocated", "launches", "by_head_dim")}
+    heads = MESH_HEADS // SP_RANKS
+    want = {"ring": {}, "ulysses": {f"B1:h{heads}:d64": 12, f"B3/B4:h{heads}:d64": 12}}
+    rel = lambda a, b: abs(a - b) / abs(b)
+    for impl in SP_IMPLS:
+        per = [r[impl] for r in ranks]
+        one = single[impl]
+        for r, rec in enumerate(per):
+            for i in range(SP_STEPS):
+                for key in ("loss", "grad_norm"):
+                    check(rel(rec[key][i], one[key][i]) <= SP_RTOL,
+                          f"{impl} rank {r} step {i}: {key} {rec[key][i]} vs one device's "
+                          f"{one[key][i]}")
+                check(rel(rec["loss"][i], flash["loss"][i]) <= SP_RTOL,
+                      f"{impl} rank {r} step {i}: loss {rec['loss'][i]} vs flash "
+                      f"{flash['loss'][i]}")
+                check(rel(rec["grad_norm"][i], flash["grad_norm"][i]) <= GNORM_RTOL,
+                      f"{impl} rank {r} step {i}: grad_norm {rec['grad_norm'][i]} vs flash "
+                      f"{flash['grad_norm'][i]}")
+            check(rec["by_head_dim"] == want[impl] and rec["launches"]["B2"] == 1,
+                  f"{impl} rank {r}: launches {rec['by_head_dim']} {rec['launches']}")
+        pairs = lambda ref, key: [rel(a, b) for rec in per for a, b in zip(rec[key], ref[key])]
+        res[impl] = {
+            "loss": per[0]["loss"], "grad_norm": per[0]["grad_norm"],
+            "d_loss_rel_one_device": max(pairs(one, "loss")),
+            "d_grad_norm_rel_one_device": max(pairs(one, "grad_norm")),
+            "d_loss_rel_flash": max(pairs(flash, "loss")),
+            "d_grad_norm_rel_flash": max(pairs(flash, "grad_norm")),
+            "step_ms_by_rank": [rec["ms"] for rec in per],
+            "max_memory_allocated_by_rank": [rec["max_memory_allocated"] for rec in per],
+            "gloo_bytes_by_rank_step": [rec["gloo_bytes"] for rec in per],
+            "launches_per_rank_step": per[0]["launches"], "by_head_dim": per[0]["by_head_dim"]}
+        print(f"[sp] {impl} train step at {single['seconds']:.3f} s ({SP_FRAMES} frames) "
+              f"{json.dumps(res[impl])}; one device {json.dumps(res[f'single_{impl}'])}; "
+              f"flash {json.dumps(res['single_flash'])} (card {smi}; gloo, staged through "
+              "host memory)")
+        ppl = json.load(open(os.path.join(out, f"ppl_{impl}", "rec_id2ppl.json")))
+        check(ppl.keys() == single["ppl"].keys(), f"eval_ppl {impl}: recordings")
+        gap = max(abs(ppl[k] - v) / v for k, v in single["ppl"].items())
+        check(gap <= SP_RTOL, f"eval_ppl --sp_impl {impl}: relative PPL gap {gap}")
+        ev = [r[f"eval_ppl_{impl}"] for r in ranks]
+        b5 = {f"B5:h{heads}:d64": ev[0]["by_head_dim"].get(f"B5:h{heads}:d64", 0)}
+        check(all(e["by_head_dim"] == (b5 if impl == "ulysses" else {}) for e in ev)
+              and (impl == "ring" or b5[f"B5:h{heads}:d64"] > 0),
+              f"eval_ppl {impl} launches {[e['by_head_dim'] for e in ev]}")
+        res[f"eval_ppl_{impl}"] = {"recordings": len(ppl), "max_rel_ppl_gap": gap,
+                                   "s_by_rank": [e["s"] for e in ev],
+                                   "by_head_dim": ev[0]["by_head_dim"]}
+    lm_loss = [json.loads(l)["loss"] for l in open(os.path.join(out, "lm_sp", "metrics.jsonl"))
+               if '"loss"' in l][0]
+    check(abs(lm_loss - single["lm_loss"]) <= SP_RTOL * abs(single["lm_loss"]),
+          f"train_lm --attn_impl ring: loss {lm_loss} vs flash {single['lm_loss']}")
+    res["train_lm_ring"] = {"loss": lm_loss, "flash_loss": single["lm_loss"],
+                            "s_by_rank": [r["train_lm"]["s"] for r in ranks],
+                            "gloo_bytes_by_rank": [r["train_lm"]["gloo_bytes"] for r in ranks]}
+    captured = torch.load(os.path.join(out, "sp_captured.pt"), weights_only=False)
+    res["held"] = hold_captured(captured)
+    res["ranks_sp_wall_s"] = [r["wall_s"] for r in ranks]
+    text = {k: res[k] for k in ("eval_ppl_ring", "eval_ppl_ulysses", "train_lm_ring")}
+    print(f"[sp] eval_ppl / train_lm {json.dumps(text)}; held {json.dumps(res['held'])}; "
+          f"card {smi}")
     return res
 
 
@@ -5960,16 +6302,30 @@ def main() -> int:
     orbax = orbax_phase(smi, dev)
 
     print(f"[time] phase 21 from {time.perf_counter() - t_run:.1f} s")
-    # -- 21. the (data, fsdp, tensor) mesh: four ranks on the card over gloo
+    # -- 21. the (data, fsdp, tensor) mesh: four ranks on the card over gloo;
+    # 22. sequence parallelism (ring, Ulysses) on the same ranks ---------
     tmp_corpus = tempfile.TemporaryDirectory()
     mesh = mesh_phase(relocate_corpus(tmp_corpus.name), smi, dev)
     tmp_corpus.cleanup()
     mesh_launches = {k: mesh[name]["by_head_dim"].get(f"{k}:h6:d64", 0)
                      for name, kinds in (("asr_2,1,2", ("B1", "B3/B4", "B5")),
                                          ("lm_1,2,2", ("B6",))) for k in kinds}
+    sp = mesh["sp"]
+    h_sp = MESH_HEADS // SP_RANKS
+    sp_launches = {k: sp["ulysses"]["by_head_dim"].get(f"{k}:h{h_sp}:d64", 0)
+                   for k in ("B1", "B3/B4")}
+    sp_launches["B5"] = sp["eval_ppl_ulysses"]["by_head_dim"].get(f"B5:h{h_sp}:d64", 0)
+    sp_launches["B2"] = sp["ulysses"]["launches_per_rank_step"]["B2"]
 
-    print(f"[time] phase 22 from {time.perf_counter() - t_run:.1f} s")
-    # -- 22. summary -------------------------------------------------------
+    def sp_held(kernel):
+        """Phase 22's captured launches of ``kernel``: the largest error
+        against the plain version, with the shapes."""
+        recs = [r for r in sp["held"] if r["kernel"] == kernel]
+        return dict(max_abs_err=max(r["max_abs_err"] for r in recs),
+                    cases=[r["case"] for r in recs]) if recs else None
+
+    print(f"[time] phase 23 from {time.perf_counter() - t_run:.1f} s")
+    # -- 23. summary -------------------------------------------------------
     def entry(name, source, replaces, tpu_kernel, kernel, case, n):
         main_rec = next(c for c in checks if c["kernel"] == kernel and c["case"] == case)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -6008,7 +6364,9 @@ def main() -> int:
                     train_asr_164_launches=long["train_asr_164"]["launches"]["B3/B4"],
                     adafactor_train_asr_launches=trainer["train_asr"]["launches"]["B3/B4"],
                     fisher_launches=fisher["launches"]["B3/B4"], head_dims=dims,
-                    mesh_rank_step_launches=mesh_launches["B3/B4"])
+                    mesh_rank_step_launches=mesh_launches["B3/B4"],
+                    sp_ulysses_rank_step_launches=sp_launches["B3/B4"],
+                    sp_ulysses_held=sp_held("B3/B4"))
 
     # B1's and B2's launches on the decode path: phase 12's six decode_asr
     # runs, phase 13's LoCo ASR stage and phase 15's decodes on the
@@ -6038,7 +6396,8 @@ def main() -> int:
              fisher_launches=fisher["launches"]["B1"],
              examples_launches=orbax["examples_launches"]["B1"],
              device_time_per_iter_ms=orbax["b1_timers"]["device_time_per_iter_ms"],
-             mesh_rank_step_launches=mesh_launches["B1"]),
+             mesh_rank_step_launches=mesh_launches["B1"],
+             sp_ulysses_rank_step_launches=sp_launches["B1"], sp_ulysses_held=sp_held("B1")),
         dict(entry("conv1_instance_norm_gelu", "loco_asr_tpu_torch/csrc/conv_frontend.cu",
                    "loco_asr_tpu/ops/pallas/conv_frontend.py:56",
                    "conv_frontend.py::_kernel", "B2", "main", launches["B2"]),
@@ -6047,7 +6406,8 @@ def main() -> int:
              loco_reference_launches=reference_launches["B2"],
              intent_launches=intent_launches["B2"], episode_launches=ep_launches["B2"],
              fisher_launches=fisher["launches"]["B2"],
-             examples_launches=orbax["examples_launches"]["B2"]),
+             examples_launches=orbax["examples_launches"]["B2"],
+             sp_rank_step_launches=sp_launches["B2"], sp_held=sp_held("B2")),
         dict(entry("flash_forward", "loco_asr_tpu_torch/csrc/flash_causal.cu",
                    "loco_asr_tpu/ops/pallas/flash_attention.py:40",
                    "flash_attention.py::_flash_kernel", "B5", "gpt2xl", lm_launches["B5"]),
@@ -6056,7 +6416,8 @@ def main() -> int:
                                      + trainer["gpt2_xl"]["steps"]["adamw"]["launches"]["B5"]
                                      + trainer["gpt2_xl"]["train_lm"]["launches"]["B5"]),
              orbax_eval_ppl_launches=orbax["eval_ppl_launches"]["B5"],
-             mesh_rank_step_launches=mesh_launches["B5"]),
+             mesh_rank_step_launches=mesh_launches["B5"],
+             sp_ulysses_eval_ppl_launches=sp_launches["B5"], sp_ulysses_held=sp_held("B5")),
         bwd_entry("flash_rel_backward (B3)", "loco_asr_tpu/ops/pallas/flash_attention.py:799",
                   "flash_attention.py::_rel_bwd_dq_kernel", "b3"),
         bwd_entry("flash_rel_backward (B4)", "loco_asr_tpu/ops/pallas/flash_attention.py:902",
@@ -6116,7 +6477,7 @@ def kernel_cases_main() -> int:
 
 
 def mesh_phase_main() -> int:
-    """``--mesh-phase``: the build, then phase 21 alone."""
+    """``--mesh-phase``: the build, then phases 21 and 22 alone."""
     import torch
 
     if not torch.cuda.is_available():

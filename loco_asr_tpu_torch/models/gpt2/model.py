@@ -15,7 +15,14 @@ the JAX ``scale``.  The lm head is tied to ``wte``.
 * ``"flash"``: without ``attention_mask``, kernel B6 reads q/k/v in place
   from the qkv projection (``flash_causal.flash_attention_nhd``; kernel B5
   when D != 64 or the head count is odd); with ``attention_mask``, kernel
-  B1 with per-row valid-key counts (right padding) and ``causal=True``.
+  B1 with per-row valid-key counts (right padding) and ``causal=True``;
+* ``"ring"`` / ``"ulysses"``: sequence parallelism over the group ``sp``
+  (``parallel/sp.py``): each rank runs the blocks on its block of the
+  window (its ``wpe`` rows from its global offset) and the scheme's causal
+  attention over the whole window; :func:`gpt2_forward` returns the
+  rank's block of the hidden states, :func:`score_tokens` the whole
+  window's NLLs (every rank keeps the window's ids, since a block's last
+  position predicts the next block's first token).
 
 Training mode (``deterministic=False`` with a ``generator``) applies the
 JAX model's dropout at its places: ``embd_pdrop`` after the token and
@@ -40,6 +47,7 @@ sequence-parallel ``ring`` / ``ulysses`` attention (ROADMAP A9).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Dict, Optional, Tuple, Union
@@ -55,7 +63,7 @@ from ...parallel import tensor_parallel
 from ...utils.device import resolve_device
 
 NEG_INF = -1e9   # additive mask of the dense path
-ATTN_IMPLS = ("dense", "flash")
+ATTN_IMPLS = ("dense", "flash", "ring", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,7 +193,7 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
                bias: Optional[torch.Tensor], attn_impl: str,
                kv_valid_len: Optional[torch.Tensor],
                kv_cache: Optional[Dict[str, torch.Tensor]], cache_index, write_mask,
-               generator: Optional[torch.Generator], training: bool) -> torch.Tensor:
+               generator: Optional[torch.Generator], training: bool, sp=None) -> torch.Tensor:
     b, t, _ = h.shape
     # under tensor parallelism this rank's heads: its c_attn block holds
     # their q | k | v columns (parallel.partition)
@@ -197,7 +205,10 @@ def _attention(blk: Block, cfg: GPT2Config, h: torch.Tensor,
                for x in blk.attn.c_attn(blk.attn.enter(h))
                .split(width, dim=-1))
     scale = cfg.head_dim ** -0.5
-    if kv_cache is None and attn_impl == "flash" and kv_valid_len is None:
+    if attn_impl in attention.SP_IMPLS:
+        attn = sp.attention(attn_impl, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=True, scale=scale, kv_valid_len=kv_valid_len).transpose(1, 2)
+    elif kv_cache is None and attn_impl == "flash" and kv_valid_len is None:
         # [B, T, H, D] views of the qkv projection, read in place
         attn = flash_causal.flash_attention_nhd(q, k, v, causal=True, scale=scale)
     elif kv_cache is None and attn_impl == "flash":
@@ -235,16 +246,19 @@ def _mlp(mlp: MLP, h: torch.Tensor, act, *, generator=None) -> torch.Tensor:
 
 
 def _block(cfg: GPT2Config, blk: Block, x: torch.Tensor, *, bias, attn_impl, kv_valid_len,
-           kv_cache, cache_index, write_mask, training, generator) -> torch.Tensor:
-    """One pre-LN block: attention, then the MLP, each a residual branch."""
+           kv_cache, cache_index, write_mask, training, generator, sp=None) -> torch.Tensor:
+    """One pre-LN block: attention, then the MLP, each a residual branch
+    (under sequence parallelism on this rank's block, whose dropout draws
+    are the whole window's)."""
     eps = cfg.layer_norm_epsilon
-    h = layers.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias, eps=eps)
-    x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len, kv_cache, cache_index,
-                       write_mask, generator, training)
-    h = layers.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias, eps=eps)
-    act = layers.ACTIVATIONS[cfg.activation]
-    h = remat_lib.big(_mlp, blk.mlp, h, act, generator=generator)
-    return x + layers.dropout(h, cfg.resid_pdrop, generator, training)
+    with sp.split() if sp is not None else contextlib.nullcontext():
+        h = layers.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias, eps=eps)
+        x = x + _attention(blk, cfg, h, bias, attn_impl, kv_valid_len, kv_cache, cache_index,
+                           write_mask, generator, training, sp)
+        h = layers.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias, eps=eps)
+        act = layers.ACTIVATIONS[cfg.activation]
+        h = remat_lib.big(_mlp, blk.mlp, h, act, generator=generator)
+        return x + layers.dropout(h, cfg.resid_pdrop, generator, training)
 
 
 def _causal_bias(past, t: int, k_len: int, dev) -> torch.Tensor:
@@ -263,7 +277,7 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
                  kv_write_mask: Optional[torch.Tensor] = None,
                  deterministic: bool = True, attn_impl: str = "dense",
                  generator: Optional[torch.Generator] = None,
-                 remat: remat_lib.RematSpec = None
+                 remat: remat_lib.RematSpec = None, sp=None
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Token ids [B, T] -> (hidden [B, T, D], ``kv_caches``), on the model's
     device.
@@ -290,21 +304,27 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
     ``ops/remat.py``) rematerializes each block's intermediates in the
     backward, with the same numbers; ignored in incremental mode, where
     there is no backward.
+
+    ``attn_impl`` "ring" / "ulysses" (full-sequence mode): ``input_ids``
+    is the whole window on every rank of the group ``sp``, whose length
+    must divide by its size; the hidden states returned are this rank's
+    block of it.
     """
     cfg = model.cfg
     if (kv_caches is None) != (cache_index is None):
         raise ValueError("kv_caches and cache_index go together")
-    if attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(f"attn_impl={attn_impl!r} (sequence parallel) "
-                                  "is not ported yet")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
+    seq = attn_impl in attention.SP_IMPLS and kv_caches is None
+    if seq and sp is None:
+        raise ValueError(f"attn_impl={attn_impl!r} needs a sequence-parallel group "
+                         "(sp=), got None")
     dev = model.wte.weight.device
     ids = torch.as_tensor(input_ids, device=dev).long()
     b, t = ids.shape
     if t > cfg.n_positions:
         raise ValueError(f"sequence length {t} exceeds n_positions {cfg.n_positions}")
-    if attn_impl == "flash" and not deterministic and cfg.attn_pdrop > 0.0:
+    if attn_impl != "dense" and not deterministic and cfg.attn_pdrop > 0.0:
         raise ValueError(
             f"attn_impl={attn_impl!r} drops attention-prob dropout "
             f"(attn_pdrop={cfg.attn_pdrop}); train with "
@@ -325,14 +345,19 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
         if past < 0 or past + t > cfg.n_positions:
             raise ValueError(f"positions {past}..{past + t - 1} exceed "
                              f"n_positions {cfg.n_positions}")
+        if seq:         # this rank's block of the window, at its global positions
+            ids = sp.block(ids, 1)
+            past = sp.offset(ids.shape[1])
+            t = ids.shape[1]
         pos_emb = tensor_parallel.weight(model.wpe)[past:past + t][None]
     training = not deterministic
-    x = layers.dropout(model.wte(ids) + pos_emb, cfg.embd_pdrop, generator, training)
+    with sp.split() if seq else contextlib.nullcontext():
+        x = layers.dropout(model.wte(ids) + pos_emb, cfg.embd_pdrop, generator, training)
     mask = None if attention_mask is None else torch.as_tensor(attention_mask, device=dev)
     bias = kv_valid_len = None
     if kv_caches is not None:
         bias = _causal_bias(past, t, kv_caches["0"]["k"].shape[2], dev)
-    elif attn_impl == "flash":
+    elif attn_impl != "dense":
         if mask is not None:
             kv_valid_len = mask.to(torch.int32).sum(-1, dtype=torch.int32)
     else:
@@ -342,7 +367,8 @@ def gpt2_forward(model: GPT2Model, input_ids: ArrayLike, *,
 
     block = functools.partial(_block, cfg, bias=bias, attn_impl=attn_impl,
                               kv_valid_len=kv_valid_len, cache_index=cache_index,
-                              write_mask=kv_write_mask, training=training)
+                              write_mask=kv_write_mask, training=training,
+                              sp=sp if seq else None)
     if kv_caches is None:
         block = remat_lib.apply(functools.partial(block, kv_cache=None), remat)
     for i, blk in enumerate(model.h):
@@ -368,9 +394,21 @@ def _chunk_nll(hid: torch.Tensor, wte_weight: torch.Tensor,
     return torch.logsumexp(logits, dim=-1) - picked
 
 
+def _shifted(hidden_len: int, targets: torch.Tensor, offset: Optional[int]):
+    """(positions of a [B, T | block, ...] tensor that predict a token, and
+    those tokens): every position but the last of a whole window, or those
+    of a block at ``offset`` of the window ``targets`` whose next token
+    exists."""
+    if offset is None:
+        return hidden_len - 1, targets[:, 1:]
+    n = max(0, min(hidden_len, targets.shape[1] - 1 - offset))
+    return n, targets[:, offset + 1:offset + 1 + n]
+
+
 def token_nll_from_hidden(wte_weight: torch.Tensor, hidden: torch.Tensor,
                           targets: torch.Tensor, *, chunk: int = 256,
-                          checkpoint_chunks: bool = False) -> torch.Tensor:
+                          checkpoint_chunks: bool = False,
+                          offset: Optional[int] = None) -> torch.Tensor:
     """Per-token NLL [B, T-1] straight from the final hidden states, the
     numbers of ``token_nll(logits, targets)`` without the [B, T, V] logits:
     the time axis is scored ``chunk`` steps at a time (logsumexp minus the
@@ -380,11 +418,16 @@ def token_nll_from_hidden(wte_weight: torch.Tensor, hidden: torch.Tensor,
     ``torch.utils.checkpoint`` (non-reentrant), which keeps only its
     inputs for the backward and recomputes the chunk's [B, chunk, V]
     logits there, as the JAX ``jax.checkpoint`` of the scan body does.
-    Without it autograd keeps every chunk's logits."""
-    b, t, _ = hidden.shape
-    n = t - 1
+    Without it autograd keeps every chunk's logits.
+
+    ``offset`` (sequence parallelism): ``hidden`` is the block of the
+    window ``targets`` that starts there; the NLLs of its positions that
+    have a next token ([B, block], one fewer in the window's last
+    block)."""
+    b = hidden.shape[0]
+    n, tgt = _shifted(hidden.shape[1], targets, offset)
     chunk = max(1, min(chunk, n))
-    hid, tgt = hidden[:, :-1], targets[:, 1:].to(hidden.device).long()
+    hid, tgt = hidden[:, :n], tgt.to(hidden.device).long()
     recompute = checkpoint_chunks and torch.is_grad_enabled()
     out = []
     for s in range(0, n, chunk):
@@ -397,15 +440,30 @@ def token_nll_from_hidden(wte_weight: torch.Tensor, hidden: torch.Tensor,
 def score_tokens(model: GPT2Model, input_ids: ArrayLike, *, chunk: int = 256,
                  **kw) -> torch.Tensor:
     """Forward + per-token NLL [B, T-1] through the chunked lm head (the
-    eval_ppl hot path; the numbers of ``token_nll(gpt2_logits(...))``)."""
+    eval_ppl hot path; the numbers of ``token_nll(gpt2_logits(...))``).
+    Under sequence parallelism (``attn_impl`` "ring" / "ulysses" with
+    ``sp``) each rank scores its block and every rank returns the whole
+    window's NLLs."""
     ids = torch.as_tensor(input_ids, device=model.wte.weight.device).long()
     hidden, _ = gpt2_forward(model, ids, **kw)
-    return token_nll_from_hidden(tensor_parallel.weight(model.wte), hidden, ids, chunk=chunk)
+    sp = kw.get("sp") if kw.get("attn_impl") in attention.SP_IMPLS else None
+    offset = None if sp is None else sp.offset(hidden.shape[1])
+    nll = token_nll_from_hidden(tensor_parallel.weight(model.wte), hidden, ids, chunk=chunk,
+                                offset=offset)
+    if sp is None:
+        return nll
+    pad = hidden.shape[1] - nll.shape[1]          # the window's last position
+    full = sp.gather(torch.nn.functional.pad(nll, (0, pad)), 1)
+    return full[:, :ids.shape[1] - 1]
 
 
-def token_nll(logits: torch.Tensor, targets: ArrayLike) -> torch.Tensor:
+def token_nll(logits: torch.Tensor, targets: ArrayLike,
+              offset: Optional[int] = None) -> torch.Tensor:
     """Per-token NLL [B, T-1] of ``targets`` under shifted ``logits`` (the
-    reference's CrossEntropyLoss(reduction='none'))."""
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    tgt = torch.as_tensor(targets, device=logits.device).long()[:, 1:]
+    reference's CrossEntropyLoss(reduction='none')); ``offset``: ``logits``
+    is the block of the window that starts there, as in
+    :func:`token_nll_from_hidden`."""
+    tgt = torch.as_tensor(targets, device=logits.device).long()
+    n, tgt = _shifted(logits.shape[1], tgt, offset)
+    logp = torch.log_softmax(logits[:, :n].float(), dim=-1)
     return -logp.gather(-1, tgt[..., None])[..., 0]

@@ -6,10 +6,16 @@ takes the place of ``lax.scan``.  In training mode with a generator, the
 dropouts of the JAX encoder apply: hidden dropout after the input LN and
 after each residual branch, activation dropout inside the FFN, and
 attention-prob dropout on the dense path.  ``remat`` runs the layers under
-a policy of ``ops/remat.py``, as the JAX encoder's scan body does."""
+a policy of ``ops/remat.py``, as the JAX encoder's scan body does.
+
+Under sequence parallelism (``attn_impl`` "ring" / "ulysses" with ``sp``,
+``parallel/sp.py``) the input LayerNorm and dropout run on the whole
+sequence, each rank's layers on its block of the frames, and the output is
+that block; the valid-key counts are the whole mask's."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -69,9 +75,9 @@ class Encoder(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None, *,
                 attn_impl: str = "flash",
                 generator: Optional[torch.Generator] = None,
-                remat: remat_lib.RematSpec = None) -> torch.Tensor:
+                remat: remat_lib.RematSpec = None, sp=None) -> torch.Tensor:
         return encoder(self, hidden, attention_mask, attn_impl=attn_impl,
-                       generator=generator, remat=remat)
+                       generator=generator, remat=remat, sp=sp)
 
 
 def feed_forward(ff: FeedForward, hidden: torch.Tensor, p: float, training: bool, *,
@@ -85,27 +91,37 @@ def feed_forward(ff: FeedForward, hidden: torch.Tensor, p: float, training: bool
 
 
 def _layer_body(cfg: SpeechT5Config, layer: EncoderLayer, hidden: torch.Tensor, *,
-                rel_pe, kv_valid_len, attn_impl, generator, training) -> torch.Tensor:
+                rel_pe, kv_valid_len, attn_impl, generator, training, sp=None) -> torch.Tensor:
+    """One post-LN layer (under sequence parallelism on this rank's block of
+    the frames, whose dropout draws are the whole sequence's)."""
     drop = lambda x, p: layers.dropout(x, p, generator, training)
-    attn_out = attention.multi_head_attention(
-        layer.attention, hidden, rel_pe=rel_pe, kv_valid_len=kv_valid_len,
-        dropout_p=cfg.attention_dropout, generator=generator, training=training,
-        attn_impl=attn_impl)
-    hidden = layers.layer_norm(hidden + drop(attn_out, cfg.hidden_dropout),
-                               layer.layer_norm.weight, layer.layer_norm.bias,
-                               eps=cfg.layer_norm_eps)
-    x = remat_lib.big(feed_forward, layer.feed_forward, hidden, cfg.activation_dropout,
-                      training, generator=generator)
-    x = drop(x, cfg.hidden_dropout)
-    return layers.layer_norm(hidden + x, layer.final_layer_norm.weight,
-                             layer.final_layer_norm.bias, eps=cfg.layer_norm_eps)
+    with sp.split() if sp is not None else contextlib.nullcontext():
+        attn_out = attention.multi_head_attention(
+            layer.attention, hidden, rel_pe=rel_pe, kv_valid_len=kv_valid_len,
+            dropout_p=cfg.attention_dropout, generator=generator, training=training,
+            attn_impl=attn_impl, sp=sp)
+        hidden = layers.layer_norm(hidden + drop(attn_out, cfg.hidden_dropout),
+                                   layer.layer_norm.weight, layer.layer_norm.bias,
+                                   eps=cfg.layer_norm_eps)
+        # a "lite" recompute runs in the backward, outside this context
+        ff = feed_forward if sp is None else functools.partial(_in_block, sp, feed_forward)
+        x = remat_lib.big(ff, layer.feed_forward, hidden, cfg.activation_dropout,
+                          training, generator=generator)
+        x = drop(x, cfg.hidden_dropout)
+        return layers.layer_norm(hidden + x, layer.final_layer_norm.weight,
+                                 layer.final_layer_norm.bias, eps=cfg.layer_norm_eps)
+
+
+def _in_block(sp, fn, *args, generator=None):
+    with sp.split():
+        return fn(*args, generator=generator)
 
 
 def encoder(module: Encoder, hidden: torch.Tensor,
             attention_mask: Optional[torch.Tensor] = None, *,
             attn_impl: str = "flash",
             generator: Optional[torch.Generator] = None,
-            remat: remat_lib.RematSpec = None) -> torch.Tensor:
+            remat: remat_lib.RematSpec = None, sp=None) -> torch.Tensor:
     """[B, T, H] prenet features -> [B, T, H] encodings.
 
     ``attention_mask`` is a right-padded [B, T] 1/0 mask at frame
@@ -114,7 +130,9 @@ def encoder(module: Encoder, hidden: torch.Tensor,
     ``generator`` when the module is in training mode.  ``remat`` ("none",
     "full", "dots", "hybrid", "lite" or a bool; ``ops/remat.py``)
     rematerializes each layer's intermediates in the backward, with the
-    same numbers.
+    same numbers.  "ring" / "ulysses" run sequence-parallel over ``sp``
+    (a ``parallel.sp.SequenceParallel``) and return this rank's
+    [B, T/n, H] block of the encodings; T must divide by n.
     """
     cfg = module.cfg
     training = module.training
@@ -126,9 +144,19 @@ def encoder(module: Encoder, hidden: torch.Tensor,
         kv_valid_len = None
     else:
         kv_valid_len = attention_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+    if attn_impl in attention.SP_IMPLS:
+        if sp is None:
+            raise ValueError(f"attn_impl={attn_impl!r} needs a sequence-parallel group "
+                             "(sp=), got None")
+        if kv_valid_len is None:
+            kv_valid_len = torch.full((hidden.shape[0],), hidden.shape[1], dtype=torch.int32,
+                                      device=hidden.device)
+        hidden = sp.block(hidden, 1)
+    else:
+        sp = None
     body = remat_lib.apply(functools.partial(
         _layer_body, cfg, rel_pe=rel_pe, kv_valid_len=kv_valid_len,
-        attn_impl=attn_impl, training=training), remat)
+        attn_impl=attn_impl, training=training, sp=sp), remat)
     for layer in module.layers:
         hidden = body(layer, hidden, generator=generator)
     return hidden

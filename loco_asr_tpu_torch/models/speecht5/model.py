@@ -52,18 +52,21 @@ class SpeechEncoder(nn.Module):
                 use_kernels: bool = True,
                 generator: Optional[torch.Generator] = None,
                 freeze_feature_encoder: bool = False,
-                remat: RematSpec = None, attn_impl: Optional[str] = None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                remat: RematSpec = None, attn_impl: Optional[str] = None,
+                sp=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``attn_impl`` None follows ``use_kernels`` (flash with them,
         dense without); ``use_kernels=False`` always runs the plain
-        versions (dense attention, B2's plain version)."""
+        versions (dense attention, B2's plain version).  "ring" /
+        "ulysses" run the prenet on the whole waveform and the encoder
+        layers on this rank's block of the frames (``sp``), and return that
+        block with the whole frame mask."""
         if attn_impl is None or not use_kernels:
             attn_impl = "flash" if use_kernels else "dense"
         hidden, mask = self.prenet(input_values, attention_mask,
                                    use_kernels=use_kernels, generator=generator,
                                    freeze_feature_encoder=freeze_feature_encoder)
         hidden = self.wrapped_encoder(hidden, mask, attn_impl=attn_impl,
-                                      generator=generator, remat=remat)
+                                      generator=generator, remat=remat, sp=sp)
         return hidden, mask
 
 
@@ -145,7 +148,7 @@ def asr_forward(model: AsrModel, input_values: torch.Tensor,
                 attn_impl: str = "dense",
                 generator: Optional[torch.Generator] = None,
                 freeze_feature_encoder: bool = False,
-                remat: RematSpec = None) -> torch.Tensor:
+                remat: RematSpec = None, sp=None) -> torch.Tensor:
     """Teacher-forced ASR forward -> vocabulary logits [B, L, V].
 
     ``attn_impl="flash"`` runs kernel B1 in the encoder and both decoder
@@ -154,12 +157,23 @@ def asr_forward(model: AsrModel, input_values: torch.Tensor,
     kernel B2's plain version when the feature encoder takes no gradient.
     Dropout and SpecAugment draw from ``generator`` in training mode.
     ``remat`` (``ops/remat.py``) applies to the encoder stack only, as in
-    the JAX model."""
+    the JAX model.  ``"ring"`` / ``"ulysses"`` run the encoder layers
+    sequence-parallel over ``sp`` (``parallel/sp.py``) and the decoder dense
+    on the gathered encodings, as JAX's; the prenet and the decoder run
+    whole on every rank of the group."""
     cfg = model.cfg
-    flash = attn_impl == "flash"
-    encoder_hidden, enc_mask = model.encoder(
-        input_values, attention_mask, use_kernels=flash, generator=generator,
-        freeze_feature_encoder=freeze_feature_encoder, remat=remat)
+    if attn_impl in ("ring", "ulysses"):
+        block, enc_mask = model.encoder(
+            input_values, attention_mask, use_kernels=True, generator=generator,
+            freeze_feature_encoder=freeze_feature_encoder, remat=remat,
+            attn_impl=attn_impl, sp=sp)
+        encoder_hidden = sp.gather(block, 1)
+        attn_impl = "dense"
+    else:
+        encoder_hidden, enc_mask = model.encoder(
+            input_values, attention_mask, use_kernels=attn_impl == "flash",
+            generator=generator, freeze_feature_encoder=freeze_feature_encoder,
+            remat=remat)
     dec_in = prenets.text_decoder_prenet(model.decoder.prenet, decoder_input_ids)
     dec_in = layers.dropout(dec_in, cfg.positional_dropout, generator, model.training)
     hidden = dec.decoder(model.decoder.wrapped_decoder, dec_in, encoder_hidden,
@@ -173,7 +187,7 @@ def asr_loss(model: AsrModel, input_values: torch.Tensor,
              attention_mask: torch.Tensor, labels: torch.Tensor, *,
              label_pad_id: int = -100, attn_impl: str = "dense",
              generator: Optional[torch.Generator] = None,
-             freeze_feature_encoder: bool = False, remat: RematSpec = None
+             freeze_feature_encoder: bool = False, remat: RematSpec = None, sp=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-mean cross-entropy with the HF shift-right convention (decoder
     inputs ``[decoder_start, labels[:-1]]``, ``label_pad_id`` -> pad) ->
@@ -185,7 +199,7 @@ def asr_loss(model: AsrModel, input_values: torch.Tensor,
     shifted = shifted.masked_fill(shifted == label_pad_id, cfg.pad_token_id)
     logits = asr_forward(model, input_values, shifted, attention_mask,
                          attn_impl=attn_impl, generator=generator,
-                         freeze_feature_encoder=freeze_feature_encoder, remat=remat)
+                         freeze_feature_encoder=freeze_feature_encoder, remat=remat, sp=sp)
     valid = labels != label_pad_id
     tgt = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -16,7 +16,10 @@ columns) -- :func:`rand`, :func:`batch_rows` and :func:`local_rows`
 (``parallel.tensor_parallel.global_rows`` gathers the rows a draw depends
 on).  So the sharded step
 draws the masks of the single-device step, and the ranks of one tensor
-group draw the same masks for the activations they share.  Without an
+group draw the same masks for the activations they share.  Under
+sequence parallelism a model marks the code that holds a block of the
+time axis (dimension 1) with :func:`sequence_block`, and a draw there
+is made over the whole sequence and sliced at the block.  Without an
 active context every function is the single-device one."""
 
 from __future__ import annotations
@@ -34,6 +37,19 @@ _warned_skip = set()
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("loco_activation_mesh",
                                                          default=None)
+_SEQUENCE: contextvars.ContextVar = contextvars.ContextVar("loco_sequence_block",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def sequence_block(n: int, index: int):
+    """Mark code run inside as holding block ``index`` of ``n`` equal
+    blocks along dimension 1 of its activations (inert for ``n`` 1)."""
+    token = _SEQUENCE.set((n, index) if n > 1 else None)
+    try:
+        yield
+    finally:
+        _SEQUENCE.reset(token)
 
 
 @contextlib.contextmanager
@@ -94,23 +110,30 @@ def batch_rows(local: int) -> Tuple[int, int]:
 def rand(shape, generator: Optional[torch.Generator], device,
          tensor_dim: Optional[int] = None) -> torch.Tensor:
     """``torch.rand(shape)`` of this rank's block: drawn at the global
-    shape (rows over the data axes, and ``tensor_dim`` over the tensor
-    axis when given), then sliced."""
-    active = _ACTIVE.get()
-    if active is None:
+    shape (rows over the data axes, ``tensor_dim`` over the tensor axis
+    when given, dimension 1 inside a :func:`sequence_block`), then
+    sliced."""
+    active, seq = _ACTIVE.get(), _SEQUENCE.get()
+    if active is None and seq is None:
         return torch.rand(shape, generator=generator, device=device)
-    mesh, axes = active
-    width, index = _width(mesh, axes)
     gshape = list(shape)
-    gshape[0] *= width
-    tp = mesh.shape.get("tensor", 1)
-    if tensor_dim is not None:
-        gshape[tensor_dim] *= tp
+    if active is not None:
+        mesh, axes = active
+        width, index = _width(mesh, axes)
+        gshape[0] *= width
+        tp = mesh.shape.get("tensor", 1)
+        if tensor_dim is not None:
+            gshape[tensor_dim] *= tp
+    if seq is not None:
+        gshape[1] *= seq[0]
     r = torch.rand(gshape, generator=generator, device=device)
-    r = r.narrow(0, index * shape[0], shape[0])
-    if tensor_dim is not None and tp > 1:
-        n = shape[tensor_dim]
-        r = r.narrow(tensor_dim, mesh.index("tensor") * n, n)
+    if active is not None:
+        r = r.narrow(0, index * shape[0], shape[0])
+        if tensor_dim is not None and tp > 1:
+            n = shape[tensor_dim]
+            r = r.narrow(tensor_dim, mesh.index("tensor") * n, n)
+    if seq is not None:
+        r = r.narrow(1, seq[1] * shape[1], shape[1])
     return r
 
 

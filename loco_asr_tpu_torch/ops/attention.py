@@ -16,7 +16,12 @@ the same function:
   kv_valid_len), B5 (``ops/cuda/flash_causal.py``) for the decoder's
   causal self-attention.  The kernels have no attention-prob dropout, so
   flash is taken only when that dropout is off, and never with a KV cache
-  or precomputed cross K/V (decoding), as in the JAX package.
+  or precomputed cross K/V (decoding), as in the JAX package;
+* ``"ring"`` / ``"ulysses"`` (sequence parallelism, self-attention only):
+  ``hidden`` is this rank's block of the sequence, and the scheme runs on
+  the q/k/v blocks with ``scale=1`` over the group that ``sp`` names
+  (``parallel/sp.py``; the JAX ``ring=`` tuple).  They carry no
+  attention-prob dropout either.
 
 Under the "lite" remat policy the dense path's score chain runs under a
 checkpoint of its own (``ops/remat.py``; JAX tags it ``big``).
@@ -34,7 +39,8 @@ from .cuda import flash_attention as flash
 
 NEG_INF = -1e9  # additive mask of the dense path
 
-ATTN_IMPLS = ("dense", "flash")
+ATTN_IMPLS = ("dense", "flash", "ring", "ulysses")
+SP_IMPLS = ("ring", "ulysses")
 
 
 class MultiHeadAttention(layers.ShardableBlock):
@@ -140,6 +146,7 @@ def multi_head_attention(
     training: bool = False,
     attn_impl: str = "flash",
     causal: bool = False,
+    sp=None,
 ) -> torch.Tensor:
     """Scaled dot-product MHA over [B, Tq, D] queries -> [B, Tq, D].
 
@@ -157,12 +164,23 @@ def multi_head_attention(
         the JAX package returns a new one.
       static_kv: precomputed cross-attention {"k", "v"} [B, H, Tk, hd].
       dropout_p / generator / training: attention-prob dropout (dense only).
-      attn_impl: "dense" or "flash".
+      attn_impl: "dense", "flash", "ring" or "ulysses".
       causal: marks the attention causal for the flash path (kernel B5); the
         dense path takes causality from ``attention_bias``.
+      sp: the sequence-parallel group of "ring" / "ulysses" (a
+        ``parallel.sp.SequenceParallel``); ``kv_valid_len`` then counts
+        global positions.
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
+    if attn_impl in SP_IMPLS:
+        if sp is None:
+            raise ValueError(f"attn_impl={attn_impl!r} needs a sequence-parallel group "
+                             "(sp=), got None")
+        if (key_value_states is not None or kv_cache is not None or static_kv is not None
+                or (training and dropout_p > 0.0)):
+            raise ValueError(f"attn_impl={attn_impl!r} runs self-attention without a "
+                             "cache or attention-prob dropout")
     tp = module.tp
     h = module.num_heads // tp
     head_dim = hidden.shape[-1] // module.num_heads
@@ -190,6 +208,11 @@ def multi_head_attention(
         _write_cache(kv_cache, k, v, cache_index)
         k, v = kv_cache["k"], kv_cache["v"]
 
+    if attn_impl in SP_IMPLS:
+        # q is pre-scaled, so the scheme runs with scale=1
+        out = sp.attention(attn_impl, q, k, v, causal=False, scale=1.0,
+                           kv_valid_len=kv_valid_len, rel_pe=rel_pe)
+        return module.out_proj(merge_heads(out))
     use_flash = (attn_impl == "flash" and kv_cache is None and static_kv is None
                  and (not training or dropout_p == 0.0))
     if use_flash:

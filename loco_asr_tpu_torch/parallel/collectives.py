@@ -12,14 +12,22 @@ Blocks are concatenated and split in the group's grid order.
   backward: all-gather forward <-> reduce-scatter backward; identity
   forward <-> all-reduce backward (the input of a column-parallel layer);
   all-reduce forward <-> identity backward (the output of a row-parallel
-  one).
+  one);
+* the sequence-parallel ones (``sp.py``): :func:`ring_shift` sends a
+  tensor to the next rank of the group and receives the previous rank's
+  (JAX's ``ppermute`` over ``(i, i+1 mod n)``; ``batch_isend_irecv``), and
+  :func:`all_to_all` splits one dimension over the group and concatenates
+  another (JAX's ``all_to_all(..., tiled=True)``); :func:`permute` and
+  :func:`exchange` are their autograd forms, whose backwards are the
+  reverse shift and the inverse all-to-all.
 
 Host staging: gloo takes CPU tensors, so on a gloo group (ranks sharing a
 card, ``launch.py``) every collective copies a CUDA tensor to host memory
 and the result back.  That is decided by the mesh's backend
 (``Mesh.staged``), here and nowhere else, not by catching an error.  gloo
-also lacks reduce-scatter (an all-reduce and this rank's block stand in)
-and bfloat16 sums (summed in float32, rounded once)."""
+also lacks reduce-scatter (an all-reduce and this rank's block stand in),
+all-to-all in some builds (point-to-point sends stand in) and bfloat16
+(moved as 2-byte floats, summed in float32 and rounded once)."""
 
 from __future__ import annotations
 
@@ -88,6 +96,55 @@ def block(t: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
     return t.narrow(dim, g.index * n, n).contiguous()
 
 
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as gloo moves it: a bfloat16 tensor viewed as 2-byte floats."""
+    return t.view(torch.float16) if t.dtype is torch.bfloat16 else t
+
+
+def ring_shift(t: torch.Tensor, g: AxisGroup, mesh: Mesh, step: int = 1) -> torch.Tensor:
+    """The tensor of the rank ``step`` places before this one in the group
+    (ranks send to ``(i + step) mod n``), as a new tensor."""
+    if g.group is None:
+        return t
+    n = g.size
+    src = _wire(_host(t, mesh).contiguous())
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, g.members[(g.index + step) % n], g.group),
+           dist.P2POp(dist.irecv, out, g.members[(g.index - step) % n], g.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if t.dtype is torch.bfloat16:
+        out = out.view(torch.bfloat16)
+    return out.to(t.device)
+
+
+def all_to_all(t: torch.Tensor, g: AxisGroup, mesh: Mesh, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """Block j of ``t`` along ``split_dim`` goes to the group's rank j; the
+    blocks received, in the group's order, are concatenated along
+    ``concat_dim``."""
+    if g.group is None:
+        return t
+    src = _wire(_host(t, mesh))
+    parts = [p.contiguous() for p in src.chunk(g.size, dim=split_dim)]
+    got = [torch.empty_like(p) for p in parts]
+    if mesh.backend == "nccl":
+        dist.all_to_all(got, parts, group=g.group)
+    else:   # gloo: one send and one receive a peer (not every build has alltoall)
+        got[g.index] = parts[g.index]
+        ops = []
+        for j, peer in enumerate(g.members):
+            if j != g.index:
+                ops += [dist.P2POp(dist.isend, parts[j], peer, g.group),
+                        dist.P2POp(dist.irecv, got[j], peer, g.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    out = torch.cat(got, dim=concat_dim)
+    if t.dtype is torch.bfloat16:
+        out = out.view(torch.bfloat16)
+    return out.to(t.device)
+
+
 def all_gather_objects(obj, g: AxisGroup) -> List:
     """The group's picklable objects, in grid order."""
     if g.group is None:
@@ -129,6 +186,41 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return dy, None, None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, g, mesh, step):
+        ctx.args = (g, mesh, step)
+        return ring_shift(t, g, mesh, step)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g, mesh, step = ctx.args
+        return ring_shift(dy, g, mesh, -step), None, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, g, mesh, split_dim, concat_dim):
+        ctx.args = (g, mesh, split_dim, concat_dim)
+        return all_to_all(t, g, mesh, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g, mesh, split_dim, concat_dim = ctx.args
+        return all_to_all(dy, g, mesh, concat_dim, split_dim), None, None, None, None
+
+
+def permute(t: torch.Tensor, g: AxisGroup, mesh: Mesh, step: int = 1) -> torch.Tensor:
+    """:func:`ring_shift`; the backward shifts the other way."""
+    return t if g.group is None else _Permute.apply(t, g, mesh, step)
+
+
+def exchange(t: torch.Tensor, g: AxisGroup, mesh: Mesh, split_dim: int,
+             concat_dim: int) -> torch.Tensor:
+    """:func:`all_to_all`; the backward is the inverse all-to-all."""
+    return t if g.group is None else _Exchange.apply(t, g, mesh, split_dim, concat_dim)
 
 
 def gather(t: torch.Tensor, g: AxisGroup, dim: int, mesh: Mesh) -> torch.Tensor:

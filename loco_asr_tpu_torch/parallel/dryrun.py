@@ -1,4 +1,4 @@
-"""Multi-rank dry run: the (data, fsdp, tensor) parts of the JAX
+"""Multi-rank dry run: the port of the JAX
 ``__graft_entry__.dryrun_multichip``.
 
 ``dryrun_multichip(n)`` builds the mesh that the JAX dry run derives from
@@ -8,7 +8,14 @@ one step from the seeded init, and holds it to the single-device step on
 the same weights, batch and generator (loss within 1e-4, ``grad_norm``
 within 1e-3 relative, the JAX dry run's bounds).  At ``n >= 8`` it does the
 same on the two-slice mesh (``make_multislice_mesh(2, 2, 2,
-num_slices=2)``).  Called outside a process group it starts ``n`` local
+num_slices=2)``).  Then its sequence-parallel sections (``sp.py``):
+GPT-2 scoring (the tiny config, 64 positions, 4 heads) under ring
+attention over 4 ranks (2 below 4), finite; Ulysses on the same window
+within 1e-4 of the ring's mean NLL; the ASR ring step over 2 ranks on a
+batch whose frame count divides 2 (JAX's loop over the length), here also
+held to the single-device flash step by the bounds above; and at ``n >=
+4`` DP x SP on a (2, 2) ("data", "sequence") mesh within 1e-4 of the
+ring.  Called outside a process group it starts ``n`` local
 ranks (``launch.py``) on the card (``cuda:{rank % cards}``), or over gloo
 on the CPU with ``device="cpu"``.  Returns rank 0's numbers.
 
@@ -48,21 +55,23 @@ def _setup(data: int, fsdp: int):
     return cfg, batch
 
 
-def _step(cfg, batch, device, mesh=None) -> Dict[str, float]:
+def _step(cfg, batch, device, mesh=None, attn_impl: str = "dense") -> Dict[str, float]:
     """One adamw(1e-4) step from the seed-0 init, dropout drawn from a
-    generator of seed 1; sharded on ``mesh`` when given."""
+    generator of seed 1; sharded on ``mesh`` when given (a
+    sequence-parallel mesh under ring / Ulysses: the model whole)."""
     from ..models.speecht5 import model as st5
     from . import train
 
     tx = train.adamw(1e-4)
-    if mesh is None:
+    if mesh is None or attn_impl in ("ring", "ulysses"):
         model = st5.asr_model_init(cfg, seed=0, device=device)
-        b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        b = ({k: torch.as_tensor(v, device=device) for k, v in batch.items()} if mesh is None
+             else train.shard_batch(batch, mesh))
     else:
         model = train.init_sharded(st5.asr_model_init, 0, cfg, mesh)
         b = train.shard_batch(batch, mesh)
     opt_state = tx.init(train.trainable_params(model), layout=train.layout(model))
-    step = train.make_asr_train_step(cfg, tx, mesh=mesh)
+    step = train.make_asr_train_step(cfg, tx, mesh=mesh, attn_impl=attn_impl)
     gen = torch.Generator(device=device).manual_seed(1)
     m = step(model, opt_state, b, gen)
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
@@ -106,10 +115,73 @@ def _run(n_devices: int, device: str, out: str) -> int:
                   f"loss={res['multislice']['loss']:.4f} | single-device parity "
                   f"d_loss={res['multislice']['d_loss']:.2e} "
                   f"d_grad_norm(rel)={res['multislice']['d_grad_norm_rel']:.2e}")
+    res.update(_sequence_parallel(n_devices, cfg, dev))
     if dist.get_rank() == 0:
         with open(out, "w") as f:
             json.dump(res, f)
     return 0
+
+
+def _sequence_parallel(n_devices: int, cfg, dev) -> Dict:
+    """The dry run's sequence-parallel sections on this rank (ranks past a
+    mesh's grid compute its numbers on their own)."""
+    import torch.distributed as dist
+
+    from ..models.gpt2 import model as g
+    from . import mesh as meshlib
+    from .sp import SequenceParallel
+
+    rank0 = dist.get_rank() == 0
+    rng = np.random.default_rng(1)
+    n_sp = 4 if n_devices >= 4 else min(2, n_devices)
+    gcfg = g.tiny_gpt2_config(n_positions=64, n_embd=32, n_head=4)
+    model = g.gpt2_init(gcfg, seed=2, device=dev)
+    ids = torch.as_tensor(rng.integers(0, gcfg.vocab_size, (2, 64)), device=dev)
+
+    def score(impl, data, seq):
+        mesh = meshlib.make_sp_mesh(seq, data, devices=range(n_devices), device=dev)
+        if mesh.coords is None:      # a rank past the grid scores the window alone
+            mesh = meshlib.make_sp_mesh(1, 1, devices=[dist.get_rank()], device=dev)
+        rows = ids.shape[0] // mesh.size("data")
+        mine = ids.narrow(0, mesh.index("data") * rows, rows)
+        with torch.inference_mode():
+            nll = g.score_tokens(model, mine, attn_impl=impl, sp=SequenceParallel(mesh))
+        from .collectives import all_gather
+        return all_gather(nll, mesh.groups["data"], 0, mesh)
+
+    res = {"sp_devices": n_sp}
+    ring = score("ring", 1, n_sp)
+    res["ring_mean_nll"] = float(ring.mean())
+    assert np.isfinite(res["ring_mean_nll"]), f"non-finite SP nll {res['ring_mean_nll']}"
+    res["ulysses_mean_nll"] = float(score("ulysses", 1, n_sp).mean())
+    assert abs(res["ulysses_mean_nll"] - res["ring_mean_nll"]) < 1e-4, res
+    if rank0:
+        print(f"dryrun_multichip({n_devices}): ring-SP GPT-2 scoring over {n_sp} devices "
+              f"mean_nll={res['ring_mean_nll']:.4f}; ulysses-SP "
+              f"mean_nll={res['ulysses_mean_nll']:.4f}")
+
+    # the ASR ring step over 2 ranks: SP shards encoder frames, so the
+    # frame count must divide the mesh
+    t_sp = 1600
+    while cfg.feat_extract_output_length(t_sp) % 2:
+        t_sp += 16
+    batch = {"input_values": (rng.standard_normal((2, t_sp)) * 0.1).astype(np.float32),
+             "attention_mask": np.ones((2, t_sp), np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 6))}
+    sp_mesh = meshlib.make_sp_mesh(min(2, n_devices), 1, devices=range(n_devices), device=dev)
+    res["asr_ring"] = _check("asr_ring", _step(cfg, batch, dev, sp_mesh, attn_impl="ring"),
+                             _step(cfg, batch, dev, attn_impl="flash"))
+    if rank0:
+        print(f"dryrun_multichip({n_devices}): ASR ring-SP train step over 2 devices "
+              f"loss={res['asr_ring']['loss']:.4f} | single-device parity "
+              f"d_loss={res['asr_ring']['d_loss']:.2e}")
+    if n_devices >= 4:
+        res["dp_sp_mean_nll"] = float(score("ring", 2, 2).mean())
+        assert abs(res["dp_sp_mean_nll"] - res["ring_mean_nll"]) < 1e-4, res
+        if rank0:
+            print(f"dryrun_multichip({n_devices}): DPxSP (2,2) ring scoring "
+                  f"mean_nll={res['dp_sp_mean_nll']:.4f}")
+    return res
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> Dict:
@@ -132,7 +204,8 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> Dict:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="Multi-rank dry run of the sharded ASR step")
+    p = argparse.ArgumentParser(description="Multi-rank dry run: the sharded ASR step and "
+                                "sequence parallelism")
     p.add_argument("n_devices", nargs="?", type=int, default=8)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)

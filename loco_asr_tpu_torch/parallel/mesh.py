@@ -15,6 +15,10 @@ Axis conventions (:class:`MeshAxes`), as in JAX:
   tensor  -- Megatron-style tensor parallelism inside attention and FFN
              blocks; innermost, so neighbouring ranks share a tensor group
 
+Sequence parallelism (``sp.py``) runs on a mesh of its own, ("data",
+"sequence") or ("sequence",) (:func:`make_sp_mesh`): each rank holds a
+block of every sequence, the parameters whole.
+
 ``devices`` arguments take ranks (ints) where JAX takes devices; by default
 the ranks of the initialised process group (one rank without one).  The
 grid is built without a process group, so the layout functions run
@@ -45,6 +49,7 @@ class MeshAxes:
 
 
 AXES = MeshAxes()
+SEQUENCE = "sequence"
 
 
 @dataclasses.dataclass
@@ -68,7 +73,9 @@ class Mesh:
     ``coords`` is this rank's position (None for a rank outside the grid
     or without a process group), ``groups[axis]`` the :class:`AxisGroup`
     along one axis, ``dp`` the one of data x fsdp, ``model`` the one of
-    fsdp x tensor, ``world`` every rank.  ``device`` is the
+    fsdp x tensor, ``replicas`` the one of data x fsdp x sequence (the
+    ranks whose gradients of a replicated parameter add up; ``dp`` on a
+    mesh without a sequence axis), ``world`` every rank.  ``device`` is the
     rank's device and ``staged`` whether its collectives copy CUDA tensors
     to host memory (a gloo group, ``collectives.py``)."""
 
@@ -90,6 +97,8 @@ class Mesh:
             self.groups[axis] = self._make_groups((axis,), initialised)
         self.dp = self._make_groups((AXES.data, AXES.fsdp), initialised)
         self.model = self._make_groups((AXES.fsdp, AXES.tensor), initialised)
+        self.replicas = (self._make_groups((AXES.data, AXES.fsdp, SEQUENCE), initialised)
+                         if SEQUENCE in self.shape else self.dp)
         ranks = tuple(world_ranks())
         self.world = AxisGroup(dist.group.WORLD if len(ranks) > 1 else None, ranks,
                                ranks.index(self.rank))
@@ -156,6 +165,24 @@ def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1,
         raise ValueError(f"mesh {dims} needs {want} devices, have {n}")
     grid = np.asarray(devs[:want]).reshape(dims)
     return Mesh(grid, AXES.names, device)
+
+
+def make_sp_mesh(sequence: int, data: int = -1, devices: Optional[Sequence[int]] = None,
+                 device: Optional[torch.device] = None) -> Mesh:
+    """A ("data", "sequence") mesh: ``sequence`` ranks share each sequence,
+    innermost, so a ring runs between neighbouring ranks; ``data`` -1
+    absorbs the ranks left over (a group of data-parallel rows each), as
+    JAX's -1 does."""
+    devs = list(devices if devices is not None else world_ranks())
+    if sequence < 1 or len(devs) % sequence:
+        raise ValueError(f"{len(devs)} devices not divisible by {sequence}")
+    if data == -1:
+        data = len(devs) // sequence
+    if data * sequence > len(devs):
+        raise ValueError(f"mesh {[data, sequence]} needs {data * sequence} devices, "
+                         f"have {len(devs)}")
+    grid = np.asarray(devs[:data * sequence]).reshape(data, sequence)
+    return Mesh(grid, (AXES.data, SEQUENCE), device)
 
 
 def slice_index(rank: int) -> int:

@@ -55,6 +55,19 @@ of ranks (``mesh.py``).
   single-device step's masks (``ops/act_sharding.py``).  :func:`pad_batch`,
   :func:`shard_batch`, :func:`init_sharded`, :func:`gather_opt_state` and
   :func:`load_opt_state` (``layout=``) complete it.
+* Sequence parallelism (``attn_impl`` "ring" / "ulysses" with ``mesh=`` a
+  ("data", "sequence") mesh, ``mesh.make_sp_mesh``): the parameters are
+  whole on every rank and the batch holds this rank's rows of the data
+  axis, whole sequences; the models run their sequence-sharded layers on
+  this rank's block (``sp.py``).  One rule counts every part once: each
+  rank's ``nll_sum``, ``ntokens`` and gradients are its share, and the step
+  sums the shares over data x sequence (``Mesh.replicas``) before the one
+  division.  GPT-2's share is its block's tokens; the ASR model's prenet,
+  decoder and loss run whole on every rank, so its share is the rank's
+  loss divided by the sequence size, and the gather of the encodings
+  reduce-scatters in the backward (each rank's encoder block gets the
+  whole gradient of its frames).  Dropout and SpecAugment draw the
+  single-device step's masks, at their global shapes.
 """
 
 from __future__ import annotations
@@ -78,7 +91,8 @@ from ..ops.remat import RematSpec
 from ..utils.checkpoint import flatten
 from . import collectives as coll
 from . import partition
-from .mesh import AXES, AxisGroup, Mesh, data_sharding
+from .mesh import AXES, SEQUENCE, AxisGroup, Mesh, data_sharding, make_sp_mesh
+from .sp import IMPLS as SP_IMPLS, SequenceParallel
 from . import tensor_parallel
 from .tensor_parallel import ParamShard
 
@@ -514,11 +528,16 @@ def sync_gradients(grads: Mapping[str, torch.Tensor], layout: Mapping[str, Param
     """Sum each gradient over the data-parallel ranks that hold the same
     shard, in place: over data for an fsdp-sharded parameter (whose fsdp sum
     the backward's reduce-scatter made), over data x fsdp for the others.
-    One all-reduce per group and dtype."""
+    One all-reduce per group and dtype.  ``layout`` None: a whole model's
+    gradients, summed over ``mesh.replicas`` (data x sequence)."""
     buckets: Dict[tuple, list] = {}
     for name, g in grads.items():
-        sharded = AXES.fsdp in partition.sharded_axes(layout.get(name))
-        group = mesh.groups[AXES.data] if sharded else mesh.dp
+        if layout is None:
+            group = mesh.replicas
+        elif AXES.fsdp in partition.sharded_axes(layout.get(name)):
+            group = mesh.groups[AXES.data]
+        else:
+            group = mesh.dp
         buckets.setdefault((id(group), g.dtype), (group, []))[1].append(g)
     for group, gs in buckets.values():
         if group.group is None:
@@ -578,7 +597,9 @@ def _sum_form_update(loss_parts, model, params: Dict[str, torch.Tensor],
     With a ``mesh``, ``batch`` is this rank's rows of the global batch:
     the sums and the gradients are summed over the data-parallel ranks
     before the division (:func:`sync_gradients`), and the norm is the
-    sharded model's (:func:`sharded_global_norm`)."""
+    sharded model's (:func:`sharded_global_norm`).  A sequence-parallel
+    step's (a mesh with a sequence axis, the model whole) are summed over
+    data x sequence."""
     for p in model.parameters():
         p.grad = None
     b = batch[keys[0]].shape[0]
@@ -595,8 +616,8 @@ def _sum_form_update(loss_parts, model, params: Dict[str, torch.Tensor],
     if mesh is not None:
         sums = coll.all_reduce(torch.stack([torch.as_tensor(nll_sum).double(),
                                             torch.as_tensor(ntok).double()]).to(mesh.device),
-                               mesh.dp, mesh)
-        nll_sum, ntok = sums[0].float(), sums[1].long()
+                               mesh.replicas, mesh)
+        nll_sum, ntok = sums[0].float(), sums[1].round().long()
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -605,11 +626,11 @@ def _sum_form_update(loss_parts, model, params: Dict[str, torch.Tensor],
     grads = {k: (p.grad.div_(n) if p.grad is not None else None)
              for k, p in params.items()}
     present = {k: g for k, g in grads.items() if g is not None}
-    if mesh is not None:
+    if mesh is not None and shards is not None:
         gnorm = sharded_global_norm(present, shards, mesh)
     else:
         gnorm = global_norm(list(present.values())) if present else torch.zeros(())
-    tx.update(params, grads, opt_state, norm=gnorm if mesh is not None else None,
+    tx.update(params, grads, opt_state, norm=gnorm if shards is not None else None,
               layout=shards)
     return {"loss": nll_sum / n, "grad_norm": gnorm,
             "nll_sum": nll_sum, "ntokens": torch.as_tensor(ntok)}
@@ -641,16 +662,23 @@ def make_asr_train_step(cfg: SpeechT5Config, tx: Optimizer, *,
     ``mesh``: the sharded step (the model from ``partition.shard_params``
     on that mesh, ``batch`` this rank's rows from :func:`shard_batch`, the
     same ``generator`` seed on every rank); None is the single-device
-    step."""
+    step.  ``attn_impl`` "ring" / "ulysses" needs a mesh with a sequence
+    axis (``mesh.make_sp_mesh``; the model whole on every rank): the
+    encoder layers run on this rank's block of the frames, whose count
+    must divide by the sequence size."""
     cfg = _zero_attention_dropout(cfg, "attention_dropout", attn_impl)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    sp = sequence_parallel(attn_impl, mesh)
 
     def loss_parts(model, batch, generator):
         _, aux = st5.asr_loss(model, batch["input_values"], batch["attention_mask"],
                               batch["labels"], attn_impl=attn_impl,
                               generator=generator,
-                              freeze_feature_encoder=freeze_feature_encoder, remat=remat)
+                              freeze_feature_encoder=freeze_feature_encoder, remat=remat,
+                              sp=sp)
+        if sp is not None:      # the loss is whole on every rank: this rank's share
+            return aux["nll_sum"] / sp.size, aux["ntokens"] / sp.size
         return aux["nll_sum"], aux["ntokens"]
 
     loss_parts = _with_compute_dtype(loss_parts, compute_dtype)
@@ -687,27 +715,31 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: Optimizer, *, attn_impl: str = "de
     logits never live in memory; ``"dense"`` materialises them.
     ``attn_impl="flash"`` runs B6 in every layer, forward, and its
     blockwise PyTorch backward.  ``remat`` and ``mesh`` as
-    :func:`make_asr_train_step`'s (``remat`` over the blocks)."""
+    :func:`make_asr_train_step`'s (``remat`` over the blocks); under
+    "ring" / "ulysses" each rank scores the tokens of its block of the
+    window."""
     cfg = _zero_attention_dropout(cfg, "attn_pdrop", attn_impl)
     if loss_impl not in ("dense", "chunked"):
         raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {loss_impl!r}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    sp = sequence_parallel(attn_impl, mesh)
 
     def loss_parts(model, batch, generator):
         ids = batch["ids"]
         kw = dict(deterministic=False, generator=generator, attn_impl=attn_impl,
-                  remat=remat)
+                  remat=remat, sp=sp)
         if loss_impl == "chunked":
             hidden, _ = g.gpt2_forward(model, ids, **kw)
+            offset = None if sp is None else sp.offset(hidden.shape[1])
             nll = g.token_nll_from_hidden(tensor_parallel.weight(model.wte), hidden, ids,
-                                          checkpoint_chunks=True)
+                                          checkpoint_chunks=True, offset=offset)
         else:
             logits, _ = g.gpt2_logits(model, ids, **kw)
-            nll = g.token_nll(logits, ids)
-        t = nll.shape[1]
-        valid = (torch.arange(t, device=nll.device)[None, :]
-                 < (batch["lengths"].to(nll.device) - 1)[:, None])
+            offset = None if sp is None else sp.offset(logits.shape[1])
+            nll = g.token_nll(logits, ids, offset=offset)
+        pos = torch.arange(nll.shape[1], device=nll.device)[None, :] + (offset or 0)
+        valid = pos < (batch["lengths"].to(nll.device) - 1)[:, None]
         return (nll * valid).sum(), valid.sum()
 
     loss_parts = _with_compute_dtype(loss_parts, compute_dtype)
@@ -721,6 +753,19 @@ def make_lm_train_step(cfg: g.GPT2Config, tx: Optimizer, *, attn_impl: str = "de
                                 generator, mesh)
 
     return step
+
+
+def sequence_parallel(attn_impl: str, mesh: Optional[Mesh]) -> Optional[SequenceParallel]:
+    """The sequence axis of ``mesh`` for "ring" / "ulysses" (else None);
+    without a mesh, a sequence axis of this one device."""
+    if attn_impl not in SP_IMPLS:
+        return None
+    if mesh is None:
+        return SequenceParallel(make_sp_mesh(1, 1, devices=[0]))
+    if SEQUENCE not in mesh.shape:
+        raise ValueError(f"attn_impl={attn_impl!r} needs a mesh with a {SEQUENCE!r} axis "
+                         f"(parallel.mesh.make_sp_mesh), got {mesh!r}")
+    return SequenceParallel(mesh)
 
 
 def pad_batch(batch: Mapping[str, Any], multiple: int,

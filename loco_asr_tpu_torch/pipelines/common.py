@@ -1,7 +1,7 @@
-"""Shared pipeline utilities: the trainers' refusal of flags not ported,
-batch rounding, SpeechT5 weight loading from every source the JAX package
-reads, the trainers' NaN rollback, and the row split of the data-parallel
-pipelines (:class:`DataParallel`)."""
+"""Shared pipeline utilities: the trainers' mesh (sharded or
+sequence-parallel), batch rounding, SpeechT5 weight loading from every
+source the JAX package reads, the trainers' NaN rollback, and the row
+split of the data-parallel pipelines (:class:`DataParallel`)."""
 
 from __future__ import annotations
 
@@ -16,21 +16,6 @@ from ..models.speecht5 import convert
 from ..models.speecht5 import model as st5
 from ..models.speecht5.config import SpeechT5Config
 from ..parallel import train
-
-
-def refuse_unported(args) -> None:
-    """SystemExit naming every flag of a trainer's ``args`` that this
-    package does not support yet: the sequence-parallel ones of the JAX
-    trainers (ring / Ulysses attention, ``--sp_devices``), which wait for
-    sequence parallelism (ROADMAP A9)."""
-    refused = {
-        f"--attn_impl {args.attn_impl}": args.attn_impl in ("ring", "ulysses"),
-        "--sp_devices": bool(getattr(args, "sp_devices", 0)),
-    }
-    bad = [k for k, v in refused.items() if v]
-    if bad:
-        raise SystemExit(f"not supported by this package yet: {', '.join(bad)} "
-                         "(sequence parallelism, ROADMAP A9)")
 
 
 def restore_own_run(ckpt) -> Optional[Dict]:
@@ -204,32 +189,84 @@ class NanRollback:
         return True
 
 
+def sp_layout(dims, sp_devices: int, world: Optional[int]) -> tuple:
+    """(data, sequence) of a trainer's sequence-parallel mesh from
+    ``--mesh`` ``dims`` and ``--sp_devices`` (0: every rank), over
+    ``world`` ranks (None: a plain command, which starts the ranks).
+
+    With an all-data ``--mesh`` of -1 (the default) the data axis absorbs
+    the ranks left over.  Otherwise the JAX trainer runs only where the
+    ``--mesh`` devices are the sequence axis's (its two meshes must hold
+    the same devices; it fails with "incompatible devices" elsewhere): so
+    must the ranks here, which then run (1, n), the parameters whole (the
+    same numbers as JAX's fsdp / tensor layout).  A combination JAX
+    fails on is refused, naming it."""
+    data = dims[0]
+    if data == -1 and all(d == 1 for d in dims[1:]):
+        if world is None:
+            return 1, max(sp_devices, 1)
+        n = sp_devices or world
+        if world % n:
+            raise SystemExit(f"--sp_devices {n} does not divide the {world} ranks")
+        return world // n, n
+    known = int(np.prod([d for d in dims if d > 0]))
+    ranks = known * (world // known if world is not None and -1 in dims else 1)
+    n = sp_devices or ranks
+    if ranks != n or (world is not None and world != n):
+        raise SystemExit(
+            f"--mesh {','.join(map(str, dims))} with sequence parallelism over {n} "
+            f"ranks: the mesh's {ranks} devices are not the sequence axis's {n} "
+            "(the JAX trainer fails on this combination: its two meshes must hold the "
+            "same devices)" + (f"; {world} ranks were started" if world not in (None, n)
+                               else ""))
+    return 1, n
+
+
 def trainer_mesh(args, module: str, argv):
-    """The trainers' ``--mesh``: (exit code, None, None) when this process
+    """The trainers' mesh: (exit code, None, None) when this process
     started the ranks (``parallel/launch.py``) and they have ended; else
     (None, mesh or None, device): a mesh when this process is a rank,
-    None for the single-device run."""
+    None for the single-device run.  ``--mesh`` gives a (data, fsdp,
+    tensor) mesh; under ``--attn_impl ring|ulysses`` a ("data",
+    "sequence") one (:func:`sp_layout`)."""
     from ..parallel import launch, mesh as meshlib
     from ..utils.device import resolve_device
 
     dims = [int(x) for x in args.mesh.split(",")]
-    rc = launch.run(module, argv, launch.ranks_wanted(dims), args.device)
+    sp = args.attn_impl in ("ring", "ulysses")
+    if sp:
+        world = int(os.environ["WORLD_SIZE"]) if "WORLD_SIZE" in os.environ else None
+        data, seq = sp_layout(dims, args.sp_devices, world)
+        wanted = data * seq
+    else:
+        wanted = launch.ranks_wanted(dims)
+    rc = launch.run(module, argv, wanted, args.device)
     if rc is not None:
         return rc, None, None
     if not launch.is_rank():
         return None, None, resolve_device(args.device)
     dev = launch.rank_device(args.device)
-    mesh = meshlib.make_mesh(*dims, device=dev)
+    if sp:
+        data, seq = sp_layout(dims, args.sp_devices, int(os.environ["WORLD_SIZE"]))
+        mesh = meshlib.make_sp_mesh(seq, data, device=dev)
+    else:
+        mesh = meshlib.make_mesh(*dims, device=dev)
     if mesh.rank == 0:
         print(f"mesh: {mesh.shape}", file=sys.stderr)
     return None, mesh, dev
 
 
+def whole(model, mesh) -> bool:
+    """Whether every rank holds the whole ``model`` (one device, or a
+    sequence-parallel mesh) rather than its shards."""
+    return mesh is None or train.layout(model) is None
+
+
 def save_step(ckpt, step: int, model, opt_state, tx, mesh, to_jax: Callable) -> None:
     """Save ``step``: on one device as before; on a mesh every rank gathers
-    the parameters and optimizer state whole and rank 0 writes them in the
-    single-device layout (``--resume``, ``eval_ppl`` and ``decode_asr`` read
-    it unchanged)."""
+    the parameters and optimizer state whole (a sequence-parallel rank has
+    them whole) and rank 0 writes them in the single-device layout
+    (``--resume``, ``eval_ppl`` and ``decode_asr`` read it unchanged)."""
     if mesh is None:
         ckpt.save(step, {"params": to_jax(model), "opt_state": opt_state,
                          "step": np.asarray(step)})
@@ -238,8 +275,11 @@ def save_step(ckpt, step: int, model, opt_state, tx, mesh, to_jax: Callable) -> 
 
     from ..parallel import partition
 
-    params = to_jax(model, state=partition.gather_params(model))
-    opt = train.gather_opt_state(opt_state, tx, train.layout(model))
+    if whole(model, mesh):
+        params, opt = to_jax(model), opt_state
+    else:
+        params = to_jax(model, state=partition.gather_params(model))
+        opt = train.gather_opt_state(opt_state, tx, train.layout(model))
     if mesh.rank == 0:
         ckpt.save(step, {"params": params, "opt_state": opt, "step": np.asarray(step)})
     dist.barrier()
@@ -247,8 +287,8 @@ def save_step(ckpt, step: int, model, opt_state, tx, mesh, to_jax: Callable) -> 
 
 def load_step(restored: Dict, model, opt_state, tx, mesh, state: Dict) -> None:
     """Put a restored step back: ``state`` its parameters as a whole port
-    state dict; on a mesh re-sharded (this rank's shards)."""
-    if mesh is None:
+    state dict; on a sharded mesh this rank's shards."""
+    if whole(model, mesh):
         model.load_state_dict(state, strict=True)
         train.load_opt_state(opt_state, restored["opt_state"])
         return

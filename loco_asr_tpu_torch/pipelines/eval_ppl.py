@@ -32,9 +32,16 @@ the lm head's logsumexp and the NLLs stay float32).  ``--data_parallel
 N`` splits each scoring batch's rows over N ranks (local ranks started by
 the command, or the ``torchrun`` group; ``common.DataParallel``), as the
 JAX pipeline shards them; rank 0 writes the artifacts.  As in JAX it is
-dense only (``--attn_impl flash`` with it is refused).  Not ported yet,
-and refused with an error: ``--sequence_parallel > 1`` (sequence
-parallelism, ROADMAP A9).
+dense only (``--attn_impl flash`` with it is refused).
+``--sequence_parallel N --sp_impl ring|ulysses`` splits each scoring
+window's time axis over N ranks (``parallel/sp.py``): each rank runs GPT-2
+on its block and the scheme's causal attention over the window, and every
+rank gets the window's NLLs.  As in JAX: a ``--max_len`` that N does not
+divide shrinks to the largest multiple (with a warning), a shorter window
+is right-padded with its last token to a multiple of N (inert under
+causality) and its NLLs cut back, a pad past ``n_positions`` is an error,
+and ``--attn_impl`` other than dense or ``--data_parallel`` with it are
+refused.
 """
 
 from __future__ import annotations
@@ -89,10 +96,12 @@ def parse_arguments(argv=None):
     p.add_argument("--data_parallel", type=int, default=1,
                    help="shard window batches over this many ranks")
     p.add_argument("--sequence_parallel", type=int, default=1,
-                   help="sequence parallelism: not ported yet (ROADMAP A9); "
-                        "values above 1 are refused")
+                   help="shard each scoring window's time axis over this many "
+                        "ranks (sequence parallelism, --sp_impl)")
     p.add_argument("--sp_impl", choices=["ring", "ulysses"], default="ring",
-                   help="kept for CLI parity (sequence parallelism is not ported)")
+                   help="sequence-parallel scheme: 'ring' rotates K/V blocks "
+                        "around the ranks; 'ulysses' scatters heads by "
+                        "all-to-all (needs n_head %% ranks == 0)")
     p.add_argument("--compute_dtype", choices=["same", "bfloat16"],
                    default="same",
                    help="bfloat16 casts the weights to bf16 (the attention "
@@ -180,18 +189,24 @@ def main(argv=None) -> int:
     if args.download_only:
         print("download_only is a no-op in the egress-free build", file=sys.stderr)
         return 0
-    if args.sequence_parallel > 1:
-        raise SystemExit("--sequence_parallel > 1 is not ported yet (sequence "
-                         "parallelism, ROADMAP A9)")
+    # the JAX pipeline's refusals, in its order
+    n_sp = args.sequence_parallel
+    if args.attn_impl != "dense" and n_sp > 1:
+        raise SystemExit("--attn_impl applies to single-chip scoring; "
+                         "--sequence_parallel already picks its own "
+                         "kernel via --sp_impl")
     if args.attn_impl != "dense" and args.data_parallel > 1:
-        # the JAX pipeline's refusal, kept: its Pallas kernel has no GSPMD
-        # partition rule
+        # its Pallas kernel has no GSPMD partition rule
         raise SystemExit("--attn_impl flash with --data_parallel is not "
                          "supported (the Pallas kernel has no GSPMD "
                          "partition rule); use dense for DP scoring")
+    if n_sp > 1 and args.data_parallel > 1:
+        raise SystemExit("--sequence_parallel and --data_parallel are "
+                         "mutually exclusive (use a 2-D mesh via train_lm "
+                         "for combined DP+SP training)")
     from ..parallel import launch
-    rc = launch.run("loco_asr_tpu_torch.pipelines.eval_ppl", argv, args.data_parallel,
-                    "cpu" if args.no_cuda else args.device)
+    rc = launch.run("loco_asr_tpu_torch.pipelines.eval_ppl", argv,
+                    max(args.data_parallel, n_sp), "cpu" if args.no_cuda else args.device)
     if rc is not None:
         return rc
 
@@ -242,14 +257,40 @@ def main(argv=None) -> int:
         logger.warning(f"--max_len {max_len} > n_positions "
                        f"{cfg.n_positions}; clamping")
         max_len = cfg.n_positions
+    sp = None
+    if n_sp > 1:
+        from ..parallel import mesh as meshlib
+        from ..parallel.sp import SequenceParallel
+
+        if max_len % n_sp:
+            new_len = (max_len // n_sp) * n_sp
+            logger.warning(
+                f"--max_len {max_len} not divisible by --sequence_parallel "
+                f"{n_sp}; using {new_len} (reference used the full "
+                f"n_positions window — PPLs differ slightly)")
+            max_len = new_len
+        sp = SequenceParallel(meshlib.make_sp_mesh(n_sp, 1, device=dev))
 
     def score(ids: np.ndarray) -> np.ndarray:
         """[B, T] ids -> [B, T-1] NLLs (chunked lm head; under
-        ``--data_parallel`` each rank scores its rows)."""
+        ``--data_parallel`` each rank scores its rows, under
+        ``--sequence_parallel`` its block of every window)."""
         (rows,) = dp.rows(np.array(ids, dtype=np.int64))
+        kw = dict(attn_impl=args.attn_impl)
+        t = rows.shape[1]
+        if sp is not None:
+            pad = (-t) % n_sp
+            if t + pad > cfg.n_positions:
+                raise SystemExit(
+                    f"sequence of {t} tokens pads to {t + pad} under "
+                    f"--sequence_parallel {n_sp}, past n_positions "
+                    f"{cfg.n_positions}; use a max_len divisible by "
+                    f"{n_sp} or fewer devices")
+            if pad:    # causal: trailing pad tokens are inert for the real NLLs
+                rows = np.concatenate([rows, np.repeat(rows[:, -1:], pad, 1)], 1)
+            kw = dict(attn_impl=args.sp_impl, sp=sp)
         with torch.inference_mode():
-            nll = g.score_tokens(model, torch.from_numpy(rows).to(dev),
-                                 attn_impl=args.attn_impl)
+            nll = g.score_tokens(model, torch.from_numpy(rows).to(dev), **kw)[:, :t - 1]
         return dp.gather(nll.cpu().numpy(), len(ids))
 
     nlls: List[List[float]] = []

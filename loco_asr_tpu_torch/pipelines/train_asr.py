@@ -53,8 +53,15 @@ single-device layout, and ``--resume`` re-shards them.  The dev
 evaluation decodes each rank's share of the dev batches on gathered
 weights, and rank 0 scores them (JAX decodes on the sharded weights).
 
-Refused with an error (not ported: sequence parallelism, ROADMAP A9):
-``--attn_impl ring|ulysses`` and ``--sp_devices``.
+``--attn_impl ring|ulysses`` trains sequence-parallel over ``--sp_devices``
+ranks (0: every rank), on a ("data", "sequence") mesh whose data axis
+absorbs the ranks left over (``common.sp_layout``; a ``--mesh`` other than
+-1,1,1 must name the sequence axis's ranks, as the JAX trainer needs):
+each rank holds the whole model, runs the prenet and the decoder on the
+whole window and the encoder layers on its block of the frames, whose
+count must divide by the sequence size (JAX's error otherwise: with the
+base conv stack a whole-second window has an odd count).  The dev
+evaluation splits the dev batches over every rank, as on a mesh.
 """
 
 from __future__ import annotations
@@ -129,9 +136,11 @@ def parse_args(argv=None):
     p.add_argument("--attn_impl", default="dense",
                    choices=["dense", "flash", "ring", "ulysses"],
                    help="'flash' runs the attention kernels (B1, B3/B4, B5); "
-                        "ring/ulysses (sequence parallelism) are not ported (refused)")
+                        "'ring' / 'ulysses' shard the encoder frames over "
+                        "--sp_devices ranks (sequence parallelism)")
     p.add_argument("--sp_devices", type=int, default=0,
-                   help="sequence parallelism: not ported (refused)")
+                   help="ranks of the sequence axis under --attn_impl ring|ulysses "
+                        "(0: every rank; the data axis takes the rest)")
     p.add_argument("--freeze_feature_encoder", action="store_true",
                    help="freeze the conv feature extractor (no gradients, "
                         "no updates; its first layer then runs kernel B2)")
@@ -175,7 +184,6 @@ def build_config(args):
 def main(argv=None) -> int:
     args = parse_args(argv)
     from . import common
-    common.refuse_unported(args)
     rc, mesh, dev = common.trainer_mesh(args, "loco_asr_tpu_torch.pipelines.train_asr",
                                         argv)
     if rc is not None:
@@ -196,7 +204,8 @@ def main(argv=None) -> int:
     from ..utils.wer import wer
 
     rank0 = mesh is None or mesh.rank == 0
-    home = dev if mesh is None else "cpu"     # a sharded model is built whole on the host
+    sharded = mesh is not None and args.attn_impl not in ("ring", "ulysses")
+    home = "cpu" if sharded else dev      # a sharded model is built whole on the host
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tokenizer = load_tokenizer(args.tokenizer)
@@ -210,7 +219,7 @@ def main(argv=None) -> int:
         model = st5.asr_model_init(cfg, seed=args.seed, device=home)
     if args.dtype == "bfloat16":
         cast_parameters(model, torch.bfloat16)
-    if mesh is not None:
+    if sharded:
         partition.shard_params(model, mesh)
     if args.optimizer == "adafactor":
         tx = train.adafactor(args.lr, args.weight_decay, args.warmup_steps, args.steps,
@@ -278,9 +287,9 @@ def main(argv=None) -> int:
     eval_model = [model]
 
     def evaluator():
-        """The model the evaluation runs: on a mesh a whole copy on this
-        rank's device, loaded with the gathered weights."""
-        if mesh is None:
+        """The model the evaluation runs: on a sharded mesh a whole copy on
+        this rank's device, loaded with the gathered weights."""
+        if not sharded:
             return model
         state = partition.gather_params(model)
         if eval_model[0] is model:

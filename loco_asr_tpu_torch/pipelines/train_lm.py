@@ -52,8 +52,12 @@ heads' [B, T, H/tp, D] views of its local qkv buffer.  Rank 0 writes
 layout; ``--resume`` re-shards them; the dev evaluation scores each rank's
 share of the dev chunks on gathered weights.
 
-Refused with an error (not ported: sequence parallelism, ROADMAP A9):
-``--attn_impl ring|ulysses`` and ``--sp_devices``.
+``--attn_impl ring|ulysses`` trains sequence-parallel over ``--sp_devices``
+ranks (0: every rank), on a ("data", "sequence") mesh whose data axis
+absorbs the ranks left over (``common.sp_layout``, as ``train_asr``):
+each rank holds the whole model and runs the blocks on its block of each
+chunk (``--seq_len`` must divide by the sequence size), scoring the
+tokens its positions predict; the dev evaluation is dense, as JAX's.
 """
 
 from __future__ import annotations
@@ -105,10 +109,12 @@ def parse_args(argv=None):
     p.add_argument("--attn_impl", default="dense",
                    choices=["dense", "flash", "ring", "ulysses"],
                    help="causal self-attention in training: 'flash' runs kernel "
-                        "B6 (B5) and its blockwise backward; ring/ulysses "
-                        "(sequence parallelism) are not ported (refused)")
+                        "B6 (B5) and its blockwise backward; 'ring' / 'ulysses' "
+                        "shard each chunk over --sp_devices ranks (sequence "
+                        "parallelism)")
     p.add_argument("--sp_devices", type=int, default=0,
-                   help="sequence parallelism: not ported (refused)")
+                   help="ranks of the sequence axis under --attn_impl ring|ulysses "
+                        "(0: every rank; the data axis takes the rest)")
     p.add_argument("--rng_impl", default="rbg",
                    choices=["threefry", "rbg", "unsafe_rbg"],
                    help="the JAX trainer's PRNG; no counterpart here (torch "
@@ -235,7 +241,6 @@ def build_config(args):
 def main(argv=None) -> int:
     args = parse_args(argv)
     from . import common
-    common.refuse_unported(args)
     rc, mesh, dev = common.trainer_mesh(args, "loco_asr_tpu_torch.pipelines.train_lm", argv)
     if rc is not None:
         return rc
@@ -251,6 +256,7 @@ def main(argv=None) -> int:
     from .eval_ppl import load_gpt2
 
     rank0 = mesh is None or mesh.rank == 0
+    sharded = mesh is not None and args.attn_impl not in ("ring", "ulysses")
     torch.backends.cuda.matmul.allow_tf32 = False
     tokenizer = load_tokenizer(args.tokenizer)
     cfg = build_config(args)
@@ -261,9 +267,9 @@ def main(argv=None) -> int:
     if args.seq_len > cfg.n_positions:
         raise SystemExit(f"--seq_len {args.seq_len} exceeds n_positions {cfg.n_positions}")
 
-    model = load_gpt2(args.checkpoint, cfg, dev if mesh is None else "cpu")
+    model = load_gpt2(args.checkpoint, cfg, "cpu" if sharded else dev)
     cfg = model.cfg
-    if mesh is not None:
+    if sharded:
         partition.shard_params(model, mesh)
     params = dict(model.named_parameters())
     if args.optimizer == "adafactor":
@@ -313,11 +319,13 @@ def main(argv=None) -> int:
         if dev_chunks is None:
             return
         net, share = model, (0, 1)
-        if mesh is not None:      # a whole copy with the gathered weights
+        if mesh is not None:
+            share = (mesh.world.index, mesh.world.size)
+        if sharded:               # a whole copy with the gathered weights
             state = partition.gather_params(model)
             if not eval_model:
                 eval_model.append(load_gpt2(None, cfg, "cpu").to(dev))
-            net, share = eval_model[0], (mesh.world.index, mesh.world.size)
+            net = eval_model[0]
             net.load_state_dict(state, strict=True)
         net.eval()
         total, count = dev_nll(net, dev_chunks, args.batch_size, args.seq_len,

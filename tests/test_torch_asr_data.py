@@ -5,12 +5,13 @@ equal the JAX ones for the same seed on the committed dev corpus; the JAX
 decoding gives JAX's tokens at ``tiny_config``; SpecAugment spans obey
 the count, min-mask and length rules; ``train_asr`` runs on the CPU with
 save and ``--resume``, runs its mixed-precision flags as JAX's CLI does,
-refuses what is not ported and needs a GPU unless ``--device cpu`` is
+runs its multi-device flags and needs a GPU unless ``--device cpu`` is
 given."""
 
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -297,10 +298,31 @@ def test_train_asr_precision_flags_match_jax(flag, dev_dir, tmp_path):
     ["--mesh", "2,1,1", "--sp_devices", "2"], ["--attn_impl", "ring"],
     ["--attn_impl", "ulysses"], ["--sp_devices", "2"],
     ["--mesh", "1,2,1", "--attn_impl", "ring"]])
-def test_unported_flags_are_refused(flags):
-    """Sequence parallelism waits for ROADMAP A9 (a mesh trains sharded)."""
-    with pytest.raises(SystemExit, match="not supported by this package yet"):
-        train_asr.main(["--train_dir", "unused", "--device", "cpu", *flags])
+def test_unported_flags_are_refused(flags, dev_dir, tmp_path):
+    """The multi-device and sequence-parallel flags run, one step at the
+    tiny size: ``--sp_devices`` alone is ignored, as JAX's trainer ignores
+    it (``--mesh 2,1,1``: two data-parallel ranks); ring or Ulysses alone
+    run over one rank.  Over two ranks (``--mesh 1,2,1`` names them) a
+    whole-second window's frame count (50 a second, less one) does not
+    divide, and the run fails with the JAX trainer's error at the same
+    flags (on the same first batch)."""
+    out = tmp_path / "run"
+    argv = _cli(dev_dir, out, tmp_path, "--steps", "1", "--save_every", "1", *flags)
+    if "--mesh" in flags and "--attn_impl" in flags:
+        from loco_asr_tpu.pipelines import train_asr as jtrain_asr
+
+        with pytest.raises(ValueError) as want:
+            jtrain_asr.main([*[a for a in argv if a != "--device" and a != "cpu"],
+                             "--sp_devices", "2", "--out_dir", str(tmp_path / "jax")])
+        assert re.fullmatch(r"sequence length \d*9 not divisible by mesh axis 2",
+                            str(want.value))
+        with pytest.raises(Exception, match=re.escape(str(want.value))):
+            train_asr.main(argv)
+        return
+    assert train_asr.main(argv) == 0
+    with np.load(out / "ckpt" / "step_1.npz") as z:
+        assert int(z["opt_state.count"]) == 1
+        assert all(np.isfinite(z[k]).all() for k in z.files if k.startswith("params."))
 
 
 def test_train_asr_needs_a_gpu_unless_asked_for_cpu(monkeypatch):

@@ -1,10 +1,10 @@
 """The port's command lines say what they support: no ``--help`` of a port
-CLI describes a flag as not ported unless it is one of the
-sequence-parallel flags that wait for ROADMAP A9 (``--mesh`` and
-``--data_parallel`` are ported), the trainers' refusal names that item and
-no JAX module (the GPU machine has no JAX), and the repository's root
-``conftest.py`` builds the JAX package's native library once, on the
-xdist controller only, going on when the build fails."""
+CLI describes a flag as not ported (the multi-device flags, ``--mesh``,
+``--data_parallel`` and the sequence-parallel ones, all run), the trainers'
+sequence-parallel layout follows the JAX trainers and its refusal names
+the combination and no JAX module (the GPU machine has no JAX), and the
+repository's root ``conftest.py`` builds the JAX package's native library
+once, on the xdist controller only, going on when the build fails."""
 
 import importlib
 import importlib.util
@@ -20,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIS = ["decode_asr", "eval_ppl", "extract_embeddings", "fisher_prep", "loco_experiment",
         "slurp_sweep", "sph_decode", "train_asr", "train_classifier", "train_lm",
         "transcribe_episodes"]
-# flags a --help may call not ported: sequence parallelism, ROADMAP A9
+# the sequence-parallel flags, ported
 SEQUENCE_PARALLEL = {"--sequence_parallel", "--sp_impl", "--sp_devices", "--attn_impl"}
 # the multi-device flags ported: (data, fsdp, tensor) mesh, data parallelism
 PORTED = {"train_asr": "--mesh", "train_lm": "--mesh", "decode_asr": "--data_parallel",
@@ -57,8 +57,7 @@ def test_help_calls_no_ported_flag_unported(name, capsys):
     text = _help(name, capsys)
     assert "--help" in text
     for flags, description in _option_blocks(text):
-        if UNPORTED.search(description):
-            assert flags & SEQUENCE_PARALLEL, (name, description)
+        assert not UNPORTED.search(description), (name, sorted(flags), description)
 
 
 def test_eval_ppl_help_describes_bfloat16_as_run(capsys):
@@ -67,7 +66,8 @@ def test_eval_ppl_help_describes_bfloat16_as_run(capsys):
     assert "bfloat16 is not ported" not in text
     assert "bf16 forms" in text
     blocks = list(_option_blocks(raw))
-    assert any("--sequence_parallel" in f and UNPORTED.search(d) for f, d in blocks)
+    for flag in sorted(SEQUENCE_PARALLEL - {"--sp_devices"}):
+        assert any(flag in f and not UNPORTED.search(d) for f, d in blocks), flag
     assert any("--data_parallel" in f and not UNPORTED.search(d) for f, d in blocks)
     assert any("--compute_dtype" in f and not UNPORTED.search(d) for f, d in blocks)
 
@@ -75,17 +75,30 @@ def test_eval_ppl_help_describes_bfloat16_as_run(capsys):
 @pytest.mark.parametrize("flags", [{"mesh": "2,1,1", "attn_impl": "ulysses"},
                                    {"attn_impl": "ring"}, {"sp_devices": 2}])
 def test_refusal_names_the_roadmap_item_and_no_jax_module(flags):
+    """The trainers' sequence-parallel layout (``common.sp_layout``): a
+    plain command's ``--mesh 2,1,1`` names the sequence axis's two ranks,
+    ``--attn_impl ring`` alone runs one, ``--sp_devices`` without ring or
+    Ulysses trains as before (JAX ignores it too); the same ``--mesh`` with
+    four sequence ranks, on which the JAX trainer fails, is refused with a
+    message that names the combination and no JAX module."""
     from loco_asr_tpu_torch.pipelines import common
 
-    args = types.SimpleNamespace(**{"mesh": "1,1,1", "attn_impl": "flash",
+    args = types.SimpleNamespace(**{"mesh": "-1,1,1", "attn_impl": "flash",
                                     "sp_devices": 0, **flags})
+    dims = [int(x) for x in args.mesh.split(",")]
+    if args.attn_impl in ("ring", "ulysses"):
+        want = {"2,1,1": (1, 2), "-1,1,1": (1, 1)}[args.mesh]
+        assert common.sp_layout(dims, args.sp_devices, None) == want
+        assert common.sp_layout(dims, args.sp_devices, want[1]) == want
+    else:
+        assert args.sp_devices == 2     # not sequence-parallel: the mesh alone decides
+    assert common.sp_layout([-1, 1, 1], 2, 8) == (4, 2)      # data absorbs the rest
     with pytest.raises(SystemExit) as e:
-        common.refuse_unported(args)
+        common.sp_layout([2, 1, 1], 4, None)
     message = str(e.value)
-    assert message.startswith("not supported by this package yet")
-    assert "sequence parallelism, ROADMAP A9" in message
+    assert message.startswith("--mesh 2,1,1 with sequence parallelism over 4 ranks")
+    assert "the JAX trainer fails on this combination" in message
     assert "loco_asr_tpu." not in message
-    assert "--mesh" not in message
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
@@ -98,9 +111,8 @@ def test_help_calls_the_ported_multi_device_flag_ported(name, capsys):
     blocks = list(_option_blocks(_help(name, capsys)))
     flag = PORTED[name]
     assert any(flag in f and not UNPORTED.search(d) for f, d in blocks), name
-    if flag == "--mesh":
-        common.refuse_unported(types.SimpleNamespace(mesh="2,2,2", attn_impl="flash",
-                                                     sp_devices=0))
+    if flag == "--mesh":        # a mesh whose ranks are the sequence axis's
+        assert common.sp_layout([2, 2, 2], 8, None) == (1, 8)
 
 
 def _root_conftest():

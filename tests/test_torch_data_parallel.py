@@ -17,7 +17,9 @@ pipelines at the same flags (on the virtual CPU devices of
   1e-5 relative, and ``eval_ppl`` under ``torch.distributed.run`` equal to
   the spawned run;
 * ``dryrun_multichip(4)`` and ``(8)`` on the CPU: each sharded step within
-  the JAX dry run's bounds of the single-device step, dropout on."""
+  the JAX dry run's bounds of the single-device step, dropout on, and its
+  sequence-parallel sections (ring and Ulysses scoring, DP x SP, the ASR
+  ring step) within theirs."""
 
 import dataclasses
 import json
@@ -275,6 +277,12 @@ def test_dryrun_multichip_on_the_cpu(n):
     assert tuple(res["mesh"]) == mesh_dims(n) == ((1, 2, 2) if n == 4 else (2, 2, 2))
     assert res["sharded"]["d_loss"] < 1e-4 and res["sharded"]["d_grad_norm_rel"] < 1e-3
     assert ("multislice" in res) == (n >= 8)
+    # the sequence-parallel sections: ring scoring over 4 ranks, Ulysses and
+    # DP x SP (2, 2) within 1e-4 of it, the ASR ring step over 2 ranks
+    assert res["sp_devices"] == 4 and np.isfinite(res["ring_mean_nll"])
+    for key in ("ulysses_mean_nll", "dp_sp_mean_nll"):
+        assert abs(res[key] - res["ring_mean_nll"]) < 1e-4, key
+    assert res["asr_ring"]["d_loss"] < 1e-4 and res["asr_ring"]["d_grad_norm_rel"] < 1e-3
 
 
 def test_dryrun_runs_on_the_card_unless_asked_for_the_cpu():

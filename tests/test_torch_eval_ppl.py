@@ -3,7 +3,7 @@ text with the same ``.npz`` weights (``--device cpu`` on the port's side)
 and must write the same recordings, PPLs within rtol 1e-5 and NLL lists
 within atol 1e-4, in every context type and under both attention paths;
 plus the committed trained LM on the committed dev corpus, ``--compute_dtype
-bfloat16`` against JAX's, and the options the port refuses."""
+bfloat16`` against JAX's, and the options the port refuses as JAX does."""
 
 import json
 import os
@@ -146,13 +146,28 @@ def test_eval_ppl_precision_flag_matches_jax(flag, fisher_text, tiny_npz, tmp_pa
                                    ["--sequence_parallel", "2"],
                                    ["--data_parallel", "2", "--sequence_parallel", "2"]])
 def test_unported_options_raise(flags, fisher_text, tmp_path):
-    """Sequence parallelism is not ported yet (ROADMAP A9); data parallel
-    scoring refuses flash, as the JAX pipeline does."""
-    match = ("--attn_impl flash with --data_parallel is not supported"
-             if "--attn_impl" in flags else "not ported yet")
-    with pytest.raises(SystemExit, match=match):
-        teval.main(["-i", fisher_text, "-o", str(tmp_path), "--model", "tiny",
-                    "--device", "cpu", *flags])
+    """What JAX refuses the port refuses with JAX's message: flash with
+    data parallel scoring, data with sequence parallelism.  Sequence
+    parallel scoring alone runs (two gloo ranks) and gives the
+    single-process perplexities within 1e-5 (against JAX's CLI in
+    ``tests/test_torch_sequence_parallel.py``)."""
+    argv = ["-i", fisher_text, "--model", "tiny", "--device", "cpu",
+            "--context_type", "indep", "--bsize", "16"]
+    refusals = {"--attn_impl": "--attn_impl flash with --data_parallel is not supported",
+                "--data_parallel": "--sequence_parallel and --data_parallel are mutually "
+                                   "exclusive"}
+    refused = next((m for f, m in refusals.items() if f in flags), None)
+    if refused is not None:
+        with pytest.raises(SystemExit, match=refused):
+            teval.main([*argv, "-o", str(tmp_path), *flags])
+        return
+    ppl = {}
+    for name, extra in (("one", []), ("sp", flags)):
+        assert teval.main([*argv, "-o", str(tmp_path / name), *extra]) == 0
+        ppl[name] = json.loads((tmp_path / name / "rec_id2ppl.json").read_text())
+    assert ppl["sp"].keys() == ppl["one"].keys()
+    for k, v in ppl["one"].items():
+        np.testing.assert_allclose(ppl["sp"][k], v, rtol=1e-5)
 
 
 def test_eval_ppl_needs_a_gpu_unless_asked_for_cpu(fisher_text, tmp_path, monkeypatch):

@@ -191,7 +191,8 @@ def test_forward_refusals():
         tg.gpt2_forward(model, ids, cache_index=0)
     with pytest.raises(ValueError, match="past the cache"):
         tg.gpt2_forward(model, ids, kv_caches=tg.init_kv_cache(model, 1, 4), cache_index=0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # JAX: "attn_impl='ring' needs ring=(mesh, axis_name[, batch_axis]), got None"
+    with pytest.raises(ValueError, match="attn_impl='ring' needs a sequence-parallel group"):
         tg.gpt2_forward(model, ids, attn_impl="ring")
 
 

@@ -409,10 +409,24 @@ def test_cli_precision_flags_match_jax(flag, tmp_path, monkeypatch):
                                    ["--attn_impl", "ring"], ["--attn_impl", "ulysses"],
                                    ["--sp_devices", "2"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
-    """Sequence parallelism waits for ROADMAP A9 (a mesh trains sharded)."""
-    with pytest.raises(SystemExit, match="not supported by this package yet: "
-                                         + flags[0].split()[0]):
-        _cli(tmp_path, "--steps", "1", *flags)
+    """The multi-device and sequence-parallel flags run, one step at the
+    tiny size: ``--sp_devices`` without ring or Ulysses is ignored, as the
+    JAX trainer ignores it (``--mesh 1,2,1``: two fsdp ranks); ring over
+    ``--mesh 2,1,1``'s two ranks, and ring or Ulysses alone over one, give
+    the loss of the flash step (both draw the same dropout masks and zero
+    the attention-prob dropout)."""
+    out = tmp_path / "run"
+    one = ["--steps", "1", "--save_every", "1", "--log_every", "1"]
+    assert _cli(out, *one, *flags) == 0
+    assert int(jckpt.load_npz(str(out / "ckpt" / "step_1.npz"))["opt_state"]["count"]) == 1
+
+    def loss(run):
+        with open(tmp_path / run / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f if "loss" in line][0]["loss"]
+
+    if "--attn_impl" in flags:
+        assert _cli(tmp_path / "flash", *one, "--attn_impl", "flash") == 0
+        np.testing.assert_allclose(loss("run"), loss("flash"), rtol=1e-5)
 
 
 def test_cli_needs_a_gpu_unless_asked_for_cpu(tmp_path, monkeypatch):
