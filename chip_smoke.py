@@ -29,7 +29,9 @@ Phases, in order (any failure raises and exits non-zero):
    band and mask-only, head dims 8-128), their block shapes, registers,
    spill, shared memory at L=160 and blocks per SM; the same for B2's two
    kernels and B7's warp kernels, with their static SASS counts where
-   cuobjdump exists;
+   cuobjdump exists, and for B5/B6's two wgmma kernels (bf16 at head dims
+   64 and 128: threads, K/V stages and shared memory from their launch
+   plan);
 3. kernel checks, after ~0.5 s of warm-up GEMMs: each kernel against its
    plain PyTorch version on the card at the main path's shapes (B1:
    [16, 12, 249, 64], L=160, mixed valid lengths, also causal, mask-only
@@ -115,7 +117,7 @@ Phases, in order (any failure raises and exits non-zero):
    copy synthesis ``hifigan(fused_log_mel(wav))`` of the 8 windows;
 12. ASR decoding (``SpeechT5Config(vocab_size=256)`` and GPT-2 at gpt2
    widths with vocabulary 256, fusion weight 0.3): (a) ``greedy_decode``
-   and ``beam_search`` (K = 5, 200 steps) of the 8 corpus windows, kernel
+   and ``beam_search`` (K = 5, 100 steps) of the 8 corpus windows, kernel
    path against plain path: launch counts of one encode + decode (12 B1,
    1 B2, none else), encoder outputs within 1e-3 (max) and 1e-4 (mean),
    greedy tokens equal, each beam row's step-by-step choices equal with
@@ -129,11 +131,11 @@ Phases, in order (any failure raises and exits non-zero):
    dev utterances at the pipeline's batch shapes ([8, 16000] and the
    batcher's admission buckets [4 | 2 | 1, 16000]), kernel path against
    plain path within 1e-3 (max) and 1e-4 (mean); ``decode_asr`` on the
-   dev corpus's first 2 batches (``--limit_batches 2``: 16 of its 120
+   dev corpus's first batch (``--limit_batches 1``: 8 of its 120
    utterances of <= 1 s, ``--max_seconds 1`` so that static batches and
    the batcher pad alike) with a seeded gpt2-width LM ``.npz``, in six
    modes (static greedy and beam 5, ``--continuous`` greedy and beam 5,
-   ``--continuous --conversation`` greedy and beam 5): 16 hyp.text lines,
+   ``--continuous --conversation`` greedy and beam 5): 8 hyp.text lines,
    a finite wer.json, continuous hypotheses equal to static ones, B1/B2
    launches, RTFx and wall seconds per mode;
 13. LM training and the LoCo experiment: (a) one ``make_lm_train_step``
@@ -193,7 +195,8 @@ Phases, in order (any failure raises and exits non-zero):
    error at most twice the plain version's); CUDA-event and device ms
    beside the f32 form's, the bound (bytes over 3.35 TB/s or products
    over 989 TFLOP/s in one pass), SDPA in bf16 (B5, B6, mask-only B1; its
-   backward beside B3/B4); (b) the full-width ASR step under
+   backward beside B3/B4); B5 and B6 run their wgmma form (``form``);
+   (b) the full-width ASR step under
    ``compute_dtype=bfloat16`` with the feature encoder frozen: kernels +
    flash against plain + dense in bf16 (loss rtol 1e-2), the inputs of
    each kernel form it launches (B1 with the band and mask-only, their
@@ -201,16 +204,18 @@ Phases, in order (any failure raises and exits non-zero):
    the same checks as (a), every parameter's gradient within twice the
    plain + dense bf16 step's distance from the f32 step's, against the
    f32 step under the JAX test's contract (loss rtol 5e-2, grad norm
-   15 %), launches by form (18 B1, 18 B3/B4, 6 B5, 1 B2, all bf16), 10
+   15 %), launches by form (18 B1, 18 B3/B4, 6 B5, 1 B2, all bf16; the
+   6 B5 all of the wgmma form), 10
    steps' median ms, audio-s/s, busy share, kernels a step, the slowest
    kernels, the casts' host ms and peak memory beside the f32 step's;
    ``train_asr --compute_dtype bfloat16 --freeze_feature_encoder
    --opt_mu_dtype bfloat16`` for 8 steps and ``--resume`` to 12, which
    reads back a bf16 first moment; (c) the gpt2-width LM step in bf16
-   (12 bf16 B6 launches, loss against f32 within 5e-2, ms and tokens/s),
-   ``train_lm`` with both flags for 10 steps, ``eval_ppl
+   (12 bf16 B6 launches, all of the wgmma form, each captured and held
+   as in (b); loss against f32 within 5e-2, ms and tokens/s),
+   ``train_lm`` with both flags for 10 steps (120 wgmma B6), ``eval_ppl
    --compute_dtype bfloat16`` on its checkpoint against f32 (mean |d NLL|
-   < 5e-2); (d) ``extract_embeddings -m audio --dtype bfloat16`` on 8
+   < 5e-2; every B6 of the wgmma form); (d) ``extract_embeddings -m audio --dtype bfloat16`` on 8
    seeded SLURP wavs, B1 and B2 in their f32 forms (JAX's promotion),
    the card against a CPU run of the same command (1e-3 max, 1e-4 mean);
 17. conversation-scale ASR training: (a) B3/B4 at head dims 8 ([8, 4,
@@ -264,8 +269,8 @@ Phases, in order (any failure raises and exits non-zero):
    tokens on the manifest episode held by the same rule to the per-episode
    ones (each of those segments fills the bucket, so both modes encode it
    alike; per episode pads to whole seconds, and the padding enters the
-   first conv layer's instance norm); ``--beam_size 4``; corpus RTFx and
-   WER.  B1's device time at
+   first conv layer's instance norm); ``--beam_size 4`` (to 100 tokens a
+   segment); corpus RTFx and WER.  B1's device time at
    the 120 s segment (B = 1), the busy share of one segment's decode, and
    dense attention's peak memory at 120, 240 and 480 s until it runs out;
    (b) one Adafactor step at SpeechT5-base width (dropout off, B = 2 x 4
@@ -376,7 +381,8 @@ Phases, in order (any failure raises and exits non-zero):
    ``mesh_rank_step_launches``; B1, B2, B3/B4 and B5 with phase 22's
    launches a rank and the error of their captured Ulysses launches;
    then the six bf16 forms with phase 16's launches, times and
-   bounds), then last
+   bounds: B5 and B6 as their wgmma form, its launches in the bf16 ASR
+   and LM steps), then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -443,7 +449,7 @@ TTS_TOL = 1e-3        # teacher-forced mels / stop logits, kernel vs plain path
 DECODE_SCORE_TOL = 1e-4   # beam scores, kernel path vs plain path (atol and rtol)
 DECODE_TIE_ATOL = 1e-3    # a beam near-tie: the parting candidates' gap and drift
 ENC_MAX_TOL, ENC_MEAN_TOL = 1e-3, 1e-4   # encoder output, kernel path vs plain path
-DECODE_ASR_BATCHES = 2    # phase 12's decode_asr runs: 16 of the dev corpus's 120 utterances
+DECODE_ASR_BATCHES = 1    # phase 12's decode_asr runs: 8 of the dev corpus's 120 utterances
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -642,6 +648,28 @@ def b34_build_records(build) -> list:
                                                                             kernel, d, bf16))
     return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelI" + ELEM
                                 + r"Lb([01])ELi(\d+)E", describe, 40)
+
+
+def b56_wgmma_build_records(build) -> list:
+    """The same for B5/B6's two wgmma kernels (bf16 at head dims 64 and
+    128), with the block's shared memory, threads and stages from the C
+    launch plan (``loco_flash_causal_wgmma_plan``)."""
+    import ctypes
+
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
+    lib = build.library()
+
+    def describe(m):
+        d = int(m.group(1))
+        plan = (ctypes.c_longlong * 30)()
+        lib.loco_flash_causal_wgmma_plan(fc.stride_buffer((0,) * 12), 1, 1, 1, 1, d, 1,
+                                         ctypes.addressof(plan))
+        return dict(kernel="B5/B6 wgmma", dtype="bfloat16", head_dim=d,
+                    shape=f"2 consumer warpgroups of 64 query rows + 1 producer, 128-key "
+                          f"tiles of {plan[2]} keys, {plan[29]} K/V stages, TMA",
+                    dynamic_smem_bytes=plan[27], threads=plan[28], blocks_per_sm=1)
+    return kernel_build_records(build, r"flash_causal_fwd_wgmma_kernelILi(\d+)E", describe, 2)
 
 
 def sass_counts(lib_path: str, patterns) -> dict:
@@ -1032,6 +1060,8 @@ def reset_all_launches() -> None:
                fc.flash_forward, fc.flash_backward, fc.flash_forward_nhd,
                logmel.fused_log_mel):
         fn.launches = 0
+    for fn in (fc.flash_forward, fc.flash_forward_nhd):
+        fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
 
 
 def save_gpt2_npz(model, path: str) -> None:
@@ -1179,7 +1209,7 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
     mask = (torch.arange(wav.shape[1], device=dev)[None, :]
             < torch.tensor(win_lengths, device=dev)[:, None]).to(torch.int32)
     audio_s = sum(win_lengths) / 16000.0
-    k, max_len = 5, 200
+    k, max_len = 5, 100   # steps: a depth cut for the script's time limit
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1316,8 +1346,8 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
                                    seed=1, device=dev), lm_path)
         # the corpus's utterances last <= 1 s: static batches and the
         # batcher's bucket both pad them to 1 s, so both encode the same input
-        # (the first 2 batches, 16 of the 120 utterances: the depth cut to
-        # keep the whole script inside its time limit)
+        # (the first batch, 8 of the 120 utterances: the depth cut to keep
+        # the whole script inside its time limit)
         common = ["--data_dir", corpus["dev"], "--lm_model", "gpt2", "--lm_checkpoint", lm_path,
                   "--max_decode_len", "64", "--batch_size", "8", "--max_seconds", "1",
                   "--limit_batches", str(DECODE_ASR_BATCHES)]
@@ -2434,6 +2464,12 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         fa.flash_rel_forward.launches = cf.conv1_instance_norm_gelu.launches = 0
         fa.flash_rel_backward.launches = fc.flash_forward.launches = 0
         fc.flash_backward.launches = fc.flash_forward_nhd.launches = 0
+        for fn in (fc.flash_forward, fc.flash_forward_nhd):
+            fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
+
+    def by_form():
+        return {"B5": dict(fc.flash_forward.launches_by_form),
+                "B6": dict(fc.flash_forward_nhd.launches_by_form)}
 
     recs = {}
 
@@ -2537,13 +2573,15 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
             x32 = x.float()
             f32 = [y.reshape(8, 1024, 12, 64) for y in x32.split(768, dim=-1)]
         ms = time_ms(lambda: fn(q, k, v, **kw))
-        rec.update(kernel=f"{kern} bf16", case="causal_1024", shape_bhtd=[8, h, 1024, 64], ms=ms,
-                   device_ms=kernel_device_ms(lambda: fn(q, k, v, **kw),
-                                              ("flash_causal_fwd",))["flash_causal_fwd"],
+        dev_ms = kernel_device_ms(lambda: fn(q, k, v, **kw), ("flash_causal_fwd_wgmma",))
+        rec.update(kernel=f"{kern} bf16", case="causal_1024", shape_bhtd=[8, h, 1024, 64],
+                   form=fc.kernel_form(bf, 64), ms=ms,
+                   device_ms=dev_ms["flash_causal_fwd_wgmma"],
                    f32_ms=time_ms(lambda: fn(*f32, **kw)),
                    plain_ms=time_ms(lambda: plain_fn(q, k, v, **kw), reps=5, inner=2),
                    library_ms=time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, scale=0.125)),
-                   bound_ms=bms, bound_by=by, bound_share=bms / ms, card=smi)
+                   bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   device_bound_share=bms / dev_ms["flash_causal_fwd_wgmma"], card=smi)
         recs[kern] = rec
         print(f"[bf16] {json.dumps(rec)}")
         del q, k, v, qs, ks, vs, f32
@@ -2599,6 +2637,8 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
             m = step(model, opt, b0)
             torch.cuda.synchronize()
             launched = counts()
+            if name == "flash_bf16":
+                asr_forms = by_form()
         grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
         runs[name] = (m["loss"].item(), m["grad_norm"].item(), launched, dict(tally), grads,
                       dict(cases))
@@ -2618,6 +2658,9 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
     want_forms = {"flash_rel_forward:bf16": n_enc + n_dec, "conv_frontend:bf16": 1,
                   "flash_rel_backward:bf16": n_enc + n_dec, "flash_forward:bf16": n_dec}
     check(f16 == want_forms, f"bf16 step forms {f16}, expected {want_forms}")
+    # every B5 launch at head dim 64 in bf16 takes the wgmma form
+    check(asr_forms["B5"] == {"mma_sync": 0, "wgmma": n_dec},
+          f"bf16 step B5 forms {asr_forms['B5']}")
     check(all(v == 0 for v in cd.values()), f"dense bf16 launched {cd}")
     # every captured form: B1 with the band (encoder) and mask-only over
     # Tq != Tk (the decoder's cross-attention), their B3/B4, B5 (decoder), B2
@@ -2713,13 +2756,22 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         tx = train.adamw(0.0, weight_decay=0.0)
         opt = tx.init(dict(lm.named_parameters()))
         step = train.make_lm_train_step(lcfg, tx, attn_impl="flash", compute_dtype=dtype)
-        with counted_forms() as tally:
+        with counted_forms() as tally, captured_launches() as cases:
             reset()
             m = step(lm, opt, batch)
             torch.cuda.synchronize()
-            lruns[name] = (m["loss"].item(), m["grad_norm"].item(), counts(), dict(tally))
-        del opt
-    (ll16, lg16, lc16, lf16), (ll32, lg32, _, _) = lruns["bf16"], lruns["f32"]
+            lruns[name] = (m["loss"].item(), m["grad_norm"].item(), counts(), dict(tally),
+                           by_form(), dict(cases))
+        del opt, cases
+    (ll16, lg16, lc16, lf16, lm_forms, lcap), (ll32, lg32, *_) = lruns["bf16"], lruns["f32"]
+    check(lm_forms["B6"] == {"mma_sync": 0, "wgmma": lcfg.n_layer},
+          f"bf16 LM step B6 forms {lm_forms['B6']}")
+    check(sorted(key[0] for key in lcap) == ["B6"], f"LM step captured {sorted(lcap)}")
+    lm_holds = hold_captured(lcap)
+    for r in lm_holds:
+        print(f"[bf16_step_kernels] {json.dumps(r)}")
+    step_holds += lm_holds
+    del lruns, lcap
     check(abs(ll16 - ll32) <= MP_LOSS_RTOL * abs(ll32), f"LM bf16 loss {ll16} vs f32 {ll32}")
     want = {"B1": 0, "B2": 0, "B3/B4": 0, "B5": 0, "B5_bwd": lcfg.n_layer, "B6": lcfg.n_layer}
     check(lc16 == want, f"bf16 LM step launched {lc16}, expected {want}")
@@ -2743,11 +2795,12 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
                            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         del opt, batches
     del lm
-    print(f"[bf16_lm] {json.dumps(dict(loss_bf16=ll16, loss_f32=ll32, grad_norm_bf16=lg16, grad_norm_f32=lg32, launches=lc16, forms=lf16, throughput=ltput, card=smi))}")
+    print(f"[bf16_lm] {json.dumps(dict(loss_bf16=ll16, loss_f32=ll32, grad_norm_bf16=lg16, grad_norm_f32=lg32, launches=lc16, forms=lf16, b6_by_form=lm_forms['B6'], throughput=ltput, card=smi))}")
     lm_corpus = os.path.join(ROOT, "exp", "loco", "lm_corpus")
     train_txt, dev_txt = (os.path.join(lm_corpus, f) for f in ("train.txt", "dev.txt"))
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = os.path.join(tmp, "lm")
+        before = fc.flash_forward_nhd.launches_by_form["wgmma"]
         with counted_forms() as tally:
             rc = train_lm.main(["--train_file", train_txt, "--dev_file", dev_txt,
                                 "--out_dir", out_dir, "--model", "gpt2", "--tokenizer", "char",
@@ -2758,12 +2811,15 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
                                 "--log_every", "5"])
         check(rc == 0 and tally.get("flash_forward_nhd:bf16", 0) == 10 * lcfg.n_layer,
               f"bf16 train_lm: rc {rc}, forms {tally}")
+        train_lm_wgmma = fc.flash_forward_nhd.launches_by_form["wgmma"] - before
+        check(train_lm_wgmma == 10 * lcfg.n_layer, f"bf16 train_lm: {train_lm_wgmma} wgmma")
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
             lm_metrics = [json.loads(line) for line in f]
         check(all(np.isfinite(r.get("loss", 0.0)) for r in lm_metrics), f"train_lm {lm_metrics}")
         nlls = {}
         for name, extra in (("f32", []), ("bf16", ["--compute_dtype", "bfloat16"])):
             ppl_dir = os.path.join(tmp, f"ppl_{name}")
+            reset()
             with counted_forms() as ptally:
                 rc = eval_ppl.main(["-i", dev_txt, "-o", ppl_dir, "--model", "gpt2",
                                     "--tokenizer", "char", "--checkpoint",
@@ -2771,13 +2827,15 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
                                     "--bsize", "8", "--attn_impl", "flash", *extra])
             check(rc == 0, f"eval_ppl {name} returned {rc}")
             with open(os.path.join(ppl_dir, "rec_id2nlls.pkl"), "rb") as f:
-                nlls[name] = (pickle.load(f), dict(ptally))
-        (n32, _), (n16, t16) = nlls["f32"], nlls["bf16"]
+                nlls[name] = (pickle.load(f), dict(ptally), by_form()["B6"])
+        (n32, _, _), (n16, t16, ppl_forms) = nlls["f32"], nlls["bf16"]
+        check(ppl_forms["mma_sync"] == 0 and ppl_forms["wgmma"] == t16.get(
+            "flash_forward_nhd:bf16", -1) > 0, f"eval_ppl bf16 B6 forms {ppl_forms}")
         check(list(n16) == list(n32), "eval_ppl bf16: recordings differ")
         d = np.concatenate([np.abs(np.asarray(n16[r]) - np.asarray(n32[r])) for r in n32])
         check(d.mean() < BF16_NLL_DELTA, f"eval_ppl bf16: mean |d NLL| {d.mean()}")
         check(set(t16) == {"flash_forward_nhd:bf16"}, f"eval_ppl bf16 forms {t16}")
-        print(f"[bf16_lm_pipelines] {json.dumps(dict(train_lm_forms=tally, train_lm=lm_metrics[-1], eval_ppl_mean_abs_dnll=float(d.mean()), eval_ppl_max_abs_dnll=float(d.max()), eval_ppl_forms=t16))}")
+        print(f"[bf16_lm_pipelines] {json.dumps(dict(train_lm_forms=tally, train_lm=lm_metrics[-1], eval_ppl_mean_abs_dnll=float(d.mean()), eval_ppl_max_abs_dnll=float(d.max()), eval_ppl_forms=t16, eval_ppl_b6_by_form=ppl_forms, train_lm_wgmma=train_lm_wgmma))}")
 
     # (d) extract_embeddings -m audio --dtype bfloat16: the weights cast, the
     # waveform not, so the encoder runs in f32 (B1 and B2 in their f32 forms)
@@ -2803,18 +2861,20 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         print(f"[bf16_extract] {json.dumps(dict(forms=forms, max_abs_diff=float(mx), mean_abs_diff=float(mean)))}")
     print(f"[bf16] phase wall s {time.perf_counter() - t_phase:.1f}")
     return dict(recs=recs, asr_step=step_launches, lm_step=lm_step_launches,
+                asr_forms=asr_forms, lm_forms=lm_forms, eval_ppl_forms=ppl_forms,
                 step_kernels=step_holds)
 
 
 # the bf16 forms in the kernels line: (name, phase 16's record, launches
-# key, source, the TPU kernel's line)
+# key, source, the TPU kernel's line); B5 and B6 at head dim 64 are the
+# wgmma form's, their launches its own count
 BF16_FORMS = (
     ("flash_rel_forward (bf16)", "B1", ("asr_step", "B1"), "flash_rel.cu", 518),
     ("conv1_instance_norm_gelu (bf16)", "B2", ("asr_step", "B2"), "conv_frontend.cu", None),
     ("flash_rel_backward (B3, bf16)", "B3", ("asr_step", "B3/B4"), "flash_rel_bwd.cu", 799),
     ("flash_rel_backward (B4, bf16)", "B4", ("asr_step", "B3/B4"), "flash_rel_bwd.cu", 902),
-    ("flash_forward (bf16)", "B5", ("asr_step", "B5"), "flash_causal.cu", 40),
-    ("flash_forward_nhd (bf16)", "B6", ("lm_step", "B6"), "flash_causal.cu", 168),
+    ("flash_forward (bf16, wgmma)", "B5", ("asr_forms", "B5"), "flash_causal.cu", 40),
+    ("flash_forward_nhd (bf16, wgmma)", "B6", ("lm_forms", "B6"), "flash_causal.cu", 168),
 )
 
 
@@ -2827,9 +2887,14 @@ def bf16_entries(mixed: dict) -> list:
         rec = mixed["recs"]["B3/B4" if kern in ("B3", "B4") else kern]
         replaces = ("loco_asr_tpu/ops/pallas/conv_frontend.py:56" if kern == "B2"
                     else f"loco_asr_tpu/ops/pallas/flash_attention.py:{line}")
+        launches = mixed[path][key]
+        if isinstance(launches, dict):   # by form
+            launches = launches[rec["form"]]
         e = dict(name=name, route="cuda", source=f"loco_asr_tpu_torch/csrc/{src}",
-                 replaces=replaces, launches=mixed[path][key], max_abs_err=rec["max_abs_err"],
+                 replaces=replaces, launches=launches, max_abs_err=rec["max_abs_err"],
                  ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=rec["library_ms"])
+        if kern in ("B5", "B6"):
+            e["form"] = rec["form"]
         step = [r["max_abs_err"] for r in mixed["step_kernels"]
                 if r["kernel"] == ("B3/B4" if kern in ("B3", "B4") else kern)]
         if step:   # the same form replayed on the ASR step's own inputs
@@ -3473,6 +3538,8 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
 
 EPISODE_SEED = 18
 EPISODE_BATCH_SECONDS = 120          # transcribe_episodes --batch_seconds
+BEAM_DECODE_LEN = 100                # the beam pass's --max_decode_len (a depth cut for
+                                     # time: it holds launches, segments and metrics)
 EPISODE_DECODE_LEN = 340             # --max_decode_len: gpt2's 1,024 positions less
                                      # the 348 reserved: every segment after the
                                      # first refreshes the context (400 before the
@@ -3764,8 +3831,9 @@ def episodes_phase(smi: str, dev) -> dict:
         cont_tie = greedy_agreement(cont["ids"]["ep_manifest"], per["ids"]["ep_manifest"],
                                     None, ktrace[:n_a], "continuous against per episode")
 
-        # --continuous --beam_size 4
-        beam = run("beam", ["--continuous", "--slots", "4", "--beam_size", "4"])
+        # --continuous --beam_size 4, to BEAM_DECODE_LEN tokens a segment
+        beam = run("beam", ["--continuous", "--slots", "4", "--beam_size", "4",
+                            "--max_decode_len", str(BEAM_DECODE_LEN)])
         check(beam["launches"]["B1"] == cfg.encoder_layers * beam["launches"]["B2"] > 0
               and all(beam["launches"][k] == 0 for k in ("B3/B4", "B5", "B5_bwd", "B6", "B7")),
               f"beam launched {beam['launches']}")
@@ -5544,7 +5612,8 @@ def main() -> int:
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print(f"[build] {line.strip()}")
     b34_recs = b34_build_records(_build)
-    for rec in b1_build_records(_build) + b34_recs + b2_b7_build_records(_build):
+    for rec in (b1_build_records(_build) + b34_recs + b2_b7_build_records(_build)
+                + b56_wgmma_build_records(_build)):
         print(f"[build] {rec['kernel']} {json.dumps(rec)}")
 
     # the committed ASR corpus, with its wav.scp pointing into this checkout

@@ -1,8 +1,9 @@
-// Helpers of the bf16 forms of the tensor-core flash kernels (csrc/flash_causal.cu,
-// csrc/flash_rel.cu, csrc/flash_rel_bwd.cu), beside the three-pass TF32
-// helpers of tf32_mma.cuh: one-pass bf16 products on mma.sync with f32
-// accumulation, operands loaded as packed pairs.  Included, never compiled
-// on its own.
+// Helpers of the bf16 forms of the mma.sync flash kernels: B1
+// (csrc/flash_rel.cu), B3/B4 (csrc/flash_rel_bwd.cu) and B5/B6's form 0
+// at head dims 8-32 (csrc/flash_causal.cu; bf16 at 64 and 128 runs its
+// wgmma form, hopper.cuh), beside the three-pass TF32 helpers of
+// tf32_mma.cuh: one-pass bf16 products on mma.sync with f32 accumulation,
+// operands loaded as packed pairs.  Included, never compiled on its own.
 //
 // The JAX kernels run their products on operands of the input dtype with
 // preferred_element_type=f32; a product of two bf16 values is exact in f32,

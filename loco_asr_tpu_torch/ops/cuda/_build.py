@@ -40,7 +40,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu: (argtypes, restype).  The
 # kernels of B1-B6 take their operand type as an int after their other
-# arguments (0: float32, 1: bfloat16; ``bf16_flag``).
+# arguments (0: float32, 1: bfloat16; ``bf16_flag``); B5/B6's takes its
+# form (``flash_causal.FORMS``) just before it.
 _SIGNATURES = {
     "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], _I),
     "loco_flash_rel_smem_bytes": ([_I] * 4, ctypes.c_size_t),
@@ -51,7 +52,8 @@ _SIGNATURES = {
     "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _I, _P], _I),
     "loco_conv_frontend_blocks_per_sm": ([_I, _I], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    "loco_flash_causal_wgmma_plan": ([_P] + [_I] * 6 + [_P], None),
     "loco_logmel": ([_P] * 6 + [_I] * 12 + [_F, _P], _I),
     "loco_logmel_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "loco_logmel_blocks_per_sm": ([_I, _I, _I], _I),

@@ -21,14 +21,21 @@ clamped at 1e-30.  Float32 operands run in float32: the JAX package's
 TPU only, and its CPU reference is f32.  Bfloat16 operands take the JAX
 kernels' bf16 path: products of bf16 operands accumulated in f32 (exact
 products, so the plain versions upcast to f32), ``p`` rounded to bf16
-before ``p v``, softmax and lse in f32, ``out`` in bf16.  The kernel has
-a form for each type; a bf16 CUDA tensor reaches the bf16 form or raises.
+before ``p v``, softmax and lse in f32, ``out`` in bf16.
+
+The source holds two kernels, the launch's *form* (:func:`kernel_form`):
+``"wgmma"``, Hopper's warpgroup products fed by TMA, for bf16 operands at
+head dims 64 and 128; ``"mma_sync"`` for every float32 call and bf16 at
+head dims 8-32.  A CUDA call launches its form or raises; it never tries
+the other one.  :func:`wgmma_plan` mirrors the wgmma form's host-side
+launch plan (blocks, key tiles, tensor maps).
 
 The kernel addresses q, k, v and out through (batch, head, time) strides
 with a contiguous head dim, so neither layout, nor the column slices of a
 fused qkv projection, is copied before the launch.  Both wrappers launch
 it for CUDA tensors and take their plain version only for CPU tensors;
-each counts its own launches in ``launches``.  The kernel is instantiated
+each counts its own launches in ``launches`` and, by form, in
+``launches_by_form``.  The kernel is instantiated
 at ``HEAD_DIMS``; any other head dim up to 128 runs the next one up on
 operands zero-padded in the head dim (a copy, exact), and above 128 the
 wrappers raise.
@@ -53,6 +60,66 @@ from . import _build
 NEG_INF = -1e30
 BLOCK_K = 512                      # key block of the blockwise backward
 HEAD_DIMS = (8, 16, 32, 64, 128)   # instantiated in csrc/flash_causal.cu
+FORMS = ("mma_sync", "wgmma")      # the C entry's form argument is the index
+WGMMA_HEAD_DIMS = (64, 128)        # the wgmma form's instantiations (bf16)
+WGMMA_BLOCK_Q = 128                # query rows a block: two warpgroups of 64
+WGMMA_BOX = 64                     # head-dim columns a TMA box (128 bytes)
+WGMMA_THREADS = 384                # two consumer warpgroups and a producer one
+WGMMA_STAGES = 4                   # of the K and V rings
+
+
+def kernel_form(dtype: torch.dtype, kd: int) -> str:
+    """The kernel a CUDA launch of operands of ``dtype`` at the instantiated
+    head dim ``kd`` takes: ``"wgmma"`` for bfloat16 at 64 and 128, else
+    ``"mma_sync"``."""
+    return "wgmma" if dtype is torch.bfloat16 and kd in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def wgmma_key_block(kd: int) -> int:
+    """Key rows a tile of the wgmma form at head dim ``kd``
+    (``wg::key_block``): 128 at 64, 64 at 128."""
+    return 128 if kd == 64 else 64
+
+
+def wgmma_key_tiles(q0: int, tq: int, tk: int, causal: bool, bk: int) -> int:
+    """Key tiles of ``bk`` rows the wgmma form reads for the query tile at
+    row ``q0``: every one below ``tk`` and, under ``causal``, none wholly
+    above the tile's last row below ``tq`` (``wg::key_tiles`` in
+    csrc/flash_causal.cu)."""
+    n = -(-tk // bk)
+    return min(n, (min(q0 + WGMMA_BLOCK_Q, tq) - 1) // bk + 1) if causal else n
+
+
+def wgmma_plan(b: int, h: int, tq: int, tk: int, kd: int, causal: bool,
+               strides) -> dict:
+    """The wgmma form's launch as the C code plans it (``wg_plan``), from
+    the dims and the element strides the wrapper passes (batch, head, time
+    of q, k, v, then out's, through which the kernel stores): the blocks
+    (one per (b*h, query tile), the longest tiles first), the key rows of a
+    tile, the key tiles of each query tile in launch order, the tiles
+    causal skips of one (b, h), and the tensor maps of q, k and v: dims
+    (D, T, H, B) innermost first, byte strides of T, H and B (an axis of
+    size 1 takes the packed stride: it is never stepped), the box; and a
+    block's threads, K/V stages and dynamic shared memory (Q, the rings,
+    the barriers, 1024 bytes to align the tiles)."""
+    bk = wgmma_key_block(kd)
+    nq = -(-tq // WGMMA_BLOCK_Q)
+    tiles = [wgmma_key_tiles(q0, tq, tk, causal, bk)
+             for q0 in range((nq - 1) * WGMMA_BLOCK_Q, -1, -WGMMA_BLOCK_Q)]
+    maps = {}
+    for i, (name, t) in enumerate((("q", tq), ("k", tk), ("v", tk))):
+        sb, sh, st = (2 * x for x in strides[3 * i:3 * i + 3])
+        s_t = 2 * kd if t == 1 else st
+        s_h = s_t * t if h == 1 else sh
+        s_b = s_h * h if b == 1 else sb
+        rows = bk if name in ("k", "v") else WGMMA_BLOCK_Q // 2
+        maps[name] = dict(dims=(kd, t, h, b), strides=(s_t, s_h, s_b),
+                          box=(WGMMA_BOX, rows, 1, 1))
+    smem = (WGMMA_BLOCK_Q * kd * 2 + 2 * WGMMA_STAGES * bk * kd * 2
+            + 8 * (1 + 4 * WGMMA_STAGES) + 1024)
+    return dict(blocks=b * h * nq, key_block=bk, tiles=tiles,
+                skipped=nq * -(-tk // bk) - sum(tiles), maps=maps,
+                threads=WGMMA_THREADS, stages=WGMMA_STAGES, smem_bytes=smem)
 
 
 def kernel_head_dim(d: int, what: str) -> int:
@@ -173,9 +240,10 @@ def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
     """Check the CUDA operands, allocate out (q's layout, and q's strides
     where q is dense: a transposed view of a contiguous tensor gets the
     same transposed layout, so merging its heads is a view) and lse, and
-    launch the kernel on the current stream.  A head dim without an
-    instantiation runs the next one up on padded copies
-    (:func:`kernel_head_dim`); out is then a view of the first D columns."""
+    launch the kernel's form (:func:`kernel_form`) on the current stream.
+    A head dim without an instantiation runs the next one up on padded
+    copies (:func:`kernel_head_dim`); out is then a view of the first D
+    columns."""
     dev = q.device
     _build.require_cuda(q, what)
     b, h, tq, tk, d = dims
@@ -190,7 +258,7 @@ def _launch(q, k, v, dims, *, t_axis: int, causal: bool, scale: float,
         _build.library().loco_flash_causal_fwd, dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         stride_buffer(tuple(strides)), b, h, tq, tk, kd, int(causal), float(scale),
-        _build.bf16_flag(q.dtype, what))
+        FORMS.index(kernel_form(q.dtype, kd)), _build.bf16_flag(q.dtype, what))
     _build.check(code, what)
     return out[..., :d], lse
 
@@ -261,7 +329,9 @@ def _forward(q, k, v, dims, t_axis, causal, scale, what):
         return plain(q, k, v, causal=causal, scale=scale)
     out, lse = _launch(q, k, v, dims, t_axis=t_axis, causal=causal, scale=scale,
                        what=what)
-    (flash_forward if t_axis == 2 else flash_forward_nhd).launches += 1
+    fn = flash_forward if t_axis == 2 else flash_forward_nhd
+    fn.launches += 1
+    fn.launches_by_form[kernel_form(q.dtype, kernel_head_dim(dims[4], what))] += 1
     return out, lse
 
 
@@ -306,6 +376,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_forward.launches = 0
+flash_forward.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 def flash_forward_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -316,6 +387,7 @@ def flash_forward_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_forward_nhd.launches = 0
+flash_forward_nhd.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 def flash_attention_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

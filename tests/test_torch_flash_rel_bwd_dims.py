@@ -155,7 +155,7 @@ class _PlainLibrary:
         return 0
 
     def loco_flash_causal_fwd(self, q, k, v, out, lse, strides, B, H, Tq, Tk, D, causal,
-                              scale, bf16, stream):
+                              scale, form, bf16, stream):
         self.head_dims.append(D)
         st = _strides(strides, 12)
         qv, kv, vv = (torch.from_numpy(_view(p, torch.float32, (B, H, T, D), st[3 * i:3 * i + 3])
