@@ -25,9 +25,11 @@ Phases, in order (any failure raises and exits non-zero):
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
 2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
-   for B1's twenty kernels and B3's and B4's forty (f32 and bf16, rel
-   band and mask-only, head dims 8-128), their block shapes, registers,
-   spill, shared memory at L=160 and blocks per SM; the same for B2's two
+   for B1's twenty kernels and B3's and B4's forty (thirty-two mma.sync:
+   f32 at head dims 8-128 and bf16 at 8-32; eight wgmma: bf16 at 64 and
+   128; rel band and mask-only), their block shapes, registers, spill,
+   shared memory at L=160 and blocks per SM (the wgmma ones with their
+   threads and stages from their launch plan); the same for B2's two
    kernels and B7's warp kernels, with their static SASS counts where
    cuobjdump exists, and for B5/B6's two wgmma kernels (bf16 at head dims
    64 and 128: threads, K/V stages and shared memory from their launch
@@ -125,8 +127,8 @@ Phases, in order (any failure raises and exits non-zero):
    candidates within 1e-3 of each other in the plain path's own scores,
    and within 1e-3 between the paths; listed), ms per step and RTFx, the
    device time by kernel group and busy share of 25-step greedy and beam
-   windows, peak memory; one dev recording of 10 utterances through
-   ``ConversationContext`` (``max_positions=256``, two or more
+   windows, peak memory; the first 6 of one dev recording's 10 utterances
+   through ``ConversationContext`` (``max_positions=256``, two or more
    refreshes), kernel path against plain path; (b) ``encode_speech`` of
    dev utterances at the pipeline's batch shapes ([8, 16000] and the
    batcher's admission buckets [4 | 2 | 1, 16000]), kernel path against
@@ -188,14 +190,16 @@ Phases, in order (any failure raises and exits non-zero):
    cases' shapes (B1 ``rel_padded``, mask-only and ``vl0`` at
    [16, 12, 249, 64], L = 160, and mask-only at the decoder's
    cross-attention [8, 12, 160, 64] over 500 keys; B3/B4 at
-   [8, 12, 500, 64]; B5 at [8, 25, 1024, 64] causal; B6 on
+   [8, 12, 500, 64], L = 160, and mask-only at [8, 12, 160, 64] over 500
+   keys; B5 at [8, 25, 1024, 64] causal; B6 on
    [8, 1024, 12, 64] qkv views; B2 at [16, 80000]) against its plain
    version (max |d| <= 2^-7 max |plain|, lse within 1e-3) and, with it,
    against a float64 evaluation on the same bf16 inputs (the kernel's
    error at most twice the plain version's); CUDA-event and device ms
    beside the f32 form's, the bound (bytes over 3.35 TB/s or products
    over 989 TFLOP/s in one pass), SDPA in bf16 (B5, B6, mask-only B1; its
-   backward beside B3/B4); B5 and B6 run their wgmma form (``form``);
+   backward beside B3/B4); B3/B4, B5 and B6 run their wgmma form
+   (``form``, one launch of it counted a B3/B4 case);
    (b) the full-width ASR step under
    ``compute_dtype=bfloat16`` with the feature encoder frozen: kernels +
    flash against plain + dense in bf16 (loss rtol 1e-2), the inputs of
@@ -205,7 +209,7 @@ Phases, in order (any failure raises and exits non-zero):
    plain + dense bf16 step's distance from the f32 step's, against the
    f32 step under the JAX test's contract (loss rtol 5e-2, grad norm
    15 %), launches by form (18 B1, 18 B3/B4, 6 B5, 1 B2, all bf16; the
-   6 B5 all of the wgmma form), 10
+   18 B3/B4 and 6 B5 all of the wgmma form; each replay names its form), 10
    steps' median ms, audio-s/s, busy share, kernels a step, the slowest
    kernels, the casts' host ms and peak memory beside the f32 step's;
    ``train_asr --compute_dtype bfloat16 --freeze_feature_encoder
@@ -222,9 +226,11 @@ Phases, in order (any failure raises and exits non-zero):
    398, 8], L = 20), 16 and 32 ([8, 8, 500, D], L = 160), 128 ([8, 6, 500,
    128], L = 160) and 12 (padded to 16; [8, 4, 398, 12], L = 20), f32 and
    bf16, rel band and mask-only, two rows padded, each against its plain
-   version (f32 within 1e-4, dpe relative; bf16 as phase 16), with each
-   kernel's device time, the wrapper's and the plain version's, SDPA's
-   backward beside the mask-only cases, the bounds, registers and spill;
+   version (f32 within 1e-4, dpe relative; bf16 as phase 16), each in
+   the form ``kernel_form`` gives it (bf16 at 128: wgmma; one launch of
+   that form counted), with each kernel's device time, the wrapper's and
+   the plain version's, SDPA's backward beside the mask-only cases, the
+   bounds, registers and spill;
    (b) head dim 8: one step at the LoCo ASR widths (``train_asr --tiny``
    with the experiment's conv front end, 4 s windows), kernels + flash
    against plain + dense (phase 8's limits), launches by head dim (4 B1,
@@ -244,11 +250,11 @@ Phases, in order (any failure raises and exits non-zero):
    off under ``full``, kernels + flash against plain + dense at the
    longest window that fits (164 s first; phase 8's limits); per policy
    the launches (B1 30 under full/dots/hybrid, 18 under none/lite; 18
-   B3/B4; 6 B5), the median ms of 6 steps taken in two turns (none ..
+   B3/B4; 6 B5), the median ms of 2 steps taken in two turns (none ..
    lite, lite .. none), audio-s/s, peak memory, busy share and device
    time by kernel group; (d) ``train_asr
    --conversation_seconds 164 --attn_impl flash --remat lite
-   --batch_size 1`` for 8 steps, then ``--resume`` to 10, on a Kaldi
+   --batch_size 1`` for 6 steps, then ``--resume`` to 8, on a Kaldi
    directory of the committed train utterances concatenated into
    recording-channels of >= 200 s: finite losses, windows of <= 164 s,
    labels up to 2,624, its launches (no B1 recompute under lite);
@@ -269,7 +275,7 @@ Phases, in order (any failure raises and exits non-zero):
    tokens on the manifest episode held by the same rule to the per-episode
    ones (each of those segments fills the bucket, so both modes encode it
    alike; per episode pads to whole seconds, and the padding enters the
-   first conv layer's instance norm); ``--beam_size 4`` (to 100 tokens a
+   first conv layer's instance norm); ``--beam_size 4`` (to 50 tokens a
    segment); corpus RTFx and WER.  B1's device time at
    the 120 s segment (B = 1), the busy share of one segment's decode, and
    dense attention's peak memory at 120, 240 and 480 s until it runs out;
@@ -280,7 +286,7 @@ Phases, in order (any failure raises and exits non-zero):
    turns; gpt2-xl widths (vocabulary 256) at [4, 1024] under AdamW and
    Adafactor (peak memory, state bytes, ms, 48 B5 launches a forward:
    25 heads), ``train_lm --model gpt2-xl --optimizer adafactor --attn_impl
-   flash`` for 3 steps; ``train_asr --optimizer adafactor --attn_impl
+   flash`` for 2 steps; ``train_asr --optimizer adafactor --attn_impl
    flash --checkpoint <HF .safetensors> --nan_recovery --nan_inject_step
    3 --save_every 2 --steps 6``: one ``nan_rollback`` at step 3, the live
    parameters after it equal to step 2's save and the optimizer's count
@@ -304,7 +310,7 @@ Phases, in order (any failure raises and exits non-zero):
    the last step's busy share, the seconds the loop waits on the
    prefetching stream after its first batch, the recordings its pipes
    load; then the input stream alone, seconds a batch); (d)
-   ``decode_asr --beam_size 4`` of the dev split on (c)'s checkpoint,
+   ``decode_asr --beam_size 4`` of 16 dev utterances on (c)'s checkpoint,
    kernel path against plain path by phase 12's near-tie rule, WER; (e)
    ``eval_ppl --model gpt2 --context_type max_len`` on the dev text, flash
    against dense (NLL 1e-4, B6's launches); (f) ``encode_speech`` with the
@@ -346,7 +352,7 @@ Phases, in order (any failure raises and exits non-zero):
    steps and ``--resume`` to 3 on the committed corpus, run by the same
    ranks, then the single-device trainer resumes the saved step; (e)
    ``dryrun_multichip(4)`` on the same ranks; (d) on ranks 0 and 1 of
-   the same start, regrouped as two, ``decode_asr`` (greedy, 16 dev
+   the same start, regrouped as two, ``decode_asr`` (greedy, 8 dev
    utterances: equal tokens but at near-ties), ``extract_embeddings -m
    audio`` (24 seeded wavs, 1e-5) and ``eval_ppl --context_type max_len``
    (gpt2 width, char, 1e-6 relative) at ``--data_parallel 2`` against 1;
@@ -381,8 +387,8 @@ Phases, in order (any failure raises and exits non-zero):
    ``mesh_rank_step_launches``; B1, B2, B3/B4 and B5 with phase 22's
    launches a rank and the error of their captured Ulysses launches;
    then the six bf16 forms with phase 16's launches, times and
-   bounds: B5 and B6 as their wgmma form, its launches in the bf16 ASR
-   and LM steps), then last
+   bounds: B3/B4, B5 and B6 as their wgmma form, its launches in the
+   bf16 ASR and LM steps, B3/B4 with the mask-only pair beside), then last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -528,18 +534,22 @@ def b1_work(q, k, pe, vl, causal):
     return nbytes, h * 2 * d * (2 * keys + (0 if pe is None else pe_cols))
 
 
-def b34_work(q, k, pe, vl, causal):
+def b34_work(q, k, pe, vl, causal, mask_only):
     """Bounds of B3 and B4 from this run's data.  Both read q, g, k, v, pe,
     lse, delta and valid_len once (q, g, k, v, pe in their dtype).  B3
     writes dq and the band gradient dqpe [B, H, Tq, 2L] (float32) and needs
     s, dp and ds.k over the visible pairs plus q.pe^T over the reached
     cells; B4 writes dk, dv (float32) and needs s, dp, p^T.g and ds^T.q over
-    the pairs plus the same band product."""
+    the pairs plus the same band product.  The mask-only variant reads no
+    pe, writes no dqpe and takes no band product."""
     b, h, tq, d = q.shape
-    reads = (q.element_size() * (2 * q.numel() + 2 * k.numel() + pe.numel())
+    reads = (q.element_size() * (2 * q.numel() + 2 * k.numel() + (0 if mask_only else pe.numel()))
              + 4 * (2 * b * h * tq + b))
     keys, pe_cols = visible(tq, k.shape[2], pe.shape[0], vl, causal)
-    b3 = (reads + 4 * (q.numel() + b * h * tq * pe.shape[0]), h * 2 * d * (3 * keys + pe_cols))
+    if mask_only:
+        pe_cols = 0
+    dqpe = 0 if mask_only else b * h * tq * pe.shape[0]
+    b3 = (reads + 4 * (q.numel() + dqpe), h * 2 * d * (3 * keys + pe_cols))
     b4 = (reads + 4 * 2 * k.numel(), h * 2 * d * (4 * keys + pe_cols))
     return b3, b4
 
@@ -623,9 +633,15 @@ def b1_build_records(build) -> list:
 
 
 def b34_build_records(build) -> list:
-    """The same for B3's and B4's forty kernels (flash_rel_bwd_dq_kernel,
-    flash_rel_bwd_dkv_kernel; f32 and bf16, rel band and mask-only, head
-    dims 8-128)."""
+    """The same for B3's and B4's kernels: the thirty-two of the mma.sync
+    form (flash_rel_bwd_dq_kernel, flash_rel_bwd_dkv_kernel; f32 at head
+    dims 8-128 and bf16 at 8-32, rel band and mask-only) and the eight of
+    the wgmma form (bf16 at 64 and 128), the latter with their threads and
+    stages from the C launch plan (``loco_flash_rel_bwd_wgmma_plan``)."""
+    import ctypes
+
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
     lib = build.library()
     b3 = "4 warps of 16 query rows, 32-key tiles, K double-buffered, V single"
     b4 = "4 warps of 16 keys, 32-query tiles double-buffered"
@@ -640,14 +656,35 @@ def b34_build_records(build) -> list:
                       ", k and v in registers" if bf16 else ", v in shared memory")
         elif d >= 128 and not bf16:
             shape += ", q and g in shared memory"
-        return dict(kernel=("B3", "B4")[kernel], dtype=("float32", "bfloat16")[bf16],
+        return dict(kernel=("B3", "B4")[kernel], form="mma_sync",
+                    dtype=("float32", "bfloat16")[bf16],
                     mask_only=bool(mask_only), head_dim=d, shape=shape,
                     smem_bytes_l160=lib.loco_flash_rel_bwd_smem_bytes(320, mask_only, kernel,
                                                                       d, bf16),
                     blocks_per_sm_l160=lib.loco_flash_rel_bwd_blocks_per_sm(320, mask_only,
                                                                             kernel, d, bf16))
-    return kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelI" + ELEM
-                                + r"Lb([01])ELi(\d+)E", describe, 40)
+
+    def describe_wgmma(m):
+        kernel, mask_only, d = int(m.group(1) == "dkv"), int(m.group(2)), int(m.group(3))
+        plan = (ctypes.c_longlong * 47)()
+        lib.loco_flash_rel_bwd_wgmma_plan(fc.stride_buffer((0,) * 21), 1, 1, 500, 500, d, 320,
+                                          0, mask_only, (ctypes.c_int * 1)(500),
+                                          ctypes.addressof(plan))
+        threads, stages = plan[43 + kernel], plan[45 + kernel]
+        consumers = threads // 128 - 1
+        shape = ((f"{consumers} consumer warpgroups on one block's 64 query rows and its "
+                  "table, 64-key tiles in turn" if kernel == 0 else
+                  f"{consumers} consumer warpgroup(s) on one block's 64 keys, 64-query tiles "
+                  "in turn") + f", a producer warpgroup, {stages} TMA stages")
+        return dict(kernel=("B3", "B4")[kernel], form="wgmma", dtype="bfloat16",
+                    mask_only=bool(mask_only), head_dim=d, shape=shape, threads=threads,
+                    stages=stages, smem_bytes_l160=plan[41 + kernel],
+                    blocks_per_sm_l160=lib.loco_flash_rel_bwd_blocks_per_sm(320, mask_only,
+                                                                            kernel, d, 1))
+    return (kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelI" + ELEM
+                                 + r"Lb([01])ELi(\d+)E", describe, 32)
+            + kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_wgmma_kernelILb([01])ELi(\d+)E",
+                                   describe_wgmma, 8))
 
 
 def b56_wgmma_build_records(build) -> list:
@@ -1060,7 +1097,7 @@ def reset_all_launches() -> None:
                fc.flash_forward, fc.flash_backward, fc.flash_forward_nhd,
                logmel.fused_log_mel):
         fn.launches = 0
-    for fn in (fc.flash_forward, fc.flash_forward_nhd):
+    for fn in (fc.flash_forward, fc.flash_forward_nhd, fa.flash_rel_backward):
         fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
 
 
@@ -1187,6 +1224,10 @@ def encoder_error(hid, ref, frame_mask, what: str):
     return err
 
 
+CARRY_UTTERANCES = 6    # phase 12 (a)'s carry-over, 3 refreshes of the context:
+                        # a depth cut for time (the recording holds 10)
+
+
 def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
     """Phase 12: ASR decoding with GPT-2 shallow fusion and carry-over.
     Returns the B1/B2 launches of the ``decode_asr`` runs."""
@@ -1278,12 +1319,14 @@ def decode_phase(corpus: dict, win_wav, win_lengths, smi: str, dev) -> dict:
             print(f"[decode] device breakdown of a 25-step {name} window: {json.dumps(prof)}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-        # (a) carry-over: one recording of 10 utterances through ConversationContext
+        # (a) carry-over: the first CARRY_UTTERANCES of one recording's 10
+        # through ConversationContext
         ds = KaldiAsrDataset(corpus["dev"])
         rec_id = sorted(ds.examples, key=lambda e: e.utt_id)[0].utt_id.split("-")[0]
         utts = sorted((e for e in ds.examples if e.utt_id.split("-")[0] == rec_id),
                       key=lambda e: e.utt_id)
         check(len(utts) == 10, f"recording {rec_id}: {len(utts)} utterances")
+        utts = utts[:CARRY_UTTERANCES]
         carry = {}
         for use_kernels in (True, False):
             ctx = ConversationContext(lm, batch=1, max_positions=256)
@@ -2375,7 +2418,10 @@ def captured_launches():
 
 def hold_captured(cases: dict) -> list:
     """Each captured launch (:func:`captured_launches`) replayed through its
-    wrapper and held against its plain version by the ``hold_*`` checks."""
+    wrapper and held against its plain version by the ``hold_*`` checks;
+    B3/B4's and B5/B6's records name the form the replay took."""
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
     recs = []
     for key, c in cases.items():
         dtype = next(t.dtype for t in c.values() if hasattr(t, "dtype"))
@@ -2392,8 +2438,10 @@ def hold_captured(cases: dict) -> list:
         else:
             rec = hold_b5(what, c["q"], c["k"], c["v"], causal=c["causal"], scale=c["scale"],
                           nhd=c["nhd"])
+        if key[0] in ("B3/B4", "B5", "B6"):
+            rec["form"] = fc.kernel_form(dtype, fc.kernel_head_dim(c["q"].shape[-1], key[0]))
         recs.append(dict(kernel=key[0], case=[str(x) for x in key[1:]],
-                         dtype=str(dtype),
+                         dtype=str(dtype), **({"form": rec["form"]} if "form" in rec else {}),
                          **{n: rec[n] for n in ("max_abs_err", "tol", "f64_err",
                                                 "plain_f64_err") if n in rec},
                          **({"errs": {n: r["max_abs_err"] for n, r in rec["errs"].items()}}
@@ -2464,12 +2512,13 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         fa.flash_rel_forward.launches = cf.conv1_instance_norm_gelu.launches = 0
         fa.flash_rel_backward.launches = fc.flash_forward.launches = 0
         fc.flash_backward.launches = fc.flash_forward_nhd.launches = 0
-        for fn in (fc.flash_forward, fc.flash_forward_nhd):
+        for fn in (fc.flash_forward, fc.flash_forward_nhd, fa.flash_rel_backward):
             fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
 
     def by_form():
         return {"B5": dict(fc.flash_forward.launches_by_form),
-                "B6": dict(fc.flash_forward_nhd.launches_by_form)}
+                "B6": dict(fc.flash_forward_nhd.launches_by_form),
+                "B3/B4": dict(fa.flash_rel_backward.launches_by_form)}
 
     recs = {}
 
@@ -2511,45 +2560,58 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         print(f"[bf16] {json.dumps(rec)}")
         del q, k, v, q32, k32, v32
 
-    # B3/B4 at the encoder's training shape, two rows padded
-    q, k, v = (randn(8, 12, 500, 64) for _ in range(3))
-    gg, pe = randn(8, 12, 500, 64, sc=1.0), randn(320, 64)
-    vl = torch.tensor([500] * 6 + [430, 310], dtype=torch.int32, device=dev)
-    out, lse = fa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=1.0)
-    kw = dict(causal=False, scale=1.0, need_dpe=True)
+    # B3/B4 at the encoder's training shape, two rows padded, and the
+    # mask-only pair at the cross-attention's 160 label positions over 500
+    # frames: both in the wgmma form (one launch of it each, counted)
+    for name, tq, L in (("enc_padded", 500, 160), ("cross_mask_only", 160, 0)):
+        mask_only = L == 0
+        q, gg = randn(8, 12, tq, 64), randn(8, 12, tq, 64, sc=1.0)
+        k, v = randn(8, 12, 500, 64), randn(8, 12, 500, 64)
+        pe = torch.zeros(2, 64, dtype=bf, device=dev) if mask_only else randn(2 * L, 64)
+        vl = torch.tensor([500] * 6 + [430, 310], dtype=torch.int32, device=dev)
+        out, lse = fa.flash_rel_forward(q, k, v, None if mask_only else pe, vl, causal=False,
+                                        scale=1.0)
+        kw = dict(causal=False, scale=1.0, need_dpe=not mask_only, mask_only=mask_only)
 
-    def run():
-        return fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw)
+        def run():
+            return fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw)
 
-    rec = hold_b34("B3/B4 bf16", q, k, v, pe, vl, out, lse, gg, causal=False, scale=1.0,
-                   mask_only=False)
-    keep = (torch.arange(500, device=dev)[None, :] < vl[:, None])[:, None, None, :]
-    sl = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        before = dict(fa.flash_rel_backward.launches_by_form)
+        rec = hold_b34(f"B3/B4 bf16 {name}", q, k, v, pe, vl, out, lse, gg, causal=False,
+                       scale=1.0, mask_only=mask_only)
+        form = fc.kernel_form(bf, 64)
+        check(form == "wgmma" and fa.flash_rel_backward.launches_by_form
+              == {**before, form: before[form] + 1},
+              f"B3/B4 bf16 {name}: launches by form {fa.flash_rel_backward.launches_by_form}")
+        keep = (torch.arange(500, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+        sl = [x.detach().clone().requires_grad_() for x in (q, k, v)]
 
-    def sdpa_fb():
-        torch.autograd.grad(sdpa(*sl, attn_mask=keep, scale=1.0), sl, gg)
+        def sdpa_fb():
+            torch.autograd.grad(sdpa(*sl, attn_mask=keep, scale=1.0), sl, gg)
 
-    with torch.no_grad():
-        sdpa_f_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
-    q32, k32, v32, g32, pe32 = (x.float() for x in (q, k, v, gg, pe))
-    out32, lse32 = fa.flash_rel_forward(q32, k32, v32, pe32, vl, causal=False, scale=1.0)
-    pair = ("flash_rel_bwd_dq", "flash_rel_bwd_dkv")
-    split = kernel_device_ms(run, pair)
-    split32 = kernel_device_ms(lambda: fa.flash_rel_backward(q32, k32, v32, pe32, vl, out32,
-                                                             lse32, g32, **kw), pair)
-    (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, False)
-    ms = time_ms(run)
-    b34 = dict(kernel="B3/B4 bf16", case="enc_padded", shape=[8, 12, 500, 64], two_l=320,
-               **rec, ms=ms, b3_ms=split[pair[0]], b4_ms=split[pair[1]],
-               b3_f32_ms=split32[pair[0]], b4_f32_ms=split32[pair[1]],
-               plain_ms=time_ms(lambda: fa.flash_rel_backward_plain(
-                   q, k, v, pe, vl, out, lse, gg, causal=False, scale=1.0)),
-               library_ms=time_ms(sdpa_fb) - sdpa_f_ms,
-               b3_bound=bound(b3b, b3f, products=True, bf16=True),
-               b4_bound=bound(b4b, b4f, products=True, bf16=True), card=smi)
-    recs["B3/B4"] = b34
-    print(f"[bf16] {json.dumps(b34)}")
-    del q, k, v, gg, out, sl, q32, k32, v32, g32, out32
+        with torch.no_grad():
+            sdpa_f_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
+        q32, k32, v32, g32, pe32 = (x.float() for x in (q, k, v, gg, pe))
+        out32, lse32 = fa.flash_rel_forward(q32, k32, v32, None if mask_only else pe32, vl,
+                                            causal=False, scale=1.0)
+        pair = ("flash_rel_bwd_dq", "flash_rel_bwd_dkv")
+        split = kernel_device_ms(run, pair)
+        split32 = kernel_device_ms(lambda: fa.flash_rel_backward(
+            q32, k32, v32, pe32, vl, out32, lse32, g32, **kw), pair)
+        (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, False, mask_only)
+        ms = time_ms(run)
+        b34 = dict(kernel="B3/B4 bf16", case=name, form=form, shape=[8, 12, tq, 64], tk=500,
+                   two_l=2 * L or "mask-only", **rec, ms=ms, b3_ms=split[pair[0]],
+                   b4_ms=split[pair[1]], b3_f32_ms=split32[pair[0]],
+                   b4_f32_ms=split32[pair[1]],
+                   plain_ms=time_ms(lambda: fa.flash_rel_backward_plain(
+                       q, k, v, pe, vl, out, lse, gg, causal=False, scale=1.0)),
+                   library_ms=time_ms(sdpa_fb) - sdpa_f_ms,
+                   b3_bound=bound(b3b, b3f, products=True, bf16=True),
+                   b4_bound=bound(b4b, b4f, products=True, bf16=True), card=smi)
+        recs["B3/B4" if name == "enc_padded" else "B3/B4 mask-only"] = b34
+        print(f"[bf16] {json.dumps(b34)}")
+        del q, k, v, gg, out, sl, q32, k32, v32, g32, out32
 
     # B5 at [8, 25, 1024, 64] causal, B6 on [8, 1024, 12, 64] qkv views
     for kern in ("B5", "B6"):
@@ -2658,9 +2720,11 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
     want_forms = {"flash_rel_forward:bf16": n_enc + n_dec, "conv_frontend:bf16": 1,
                   "flash_rel_backward:bf16": n_enc + n_dec, "flash_forward:bf16": n_dec}
     check(f16 == want_forms, f"bf16 step forms {f16}, expected {want_forms}")
-    # every B5 launch at head dim 64 in bf16 takes the wgmma form
+    # every B5 and B3/B4 launch at head dim 64 in bf16 takes the wgmma form
     check(asr_forms["B5"] == {"mma_sync": 0, "wgmma": n_dec},
           f"bf16 step B5 forms {asr_forms['B5']}")
+    check(asr_forms["B3/B4"] == {"mma_sync": 0, "wgmma": n_enc + n_dec},
+          f"bf16 step B3/B4 forms {asr_forms['B3/B4']}")
     check(all(v == 0 for v in cd.values()), f"dense bf16 launched {cd}")
     # every captured form: B1 with the band (encoder) and mask-only over
     # Tq != Tk (the decoder's cross-attention), their B3/B4, B5 (decoder), B2
@@ -2866,13 +2930,15 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
 
 
 # the bf16 forms in the kernels line: (name, phase 16's record, launches
-# key, source, the TPU kernel's line); B5 and B6 at head dim 64 are the
-# wgmma form's, their launches its own count
+# key, source, the TPU kernel's line); B3/B4, B5 and B6 at head dim 64 are
+# the wgmma form's, their launches its own count
 BF16_FORMS = (
     ("flash_rel_forward (bf16)", "B1", ("asr_step", "B1"), "flash_rel.cu", 518),
     ("conv1_instance_norm_gelu (bf16)", "B2", ("asr_step", "B2"), "conv_frontend.cu", None),
-    ("flash_rel_backward (B3, bf16)", "B3", ("asr_step", "B3/B4"), "flash_rel_bwd.cu", 799),
-    ("flash_rel_backward (B4, bf16)", "B4", ("asr_step", "B3/B4"), "flash_rel_bwd.cu", 902),
+    ("flash_rel_backward (B3, bf16, wgmma)", "B3", ("asr_forms", "B3/B4"), "flash_rel_bwd.cu",
+     799),
+    ("flash_rel_backward (B4, bf16, wgmma)", "B4", ("asr_forms", "B3/B4"), "flash_rel_bwd.cu",
+     902),
     ("flash_forward (bf16, wgmma)", "B5", ("asr_forms", "B5"), "flash_causal.cu", 40),
     ("flash_forward_nhd (bf16, wgmma)", "B6", ("lm_forms", "B6"), "flash_causal.cu", 168),
 )
@@ -2893,18 +2959,25 @@ def bf16_entries(mixed: dict) -> list:
         e = dict(name=name, route="cuda", source=f"loco_asr_tpu_torch/csrc/{src}",
                  replaces=replaces, launches=launches, max_abs_err=rec["max_abs_err"],
                  ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=rec["library_ms"])
-        if kern in ("B5", "B6"):
+        if kern in ("B3", "B4", "B5", "B6"):
             e["form"] = rec["form"]
         step = [r["max_abs_err"] for r in mixed["step_kernels"]
                 if r["kernel"] == ("B3/B4" if kern in ("B3", "B4") else kern)]
         if step:   # the same form replayed on the ASR step's own inputs
             e["step_max_abs_err"] = max(step)
         if kern in ("B3", "B4"):
-            # its own device time; the wrapper's CUDA-event time beside it
+            # its own device time; the wrapper's CUDA-event time beside it;
+            # the mask-only pair at the cross-attention's shape
             which = kern.lower()
             e.update(ms=rec[f"{which}_ms"], device_ms=rec[f"{which}_ms"], wrapper_ms=rec["ms"],
                      f32_ms=rec[f"{which}_f32_ms"])
             e["bound_ms"], e["bound_by"] = rec[f"{which}_bound"]
+            mo = mixed["recs"]["B3/B4 mask-only"]
+            e["mask_only"] = dict(shape=mo["shape"], tk=mo["tk"], device_ms=mo[f"{which}_ms"],
+                                  wrapper_ms=mo["ms"], f32_ms=mo[f"{which}_f32_ms"],
+                                  bound_ms=mo[f"{which}_bound"][0],
+                                  bound_by=mo[f"{which}_bound"][1], plain_ms=mo["plain_ms"],
+                                  library_ms=mo["library_ms"], max_abs_err=mo["max_abs_err"])
         else:
             e.update(device_ms=rec["device_ms"], f32_ms=rec["f32_ms"], bound_ms=rec["bound_ms"],
                      bound_by=rec["bound_by"])
@@ -3039,10 +3112,12 @@ def b34_dims_cases(b34_recs: list, smi: str, dev) -> list:
                                              mask_only)
 
                 name = f"d{d}_{'bf16' if bf16 else 'f32'}_{'mask_only' if mask_only else 'band'}"
-                before = fa.flash_rel_backward.launches
+                form = fc.kernel_form(dtype, kd)   # wgmma: bf16 at kernel head dims 64, 128
+                before = dict(fa.flash_rel_backward.launches_by_form)
                 got = run()
                 torch.cuda.synchronize()
-                check(fa.flash_rel_backward.launches == before + 1, f"B3/B4 {name}: launches")
+                check(fa.flash_rel_backward.launches_by_form == {**before, form: before[form] + 1},
+                      f"B3/B4 {name}: launches by form {fa.flash_rel_backward.launches_by_form}")
                 check(all(x.shape == q.shape for x in got[:3]), f"B3/B4 {name}: shapes")
                 if bf16:
                     held = hold_b34(f"B3/B4 {name}", q, k, v, pe, vl, out, lse, gg,
@@ -3061,7 +3136,7 @@ def b34_dims_cases(b34_recs: list, smi: str, dev) -> list:
                     check(err <= B34_TOL, f"B3/B4 {name}: errors {errs} > {B34_TOL} "
                                           "(dpe relative to its max)")
                 split = kernel_device_ms(run, ("flash_rel_bwd_dq", "flash_rel_bwd_dkv"))
-                (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, False)
+                (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, False, mask_only)
                 lib_ms = None
                 if mask_only:
                     keep = (torch.arange(t, device=dev)[None, :] < vl[:, None])[:, None, None, :]
@@ -3079,8 +3154,9 @@ def b34_dims_cases(b34_recs: list, smi: str, dev) -> list:
                                                             "spill_loads", "blocks_per_sm_l160",
                                                             "smem_bytes_l160")}
                          for r in b34_recs if r["head_dim"] == kd and r["mask_only"] == mask_only
-                         and r["dtype"] == ("bfloat16" if bf16 else "float32")}
-                rec = dict(kernel="B3/B4", case=name, head_dim=d, kernel_head_dim=kd,
+                         and r["dtype"] == ("bfloat16" if bf16 else "float32")
+                         and r["form"] == form}
+                rec = dict(kernel="B3/B4", case=name, form=form, head_dim=d, kernel_head_dim=kd,
                            dtype=str(dtype).split(".")[-1], mask_only=mask_only,
                            shape=[b, h, t, d], two_l="mask-only" if mask_only else 2 * L,
                            max_abs_err=err, errs=errs, tol=tol, ms=time_ms(run, reps=5),
@@ -3417,8 +3493,8 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
     print(f"[long] vs_plain {json.dumps(vs_plain)}")
     del qmodel
 
-    # each policy's train step: launches, median ms of 6 steps taken in two
-    # turns (none .. lite, then lite .. none, 3 steps a turn, so that drift
+    # each policy's train step: launches, median ms of 2 steps taken in two
+    # turns (none .. lite, then lite .. none, 1 step a turn, so that drift
     # of the card or host between turns falls on every policy alike),
     # audio-s/s, peak memory, busy share and device time by kernel group
     per_policy = {spec: dict(step_ms=[], peak_mem_gb=0.0) for spec in POLICIES}
@@ -3440,13 +3516,12 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
         check(launches == want, f"long step {spec} launched {launches}, expected {want}")
         rec["launches"] = launches
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            m = step(model, opt, long_batch, gen)
-            loss = m["loss"].item()
-            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            check(np.isfinite(loss), f"long step {spec}: loss {loss}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, opt, long_batch, gen)
+        loss = m["loss"].item()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        check(np.isfinite(loss), f"long step {spec}: loss {loss}")
         rec["peak_mem_gb"] = max(rec["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
         if "busy_share" not in rec:
             prof = device_breakdown(lambda: step(model, opt, long_batch, gen))
@@ -3491,34 +3566,34 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
         try:
             reset_counts()
             t0 = time.perf_counter()
-            rc = train_asr.main([*flags, "--steps", "8"])
+            rc = train_asr.main([*flags, "--steps", "6"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             run_launches = kernel_counts()
             check(rc == 0, f"train_asr 164 s returned {rc}")
             t0 = time.perf_counter()
-            rc = train_asr.main([*flags, "--steps", "10", "--resume"])
+            rc = train_asr.main([*flags, "--steps", "8", "--resume"])
             resume_wall = time.perf_counter() - t0
             check(rc == 0, f"train_asr 164 s --resume returned {rc}")
         finally:
             train.make_asr_train_step = real_make
         ckpt = os.path.join(out_dir, "ckpt")
         with open(os.path.join(ckpt, "status.json")) as f:
-            check(json.load(f)["latest"] == 10, "the 164 s run's resume did not reach step 10")
-        with np.load(os.path.join(ckpt, "step_10.npz")) as z:
-            check(int(z["opt_state.count"]) == 10, "optimizer count after resume")
+            check(json.load(f)["latest"] == 8, "the 164 s run's resume did not reach step 8")
+        with np.load(os.path.join(ckpt, "step_8.npz")) as z:
+            check(int(z["opt_state.count"]) == 8, "optimizer count after resume")
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
             evals = [json.loads(line) for line in f if "dev_loss" in line]
-        check(len(seen) == 10 and all(np.isfinite(s["loss"]) for s in seen),
+        check(len(seen) == 8 and all(np.isfinite(s["loss"]) for s in seen),
               f"164 s steps {seen}")
         check(all(s["samples"] <= LONG_SECONDS * 16000 and s["label_cols"] <= 16 * LONG_SECONDS
                   for s in seen), f"164 s batches {seen}")
         check(evals and all(np.isfinite(r["dev_loss"]) for r in evals), f"dev metrics {evals}")
-        # 8 steps under lite (no B1 recompute), then one dev batch: its loss
+        # 6 steps under lite (no B1 recompute), then one dev batch: its loss
         # and its encode (each with B2: no gradient there)
         n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
-        want = {"B1": 9 * (n_enc + n_dec) + n_enc, "B2": 2, "B3/B4": 8 * (n_enc + n_dec),
-                "B5": 9 * n_dec, "B5_bwd": 8 * n_dec}
+        want = {"B1": 7 * (n_enc + n_dec) + n_enc, "B2": 2, "B3/B4": 6 * (n_enc + n_dec),
+                "B5": 7 * n_dec, "B5_bwd": 6 * n_dec}
         check(run_launches == want, f"train_asr 164 s launched {run_launches}, expected {want}")
         ds = ConversationAsrDataset(long_dir, window_seconds=LONG_SECONDS)
         out["train_asr_164"] = dict(launches=run_launches, steps=seen, wall_s=wall,
@@ -3538,7 +3613,7 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
 
 EPISODE_SEED = 18
 EPISODE_BATCH_SECONDS = 120          # transcribe_episodes --batch_seconds
-BEAM_DECODE_LEN = 100                # the beam pass's --max_decode_len (a depth cut for
+BEAM_DECODE_LEN = 50                 # the beam pass's --max_decode_len (a depth cut for
                                      # time: it holds launches, segments and metrics)
 EPISODE_DECODE_LEN = 340             # --max_decode_len: gpt2's 1,024 positions less
                                      # the 348 reserved: every segment after the
@@ -4072,7 +4147,7 @@ def trainer_options_phase(corpus: dict, smi: str, dev) -> dict:
         rc = train_lm.main(["--train_file", os.path.join(lm_dir, "train.txt"),
                             "--out_dir", tmp, "--model", "gpt2-xl", "--tokenizer", "char",
                             "--optimizer", "adafactor", "--attn_impl", "flash",
-                            "--seq_len", "1024", "--batch_size", str(XL_BATCH), "--steps", "3",
+                            "--seq_len", "1024", "--batch_size", str(XL_BATCH), "--steps", "2",
                             "--warmup_steps", "1", "--log_every", "1",
                             "--eval_every", "1000", "--save_every", "1000"])
         torch.cuda.synchronize()
@@ -4081,10 +4156,10 @@ def trainer_options_phase(corpus: dict, smi: str, dev) -> dict:
         cli_launches = all_launches()
         with open(os.path.join(tmp, "metrics.jsonl")) as f:
             losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
-        check(len(losses) == 3 and all(np.isfinite(losses)), f"train_lm gpt2-xl losses {losses}")
-        check(cli_launches["B5"] == 3 * xl.n_layer and cli_launches["B5_bwd"] == 3 * xl.n_layer,
+        check(len(losses) == 2 and all(np.isfinite(losses)), f"train_lm gpt2-xl losses {losses}")
+        check(cli_launches["B5"] == 2 * xl.n_layer and cli_launches["B5_bwd"] == 2 * xl.n_layer,
               f"train_lm gpt2-xl launched {cli_launches}")
-        with np.load(os.path.join(tmp, "ckpt", "step_3.npz")) as z:
+        with np.load(os.path.join(tmp, "ckpt", "step_2.npz")) as z:
             saved = {k for k in z.files if k.startswith("opt_state.")}
         check(any(k.startswith("opt_state.v_row.") for k in saved), "adafactor state not saved")
         out["gpt2_xl"] = dict(params=n_params, batch=[XL_BATCH, 1024], steps=xl_runs,
@@ -4679,7 +4754,7 @@ def fisher_phase(smi: str, dev) -> dict:
                 out_dir = os.path.join(tmp.name, f"dec_{path}")
                 rc = decode_asr.main(["--data_dir", os.path.join(data, "dev"), "--out_dir",
                                       out_dir, "--checkpoint", ckpt, "--beam_size", "4",
-                                      "--max_decode_len", "64", "--limit_batches", "4"])
+                                      "--max_decode_len", "64", "--limit_batches", "2"])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 dl = all_launches()
@@ -4693,7 +4768,7 @@ def fisher_phase(smi: str, dev) -> dict:
         n = len(encodes)
         want = (dict({k: 0 for k in dl}, B1=cfg.encoder_layers * n, B2=n) if path == "kernels"
                 else {k: 0 for k in dl})
-        check(n == 4 and len(calls) == 4 and dl == want,
+        check(n == 2 and len(calls) == 2 and dl == want,
               f"decode_asr ({path}): {n} encodes, {len(calls)} searches, launched {dl}")
         runs[path] = dict(calls=calls, lines=lines, wer=details["wer"], rtfx=details["rtfx"],
                           wall_s=wall, launches=dl)
@@ -5202,7 +5277,7 @@ def dp_single(corpus: dict, tmp: str) -> dict:
     argv = {
         "decode_asr": ["--data_dir", corpus["dev"], "--beam_size", "1",
                        "--max_decode_len", "24", "--batch_size", "8",
-                       "--limit_batches", "2", "--max_seconds", "10"],
+                       "--limit_batches", "1", "--max_seconds", "10"],
         "extract_embeddings": ["-m", "audio", "-s", "train", "--data_path", slurp,
                                "--batch_size", "8"],
         "eval_ppl": ["-i", os.path.join(ROOT, "exp", "loco", "lm_corpus", "dev.txt"),
@@ -5825,7 +5900,7 @@ def main() -> int:
                                <= torch.arange(tq, device=dev)[:, None])
             lib_ms = sdpa_bwd_ms(q, k, v, gg, keep)
         split = kernel_device_ms(run, ("flash_rel_bwd_dq", "flash_rel_bwd_dkv"))
-        (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, causal)
+        (b3b, b3f), (b4b, b4f) = b34_work(q, k, pe, vl, causal, mask_only)
         ms = time_ms(run)
         rec = dict(kernel="B3/B4", case=name, shape=[b, 12, tq, 64], tk=tk,
                    two_l=2 * L if L else "mask-only", causal=causal, layout=layout,
@@ -6417,7 +6492,7 @@ def main() -> int:
         (d)'s long-context run."""
         main_rec = next(c for c in checks if c["kernel"] == "B3/B4" and c["case"] == "enc_padded")
         bms, by = main_rec[f"{which}_bound"]
-        dims = [dict(case=r["case"], shape=r["shape"], ms=r[f"{which}_ms"],
+        dims = [dict(case=r["case"], form=r["form"], shape=r["shape"], ms=r[f"{which}_ms"],
                      wrapper_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                      bound_ms=r[f"{which}_bound"][0], bound_by=r[f"{which}_bound"][1],
                      max_abs_err=r["max_abs_err"], build=r["build"].get(which.upper()))

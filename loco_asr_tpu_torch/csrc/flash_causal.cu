@@ -420,36 +420,6 @@ __host__ __device__ inline int key_tiles(int q0, int Tq, int Tk, int causal, int
   return causal && diag < n ? diag : n;
 }
 
-// S = Q.K^T for warpgroup w over D / 16 k-steps, 32 bytes apart inside a
-// 64-column half (both operands K-major)
-template <int D, int BK>
-__device__ __forceinline__ void qk(float (&s)[BK / 2], const Smem<D, BK>& sm, int w, int st) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t a = gmma_desc(&sm.q[kk / 4][64 * w][16 * (kk % 4)], 16, 1024);
-    const uint64_t b = gmma_desc(&sm.k[st][kk / 4][0][16 * (kk % 4)], 16, 1024);
-    if constexpr (BK == 64)
-      wgmma_m64n64k16_ss(s, a, b, kk > 0);
-    else
-      wgmma_m64n128k16_ss(s, a, b, kk > 0);
-  }
-}
-
-// O += P.V over the tile's k-steps of 16 keys: P from registers, V read
-// as stored ([key][D], MN-major: the instruction transposes it)
-template <int D, int BK>
-__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[BK / 16][4],
-                                   const Smem<D, BK>& sm, int st) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t desc = gmma_desc(&sm.v[st][0][16 * kk][0], BK * 128, 1024);
-    if constexpr (D == 64)
-      wgmma_m64n64k16_rs(o, p[kk], desc, 1);
-    else
-      wgmma_m64n128k16_rs(o, p[kk], desc, 1);
-  }
-}
-
 // one tile's scores -> p = 2^(c2 s - m) in place, with the running max m
 // (base 2, scaled) and this thread's row sums l updated and alpha the old
 // rows' rescale.  MASK: scale, then mask (the tiles that cross the diagonal
@@ -523,30 +493,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[N], float (&m)[2], float
   fence_regs(alpha);
 }
 
-// p as bf16 pairs: the A fragments of P.V's k-steps (hopper.cuh)
-template <int KS>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[KS][4], const float (&s)[8 * KS]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[kk][e] = round_pair(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-}
-
-// warpgroups whose launch share of registers is too small for the handover
-// would wait forever in setmaxnreg.inc: refuse to launch them
-template <typename Kernel>
-cudaError_t check_regs(Kernel kernel, std::atomic<int>& ok) {
-  int state = ok.load(std::memory_order_acquire);
-  if (state < 0) {
-    cudaFuncAttributes a;
-    const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-    if (e != cudaSuccess) return e;
-    state = a.numRegs * THREADS >= 128 * PRODUCER_REGS + 256 * CONSUMER_REGS;
-    ok.store(state, std::memory_order_release);
-  }
-  return state ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
-
 }  // namespace wg
 
 template <int D>
@@ -618,27 +564,36 @@ flash_causal_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // S = Q.K^T of this warpgroup's rows, both K-major; O += P.V with V
+    // read as stored ([key][D], MN-major: the instruction transposes it)
+    auto qk = [&](float (&acc)[BK / 2], int st) {
+      wgmma_ss_kmajor<D, BK>(acc, &sm.q[0][64 * w][0], wg::BQ * 128, &sm.k[st][0][0][0],
+                             BK * 128);
+    };
+    auto pv = [&](float (&acc)[D / 2], const uint32_t (&a)[BK / 16][4], int st) {
+      wgmma_rs_mnmajor<D, BK / 16>(acc, a, &sm.v[st][0][0][0], BK * 128);
+    };
 
     mbar_wait(&sm.q_full, 0);
     mbar_wait(&sm.k_full[0], 0);
     wgmma_fence();
-    wg::qk<D, BK>(s, sm, w, 0);
+    qk(s, 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     mbar_arrive(&sm.k_empty[0]);
     wg::softmax_step(s, m, l, alpha, c2, causal, 0, first, row0, Tk, t);
-    wg::pack_p(p, s);
+    pack_bf16_a(p, s);
     // tile i's q.k^T runs while p.v of tile i - 1 is issued behind it;
     // the softmax of tile i overlaps that p.v
     for (int i = 1; i < nk; ++i) {
       const int st = i % S, pst = (i - 1) % S;
       mbar_wait(&sm.k_full[st], (i / S) & 1);
       wgmma_fence();
-      wg::qk<D, BK>(s, sm, w, st);
+      qk(s, st);
       wgmma_commit();
       mbar_wait(&sm.v_full[pst], ((i - 1) / S) & 1);
-      wg::pv<D, BK>(o, p, sm, pst);
+      pv(o, p, pst);
       wgmma_commit();
       wgmma_wait<1>();   // q.k^T done: K's stage is free
       fence_regs(s);
@@ -650,12 +605,12 @@ flash_causal_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_arrive(&sm.v_empty[pst]);
 #pragma unroll
       for (int n = 0; n < D / 2; ++n) o[n] *= alpha[(n >> 1) & 1];
-      wg::pack_p(p, s);
+      pack_bf16_a(p, s);
     }
     const int lst = (nk - 1) % S;
     mbar_wait(&sm.v_full[lst], ((nk - 1) / S) & 1);
     wgmma_fence();
-    wg::pv<D, BK>(o, p, sm, lst);
+    pv(o, p, lst);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -739,7 +694,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   static std::atomic<int> regs_ok{-1};
   cudaError_t e = allow_smem_once(flash_causal_fwd_wgmma_kernel<D>,
                                   (int)wg::smem_bytes<D>(), done);
-  if (e == cudaSuccess) e = wg::check_regs(flash_causal_fwd_wgmma_kernel<D>, regs_ok);
+  if (e == cudaSuccess)
+    e = check_handover_regs(flash_causal_fwd_wgmma_kernel<D>, wg::THREADS, 128,
+                            wg::PRODUCER_REGS, wg::CONSUMER_REGS, regs_ok);
   if (e != cudaSuccess) return e;
   const WgPlan p = wg_plan(st, B, H, Tq, Tk, D, causal);
   const void* ptrs[3] = {q, k, v};

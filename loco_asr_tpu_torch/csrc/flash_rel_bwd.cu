@@ -88,21 +88,67 @@
 //   in registers are staged in shared memory and read (and split) at each
 //   use: B3's q and g in the f32 form, B4's k and v in both forms; B4 adds
 //   its partial sums 64 columns at a time; one block an SM.
-// Shapes, registers and blocks an SM are in PERF.md §6; wgmma and TMA are
-// later work.
+// Shapes, registers and blocks an SM are in PERF.md §6.
 //
-// The bf16 forms (the element type T is a template parameter; the f32
-// instantiations are the kernels described above) are the JAX
-// kernels' bf16 path: q, k, v, g and pe in bf16, every product one
-// m16n8k16 bf16 mma.sync with f32 accumulation (bf16_mma.cuh; one m16n8k8
-// step over the head dim at D = 8), ds rounded
-// to bf16 before ds.k (B3) and p and ds before p^T.g and ds^T.q (B4), as
-// the JAX kernels' astype does; lse, delta, p, ds, the band table, dqpe and
-// the dq, dk, dv sums stay f32, and the outputs leave the kernels in f32
-// (the wrapper casts them, as _flash_rel_backward_pallas does).  B4's bf16
-// form keeps both k's and v's fragments in registers up to D = 64 (packed
-// pairs take a quarter of a split f32 fragment's registers), so it stages
-// no v there.
+// Two forms, picked by the caller (flash_causal.py's kernel_form, the C
+// entry's form argument): form 0, the mma.sync kernels above, runs every
+// f32 launch and bf16 at D = 8, 16 and 32; form 1, the wgmma kernels
+// below, runs bf16 at D = 64 and 128 (a launch in the other pairing
+// returns cudaErrorNotSupported).  Both compute the JAX kernels' bf16
+// path: q, k, v, g and pe in bf16, every product on bf16 operands with f32
+// accumulation (form 0: one m16n8k16 mma.sync a product, bf16_mma.cuh, one
+// m16n8k8 step over the head dim at D = 8), ds rounded to bf16 before ds.k
+// (B3) and p and ds before p^T.g and ds^T.q (B4), as the JAX kernels'
+// astype does; lse, delta, p, ds, the band table, dqpe and the dq, dk, dv
+// sums stay f32, and the outputs leave the kernels in f32 (the wrapper
+// casts them, as _flash_rel_backward_pallas does).  Form 0's bf16 B4 keeps
+// both k's and v's fragments in registers up to D = 64 (packed pairs take
+// a quarter of a split f32 fragment's registers), so it stages no v there.
+//
+// Form 1, for Hopper (hopper.cuh's mbarriers, TMA and wgmma).  What bounds
+// it: bytes (dqpe alone is 61 MB of B3's ~100 MB at the encoder's shape),
+// but neither bound is near: a tile's products take a few hundred cycles
+// of an SM's tensor cores, its elementwise work and shared-memory round
+// trips (B4's band) over a thousand, in a chain a warpgroup waits through.
+//  - B3: a block of 384 threads per (b*h, 64 query rows).  A producer
+//    warpgroup's thread issues every TMA copy (Q and dO once; the pe tiles
+//    the rows reach, then K and V by 64-key tile, into a ring of 128-byte-
+//    swizzled stages, an mbarrier each way a stage); the two consumer
+//    warpgroups share Q, dO and the f32 table [2L][68] (form 0's, built by
+//    both from the pe tiles, s = q.pe^T an ss wgmma) and take the key
+//    tiles in turn, so each runs its own chain and they need not wait for
+//    each other.  A tile: s = q.k^T and dp = g.v^T (ss, all operands
+//    K-major), p and ds in registers with the band's interior cells
+//    overwritten in place (form 0's rule; the band's path and the masks
+//    are decided once a tile, so the 32 elements of a thread are one basic
+//    block), dq += bf16(ds).k (rs: ds as the register A operand, K read
+//    MN-major from the same stage), and the tile's dqpe window written
+//    while that product runs.  At the end warpgroup 1's dq passes through
+//    shared memory to warpgroup 0, the clip columns' sums likewise, and
+//    the cells no processed pair reached get 0: every cell is written.
+//    Registers 168 a thread (the launch share; ptxas budgets the consumers
+//    to it), no spill at D = 64; the table leaves L <= 272 at D = 64 and
+//    L <= 242 at D = 128.
+//  - B4: a block per (b*h, 64 keys), K and V loaded once; at D = 64 two
+//    consumer warpgroups take the 64-query tiles in turn (each its own dk,
+//    dv, summed through shared memory at the end), at D = 128 one (dk and
+//    dv take 128 accumulator registers a thread, of 255 at 256 threads).
+//    A ring stage holds a tile's Q, dO, the 128 pe rows its band reaches
+//    and its lse and delta (staged by the producer's second warp).  A
+//    tile: band = q.pe^T (ss, m64n128) c2-scaled through shared memory to
+//    the lanes that hold s^T, then s^T = k.q^T and dp^T = v.g^T (ss), p^T
+//    and ds^T in registers, dv += bf16(p^T).g and dk += bf16(ds^T).q (rs,
+//    dO and Q read MN-major from the tiles the ss products read K-major).
+//    The band's accumulators and s^T's, dp^T's are live in turn: together
+//    beside dk and dv they spill at 168 registers.
+//  - dq, dk and dv accumulate in place in the wgmma accumulators (form 0's
+//    f32 partial sums guard its mma.sync chain; here the bf16 rounding of p
+//    and ds dominates the error: PERF.md, phase 16's float64 check).
+//  - Each ring's stage count is a multiple of its consumer warpgroups, so a
+//    stage serves one warpgroup: a stage shared by two could be waited for
+//    two phases ahead, which an mbarrier's parity does not tell apart.
+//  - Rows past Tq and keys past Tk are TMA's zero fill (masked, or of zero
+//    gradient), so ragged T needs no padding.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,6 +156,7 @@
 #include <type_traits>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -294,15 +341,9 @@ __device__ __forceinline__ void zero_acc(float (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) a[n][e] = 0.f;
 }
 
-__device__ __forceinline__ int clip(int d, int L) { return min(max(d, -L), L - 1); }
-
-// 2^x on the SFU (~2 ulp; a subnormal result is flushed to 0, where exp2f
-// spends instructions on keeping it)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int clip(int d, int L) { return imin(imax(d, -L), L - 1); }
 
 // ---- B3 ----------------------------------------------------------------
 
@@ -514,7 +555,7 @@ flash_rel_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
         const bool masked = !all_valid && (j >= vl || (causal && j > i));
-        const float p = masked ? 0.f : fast_exp2(x - lse2[r]);
+        const float p = masked ? 0.f : ex2(x - lse2[r]);
         const float ds = p * (dp[n][e] - dlt[r]);
         s[n][e] = ds;
         if (!MASK_ONLY) {
@@ -763,7 +804,7 @@ flash_rel_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x = s[n][e] * c2;
         if (!MASK_ONLY) x += band[(clip(i - j, L) + L - m_lo) * BLD + il];
         const bool masked = !all_valid && (i >= Tq || j >= vl || (causal && j > i));
-        const float p = masked ? 0.f : fast_exp2(x - sL[il] * LOG2E);
+        const float p = masked ? 0.f : ex2(x - sL[il] * LOG2E);
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - sD[il]);
       }
@@ -798,6 +839,700 @@ flash_rel_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   store_rows<D>(dkb, st.t[IDK], dka, scale, j0, j1, Tk, t);
   store_rows<D>(dvb, st.t[IDV], dva, 1.f, j0, j1, Tk, t);
+}
+
+// ---- the bf16 wgmma form (form 1) at D = 64 and 128 -----------------------
+
+namespace wg {
+
+constexpr int BQ = 64;            // B3: query rows a block; B4: queries a tile
+constexpr int BK = 64;            // B3: keys a tile; B4: keys a block
+constexpr int HALF = 64 * 128;    // bytes of one 64-column half of a 64-row tile
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int TS = BQ + 4;        // B3's table stride, = 4 mod 32 (as form 0's)
+constexpr int BAND_ROWS = 128;    // B4: pe rows a tile pair reads, >= BQ + BK - 1
+constexpr int BLD = BAND_ROWS + 4;   // B4's band stride: its lookups conflict-free
+constexpr int DQ_W = 2;           // B3's consumer warpgroups
+
+// B3's stages: a multiple of its consumer warpgroups, so that each stage
+// serves one warpgroup (item idx, stage idx % S, warpgroup idx % 2); a
+// stage shared by both could be waited for two phases ahead, which its
+// parity does not tell apart.  Two at D = 128 leave the table room for
+// L <= 242.
+template <int D>
+__host__ __device__ constexpr int dq_stages() { return D == 64 ? 4 : 2; }
+template <int D>
+__host__ __device__ constexpr int dkv_w() { return D == 64 ? 2 : 1; }   // B4's consumers
+template <int D>
+__host__ __device__ constexpr int dkv_stages() { return D == 64 ? 4 : 2; }
+template <int D>
+__host__ __device__ constexpr int dkv_threads() { return 128 * (dkv_w<D>() + 1); }
+
+// B3: Q and dO of the block's rows, rings of K and V tiles (pe tiles in
+// K's ring while the table is built), the warpgroups' clip-column sums;
+// the f32 table [2L][TS] follows (its size is the launch's)
+template <int D>
+struct DqSmem {
+  static constexpr int H2 = D / 64, S = dq_stages<D>();
+  static_assert(S % DQ_W == 0, "a stage serves one warpgroup");
+  bf16 q[H2][BQ][64];
+  bf16 g[H2][BQ][64];
+  bf16 k[S][H2][BK][64];
+  bf16 v[S][H2][BK][64];
+  float clip[DQ_W][2][BQ];
+  uint64_t qg_full, full[S], empty[S];
+};
+
+template <int D>
+__host__ __device__ constexpr size_t dq_tab_offset() { return (sizeof(DqSmem<D>) + 15) / 16 * 16; }
+
+// B4: K and V of the block's keys, rings of (Q, dO, pe rows, lse, delta)
+// by query tile, each consumer warpgroup's band [BQ][BLD] f32
+template <bool MASK_ONLY, int D>
+struct DkvSmem {
+  static constexpr int H2 = D / 64, S = dkv_stages<D>(), W = dkv_w<D>();
+  static_assert(S % W == 0, "a stage serves one warpgroup (B3's rule)");
+  bf16 k[H2][BK][64];
+  bf16 v[H2][BK][64];
+  bf16 q[S][H2][BQ][64];
+  bf16 g[S][H2][BQ][64];
+  bf16 pe[MASK_ONLY ? 1 : S][H2][MASK_ONLY ? 8 : BAND_ROWS][64];
+  float lse[S][BQ], delta[S][BQ];
+  float band[MASK_ONLY ? 1 : W][MASK_ONLY ? 1 : BQ][MASK_ONLY ? 4 : BLD];
+  uint64_t kv_full, full[S], empty[S];
+};
+
+// B3's block at query row q0: its key tiles (nk), and the pe tiles holding
+// the table columns its rows reach (npe from pe0): i - j runs from
+// q0 - j_lo, with j_lo the last valid key or, causal, the diagonal's at
+// row q0, up to q0 + BQ - 1 (key 0)
+struct DqTiles {
+  int nk, pe0, npe;
+};
+
+__host__ __device__ inline DqTiles dq_tiles(int q0, int vl, int two_l, int causal,
+                                            bool mask_only) {
+  DqTiles r{(vl + BK - 1) / BK, 0, 0};
+  if (causal) r.nk = imin(r.nk, (q0 + BQ - 1) / BK + 1);
+  if (!mask_only && r.nk > 0) {
+    const int L = two_l / 2;
+    const int j_lo = causal ? imin(vl - 1, q0) : vl - 1;
+    r.pe0 = (clip(q0 - j_lo, L) + L) / BK;
+    r.npe = (imin(q0 + BQ - 1, L - 1) + L) / BK - r.pe0 + 1;
+  }
+  return r;
+}
+
+// B4's block at key k0: its first query tile (the diagonal's under causal)
+// and its query tiles (none when every key is at or past valid_len)
+struct DkvTiles {
+  int qt0, n;
+};
+
+__host__ __device__ inline DkvTiles dkv_tiles(int k0, int vl, int Tq, int causal) {
+  const int qt0 = causal ? k0 / BQ : 0;
+  return {qt0, k0 >= vl ? 0 : imax(0, (Tq + BQ - 1) / BQ - qt0)};
+}
+
+// the first pe row of the tile pair (queries from q0, keys from k0) and
+// the rows it reaches: i - j spans BQ + BK - 1 values, clipped
+__host__ __device__ inline int band_first(int q0, int k0, int L) {
+  return clip(q0 - (k0 + BK - 1), L) + L;
+}
+__host__ __device__ inline int band_rows(int q0, int k0, int L) {
+  return clip(q0 + BQ - 1 - k0, L) + L - band_first(q0, k0, L) + 1;
+}
+
+// rows (r0, r0 + 8) of a warp's accumulator fragment [D / 2] (hopper.cuh's
+// layout), times mul, to a row-major block at base (row stride ld); rows
+// >= n are not stored
+template <int D>
+__device__ __forceinline__ void store_acc(float* base, long long ld, const float (&acc)[D / 2],
+                                          float mul, int r0, int n, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r0 + 8 * r >= n) continue;
+    float* o = base + (r0 + 8 * r) * ld + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// acc += the same fragment's cells of a row-major block at base
+template <int D>
+__device__ __forceinline__ void add_acc(float (&acc)[D / 2], const float* base, int ld, int r0,
+                                        int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(base + (r0 + 8 * r) * ld + 8 * j + 2 * t);
+      acc[4 * j + 2 * r] += x.x;
+      acc[4 * j + 2 * r + 1] += x.y;
+    }
+}
+
+}  // namespace wg
+
+// B3, form 1: dq and dqpe as form 0 computes them.  A block of 384
+// threads per (b*h, 64 query rows): two consumer warpgroups take the
+// block's pe tiles, then its key tiles, in turn (item idx to warpgroup
+// idx % 2) and share Q, dO and the table; warpgroup 2 is the producer.
+template <bool MASK_ONLY, int D>
+__global__ void __launch_bounds__(384, 1)
+flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                              const __grid_constant__ CUtensorMap mk,
+                              const __grid_constant__ CUtensorMap mv,
+                              const __grid_constant__ CUtensorMap mg,
+                              const __grid_constant__ CUtensorMap mpe,
+                              const int* __restrict__ valid_len, const float* __restrict__ lse,
+                              const float* __restrict__ delta, float* __restrict__ dq,
+                              long long dq_b, long long dq_h, long long dq_t,
+                              float* __restrict__ dqpe, int H, int Tq, int Tk, int two_l,
+                              int causal, float scale) {
+  using Sm = wg::DqSmem<D>;
+  constexpr int S = Sm::S, BQ = wg::BQ, BK = wg::BK, TS = wg::TS, NB = BK / 8;
+  constexpr int HALF = wg::HALF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  Sm& sm = *reinterpret_cast<Sm*>(base);
+  float* tab = reinterpret_cast<float*>(base + wg::dq_tab_offset<D>());
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
+  const int L = two_l / 2;
+  const int vl = max(0, min(valid_len[b], Tk));
+  const wg::DqTiles tl = wg::dq_tiles(q0, vl, two_l, causal, MASK_ONLY);
+  const int n_items = tl.npe + tl.nk;   // pe tiles, then key tiles
+  const int w = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qg_full, 1);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], 128);   // the consuming warpgroup's threads release
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (w == 2) {   // the producer: one thread issues every copy
+    setmaxnreg_dec<wg::PRODUCER_REGS>();
+    if (threadIdx.x != 256 || n_items == 0) return;
+    prefetch_tensormap(&mq);
+    prefetch_tensormap(&mk);
+    prefetch_tensormap(&mv);
+    prefetch_tensormap(&mg);
+    if (!MASK_ONLY) prefetch_tensormap(&mpe);
+    mbar_expect_tx(&sm.qg_full, sizeof(sm.q) + sizeof(sm.g));
+    for (int hf = 0; hf < Sm::H2; ++hf) {
+      tma_load_4d(&sm.q[hf][0][0], &mq, &sm.qg_full, 64 * hf, q0, h, b);
+      tma_load_4d(&sm.g[hf][0][0], &mg, &sm.qg_full, 64 * hf, q0, h, b);
+    }
+    for (int idx = 0; idx < n_items; ++idx) {
+      const int st = idx % S;
+      if (idx >= S) mbar_wait(&sm.empty[st], ((idx / S) & 1) ^ 1);   // item idx - S is done
+      if (idx < tl.npe) {
+        mbar_expect_tx(&sm.full[st], sizeof(sm.k[st]));
+        for (int hf = 0; hf < Sm::H2; ++hf)
+          tma_load_4d(&sm.k[st][hf][0][0], &mpe, &sm.full[st], 64 * hf, (tl.pe0 + idx) * BK, 0,
+                      0);
+      } else {
+        const int k0 = (idx - tl.npe) * BK;
+        mbar_expect_tx(&sm.full[st], sizeof(sm.k[st]) + sizeof(sm.v[st]));
+        for (int hf = 0; hf < Sm::H2; ++hf) {
+          tma_load_4d(&sm.k[st][hf][0][0], &mk, &sm.full[st], 64 * hf, k0, h, b);
+          tma_load_4d(&sm.v[st][hf][0][0], &mv, &sm.full[st], 64 * hf, k0, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<wg::CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rl = 16 * wi + g;            // rows rl and rl + 8 of the block's 64
+  const int r0 = q0 + rl, r1 = r0 + 8;
+  const float c2 = scale * LOG2E;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    lse2[r] = row < Tq ? lse[(long long)bh * Tq + row] * LOG2E : 0.f;
+    dlt[r] = row < Tq ? delta[(long long)bh * Tq + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float lo[2] = {0.f, 0.f}, hi[2] = {0.f, 0.f};             // ds of the clip columns
+  float band_lo[2] = {0.f, 0.f}, band_hi[2] = {0.f, 0.f};   // table columns 0, 2L-1
+  if (n_items > 0) mbar_wait(&sm.qg_full, 0);
+
+  if constexpr (!MASK_ONLY) {
+    // the table, tab[col][row] = c2 * q_row . pe[col]: this warpgroup's pe tiles
+    for (int idx = w; idx < tl.npe; idx += wg::DQ_W) {
+      const int st = idx % S;
+      mbar_wait(&sm.full[st], (idx / S) & 1);
+      float s[BK / 2];
+      wgmma_fence();
+      wgmma_ss_kmajor<D, BK>(s, &sm.q[0][0][0], HALF, &sm.k[st][0][0][0], HALF);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(&sm.empty[st]);
+      const int m0 = (tl.pe0 + idx) * BK;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = m0 + 8 * n + 2 * t + (e & 1);
+          if (col < two_l) tab[col * TS + rl + 8 * (e >> 1)] = s[4 * n + e] * c2;
+        }
+    }
+    named_barrier(1, 256);   // the table is complete
+    if (tl.nk > 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        band_lo[r] = tl.pe0 == 0 ? tab[rl + 8 * r] : 0.f;
+        band_hi[r] = (tl.pe0 + tl.npe) * BK >= two_l ? tab[(two_l - 1) * TS + rl + 8 * r] : 0.f;
+      }
+    }
+  }
+
+  // the key tiles: s = q.k^T, dp = g.v^T, p and ds in registers, the
+  // band's interior cells overwritten with ds in place (form 0's rule),
+  // dq += bf16(ds).k with K read MN-major from the same tile
+  for (int idx = tl.npe + ((w + tl.npe) & 1); idx < n_items; idx += wg::DQ_W) {
+    const int st = idx % S, k0 = (idx - tl.npe) * BK;
+    mbar_wait(&sm.full[st], (idx / S) & 1);
+    float s[BK / 2], dp[BK / 2];
+    wgmma_fence();
+    wgmma_ss_kmajor<D, BK>(s, &sm.q[0][0][0], HALF, &sm.k[st][0][0][0], HALF);
+    wgmma_ss_kmajor<D, BK>(dp, &sm.g[0][0][0], HALF, &sm.v[st][0][0][0], HALF);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // i - j over this warp's rows and the tile's keys; the band's path and
+    // the masks are decided once a tile, so that each element loop is one
+    // basic block whose 32 elements the compiler interleaves
+    const int d_min = q0 + 16 * wi - (k0 + BK - 1);
+    const int d_max = q0 + 16 * wi + 15 - k0;
+    const bool all_valid = k0 + BK <= vl && !(causal && k0 + BK - 1 > q0 + 16 * wi);
+    auto ds_tile = [&](auto path, auto check) {
+      // path 0: interior (no clip: each cell read, then overwritten, by its
+      // lane); 1: one side (every pair in one clip column); 2: the general
+      // rule.  check: the masks are tested
+      constexpr int PATH = decltype(path)::value;
+      constexpr bool CHECK = decltype(check)::value;
+      const bool high = d_min >= L - 1;   // path 1's column: 2L - 1, else 0
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int i = r ? r1 : r0;
+          const int j = k0 + 8 * n + 2 * t + (e & 1);
+          float x = s[4 * n + e] * c2;
+          const int d = i - j;
+          float* cell = nullptr;
+          bool own = false;   // the pair's cell is interior: it takes ds
+          if constexpr (!MASK_ONLY && PATH == 0) {   // column d + L, row rl + 8r
+            cell = tab + (r0 - k0 - 2 * t + L) * TS + rl + (8 * r - 8 * n - (e & 1)) * TS + 8 * r;
+            x += *cell;
+          } else if constexpr (!MASK_ONLY && PATH == 1) {
+            x += high ? band_hi[r] : band_lo[r];
+          } else if constexpr (!MASK_ONLY) {
+            const int col = clip(d, L) + L;
+            cell = tab + col * TS + rl + 8 * r;
+            x += *cell;
+            own = col == d + L && col != 0 && col != two_l - 1;
+          }
+          const bool masked = CHECK && (j >= vl || (causal && j > i));
+          const float p = masked ? 0.f : ex2(x - lse2[r]);
+          const float ds = p * (dp[4 * n + e] - dlt[r]);
+          s[4 * n + e] = ds;
+          if constexpr (!MASK_ONLY && PATH == 0) {
+            *cell = ds;
+          } else if constexpr (!MASK_ONLY && PATH == 1) {
+            hi[r] += high ? ds : 0.f;   // selects: an array picked at run time
+            lo[r] += high ? 0.f : ds;   // would go to local memory
+          } else if constexpr (!MASK_ONLY) {
+            if (own) *cell = ds;
+            lo[r] += !own && d <= -L ? ds : 0.f;
+            hi[r] += !own && d > -L ? ds : 0.f;
+          }
+        }
+    };
+    const int path = MASK_ONLY || (d_min > -L && d_max < L - 1) ? 0
+                     : d_min >= L - 1 || d_max <= -L            ? 1
+                                                                : 2;
+    if (all_valid) {
+      if (path == 0) ds_tile(std::integral_constant<int, 0>{}, std::false_type{});
+      else if (path == 1) ds_tile(std::integral_constant<int, 1>{}, std::false_type{});
+      else ds_tile(std::integral_constant<int, 2>{}, std::false_type{});
+    } else {
+      if (path == 0) ds_tile(std::integral_constant<int, 0>{}, std::true_type{});
+      else if (path == 1) ds_tile(std::integral_constant<int, 1>{}, std::true_type{});
+      else ds_tile(std::integral_constant<int, 2>{}, std::true_type{});
+    }
+    uint32_t ds16[BK / 16][4];
+    pack_bf16_a(ds16, s);   // ds rounded to bf16 (the JAX kernel's astype)
+    wgmma_fence();
+    wgmma_rs_mnmajor<D, BK / 16>(acc, ds16, &sm.k[st][0][0][0], HALF);
+    wgmma_commit();
+    if constexpr (!MASK_ONLY) {
+      // the tile's dqpe cells, final now, while dq's product runs: row i's
+      // columns i - k0 - 63 + L .. i - k0 + L (not the clip columns), 4 rows
+      // at a time, 8 consecutive columns a row; a warp writes its own rows
+      __syncwarp();   // the warp's cells are written
+      const int sub = lane >> 3, mi = lane & 7;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int rr = 16 * wi + sub + 4 * k, i = q0 + rr;
+        float* row = dqpe + ((long long)bh * Tq + i) * two_l;
+        const int m0 = i - k0 - (BK - 1) + L;
+#pragma unroll
+        for (int c = mi; c < BK; c += 8) {
+          const int m = m0 + c;
+          if (i < Tq && m > 0 && m < two_l - 1) row[m] = tab[m * TS + rr];
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ds16);
+    mbar_arrive(&sm.empty[st]);
+  }
+
+  float lo_sum[2], hi_sum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lo_sum[r] = quad_sum(lo[r]), hi_sum[r] = quad_sum(hi[r]);
+  named_barrier(1, 256);   // every item is done: the rings are free, the table final
+  constexpr int LDP = D + 8;   // f32 row stride of warpgroup 1's dq in K's ring
+  float* part = reinterpret_cast<float*>(&sm.k[0][0][0][0]);
+  static_assert(BQ * LDP * sizeof(float) <= sizeof(sm.k) + sizeof(sm.v), "dq's partial sums");
+  if (w == 1) wg::store_acc<D>(part, LDP, acc, 1.f, rl, BQ, t);
+  if (!MASK_ONLY && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sm.clip[w][0][rl + 8 * r] = lo_sum[r];
+      sm.clip[w][1][rl + 8 * r] = hi_sum[r];
+    }
+  }
+  named_barrier(1, 256);
+  if (w == 0) {
+    wg::add_acc<D>(acc, part, LDP, rl, t);
+    wg::store_acc<D>(dq + b * dq_b + h * dq_h + q0 * dq_t, dq_t, acc, scale, rl, Tq - q0, t);
+  }
+  if (MASK_ONLY) return;
+
+  // the rest of dqpe: 0 in each row's interior columns that no processed
+  // pair (j < nk * BK) reaches, 4 rows at a time a warp, 8 columns a row;
+  // the clip columns from both warpgroups' sums.  So every cell is written
+  const int jproc = tl.nk * BK;
+  const int w8 = threadIdx.x / 32, sub = lane >> 3, mi = lane & 7;
+  for (int rr = 8 * w8 + sub; rr < 8 * w8 + 8; rr += 4) {
+    const int i = q0 + rr;
+    if (i >= Tq) break;
+    float* row = dqpe + ((long long)bh * Tq + i) * two_l;
+    const int m_min = max(1, i + L - jproc + 1), m_max = min(two_l - 2, i + L);
+    for (int m = 1 + mi; m < min(m_min, two_l - 1); m += 8) row[m] = 0.f;
+    for (int m = max(m_max + 1, 1) + mi; m < two_l - 1; m += 8) row[m] = 0.f;
+  }
+  if (threadIdx.x < BQ && q0 + (int)threadIdx.x < Tq) {
+    const int rr = threadIdx.x;
+    float* row = dqpe + ((long long)bh * Tq + q0 + rr) * two_l;
+    row[0] = sm.clip[0][0][rr] + sm.clip[1][0][rr];
+    row[two_l - 1] = sm.clip[0][1][rr] + sm.clip[1][1][rr];
+  }
+}
+
+// B4, form 1: dk and dv as form 0 computes them.  A block per (b*h, 64
+// keys): at D = 64 two consumer warpgroups take its query tiles in turn
+// (tile idx to warpgroup idx % 2), each with its own dk and dv, summed at
+// the end; at D = 128 one (dk and dv alone take 128 registers a thread).
+// The last warpgroup produces: one thread issues the copies, its second
+// warp stages each tile's lse and delta.
+template <bool MASK_ONLY, int D>
+__global__ void __launch_bounds__(wg::dkv_threads<D>(), 1)
+flash_rel_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv,
+                               const __grid_constant__ CUtensorMap mg,
+                               const __grid_constant__ CUtensorMap mpe,
+                               const int* __restrict__ valid_len, const float* __restrict__ lse,
+                               const float* __restrict__ delta, float* __restrict__ dk,
+                               long long dk_b, long long dk_h, long long dk_t,
+                               float* __restrict__ dv, long long dv_b, long long dv_h,
+                               long long dv_t, int H, int Tq, int Tk, int two_l, int causal,
+                               float scale) {
+  using Sm = wg::DkvSmem<MASK_ONLY, D>;
+  constexpr int S = Sm::S, W = Sm::W, BQ = wg::BQ, BK = wg::BK, BLD = wg::BLD, NQ = BQ / 8;
+  constexpr int HALF = wg::HALF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BK;
+  const int L = two_l / 2;
+  const int vl = max(0, min(valid_len[b], Tk));
+  const wg::DkvTiles tl = wg::dkv_tiles(k0, vl, Tq, causal);
+  const int w = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&sm.full[i], 1 + 32);   // the copies' thread, the lse warp's lanes
+      mbar_init(&sm.empty[i], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (w == W) {   // the producer warpgroup
+    if constexpr (W == 2) setmaxnreg_dec<wg::PRODUCER_REGS>();
+    const int pw = threadIdx.x / 32 - 4 * W, lane = threadIdx.x % 32;
+    if (tl.n == 0 || pw > 1 || (pw == 0 && lane != 0)) return;
+    if (pw == 0) {
+      prefetch_tensormap(&mq);
+      prefetch_tensormap(&mk);
+      prefetch_tensormap(&mv);
+      prefetch_tensormap(&mg);
+      if (!MASK_ONLY) prefetch_tensormap(&mpe);
+      mbar_expect_tx(&sm.kv_full, sizeof(sm.k) + sizeof(sm.v));
+      for (int hf = 0; hf < Sm::H2; ++hf) {
+        tma_load_4d(&sm.k[hf][0][0], &mk, &sm.kv_full, 64 * hf, k0, h, b);
+        tma_load_4d(&sm.v[hf][0][0], &mv, &sm.kv_full, 64 * hf, k0, h, b);
+      }
+    }
+    for (int idx = 0; idx < tl.n; ++idx) {
+      const int st = idx % S, q0 = (tl.qt0 + idx) * BQ;
+      if (idx >= S) mbar_wait(&sm.empty[st], ((idx / S) & 1) ^ 1);
+      if (pw == 0) {
+        mbar_expect_tx(&sm.full[st], sizeof(sm.q[st]) + sizeof(sm.g[st]) +
+                                         (MASK_ONLY ? 0 : sizeof(sm.pe[st])));
+        for (int hf = 0; hf < Sm::H2; ++hf) {
+          tma_load_4d(&sm.q[st][hf][0][0], &mq, &sm.full[st], 64 * hf, q0, h, b);
+          tma_load_4d(&sm.g[st][hf][0][0], &mg, &sm.full[st], 64 * hf, q0, h, b);
+          if (!MASK_ONLY) {
+            const int m_lo = wg::band_first(q0, k0, L);
+            for (int part = 0; part < wg::BAND_ROWS / 64; ++part)
+              tma_load_4d(&sm.pe[st][hf][64 * part][0], &mpe, &sm.full[st], 64 * hf,
+                          m_lo + 64 * part, 0, 0);
+          }
+        }
+      } else {   // the tile's lse and delta (rows >= Tq: 0, masked)
+#pragma unroll
+        for (int c = 0; c < BQ / 32; ++c) {
+          const int i = q0 + lane + 32 * c;
+          sm.lse[st][lane + 32 * c] = i < Tq ? lse[(long long)bh * Tq + i] : 0.f;
+          sm.delta[st][lane + 32 * c] = i < Tq ? delta[(long long)bh * Tq + i] : 0.f;
+        }
+        mbar_arrive(&sm.full[st]);
+      }
+    }
+    return;
+  }
+
+  if constexpr (W == 2) setmaxnreg_inc<wg::CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int kr = 16 * wi + g;          // keys kr and kr + 8 of the block's 64
+  const int j0 = k0 + kr, j1 = j0 + 8;
+  const float c2 = scale * LOG2E;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float* band = &sm.band[MASK_ONLY ? 0 : w][0][0];
+  if (tl.n > 0) mbar_wait(&sm.kv_full, 0);
+
+  for (int idx = w; idx < tl.n; idx += W) {
+    const int st = idx % S, q0 = (tl.qt0 + idx) * BQ;
+    mbar_wait(&sm.full[st], (idx / S) & 1);
+    // band[i][c] = c2 * q_i . pe[m_lo + c] over the tile's queries, through
+    // shared memory to the lanes that hold s^T; then s^T = k.q^T and
+    // dp^T = v.g^T (rows are keys, columns the tile's queries).  The band's
+    // 64 accumulator registers a thread and s^T's and dp^T's 64 are live in
+    // turn: together, beside dk and dv, they would not fit the 168 a
+    // consumer thread has
+    const int m_lo = MASK_ONLY ? 0 : wg::band_first(q0, k0, L);
+    if constexpr (!MASK_ONLY) {
+      float sb[wg::BAND_ROWS / 2];
+      wgmma_fence();
+      wgmma_ss_kmajor<D, wg::BAND_ROWS>(sb, &sm.q[st][0][0][0], HALF, &sm.pe[st][0][0][0],
+                                        2 * HALF);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sb);
+      named_barrier(2 + w, 128);   // the last tile's band is read
+#pragma unroll
+      for (int j = 0; j < wg::BAND_ROWS / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(band + (16 * wi + g + 8 * r) * BLD + 8 * j + 2 * t) =
+              make_float2(sb[4 * j + 2 * r] * c2, sb[4 * j + 2 * r + 1] * c2);
+      named_barrier(2 + w, 128);   // this tile's band is complete
+    }
+    float s[BQ / 2], dp[BQ / 2];
+    wgmma_fence();
+    wgmma_ss_kmajor<D, BQ>(s, &sm.k[0][0][0], HALF, &sm.q[st][0][0][0], HALF);
+    wgmma_ss_kmajor<D, BQ>(dp, &sm.v[0][0][0], HALF, &sm.g[st][0][0][0], HALF);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // the masks are decided once a tile, so each element loop is one basic
+    // block (B3's rule)
+    const bool all_valid = q0 + BQ <= Tq && k0 + BK <= vl && !(causal && k0 + BK - 1 > q0);
+    const float* sl = sm.lse[st];
+    const float* sd = sm.delta[st];
+    auto p_ds_tile = [&](auto check) {   // check: the masks are tested
+      constexpr bool CHECK = decltype(check)::value;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e < 2 ? j0 : j1;
+          const int il = 8 * n + 2 * t + (e & 1);
+          const int i = q0 + il;
+          float x = s[4 * n + e] * c2;
+          if constexpr (!MASK_ONLY) x += band[il * BLD + clip(i - j, L) + L - m_lo];
+          const bool masked = CHECK && (i >= Tq || j >= vl || (causal && j > i));
+          const float p = masked ? 0.f : ex2(x - sl[il] * LOG2E);
+          s[4 * n + e] = p;
+          dp[4 * n + e] = p * (dp[4 * n + e] - sd[il]);
+        }
+    };
+    if (all_valid)
+      p_ds_tile(std::false_type{});
+    else
+      p_ds_tile(std::true_type{});
+    // dv += bf16(p^T).g and dk += bf16(ds^T).q: the tile's dO and Q read
+    // MN-major from the tiles the products above read K-major
+    uint32_t p16[BQ / 16][4], ds16[BQ / 16][4];
+    pack_bf16_a(p16, s);
+    pack_bf16_a(ds16, dp);
+    wgmma_fence();
+    wgmma_rs_mnmajor<D, BQ / 16>(dva, p16, &sm.g[st][0][0][0], HALF);
+    wgmma_rs_mnmajor<D, BQ / 16>(dka, ds16, &sm.q[st][0][0][0], HALF);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(p16);
+    fence_regs(ds16);
+    mbar_arrive(&sm.empty[st]);
+  }
+
+  float* dkb = dk + b * dk_b + h * dk_h + k0 * dk_t;
+  float* dvb = dv + b * dv_b + h * dv_h + k0 * dv_t;
+  if constexpr (W == 2) {   // warpgroup 1's sums through Q's ring
+    constexpr int LDP = D + 8;
+    float* part = reinterpret_cast<float*>(&sm.q[0][0][0][0]);
+    static_assert(2 * BK * LDP * sizeof(float) <= sizeof(sm.q) + sizeof(sm.g), "dk/dv's sums");
+    named_barrier(1, 256);   // every tile is done: the rings are free
+    if (w == 1) {
+      wg::store_acc<D>(part, LDP, dka, 1.f, kr, BK, t);
+      wg::store_acc<D>(part + BK * LDP, LDP, dva, 1.f, kr, BK, t);
+    }
+    named_barrier(1, 256);
+    if (w == 1) return;
+    wg::add_acc<D>(dka, part, LDP, kr, t);
+    wg::add_acc<D>(dva, part + BK * LDP, LDP, kr, t);
+  }
+  wg::store_acc<D>(dkb, dk_t, dka, scale, kr, Tk - k0, t);
+  wg::store_acc<D>(dvb, dv_t, dva, 1.f, kr, Tk - k0, t);
+}
+
+// The wgmma form's launch as computed on the host: the grids' second
+// dims (B3's query tiles, B4's key blocks) and the tensor maps of q, k, v,
+// g and pe: dims (D, T, H, B) innermost first (pe: (D, 2L, 1, 1)), byte
+// strides of the outer three; every box is 64 columns x 64 rows.
+// flash_attention.py's wgmma_backward_plan mirrors it;
+// loco_flash_rel_bwd_wgmma_plan returns it.
+struct BwdPlan {
+  int dq_tiles, dkv_blocks;
+  uint64_t dims[5][4], strides[5][3];
+};
+
+BwdPlan bwd_plan(const Strides& st, int B, int H, int Tq, int Tk, int D, int two_l) {
+  BwdPlan p;
+  p.dq_tiles = (Tq + wg::BQ - 1) / wg::BQ;
+  p.dkv_blocks = (Tk + wg::BK - 1) / wg::BK;
+  const int ops[4] = {IQ, IK, IV, IG};
+  const int T[4] = {Tq, Tk, Tk, Tq};
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)T[i], (uint64_t)H, (uint64_t)B};
+    // in bytes; an axis of size 1 is never stepped and takes the packed stride
+    uint64_t* s = p.strides[i];
+    s[0] = dims[1] == 1 ? 2ull * D : 2ull * st.t[ops[i]];
+    s[1] = dims[2] == 1 ? s[0] * dims[1] : 2ull * st.h[ops[i]];
+    s[2] = dims[3] == 1 ? s[1] * dims[2] : 2ull * st.b[ops[i]];
+    for (int j = 0; j < 4; ++j) p.dims[i][j] = dims[j];
+  }
+  const uint64_t pe_dims[4] = {(uint64_t)D, (uint64_t)two_l, 1, 1};
+  for (int j = 0; j < 4; ++j) p.dims[4][j] = pe_dims[j];
+  p.strides[4][0] = 2ull * D;
+  p.strides[4][1] = p.strides[4][2] = 2ull * D * two_l;
+  return p;
+}
+
+template <bool MASK_ONLY, int D>
+size_t dq_wgmma_smem_bytes(int two_l) {   // + room to align to 1024
+  return 1024 + wg::dq_tab_offset<D>() +
+         (MASK_ONLY ? 0 : (size_t)two_l * wg::TS * sizeof(float));
+}
+
+template <bool MASK_ONLY, int D>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  return 1024 + sizeof(wg::DkvSmem<MASK_ONLY, D>);
+}
+
+template <bool MASK_ONLY, int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* pe,
+                         const int* valid_len, const float* lse, const float* delta,
+                         const void* dout, float* dq, float* dqpe, float* dk, float* dv,
+                         const Strides& st, int B, int H, int Tq, int Tk, int two_l, int causal,
+                         float scale, cudaStream_t stream) {
+  static std::atomic<unsigned long long> dq_done{0}, dkv_done{0};
+  static std::atomic<int> dq_regs{-1}, dkv_regs{-1};
+  constexpr int DKV_THREADS = wg::dkv_threads<D>();
+  // B3's table varies with L: its limit is the most a block may opt in to
+  cudaError_t e = allow_smem_once(flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>, 0, dq_done);
+  if (e == cudaSuccess)
+    e = check_handover_regs(flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>, 384, 128,
+                            wg::PRODUCER_REGS, wg::CONSUMER_REGS, dq_regs);
+  if (e == cudaSuccess)
+    e = allow_smem_once(flash_rel_bwd_dkv_wgmma_kernel<MASK_ONLY, D>,
+                        (int)dkv_wgmma_smem_bytes<MASK_ONLY, D>(), dkv_done);
+  if (e == cudaSuccess && DKV_THREADS == 384)
+    e = check_handover_regs(flash_rel_bwd_dkv_wgmma_kernel<MASK_ONLY, D>, 384, 128,
+                            wg::PRODUCER_REGS, wg::CONSUMER_REGS, dkv_regs);
+  if (e != cudaSuccess) return e;
+  const BwdPlan p = bwd_plan(st, B, H, Tq, Tk, D, two_l);
+  const void* ptrs[5] = {q, k, v, dout, pe};
+  CUtensorMap maps[5] = {};
+  for (int i = 0; i < (MASK_ONLY ? 4 : 5); ++i) {
+    e = encode_bf16_map(&maps[i], ptrs[i], p.dims[i], p.strides[i], 64);
+    if (e != cudaSuccess) return e;
+  }
+  flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>
+      <<<dim3(B * H, p.dq_tiles), 384, dq_wgmma_smem_bytes<MASK_ONLY, D>(two_l), stream>>>(
+          maps[0], maps[1], maps[2], maps[3], maps[4], valid_len, lse, delta, dq, st.b[IDQ],
+          st.h[IDQ], st.t[IDQ], dqpe, H, Tq, Tk, two_l, causal, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_rel_bwd_dkv_wgmma_kernel<MASK_ONLY, D>
+      <<<dim3(B * H, p.dkv_blocks), DKV_THREADS, dkv_wgmma_smem_bytes<MASK_ONLY, D>(),
+         stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], valid_len, lse, delta, dk,
+                   st.b[IDK], st.h[IDK], st.t[IDK], dv, st.b[IDV], st.h[IDV], st.t[IDV], H, Tq,
+                   Tk, two_l, causal, scale);
+  return cudaGetLastError();
 }
 
 // ---- launch --------------------------------------------------------------
@@ -842,24 +1577,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pe,
   return cudaGetLastError();
 }
 
+// the launch's form: form 1 (wgmma) for bf16 at D = 64 and 128, form 0
+// (mma.sync) for every other instantiation (flash_causal.py's kernel_form)
+template <typename T, int D>
+constexpr int form_of() { return !std::is_same<T, float>::value && D >= 64 ? 1 : 0; }
+
+template <typename T, bool MASK_ONLY, int D>
+size_t smem_bytes(int two_l, int kernel) {
+  if constexpr (form_of<T, D>() == 1)
+    return kernel == 0 ? dq_wgmma_smem_bytes<MASK_ONLY, D>(two_l)
+                       : dkv_wgmma_smem_bytes<MASK_ONLY, D>();
+  else
+    return kernel == 0 ? dq_smem_bytes<T, MASK_ONLY, D>(two_l) : dkv_smem_bytes<T, MASK_ONLY, D>();
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, cudaError_t e, int threads, size_t smem) {
+  int blocks = -1;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  return e == cudaSuccess ? blocks : -1;
+}
+
 template <typename T, bool MASK_ONLY, int D>
 int blocks_per_sm(int two_l, int kernel) {
-  int blocks = -1;
-  cudaError_t e;
-  if (kernel == 0) {
-    e = allow_smem_dq<T, MASK_ONLY, D>();
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, flash_rel_bwd_dq_kernel<T, MASK_ONLY, D>, DqS::THREADS,
-          dq_smem_bytes<T, MASK_ONLY, D>(two_l));
+  const size_t smem = smem_bytes<T, MASK_ONLY, D>(two_l, kernel);
+  if constexpr (form_of<T, D>() == 1) {
+    if (kernel == 0)
+      return occupancy(flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>,
+                       cudaFuncSetAttribute(flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            (int)smem),
+                       384, smem);
+    return occupancy(flash_rel_bwd_dkv_wgmma_kernel<MASK_ONLY, D>,
+                     cudaFuncSetAttribute(flash_rel_bwd_dkv_wgmma_kernel<MASK_ONLY, D>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem),
+                     wg::dkv_threads<D>(), smem);
   } else {
-    e = allow_smem_dkv<T, MASK_ONLY, D>();
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, flash_rel_bwd_dkv_kernel<T, MASK_ONLY, D>, DkvS::THREADS,
-          dkv_smem_bytes<T, MASK_ONLY, D>());
+    if (kernel == 0)
+      return occupancy(flash_rel_bwd_dq_kernel<T, MASK_ONLY, D>, allow_smem_dq<T, MASK_ONLY, D>(),
+                       DqS::THREADS, smem);
+    return occupancy(flash_rel_bwd_dkv_kernel<T, MASK_ONLY, D>, allow_smem_dkv<T, MASK_ONLY, D>(),
+                     DkvS::THREADS, smem);
   }
-  return e == cudaSuccess ? blocks : -1;
 }
 
 // f(type tag T*, std::bool_constant<mask_only>, std::integral_constant<int, d>)
@@ -884,21 +1644,23 @@ R with_form(int bf16_operands, int mask_only, int d, R fallback, F&& f) {
 }
 
 #define FORM std::remove_pointer_t<decltype(tag)>, decltype(mo)::value, decltype(dd)::value
+#define FORM_TD std::remove_pointer_t<decltype(tag)>, decltype(dd)::value
+#define FORM_MD decltype(mo)::value, decltype(dd)::value
 
 }  // namespace
 
-// Dynamic shared memory of a launch of B3 (kernel 0) or B4 (kernel 1), 0
-// for a head dim not instantiated.
+// Dynamic shared memory of a launch of B3 (kernel 0) or B4 (kernel 1) in
+// the form these operands take, 0 for a head dim not instantiated.
 extern "C" size_t loco_flash_rel_bwd_smem_bytes(int two_l, int mask_only, int kernel, int d,
                                                 int bf16_operands) {
   return with_form(bf16_operands, mask_only, d, (size_t)0, [&](auto tag, auto mo, auto dd) {
-    return kernel == 0 ? dq_smem_bytes<FORM>(two_l) : dkv_smem_bytes<FORM>();
+    return smem_bytes<FORM>(two_l, kernel);
   });
 }
 
-// Blocks of B3 (kernel 0) or B4 (kernel 1) that fit on one SM of the
-// current device at this table size (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// or -1.
+// Blocks of B3 (kernel 0) or B4 (kernel 1), in the form these operands
+// take, that fit on one SM of the current device at this table size
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
 extern "C" int loco_flash_rel_bwd_blocks_per_sm(int two_l, int mask_only, int kernel, int d,
                                                 int bf16_operands) {
   return with_form(bf16_operands, mask_only, d, -1, [&](auto tag, auto mo, auto dd) {
@@ -913,24 +1675,91 @@ extern "C" int loco_flash_rel_bwd_blocks_per_sm(int two_l, int mask_only, int ke
 // q, k, v, g, dq, dk, dv in that order; pe [two_l, D] contiguous, of q's
 // type (not read when mask_only), valid_len [B] int32, lse/delta [B,H,Tq]
 // float32 contiguous -> dq_content, dk, dv and, unless mask_only, dqpe
-// [B,H,Tq,two_l] float32 contiguous (every cell written).  D in {8, 16,
-// 32, 64, 128}.  Launches B3 then B4 on ``stream``.
+// [B,H,Tq,two_l] float32 contiguous (every cell written).  form 0: the
+// mma.sync kernels, float32 at D in {8, 16, 32, 64, 128} and bfloat16 at
+// {8, 16, 32}; form 1: the wgmma/TMA kernels, bfloat16 at D in {64, 128}
+// (q, k, v, g strides in bytes multiples of 16).  Another pairing returns
+// cudaErrorNotSupported.  Launches B3 then B4 on ``stream``.
 extern "C" int loco_flash_rel_bwd(const void* q, const void* k, const void* v,
                                   const void* pe, const void* valid_len, const void* lse,
                                   const void* delta, const void* g, void* dq, void* dqpe,
                                   void* dk, void* dv, const long long* strides, int B,
                                   int H, int Tq, int Tk, int D, int two_l, int causal,
-                                  int mask_only, float scale, int bf16_operands,
+                                  int mask_only, float scale, int form, int bf16_operands,
                                   void* stream) {
+  if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
   Strides st;
   for (int o = 0; o < N_OPERANDS; ++o)
     st.b[o] = strides[3 * o], st.h[o] = strides[3 * o + 1], st.t[o] = strides[3 * o + 2];
   return (int)with_form(bf16_operands, mask_only, D, cudaErrorInvalidValue,
                         [&](auto tag, auto mo, auto dd) {
-                          return launch<FORM>(q, k, v, pe, (const int*)valid_len,
-                                              (const float*)lse, (const float*)delta, g,
-                                              (float*)dq, (float*)dqpe, (float*)dk,
-                                              (float*)dv, st, B, H, Tq, Tk, two_l, causal,
-                                              scale, (cudaStream_t)stream);
+                          if (form != form_of<FORM_TD>()) return cudaErrorNotSupported;
+                          if constexpr (form_of<FORM_TD>() == 1)
+                            return launch_wgmma<FORM_MD>(
+                                q, k, v, pe, (const int*)valid_len, (const float*)lse,
+                                (const float*)delta, g, (float*)dq, (float*)dqpe, (float*)dk,
+                                (float*)dv, st, B, H, Tq, Tk, two_l, causal, scale,
+                                (cudaStream_t)stream);
+                          else
+                            return launch<FORM>(q, k, v, pe, (const int*)valid_len,
+                                                (const float*)lse, (const float*)delta, g,
+                                                (float*)dq, (float*)dqpe, (float*)dk,
+                                                (float*)dv, st, B, H, Tq, Tk, two_l, causal,
+                                                scale, (cudaStream_t)stream);
                         });
+}
+
+// The wgmma form's plan (BwdPlan and the tiles its blocks take) for these
+// arguments and the host's valid_len[B], into out[47]: B3's blocks, key
+// tiles and pe tiles over all blocks; B4's blocks, query tiles and pe rows
+// reached over all tile pairs (band_rows; 0 when mask_only); for q, k, v,
+// g and pe in turn dims[4] and byte strides[3]; then B3's and B4's dynamic
+// shared memory, threads and stages (D in {64, 128}).
+extern "C" void loco_flash_rel_bwd_wgmma_plan(const long long* strides, int B, int H, int Tq,
+                                              int Tk, int D, int two_l, int causal,
+                                              int mask_only, const int* valid_len,
+                                              long long* out) {
+  Strides st;
+  for (int o = 0; o < N_OPERANDS; ++o)
+    st.b[o] = strides[3 * o], st.h[o] = strides[3 * o + 1], st.t[o] = strides[3 * o + 2];
+  const BwdPlan p = bwd_plan(st, B, H, Tq, Tk, D, two_l);
+  const int L = two_l / 2;
+  long long tiles[4] = {0, 0, 0, 0};
+  for (int b = 0; b < B; ++b) {
+    const int vl = imax(0, imin(valid_len[b], Tk));
+    for (int y = 0; y < p.dq_tiles; ++y) {
+      const wg::DqTiles t = wg::dq_tiles(y * wg::BQ, vl, two_l, causal, mask_only != 0);
+      tiles[0] += t.nk;
+      tiles[1] += t.npe;
+    }
+    for (int y = 0; y < p.dkv_blocks; ++y) {
+      const wg::DkvTiles t = wg::dkv_tiles(y * wg::BK, vl, Tq, causal);
+      tiles[2] += t.n;
+      for (int i = 0; i < t.n && !mask_only; ++i)
+        tiles[3] += wg::band_rows((t.qt0 + i) * wg::BQ, y * wg::BK, L);
+    }
+  }
+  out[0] = (long long)B * H * p.dq_tiles;
+  out[1] = tiles[0] * H;
+  out[2] = tiles[1] * H;
+  out[3] = (long long)B * H * p.dkv_blocks;
+  out[4] = tiles[2] * H;
+  out[5] = tiles[3] * H;
+  for (int i = 0; i < 5; ++i) {
+    long long* o = out + 6 + 7 * i;
+    for (int j = 0; j < 4; ++j) o[j] = (long long)p.dims[i][j];
+    for (int j = 0; j < 3; ++j) o[4 + j] = (long long)p.strides[i][j];
+  }
+  const bool d64 = D == 64;
+  out[41] = mask_only ? (d64 ? dq_wgmma_smem_bytes<true, 64>(two_l)
+                             : dq_wgmma_smem_bytes<true, 128>(two_l))
+                      : (d64 ? dq_wgmma_smem_bytes<false, 64>(two_l)
+                             : dq_wgmma_smem_bytes<false, 128>(two_l));
+  out[42] = mask_only ? (d64 ? dkv_wgmma_smem_bytes<true, 64>() : dkv_wgmma_smem_bytes<true, 128>())
+                      : (d64 ? dkv_wgmma_smem_bytes<false, 64>()
+                             : dkv_wgmma_smem_bytes<false, 128>());
+  out[43] = 384;
+  out[44] = d64 ? wg::dkv_threads<64>() : wg::dkv_threads<128>();
+  out[45] = d64 ? wg::dq_stages<64>() : wg::dq_stages<128>();
+  out[46] = d64 ? wg::dkv_stages<64>() : wg::dkv_stages<128>();
 }

@@ -1,5 +1,6 @@
-// Hopper helpers of the bf16 wgmma form of the causal flash forward
-// (csrc/flash_causal.cu): mbarriers, TMA tensor copies, warpgroup matrix
+// Hopper helpers of the bf16 wgmma forms of the causal flash forward
+// (csrc/flash_causal.cu) and of the rel-pos flash backward
+// (csrc/flash_rel_bwd.cu): mbarriers, TMA tensor copies, warpgroup matrix
 // products (wgmma) and their shared-memory descriptors, register handover
 // between warpgroups (setmaxnreg), and the host-side tensor-map encoder.
 // Included, never compiled on its own; sm_90a only (wgmma, setmaxnreg).
@@ -20,6 +21,10 @@
 #include <cuda.h>   // CUtensorMap and its enums (types only: no driver call is linked)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "bf16_mma.cuh"   // bf16, round_pair
 
 namespace {
 
@@ -251,6 +256,77 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "r"(accumulate));
 }
 
+// an accumulator fragment [8 KS] rounded to bf16 pairs: the A fragments of
+// KS k-steps of 16 over its columns, as they stand (the layout above)
+template <int KS>
+__device__ __forceinline__ void pack_bf16_a(uint32_t (&a)[KS][4], const float (&x)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = round_pair(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// d = A.B^T over a reduction dim of D (D / 16 k-steps, 32 bytes apart
+// inside a 64-column half), A (64 rows) and B (N rows) K-major tiles of
+// [D / 64][rows][64] bf16 at a and b, whose halves are a_half and b_half
+// bytes apart
+template <int D, int N>
+__device__ __forceinline__ void wgmma_ss_kmajor(float (&d)[N / 2], const void* a, int a_half,
+                                                const void* b, int b_half) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  const char* pa = static_cast<const char*>(a);
+  const char* pb = static_cast<const char*>(b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = gmma_desc(pa + (kk / 4) * a_half + 32 * (kk % 4), 16, 1024);
+    const uint64_t db = gmma_desc(pb + (kk / 4) * b_half + 32 * (kk % 4), 16, 1024);
+    if constexpr (N == 64)
+      wgmma_m64n64k16_ss(d, da, db, kk > 0);
+    else
+      wgmma_m64n128k16_ss(d, da, db, kk > 0);
+  }
+}
+
+// d += A.B over KS k-steps of 16: A in registers (k16 A fragments), B an
+// MN-major tile of [D / 64][rows][64] bf16 at b (rows: the reduction dim,
+// read from row 0 on; halves b_half bytes apart), transposed by the
+// instruction
+template <int D, int KS>
+__device__ __forceinline__ void wgmma_rs_mnmajor(float (&d)[D / 2], const uint32_t (&a)[KS][4],
+                                                 const void* b, int b_half) {
+  static_assert(D == 64 || D == 128, "D is 64 or 128");
+  const char* pb = static_cast<const char*>(b);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t desc = gmma_desc(pb + 2048 * kk, b_half, 1024);
+    if constexpr (D == 64)
+      wgmma_m64n64k16_rs(d, a[kk], desc, 1);
+    else
+      wgmma_m64n128k16_rs(d, a[kk], desc, 1);
+  }
+}
+
+// ---- host: register handover -------------------------------------------
+
+// A kernel whose warpgroups hand registers over with setmaxnreg: producer
+// threads drop to producer_regs, consumer threads rise to consumer_regs.
+// Warpgroups whose launch share is too small for that would wait forever
+// in setmaxnreg.inc: refuse to launch them (cudaErrorInvalidConfiguration).
+// ``ok`` caches the answer (-1: not yet known).
+template <typename Kernel>
+cudaError_t check_handover_regs(Kernel kernel, int threads, int producer_threads,
+                                int producer_regs, int consumer_regs, std::atomic<int>& ok) {
+  int state = ok.load(std::memory_order_acquire);
+  if (state < 0) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return e;
+    state = a.numRegs * threads >=
+            producer_threads * producer_regs + (threads - producer_threads) * consumer_regs;
+    ok.store(state, std::memory_order_release);
+  }
+  return state ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
 
 // ---- host: tensor maps --------------------------------------------------
 

@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one process
-per source, all started together) and linked into one shared library with
-a plain C interface, which is loaded with ``ctypes``.  Headers
+per source, all started together, each spreading its optimization passes
+over the machine's threads: ``--split-compile=0`` halves the longest,
+``flash_rel_bwd.cu``, for the same registers) and linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``.  Headers
 (``csrc/*.cuh``) are included by the sources, never compiled alone.  The
 library's file name carries a hash of the sources and headers, so an
 edited file is rebuilt and an unchanged tree is loaded from
@@ -33,22 +35,23 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "--split-compile=0", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu: (argtypes, restype).  The
 # kernels of B1-B6 take their operand type as an int after their other
-# arguments (0: float32, 1: bfloat16; ``bf16_flag``); B5/B6's takes its
-# form (``flash_causal.FORMS``) just before it.
+# arguments (0: float32, 1: bfloat16; ``bf16_flag``); B5/B6's and B3/B4's
+# take their form (``flash_causal.FORMS``) just before it.
 _SIGNATURES = {
     "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], _I),
     "loco_flash_rel_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     "loco_flash_rel_blocks_per_sm": ([_I] * 4, _I),
-    "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 8 + [_F, _I, _P], _I),
+    "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 8 + [_F, _I, _I, _P], _I),
     "loco_flash_rel_bwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "loco_flash_rel_bwd_blocks_per_sm": ([_I] * 5, _I),
+    "loco_flash_rel_bwd_wgmma_plan": ([_P] + [_I] * 8 + [_P, _P], None),
     "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _I, _P], _I),
     "loco_conv_frontend_blocks_per_sm": ([_I, _I], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,

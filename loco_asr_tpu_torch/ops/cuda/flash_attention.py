@@ -28,6 +28,14 @@ takes q's dtype (an exact upcast for a bf16 table under float32 q; a
 float32 table under bf16 q raises on the card, where the bf16 form would
 round it).  A bf16 CUDA tensor reaches the bf16 forms or raises.
 
+B3 + B4 come in two forms (``flash_causal.kernel_form``): ``"wgmma"``,
+Hopper's warpgroup products fed by TMA, for bf16 at kernel head dims 64
+and 128; ``"mma_sync"`` for every float32 launch and bf16 at 8-32.  A CUDA
+launch runs its form or raises; ``flash_rel_backward.launches_by_form``
+counts them.  The wgmma B3 keeps the f32 table [2L][68] in shared memory
+for L up to 272 at head dim 64 and 242 at 128; past that the wrapper
+raises before the launch, as form 0 does past its own limit.
+
 :func:`flash_rel_forward` is differentiable through one
 ``torch.autograd.Function``: its forward is B1, its backward
 :func:`flash_rel_backward` (B3 + B4 and two ``torch.matmul`` for the
@@ -252,11 +260,14 @@ def flash_rel_backward_plain(q, k, v, pe, valid_len, out, lse, g, *,
 
 def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
                      mask_only: bool):
-    """B3 + B4 on the current stream (counted): q, k, v and g (float32 or
-    bf16, one dtype) read through their strides, dq, dk, dv written in
-    float32 into [B, T, H, D] buffers and returned as [B, H, T, D] views
-    (of the first D columns where D was padded), dqpe [B, H, Tq, 2L] (None
-    when ``mask_only``) written whole by B3."""
+    """B3 + B4 on the current stream (counted, and by form): q, k, v and g
+    (float32 or bf16, one dtype) read through their strides, dq, dk, dv
+    written in float32 into [B, T, H, D] buffers and returned as
+    [B, H, T, D] views (of the first D columns where D was padded), dqpe
+    [B, H, Tq, 2L] (None when ``mask_only``) written whole by B3.  The
+    form is ``flash_causal.kernel_form``'s: the wgmma kernels for bf16 at
+    kernel head dims 64 and 128, the mma.sync ones otherwise; the C entry
+    launches it or returns an error, which raises."""
     what = "flash_rel_backward"
     b, h, tq, d = q.shape
     kd = _kernel_head_dim(what, q)
@@ -265,6 +276,7 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
     strides = flash_causal.operand_strides(
         (("q", q), ("k", k), ("v", v), ("g", g)), 2, what)
     bf16 = _build.bf16_flag(q.dtype, what)
+    form = flash_causal.kernel_form(q.dtype, kd)
     dev = q.device
     lse, delta = (_contiguous(what, n, t, dev) for n, t in (("lse", lse), ("delta", delta)))
     tk, two_l = k.shape[2], pe.shape[0]
@@ -285,9 +297,10 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
         lse.data_ptr(), delta.data_ptr(), g.data_ptr(), dq.data_ptr(),
         0 if dqpe is None else dqpe.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         flash_causal.stride_buffer(tuple(strides)), b, h, tq, tk, kd, two_l, int(causal),
-        int(mask_only), float(scale), bf16)
+        int(mask_only), float(scale), flash_causal.FORMS.index(form), bf16)
     _build.check(code, what)
     flash_rel_backward.launches += 1
+    flash_rel_backward.launches_by_form[form] += 1
     return dq[..., :d], dk[..., :d], dv[..., :d], dqpe
 
 
@@ -326,6 +339,7 @@ def flash_rel_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_rel_backward.launches = 0
+flash_rel_backward.launches_by_form = dict.fromkeys(flash_causal.FORMS, 0)
 
 
 def _forward(q, k, v, pe, valid_len, causal, scale, mask_only):

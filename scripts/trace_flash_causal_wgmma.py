@@ -5,8 +5,8 @@
 
 Copies ``loco_asr_tpu_torch/csrc/flash_causal.cu`` with ``clock64`` stamps
 put into its wgmma kernel (thread 0 of each consumer warpgroup of block
-``--block`` stamps; the store is predicated, no branch), builds the copy
-with nvcc into ``loco_asr_tpu_torch/csrc/build/trace/``, and runs it, and
+``--block`` stamps; ``trace_stamps.py`` builds the copy with nvcc into
+``loco_asr_tpu_torch/csrc/build/trace/``), and runs it, and
 the untraced kernel, at the main path's shapes in bf16: B5 at
 [8, 25, 1024, 64] causal (gpt2-xl) and B6 on [8, 1024, 12, 64] qkv views
 (gpt2).  Prints, per shape and warpgroup, the cycles of the block's phases:
@@ -27,24 +27,17 @@ the line it missed.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-STAMP = r'''#include "tf32_mma.cuh"
-__device__ long long g_trace[2][64];
-__device__ __forceinline__ void tr_store(long long* p, int on) {
-  long long c = clock64();
-  asm volatile("{ .reg .pred q; setp.ne.s32 q, %0, 0; @q st.global.u64 [%1], %2; }"
-               :: "r"(on), "l"(p), "l"(c) : "memory");
-}
-#define TR(k) tr_store(&g_trace[w][k], tid == 0 && blockIdx.x == TRACE_BLOCK)
-'''
+import trace_stamps
+
+# stamps of warpgroup w at slots 64 w ..; thread 0 of each consumer
+# warpgroup of block TRACE_BLOCK stamps
+MACROS = "#define TR(k) tr_store(&g_trace[64 * w + (k)], tid == 0 && blockIdx.x == TRACE_BLOCK)"
 # (line of the source, the same with its stamp); stamp k: 0 start, 1 Q
 # arrived, 2 K0 arrived, 3 tile 0 done; tile i (1..) at 4 + 6 (i % 8):
 # +0 K arrived, +1 q.k^T done, +2 softmax done, +3 p.v done, +4 packed;
@@ -53,7 +46,7 @@ EDITS = [
     ("    mbar_wait(&sm.q_full, 0);\n    mbar_wait(&sm.k_full[0], 0);",
      "    TR(0);\n    mbar_wait(&sm.q_full, 0);\n    TR(1);\n    mbar_wait(&sm.k_full[0], 0);\n"
      "    TR(2);"),
-    ("    wg::pack_p(p, s);\n    // tile i's", "    wg::pack_p(p, s);\n    TR(3);\n    // tile i's"),
+    ("    pack_bf16_a(p, s);\n    // tile i's", "    pack_bf16_a(p, s);\n    TR(3);\n    // tile i's"),
     ("      mbar_wait(&sm.k_full[st], (i / S) & 1);\n      wgmma_fence();",
      "      mbar_wait(&sm.k_full[st], (i / S) & 1);\n      TR(4 + 6 * (i & 7));\n"
      "      wgmma_fence();"),
@@ -63,7 +56,7 @@ EDITS = [
      "      wgmma_wait<0>();   // p.v done"),
     ("      mbar_arrive(&sm.v_empty[pst]);\n", "      TR(7 + 6 * (i & 7));\n"
      "      mbar_arrive(&sm.v_empty[pst]);\n"),
-    ("      wg::pack_p(p, s);\n    }\n", "      wg::pack_p(p, s);\n      TR(8 + 6 * (i & 7));\n"
+    ("      pack_bf16_a(p, s);\n    }\n", "      pack_bf16_a(p, s);\n      TR(8 + 6 * (i & 7));\n"
      "    }\n    TR(60);\n"),
     ("    if (t == 0) {\n#pragma unroll\n      for (int r = 0; r < 2; ++r)\n"
      "        if (row0 + 8 * r < Tq)",
@@ -72,33 +65,11 @@ EDITS = [
 ]
 
 
-def traced_library(block: int) -> ctypes.CDLL:
+def traced_library(block: int):
     """The stamped copy of the kernels, built and loaded."""
-    from loco_asr_tpu_torch.ops.cuda import _build
-
-    src = open(os.path.join(_build.CSRC, "flash_causal.cu")).read()
-    src = src.replace('#include "tf32_mma.cuh"\n', STAMP)
-    for line, stamped in EDITS:
-        if line not in src:
-            raise SystemExit(f"flash_causal.cu no longer has the line\n{line}")
-        src = src.replace(line, stamped)
-    src += ('\nextern "C" int loco_trace_read(long long* host) {\n'
-            '  return (int)cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace));\n}\n'
-            'extern "C" int loco_trace_clear() {\n'
-            '  static const long long zero[2][64] = {};\n'
-            '  return (int)cudaMemcpyToSymbol(g_trace, zero, sizeof(zero));\n}\n')
-    out_dir = os.path.join(_build.BUILD_DIR, "trace")
-    os.makedirs(out_dir, exist_ok=True)
-    cu, so = os.path.join(out_dir, "flash_causal_trace.cu"), os.path.join(out_dir, "libtrace.so")
-    with open(cu, "w") as f:
-        f.write(src)
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([_build._nvcc(), *flags, "-shared", "-I", _build.CSRC,
-                    f"-DTRACE_BLOCK={block}", cu, "-o", so], check=True)
-    lib = ctypes.CDLL(so)
-    lib.loco_flash_causal_fwd.argtypes = _build._SIGNATURES["loco_flash_causal_fwd"][0]
-    lib.loco_flash_causal_fwd.restype = ctypes.c_int
-    return lib
+    return trace_stamps.stamped_library("flash_causal.cu", 128, MACROS, EDITS, "flash_causal_trace",
+                                        defines=[f"TRACE_BLOCK={block}"],
+                                        entries=["loco_flash_causal_fwd"])
 
 
 def phases(stamps: list) -> dict:
@@ -154,39 +125,22 @@ def main(argv=None) -> int:
                 fc.FORMS.index("wgmma"), 1), "trace")
         return run
 
-    def ms(fn, reps=50):
-        for _ in range(5):
-            fn()
-        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(e) / reps
-
     x = bf(8, 1024, 3 * 768)
     for name, (q, k, v), t_axis in (
             ("B5 [8, 25, 1024, 64]", [bf(8, 25, 1024, 64) for _ in range(3)], 2),
             ("B6 [8, 1024, 12, 64] qkv views", [y.reshape(8, 1024, 12, 64)
                                                 for y in x.split(768, dim=-1)], 1)):
         run = launcher(traced, q, k, v, t_axis)
-        if traced.loco_trace_clear():
-            raise RuntimeError("clearing the stamps failed")
+        trace_stamps.clear(traced)
         run()
         torch.cuda.synchronize()
-        buf = (ctypes.c_longlong * 128)()
-        check = traced.loco_trace_read(ctypes.addressof(buf))
-        if check:
-            raise RuntimeError(f"reading the stamps: CUDA error {check}")
+        stamps = trace_stamps.read(traced)
         rec = dict(case=name, block=args.block,
-                   warpgroups=[phases(list(buf[64 * w:64 * w + 64])) for w in range(2)],
-                   ms=ms(launcher(lib, q, k, v, t_axis)), traced_ms=ms(run))
+                   warpgroups=[phases(stamps[64 * w:64 * w + 64]) for w in range(2)],
+                   ms=trace_stamps.event_ms(launcher(lib, q, k, v, t_axis)),
+                   traced_ms=trace_stamps.event_ms(run))
         print(json.dumps(rec))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {trace_stamps.card()}")
     return 0
 
 

@@ -128,7 +128,8 @@ class _PlainLibrary:
         return 0
 
     def loco_flash_rel_bwd(self, q, k, v, pe, vl, lse, delta, g, dq, dqpe, dk, dv, strides,
-                           B, H, Tq, Tk, D, two_l, causal, mask_only, scale, bf16, stream):
+                           B, H, Tq, Tk, D, two_l, causal, mask_only, scale, form, bf16,
+                           stream):
         self.head_dims.append(D)
         st = _strides(strides, 21)
         ins = [torch.from_numpy(_view(p, torch.float32, (B, H, T, D), st[3 * i:3 * i + 3])
