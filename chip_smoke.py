@@ -25,11 +25,12 @@ Phases, in order (any failure raises and exits non-zero):
 1. environment: card name and power limit, torch / CUDA versions, TF32
    flags (both set False: every comparison here is float32);
 2. build: nvcc for sm_90a, build seconds and ptxas register/smem lines;
-   for B1's twenty kernels and B3's and B4's forty (thirty-two mma.sync:
-   f32 at head dims 8-128 and bf16 at 8-32; eight wgmma: bf16 at 64 and
-   128; rel band and mask-only), their block shapes, registers, spill,
-   shared memory at L=160 and blocks per SM (the wgmma ones with their
-   threads and stages from their launch plan); the same for B2's two
+   for B1's twenty kernels (sixteen mma.sync: f32 at head dims 8-128 and
+   bf16 at 8-32; four wgmma: bf16 at 64 and 128) and B3's and B4's forty
+   (thirty-two mma.sync, eight wgmma, as B1's; rel band and mask-only),
+   their block shapes, registers, spill, shared memory at L=160 (and at
+   L=512: the wgmma forms' the same) and blocks per SM (the wgmma ones
+   with their threads and stages from their launch plan); the same for B2's two
    kernels and B7's warp kernels, with their static SASS counts where
    cuobjdump exists, and for B5/B6's two wgmma kernels (bf16 at head dims
    64 and 128: threads, K/V stages and shared memory from their launch
@@ -189,7 +190,10 @@ Phases, in order (any failure raises and exits non-zero):
 16. mixed precision, the bf16 forms of B1-B6: (a) each at the f32
    cases' shapes (B1 ``rel_padded``, mask-only and ``vl0`` at
    [16, 12, 249, 64], L = 160, and mask-only at the decoder's
-   cross-attention [8, 12, 160, 64] over 500 keys; B3/B4 at
+   cross-attention [8, 12, 160, 64] over 500 keys, each with its f32 form,
+   plain version and SDPA beside; also causal, at [16, 6, 249, 128] and
+   at L = 512 ([2, 12 | 6, 600, 64 | 128], past the 272 / 242 that B3's
+   former table allowed; B3/B4 held there too); B3/B4 at
    [8, 12, 500, 64], L = 160, and mask-only at [8, 12, 160, 64] over 500
    keys; B5 at [8, 25, 1024, 64] causal; B6 on
    [8, 1024, 12, 64] qkv views; B2 at [16, 80000]) against its plain
@@ -198,8 +202,8 @@ Phases, in order (any failure raises and exits non-zero):
    error at most twice the plain version's); CUDA-event and device ms
    beside the f32 form's, the bound (bytes over 3.35 TB/s or products
    over 989 TFLOP/s in one pass), SDPA in bf16 (B5, B6, mask-only B1; its
-   backward beside B3/B4); B3/B4, B5 and B6 run their wgmma form
-   (``form``, one launch of it counted a B3/B4 case);
+   backward beside B3/B4); B1, B3/B4, B5 and B6 run their wgmma form
+   (``form``, one launch of it counted a B1 and a B3/B4 case);
    (b) the full-width ASR step under
    ``compute_dtype=bfloat16`` with the feature encoder frozen: kernels +
    flash against plain + dense in bf16 (loss rtol 1e-2), the inputs of
@@ -209,7 +213,7 @@ Phases, in order (any failure raises and exits non-zero):
    plain + dense bf16 step's distance from the f32 step's, against the
    f32 step under the JAX test's contract (loss rtol 5e-2, grad norm
    15 %), launches by form (18 B1, 18 B3/B4, 6 B5, 1 B2, all bf16; the
-   18 B3/B4 and 6 B5 all of the wgmma form; each replay names its form), 10
+   18 B1, 18 B3/B4 and 6 B5 all of the wgmma form; each replay names its form), 10
    steps' median ms, audio-s/s, busy share, kernels a step, the slowest
    kernels, the casts' host ms and peak memory beside the f32 step's;
    ``train_asr --compute_dtype bfloat16 --freeze_feature_encoder
@@ -248,7 +252,10 @@ Phases, in order (any failure raises and exits non-zero):
    under ``full`` and ``lite`` against ``none`` (B6 24 and 12 times a
    step, 12 blockwise backward calls); dropout
    off under ``full``, kernels + flash against plain + dense at the
-   longest window that fits (164 s first; phase 8's limits); per policy
+   longest window that fits (164 s first; phase 8's limits); dropout off,
+   the bf16 step under ``none`` (B1 and B3/B4 in their wgmma forms at
+   conversation length: 18 each) against the f32 step on the same
+   weights (loss rtol 5e-2), with its ms and peak memory; per policy
    the launches (B1 30 under full/dots/hybrid, 18 under none/lite; 18
    B3/B4; 6 B5), the median ms of 2 steps taken in two turns (none ..
    lite, lite .. none), audio-s/s, peak memory, busy share and device
@@ -268,9 +275,9 @@ Phases, in order (any failure raises and exits non-zero):
    else, one cross-attention projection a segment, two or more refreshes
    of the conversation cache (its re-primings counted), RTFx; every greedy
    step's two best fused candidates traced, and the kernel path's tokens
-   held to the plain path's (``use_kernels=False`` through
-   ``transcribe_long_audio``, its decoder K projections counted) by phase
-   12's near-tie rule.  ``--continuous --slots 4`` greedy: B1/B2 an
+   held to the plain path's on the manifest episode's first two segments
+   (``use_kernels=False`` through ``transcribe_long_audio``, its decoder K
+   projections counted) by phase 12's near-tie rule.  ``--continuous --slots 4`` greedy: B1/B2 an
    admission, one projection an admission, two or more refreshes, its
    tokens on the manifest episode held by the same rule to the per-episode
    ones (each of those segments fills the bucket, so both modes encode it
@@ -387,7 +394,7 @@ Phases, in order (any failure raises and exits non-zero):
    ``mesh_rank_step_launches``; B1, B2, B3/B4 and B5 with phase 22's
    launches a rank and the error of their captured Ulysses launches;
    then the six bf16 forms with phase 16's launches, times and
-   bounds: B3/B4, B5 and B6 as their wgmma form, its launches in the
+   bounds: B1, B3/B4, B5 and B6 as their wgmma form, its launches in the
    bf16 ASR and LM steps, B3/B4 with the mask-only pair beside), then last
    ``{"ok": true, "device": {...}}``.
 
@@ -614,22 +621,49 @@ ELEM = r"(f|13__nv_bfloat16)"
 
 
 def b1_build_records(build) -> list:
-    """B1's twenty flash_rel_fwd_kernels (f32 and bf16, rel band and
-    mask-only at head dims 8-128), with their shared memory at L = 160 and
-    the blocks that fit on one SM of this card (CUDA's occupancy API)."""
+    """B1's sixteen flash_rel_fwd_kernels of the mma.sync form (f32 at head
+    dims 8-128, bf16 at 8-32, rel band and mask-only) and the four of the
+    wgmma form (bf16 at 64 and 128), with their shared memory at L = 160
+    and 512 and the blocks that fit on one SM of this card (CUDA's
+    occupancy API); the wgmma form's threads and stages from its C launch
+    plan (``loco_flash_rel_fwd_wgmma_plan``)."""
+    import ctypes
+
+    from loco_asr_tpu_torch.ops.cuda import flash_causal as fc
+
     lib = build.library()
+
+    def at_l(mask_only, d, bf16):
+        return dict(
+            smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only, d, bf16),
+            smem_bytes_l512=lib.loco_flash_rel_smem_bytes(1024, mask_only, d, bf16),
+            blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only, d, bf16),
+            blocks_per_sm_l512=lib.loco_flash_rel_blocks_per_sm(1024, mask_only, d, bf16))
 
     def describe(m):
         bf16, mask_only, d = int(m.group(1) != "f"), int(m.group(2)), int(m.group(3))
-        return dict(kernel="B1", dtype=("float32", "bfloat16")[bf16],
+        return dict(kernel="B1", form="mma_sync", dtype=("float32", "bfloat16")[bf16],
                     mask_only=bool(mask_only), head_dim=d,
                     shape="4 warps, 64-key tiles, 2 stages" if mask_only
-                    else "4 warps, 32-key tiles, 1 stage",
-                    smem_bytes_l160=lib.loco_flash_rel_smem_bytes(320, mask_only, d, bf16),
-                    blocks_per_sm_l160=lib.loco_flash_rel_blocks_per_sm(320, mask_only, d,
-                                                                        bf16))
-    return kernel_build_records(build, r"flash_rel_fwd_kernelI" + ELEM + r"Lb([01])ELi(\d+)E",
-                                describe, 20)
+                    else "4 warps, 32-key tiles, 1 stage", **at_l(mask_only, d, bf16))
+
+    def describe_wgmma(m):
+        mask_only, d = int(m.group(1)), int(m.group(2))
+        plan = (ctypes.c_longlong * 35)()
+        lib.loco_flash_rel_fwd_wgmma_plan(fc.stride_buffer((0,) * 12), 1, 1, 249, 249, d, 320,
+                                          0, mask_only, (ctypes.c_int * 1)(249),
+                                          ctypes.addressof(plan))
+        threads, stages, consumers = plan[32], plan[33], plan[34]
+        return dict(kernel="B1", form="wgmma", dtype="bfloat16", mask_only=bool(mask_only),
+                    head_dim=d, threads=threads, stages=stages,
+                    shape=f"{consumers} consumer warpgroups on one block's 64 query rows, "
+                          f"64-key tiles in turn, a producer warpgroup, {stages} TMA stages"
+                          + ("" if mask_only else " of K, V and the band's window"),
+                    **at_l(mask_only, d, 1))
+    return (kernel_build_records(build, r"flash_rel_fwd_kernelI" + ELEM + r"Lb([01])ELi(\d+)E",
+                                 describe, 16)
+            + kernel_build_records(build, r"flash_rel_fwd_wgmma_kernelILb([01])ELi(\d+)E",
+                                   describe_wgmma, 4))
 
 
 def b34_build_records(build) -> list:
@@ -672,14 +706,18 @@ def b34_build_records(build) -> list:
                                           ctypes.addressof(plan))
         threads, stages = plan[43 + kernel], plan[45 + kernel]
         consumers = threads // 128 - 1
-        shape = ((f"{consumers} consumer warpgroups on one block's 64 query rows and its "
-                  "table, 64-key tiles in turn" if kernel == 0 else
+        shape = ((f"{consumers} consumer warpgroups on one block's 64 query rows, 64-key "
+                  "tiles in turn, each with its band window" if kernel == 0 else
                   f"{consumers} consumer warpgroup(s) on one block's 64 keys, 64-query tiles "
                   "in turn") + f", a producer warpgroup, {stages} TMA stages")
         return dict(kernel=("B3", "B4")[kernel], form="wgmma", dtype="bfloat16",
                     mask_only=bool(mask_only), head_dim=d, shape=shape, threads=threads,
                     stages=stages, smem_bytes_l160=plan[41 + kernel],
+                    smem_bytes_l512=lib.loco_flash_rel_bwd_smem_bytes(1024, mask_only, kernel,
+                                                                      d, 1),
                     blocks_per_sm_l160=lib.loco_flash_rel_bwd_blocks_per_sm(320, mask_only,
+                                                                            kernel, d, 1),
+                    blocks_per_sm_l512=lib.loco_flash_rel_bwd_blocks_per_sm(1024, mask_only,
                                                                             kernel, d, 1))
     return (kernel_build_records(build, r"flash_rel_bwd_(dq|dkv)_kernelI" + ELEM
                                  + r"Lb([01])ELi(\d+)E", describe, 32)
@@ -1097,7 +1135,8 @@ def reset_all_launches() -> None:
                fc.flash_forward, fc.flash_backward, fc.flash_forward_nhd,
                logmel.fused_log_mel):
         fn.launches = 0
-    for fn in (fc.flash_forward, fc.flash_forward_nhd, fa.flash_rel_backward):
+    for fn in (fc.flash_forward, fc.flash_forward_nhd, fa.flash_rel_forward,
+               fa.flash_rel_backward):
         fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
 
 
@@ -2438,7 +2477,7 @@ def hold_captured(cases: dict) -> list:
         else:
             rec = hold_b5(what, c["q"], c["k"], c["v"], causal=c["causal"], scale=c["scale"],
                           nhd=c["nhd"])
-        if key[0] in ("B3/B4", "B5", "B6"):
+        if key[0] in ("B1", "B3/B4", "B5", "B6"):
             rec["form"] = fc.kernel_form(dtype, fc.kernel_head_dim(c["q"].shape[-1], key[0]))
         recs.append(dict(kernel=key[0], case=[str(x) for x in key[1:]],
                          dtype=str(dtype), **({"form": rec["form"]} if "form" in rec else {}),
@@ -2512,53 +2551,87 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         fa.flash_rel_forward.launches = cf.conv1_instance_norm_gelu.launches = 0
         fa.flash_rel_backward.launches = fc.flash_forward.launches = 0
         fc.flash_backward.launches = fc.flash_forward_nhd.launches = 0
-        for fn in (fc.flash_forward, fc.flash_forward_nhd, fa.flash_rel_backward):
+        for fn in (fc.flash_forward, fc.flash_forward_nhd, fa.flash_rel_forward,
+                   fa.flash_rel_backward):
             fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
 
     def by_form():
-        return {"B5": dict(fc.flash_forward.launches_by_form),
+        return {"B1": dict(fa.flash_rel_forward.launches_by_form),
+                "B5": dict(fc.flash_forward.launches_by_form),
                 "B6": dict(fc.flash_forward_nhd.launches_by_form),
                 "B3/B4": dict(fa.flash_rel_backward.launches_by_form)}
 
     recs = {}
 
-    # (a) the bf16 kernels at the f32 cases' shapes, and B1 mask-only at
-    # the decoder's cross-attention shape (160 label positions over 500
-    # frames)
-    for name, b, tq, tk, L, vls in (
-            ("rel_padded", 16, 249, 249, 160, [249] * 10 + [230, 200, 180, 120, 60, 17]),
-            ("mask_only", 16, 249, 249, 0, [249] * 12 + [200, 150, 99, 40]),
-            ("vl0", 16, 249, 249, 160, [249] * 12 + [0, 120, 0, 60]),
-            ("cross_mask_only", 8, 160, 500, 0, [500] * 6 + [430, 310])):
-        q = randn(b, 12, tq, 64)
-        k, v = (randn(b, 12, tk, 64) for _ in range(2))
-        pe = randn(2 * L, 64) if L else None
-        table = pe if L else torch.zeros(2, 64, dtype=bf, device=dev)
+    # (a) the bf16 kernels at the f32 cases' shapes, B1 mask-only at the
+    # decoder's cross-attention shape (160 label positions over 500
+    # frames), causal, at head dim 128 and at L = 512 (past the 272 and 242
+    # the mma.sync forms' table allowed B3; there B3/B4 run beside B1): every
+    # bf16 B1 at head dims 64 and 128 in the wgmma form (one launch of it a
+    # hold, counted)
+    rel_lens = [249] * 10 + [230, 200, 180, 120, 60, 17]
+    for name, b, h, tq, tk, L, vls, causal, d in (
+            ("rel_padded", 16, 12, 249, 249, 160, rel_lens, False, 64),
+            ("mask_only", 16, 12, 249, 249, 0, [249] * 12 + [200, 150, 99, 40], False, 64),
+            ("vl0", 16, 12, 249, 249, 160, [249] * 12 + [0, 120, 0, 60], False, 64),
+            ("cross_mask_only", 8, 12, 160, 500, 0, [500] * 6 + [430, 310], False, 64),
+            ("rel_causal", 16, 12, 249, 249, 160, [249] * 14 + [200, 100], True, 64),
+            ("rel_padded_d128", 16, 6, 249, 249, 160, rel_lens, False, 128),
+            ("rel_l512", 2, 12, 600, 600, 512, [600, 555], False, 64),
+            ("rel_l512_d128", 2, 6, 600, 600, 512, [600, 555], False, 128)):
+        q = randn(b, h, tq, d)
+        k, v = (randn(b, h, tk, d) for _ in range(2))
+        pe = randn(2 * L, d) if L else None
+        table = pe if L else torch.zeros(2, d, dtype=bf, device=dev)
         vl = torch.tensor(vls, dtype=torch.int32, device=dev)
-        kw = dict(causal=False, scale=1.0)
+        kw = dict(causal=causal, scale=1.0)
 
         def run():
             return fa.flash_rel_forward(q, k, v, pe, vl, **kw)
 
+        before = dict(fa.flash_rel_forward.launches_by_form)
         rec = hold_b1(f"B1 bf16 {name}", q, k, v, pe, vl, **kw)
-        lib_ms = None
-        if not L:
-            keep = (torch.arange(tk, device=dev)[None, :] < vl[:, None])[:, None, None, :]
-            lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        pe32 = None if pe is None else pe.float()
-        nbytes, flops = b1_work(q, k, pe, vl, False)
+        form = fc.kernel_form(bf, d)
+        check(form == "wgmma" and fa.flash_rel_forward.launches_by_form
+              == {**before, form: before[form] + 1},
+              f"B1 bf16 {name}: launches by form {fa.flash_rel_forward.launches_by_form}")
+        nbytes, flops = b1_work(q, k, pe, vl, causal)
         bms, by = bound(nbytes, flops, products=True, bf16=True)
         ms = time_ms(run)
-        rec.update(kernel="B1 bf16", case=name, shape=[b, 12, tq, 64], tk=tk,
-                   two_l=2 * L or "mask-only", ms=ms,
-                   device_ms=kernel_device_ms(run, ("flash_rel_fwd",))["flash_rel_fwd"],
-                   f32_ms=time_ms(lambda: fa.flash_rel_forward(q32, k32, v32, pe32, vl, **kw)),
-                   plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, table, vl, **kw)),
-                   library_ms=lib_ms, bound_ms=bms, bound_by=by, bound_share=bms / ms, card=smi)
+        dev_ms = kernel_device_ms(run, ("flash_rel_fwd",))["flash_rel_fwd"]
+        rec.update(kernel="B1 bf16", case=name, form=form, shape=[b, h, tq, d], tk=tk,
+                   two_l=2 * L or "mask-only", causal=causal, ms=ms, device_ms=dev_ms,
+                   bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   device_bound_share=bms / dev_ms, card=smi)
+        if name in ("rel_padded", "mask_only", "vl0", "cross_mask_only"):   # phase 3's cases
+            lib_ms = None
+            if not L:
+                keep = (torch.arange(tk, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+                lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            pe32 = None if pe is None else pe.float()
+            rec.update(f32_ms=time_ms(lambda: fa.flash_rel_forward(q32, k32, v32, pe32, vl,
+                                                                    **kw)),
+                       plain_ms=time_ms(lambda: fa.flash_rel_forward_plain(q, k, v, table, vl,
+                                                                           **kw)),
+                       library_ms=lib_ms)
+            del q32, k32, v32
+        if name.startswith("rel_l512"):   # C4: the backward at the same L
+            gg = randn(b, h, tq, d, sc=1.0)
+            out, lse = fa.flash_rel_forward(q, k, v, pe, vl, **kw)
+            before = dict(fa.flash_rel_backward.launches_by_form)
+            rec["b34"] = hold_b34(f"B3/B4 bf16 {name}", q, k, v, pe, vl, out, lse, gg,
+                                  mask_only=False, **kw)
+            check(fa.flash_rel_backward.launches_by_form == {**before, form: before[form] + 1},
+                  f"B3/B4 bf16 {name}: launches by form {fa.flash_rel_backward.launches_by_form}")
+            rec["b34_device_ms"] = kernel_device_ms(
+                lambda: fa.flash_rel_backward(q, k, v, pe, vl, out, lse, gg, **kw),
+                ("flash_rel_bwd_dq", "flash_rel_bwd_dkv"))
+            del gg, out, lse
         recs.setdefault("B1", rec)
+        recs.setdefault("B1 cases", []).append(rec)
         print(f"[bf16] {json.dumps(rec)}")
-        del q, k, v, q32, k32, v32
+        del q, k, v
 
     # B3/B4 at the encoder's training shape, two rows padded, and the
     # mask-only pair at the cross-attention's 160 label positions over 500
@@ -2720,7 +2793,9 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
     want_forms = {"flash_rel_forward:bf16": n_enc + n_dec, "conv_frontend:bf16": 1,
                   "flash_rel_backward:bf16": n_enc + n_dec, "flash_forward:bf16": n_dec}
     check(f16 == want_forms, f"bf16 step forms {f16}, expected {want_forms}")
-    # every B5 and B3/B4 launch at head dim 64 in bf16 takes the wgmma form
+    # every B1, B5 and B3/B4 launch at head dim 64 in bf16 takes the wgmma form
+    check(asr_forms["B1"] == {"mma_sync": 0, "wgmma": n_enc + n_dec},
+          f"bf16 step B1 forms {asr_forms['B1']}")
     check(asr_forms["B5"] == {"mma_sync": 0, "wgmma": n_dec},
           f"bf16 step B5 forms {asr_forms['B5']}")
     check(asr_forms["B3/B4"] == {"mma_sync": 0, "wgmma": n_enc + n_dec},
@@ -2930,10 +3005,10 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
 
 
 # the bf16 forms in the kernels line: (name, phase 16's record, launches
-# key, source, the TPU kernel's line); B3/B4, B5 and B6 at head dim 64 are
-# the wgmma form's, their launches its own count
+# key, source, the TPU kernel's line); B1, B3/B4, B5 and B6 at head dim 64
+# are the wgmma form's, their launches its own count
 BF16_FORMS = (
-    ("flash_rel_forward (bf16)", "B1", ("asr_step", "B1"), "flash_rel.cu", 518),
+    ("flash_rel_forward (bf16, wgmma)", "B1", ("asr_forms", "B1"), "flash_rel.cu", 518),
     ("conv1_instance_norm_gelu (bf16)", "B2", ("asr_step", "B2"), "conv_frontend.cu", None),
     ("flash_rel_backward (B3, bf16, wgmma)", "B3", ("asr_forms", "B3/B4"), "flash_rel_bwd.cu",
      799),
@@ -2959,7 +3034,7 @@ def bf16_entries(mixed: dict) -> list:
         e = dict(name=name, route="cuda", source=f"loco_asr_tpu_torch/csrc/{src}",
                  replaces=replaces, launches=launches, max_abs_err=rec["max_abs_err"],
                  ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=rec["library_ms"])
-        if kern in ("B3", "B4", "B5", "B6"):
+        if kern in ("B1", "B3", "B4", "B5", "B6"):
             e["form"] = rec["form"]
         step = [r["max_abs_err"] for r in mixed["step_kernels"]
                 if r["kernel"] == ("B3/B4" if kern in ("B3", "B4") else kern)]
@@ -3491,6 +3566,43 @@ def long_context_phase(corpus: dict, b34_recs: list, smi: str, dev) -> dict:
     check(vs_plain is not None, "plain + dense fits at no window")
     out["long_vs_plain"] = vs_plain
     print(f"[long] vs_plain {json.dumps(vs_plain)}")
+
+    # the bf16 step at 164 s under remat none, where B1 and B3/B4 run their
+    # wgmma forms at conversation length (2L = 320 pe rows, 8,199 frames):
+    # launches by form, ms, peak memory, and its loss against the f32 step's
+    # on the same weights within phase 16's bf16-against-f32 limit
+    bf16_long = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        tx = train.adamw(0.0, weight_decay=0.0)            # rate 0: the weights stay
+        opt = tx.init(train.trainable_params(qmodel))
+        step = train.make_asr_train_step(qcfg, tx, attn_impl="flash", remat="none",
+                                         compute_dtype=dtype)
+        rec = {}
+        for turn in range(2):   # the second is timed: the first pays the casts' set-up
+            reset_counts()
+            for fn in (fa.flash_rel_forward, fa.flash_rel_backward):
+                fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(qmodel, opt, long_batch)["loss"].item()
+            rec = dict(loss=loss, ms=(time.perf_counter() - t0) * 1e3,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=kernel_counts(),
+                       forms={"B1": dict(fa.flash_rel_forward.launches_by_form),
+                              "B3/B4": dict(fa.flash_rel_backward.launches_by_form)})
+            check(np.isfinite(loss), f"long {name} step: loss {loss}")
+        bf16_long[name] = rec
+        del opt, step
+    n_attn = qcfg.encoder_layers + qcfg.decoder_layers
+    for kern in ("B1", "B3/B4"):
+        check(bf16_long["bf16"]["forms"][kern] == {"mma_sync": 0, "wgmma": n_attn},
+              f"long bf16 step {kern} forms {bf16_long['bf16']['forms'][kern]}")
+    l16, l32 = bf16_long["bf16"]["loss"], bf16_long["f32"]["loss"]
+    check(abs(l16 - l32) <= MP_LOSS_RTOL * abs(l32), f"long bf16 step {l16} vs f32 {l32}")
+    bf16_long.update(loss_rel_diff=abs(l16 - l32) / abs(l32), card=smi)
+    out["long_bf16"] = bf16_long
+    print(f"[long] bf16_step {json.dumps(bf16_long)}")
     del qmodel
 
     # each policy's train step: launches, median ms of 2 steps taken in two
@@ -3615,6 +3727,9 @@ EPISODE_SEED = 18
 EPISODE_BATCH_SECONDS = 120          # transcribe_episodes --batch_seconds
 BEAM_DECODE_LEN = 50                 # the beam pass's --max_decode_len (a depth cut for
                                      # time: it holds launches, segments and metrics)
+PLAIN_SEGMENTS = 2                   # the plain pass decodes the manifest episode's first
+                                     # two segments (a depth cut for time: all four
+                                     # before the wgmma B1's phase 16 and 17 cases)
 EPISODE_DECODE_LEN = 340             # --max_decode_len: gpt2's 1,024 positions less
                                      # the 348 reserved: every segment after the
                                      # first refreshes the context (400 before the
@@ -3864,29 +3979,30 @@ def episodes_phase(smi: str, dev) -> dict:
         check(all(np.isfinite(r["rtfx"]) and r["rtfx"] > 0 for r in per["rows"].values()),
               f"per-episode metrics {per['rows']}")
 
-        # the plain path on the same weights and segments: B2's plain
-        # version, dense attention; the decoder's K projections counted
-        plain_ids = {}
+        # the plain path on the same weights and the manifest episode's
+        # first PLAIN_SEGMENTS segments, its context carried between them:
+        # B2's plain version, dense attention; the decoder's K projections
+        # counted
         reset_all_launches()
+        wav, _ = waves["ep_manifest"]
         with greedy_trace() as ptrace, k_projections(model) as kproj:
             t0 = time.perf_counter()
-            for eid, (wav, _) in waves.items():
-                segs = transcribe_long_audio(model, wav, sr, segments=per["spans"][eid],
-                                             fusion=lm, max_decode_len=L, batch_seconds=bs,
-                                             use_kernels=False)
-                plain_ids[eid] = [s.token_ids for s in segs]
+            segs = transcribe_long_audio(model, wav, sr,
+                                         segments=per["spans"]["ep_manifest"][:PLAIN_SEGMENTS],
+                                         fusion=lm, max_decode_len=L, batch_seconds=bs,
+                                         use_kernels=False)
+            plain_ids = [s.token_ids for s in segs]
             torch.cuda.synchronize()
             plain_wall = time.perf_counter() - t0
         check(all(v == 0 for v in all_launches().values()),
               f"the plain path launched {all_launches()}")
-        check(kproj == [1] * (n_dec * n_segs), f"decoder K projections {len(kproj)} calls, "
-                                               f"expected {n_dec * n_segs} of one row")
-        ties, at = {}, 0
-        for eid in waves:
-            n = len(plain_ids[eid])
-            ties[eid] = greedy_agreement(per["ids"][eid], plain_ids[eid], ktrace[at:at + n],
-                                         ptrace[at:at + n], f"per-episode {eid}, kernel vs plain")
-            at += n
+        check(kproj == [1] * (n_dec * PLAIN_SEGMENTS), f"decoder K projections {len(kproj)} "
+                                                       f"calls, expected "
+                                                       f"{n_dec * PLAIN_SEGMENTS} of one row")
+        # ktrace follows the episodes in order: the manifest episode's first
+        ties = {"ep_manifest": greedy_agreement(
+            per["ids"]["ep_manifest"][:PLAIN_SEGMENTS], plain_ids, ktrace[:PLAIN_SEGMENTS],
+            ptrace, "per-episode ep_manifest, kernel vs plain")}
 
         # (b) --continuous greedy.  Per episode pads each segment to whole
         # seconds, the batcher to its bucket, and the padding enters the first

@@ -412,8 +412,8 @@ constexpr size_t smem_bytes() {   // + room to align to 1024
 }
 
 // key tiles the query tile at q0 reads: every one below Tk and, under
-// causal, none wholly above its last row below Tq (flash_causal.py's
-// wgmma_key_tiles mirrors it)
+// causal, none wholly above its last row below Tq (the test's
+// wgmma_key_tiles mirrors it: tests/test_torch_flash_causal_wgmma.py)
 __host__ __device__ inline int key_tiles(int q0, int Tq, int Tk, int causal, int bk) {
   const int last = (q0 + BQ < Tq ? q0 + BQ : Tq) - 1;
   const int n = (Tk + bk - 1) / bk, diag = last / bk + 1;
@@ -655,8 +655,8 @@ flash_causal_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 // The wgmma form's launch as computed on the host: the blocks, the key
 // tiles of one (b, h) over all its query tiles, and the tensor maps of q,
 // k and v: dims (D, T, H, B), byte strides of T, H and B, box rows.
-// flash_causal.py's wgmma_plan mirrors it; loco_flash_causal_wgmma_plan
-// returns it.
+// tests/test_torch_flash_causal_wgmma.py's wgmma_plan mirrors it;
+// loco_flash_causal_wgmma_plan returns it.
 struct WgPlan {
   int grid, tiles;
   uint64_t dims[3][4], strides[3][3];

@@ -111,24 +111,26 @@
 // of an SM's tensor cores, its elementwise work and shared-memory round
 // trips (B4's band) over a thousand, in a chain a warpgroup waits through.
 //  - B3: a block of 384 threads per (b*h, 64 query rows).  A producer
-//    warpgroup's thread issues every TMA copy (Q and dO once; the pe tiles
-//    the rows reach, then K and V by 64-key tile, into a ring of 128-byte-
-//    swizzled stages, an mbarrier each way a stage); the two consumer
-//    warpgroups share Q, dO and the f32 table [2L][68] (form 0's, built by
-//    both from the pe tiles, s = q.pe^T an ss wgmma) and take the key
-//    tiles in turn, so each runs its own chain and they need not wait for
-//    each other.  A tile: s = q.k^T and dp = g.v^T (ss, all operands
-//    K-major), p and ds in registers with the band's interior cells
-//    overwritten in place (form 0's rule; the band's path and the masks
-//    are decided once a tile, so the 32 elements of a thread are one basic
-//    block), dq += bf16(ds).k (rs: ds as the register A operand, K read
-//    MN-major from the same stage), and the tile's dqpe window written
-//    while that product runs.  At the end warpgroup 1's dq passes through
-//    shared memory to warpgroup 0, the clip columns' sums likewise, and
-//    the cells no processed pair reached get 0: every cell is written.
-//    Registers 168 a thread (the launch share; ptxas budgets the consumers
-//    to it), no spill at D = 64; the table leaves L <= 272 at D = 64 and
-//    L <= 242 at D = 128.
+//    warpgroup's thread issues every TMA copy (Q and dO once; by 64-key
+//    tile K, V and the tile's band window, hopper.cuh's 128 pe rows from
+//    the first its pairs reach, into a ring of 128-byte-swizzled stages,
+//    an mbarrier each way a stage); the two consumer warpgroups share Q and
+//    dO and take the key tiles in turn, each with its own f32 window, so
+//    each runs its own chain and they need not wait for each other.  A
+//    tile: the window's product (ss, m64n128; none for a tile wholly past a
+//    clip edge, whose rows take the edge columns computed once a block),
+//    c2-scaled into shared memory, then s = q.k^T and dp = g.v^T (ss, all
+//    operands K-major), p and ds in registers with the window's interior
+//    cells overwritten in place (form 0's rule; the band's path and the
+//    masks are decided once a tile, so the 32 elements of a thread are one
+//    basic block), dq += bf16(ds).k (rs: ds as the register A operand, K
+//    read MN-major from the same stage), and the tile's dqpe cells written
+//    from the window while that product runs.  At the end warpgroup 1's dq
+//    passes through shared memory to warpgroup 0, the clip columns' sums
+//    likewise, and the cells no processed pair reached get 0: every cell is
+//    written.  Registers 168 a thread (the launch share; ptxas budgets the
+//    consumers to it); shared memory the same at every L: 218,184 bytes at
+//    D = 64, 231,464 at D = 128 (its window at the tight stride).
 //  - B4: a block per (b*h, 64 keys), K and V loaded once; at D = 64 two
 //    consumer warpgroups take the 64-query tiles in turn (each its own dk,
 //    dv, summed through shared memory at the end), at D = 128 one (dk and
@@ -340,10 +342,6 @@ __device__ __forceinline__ void zero_acc(float (&a)[N][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[n][e] = 0.f;
 }
-
-__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ constexpr int clip(int d, int L) { return imin(imax(d, -L), L - 1); }
 
 // ---- B3 ----------------------------------------------------------------
 
@@ -849,16 +847,14 @@ constexpr int BQ = 64;            // B3: query rows a block; B4: queries a tile
 constexpr int BK = 64;            // B3: keys a tile; B4: keys a block
 constexpr int HALF = 64 * 128;    // bytes of one 64-column half of a 64-row tile
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int TS = BQ + 4;        // B3's table stride, = 4 mod 32 (as form 0's)
-constexpr int BAND_ROWS = 128;    // B4: pe rows a tile pair reads, >= BQ + BK - 1
 constexpr int BLD = BAND_ROWS + 4;   // B4's band stride: its lookups conflict-free
 constexpr int DQ_W = 2;           // B3's consumer warpgroups
 
 // B3's stages: a multiple of its consumer warpgroups, so that each stage
 // serves one warpgroup (item idx, stage idx % S, warpgroup idx % 2); a
 // stage shared by both could be waited for two phases ahead, which its
-// parity does not tell apart.  Two at D = 128 leave the table room for
-// L <= 242.
+// parity does not tell apart.  Two at D = 128, where a stage (K, V and the
+// band's window) takes 64 KB.
 template <int D>
 __host__ __device__ constexpr int dq_stages() { return D == 64 ? 4 : 2; }
 template <int D>
@@ -868,23 +864,21 @@ __host__ __device__ constexpr int dkv_stages() { return D == 64 ? 4 : 2; }
 template <int D>
 __host__ __device__ constexpr int dkv_threads() { return 128 * (dkv_w<D>() + 1); }
 
-// B3: Q and dO of the block's rows, rings of K and V tiles (pe tiles in
-// K's ring while the table is built), the warpgroups' clip-column sums;
-// the f32 table [2L][TS] follows (its size is the launch's)
-template <int D>
+// B3: Q and dO of the block's rows, a ring of (K, V, the band's window)
+// by key tile, each consumer warpgroup's f32 window [BQ][LD] (hopper.cuh;
+// at D = 128 the tight stride, for room): the same at every L
+template <bool MASK_ONLY, int D>
 struct DqSmem {
-  static constexpr int H2 = D / 64, S = dq_stages<D>();
+  static constexpr int H2 = D / 64, S = dq_stages<D>(), LD = D == 64 ? BAND_LD : BAND_LD_TIGHT;
   static_assert(S % DQ_W == 0, "a stage serves one warpgroup");
   bf16 q[H2][BQ][64];
   bf16 g[H2][BQ][64];
   bf16 k[S][H2][BK][64];
   bf16 v[S][H2][BK][64];
-  float clip[DQ_W][2][BQ];
+  bf16 pe[MASK_ONLY ? 1 : S][H2][MASK_ONLY ? 8 : BAND_ROWS][64];
+  float band[MASK_ONLY ? 1 : DQ_W][MASK_ONLY ? 1 : BQ][MASK_ONLY ? 2 : LD];
   uint64_t qg_full, full[S], empty[S];
 };
-
-template <int D>
-__host__ __device__ constexpr size_t dq_tab_offset() { return (sizeof(DqSmem<D>) + 15) / 16 * 16; }
 
 // B4: K and V of the block's keys, rings of (Q, dO, pe rows, lse, delta)
 // by query tile, each consumer warpgroup's band [BQ][BLD] f32
@@ -902,25 +896,11 @@ struct DkvSmem {
   uint64_t kv_full, full[S], empty[S];
 };
 
-// B3's block at query row q0: its key tiles (nk), and the pe tiles holding
-// the table columns its rows reach (npe from pe0): i - j runs from
-// q0 - j_lo, with j_lo the last valid key or, causal, the diagonal's at
-// row q0, up to q0 + BQ - 1 (key 0)
-struct DqTiles {
-  int nk, pe0, npe;
-};
-
-__host__ __device__ inline DqTiles dq_tiles(int q0, int vl, int two_l, int causal,
-                                            bool mask_only) {
-  DqTiles r{(vl + BK - 1) / BK, 0, 0};
-  if (causal) r.nk = imin(r.nk, (q0 + BQ - 1) / BK + 1);
-  if (!mask_only && r.nk > 0) {
-    const int L = two_l / 2;
-    const int j_lo = causal ? imin(vl - 1, q0) : vl - 1;
-    r.pe0 = (clip(q0 - j_lo, L) + L) / BK;
-    r.npe = (imin(q0 + BQ - 1, L - 1) + L) / BK - r.pe0 + 1;
-  }
-  return r;
+// B3's key tiles at query row q0: those below valid_len and, causal, none
+// wholly above the block's last row (none when valid_len is 0)
+__host__ __device__ inline int dq_key_tiles(int q0, int vl, int causal) {
+  const int nk = (vl + BK - 1) / BK;
+  return causal ? imin(nk, (q0 + BQ - 1) / BK + 1) : nk;
 }
 
 // B4's block at key k0: its first query tile (the diagonal's under causal)
@@ -934,52 +914,12 @@ __host__ __device__ inline DkvTiles dkv_tiles(int k0, int vl, int Tq, int causal
   return {qt0, k0 >= vl ? 0 : imax(0, (Tq + BQ - 1) / BQ - qt0)};
 }
 
-// the first pe row of the tile pair (queries from q0, keys from k0) and
-// the rows it reaches: i - j spans BQ + BK - 1 values, clipped
-__host__ __device__ inline int band_first(int q0, int k0, int L) {
-  return clip(q0 - (k0 + BK - 1), L) + L;
-}
-__host__ __device__ inline int band_rows(int q0, int k0, int L) {
-  return clip(q0 + BQ - 1 - k0, L) + L - band_first(q0, k0, L) + 1;
-}
-
-// rows (r0, r0 + 8) of a warp's accumulator fragment [D / 2] (hopper.cuh's
-// layout), times mul, to a row-major block at base (row stride ld); rows
-// >= n are not stored
-template <int D>
-__device__ __forceinline__ void store_acc(float* base, long long ld, const float (&acc)[D / 2],
-                                          float mul, int r0, int n, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (r0 + 8 * r >= n) continue;
-    float* o = base + (r0 + 8 * r) * ld + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(o + 8 * j) =
-          make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
-  }
-}
-
-// acc += the same fragment's cells of a row-major block at base
-template <int D>
-__device__ __forceinline__ void add_acc(float (&acc)[D / 2], const float* base, int ld, int r0,
-                                        int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float2 x = *reinterpret_cast<const float2*>(base + (r0 + 8 * r) * ld + 8 * j + 2 * t);
-      acc[4 * j + 2 * r] += x.x;
-      acc[4 * j + 2 * r + 1] += x.y;
-    }
-}
-
 }  // namespace wg
 
 // B3, form 1: dq and dqpe as form 0 computes them.  A block of 384
 // threads per (b*h, 64 query rows): two consumer warpgroups take the
-// block's pe tiles, then its key tiles, in turn (item idx to warpgroup
-// idx % 2) and share Q, dO and the table; warpgroup 2 is the producer.
+// block's key tiles in turn (item idx to warpgroup idx % 2) and share Q and
+// dO; warpgroup 2 is the producer.
 template <bool MASK_ONLY, int D>
 __global__ void __launch_bounds__(384, 1)
 flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
@@ -987,25 +927,22 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                               const __grid_constant__ CUtensorMap mv,
                               const __grid_constant__ CUtensorMap mg,
                               const __grid_constant__ CUtensorMap mpe,
-                              const int* __restrict__ valid_len, const float* __restrict__ lse,
-                              const float* __restrict__ delta, float* __restrict__ dq,
-                              long long dq_b, long long dq_h, long long dq_t,
-                              float* __restrict__ dqpe, int H, int Tq, int Tk, int two_l,
-                              int causal, float scale) {
-  using Sm = wg::DqSmem<D>;
-  constexpr int S = Sm::S, BQ = wg::BQ, BK = wg::BK, TS = wg::TS, NB = BK / 8;
+                              const bf16* __restrict__ pe, const int* __restrict__ valid_len,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dq, long long dq_b, long long dq_h,
+                              long long dq_t, float* __restrict__ dqpe, int H, int Tq, int Tk,
+                              int two_l, int causal, float scale) {
+  using Sm = wg::DqSmem<MASK_ONLY, D>;
+  constexpr int S = Sm::S, BQ = wg::BQ, BK = wg::BK, NB = BK / 8, LD = Sm::LD;
   constexpr int HALF = wg::HALF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  Sm& sm = *reinterpret_cast<Sm*>(base);
-  float* tab = reinterpret_cast<float*>(base + wg::dq_tab_offset<D>());
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
   const int L = two_l / 2;
   const int vl = max(0, min(valid_len[b], Tk));
-  const wg::DqTiles tl = wg::dq_tiles(q0, vl, two_l, causal, MASK_ONLY);
-  const int n_items = tl.npe + tl.nk;   // pe tiles, then key tiles
+  const int nk = wg::dq_key_tiles(q0, vl, causal);
   const int w = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -1021,7 +958,7 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 
   if (w == 2) {   // the producer: one thread issues every copy
     setmaxnreg_dec<wg::PRODUCER_REGS>();
-    if (threadIdx.x != 256 || n_items == 0) return;
+    if (threadIdx.x != 256 || nk == 0) return;
     prefetch_tensormap(&mq);
     prefetch_tensormap(&mk);
     prefetch_tensormap(&mv);
@@ -1032,20 +969,20 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       tma_load_4d(&sm.q[hf][0][0], &mq, &sm.qg_full, 64 * hf, q0, h, b);
       tma_load_4d(&sm.g[hf][0][0], &mg, &sm.qg_full, 64 * hf, q0, h, b);
     }
-    for (int idx = 0; idx < n_items; ++idx) {
-      const int st = idx % S;
+    for (int idx = 0; idx < nk; ++idx) {
+      const int st = idx % S, k0 = idx * BK;
       if (idx >= S) mbar_wait(&sm.empty[st], ((idx / S) & 1) ^ 1);   // item idx - S is done
-      if (idx < tl.npe) {
-        mbar_expect_tx(&sm.full[st], sizeof(sm.k[st]));
-        for (int hf = 0; hf < Sm::H2; ++hf)
-          tma_load_4d(&sm.k[st][hf][0][0], &mpe, &sm.full[st], 64 * hf, (tl.pe0 + idx) * BK, 0,
-                      0);
-      } else {
-        const int k0 = (idx - tl.npe) * BK;
-        mbar_expect_tx(&sm.full[st], sizeof(sm.k[st]) + sizeof(sm.v[st]));
-        for (int hf = 0; hf < Sm::H2; ++hf) {
-          tma_load_4d(&sm.k[st][hf][0][0], &mk, &sm.full[st], 64 * hf, k0, h, b);
-          tma_load_4d(&sm.v[st][hf][0][0], &mv, &sm.full[st], 64 * hf, k0, h, b);
+      const bool window = !MASK_ONLY && !band_clipped(q0, k0, L);
+      mbar_expect_tx(&sm.full[st], sizeof(sm.k[st]) + sizeof(sm.v[st]) +
+                                       (window ? sizeof(sm.pe[0]) : 0));
+      for (int hf = 0; hf < Sm::H2; ++hf) {
+        tma_load_4d(&sm.k[st][hf][0][0], &mk, &sm.full[st], 64 * hf, k0, h, b);
+        tma_load_4d(&sm.v[st][hf][0][0], &mv, &sm.full[st], 64 * hf, k0, h, b);
+        if (!MASK_ONLY && window) {
+          const int m_lo = band_first(q0, k0, L);
+          for (int part = 0; part < BAND_ROWS / 64; ++part)
+            tma_load_4d(&sm.pe[st][hf][64 * part][0], &mpe, &sm.full[st], 64 * hf,
+                        m_lo + 64 * part, 0, 0);
         }
       }
     }
@@ -1068,46 +1005,41 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float lo[2] = {0.f, 0.f}, hi[2] = {0.f, 0.f};             // ds of the clip columns
-  float band_lo[2] = {0.f, 0.f}, band_hi[2] = {0.f, 0.f};   // table columns 0, 2L-1
-  if (n_items > 0) mbar_wait(&sm.qg_full, 0);
-
-  if constexpr (!MASK_ONLY) {
-    // the table, tab[col][row] = c2 * q_row . pe[col]: this warpgroup's pe tiles
-    for (int idx = w; idx < tl.npe; idx += wg::DQ_W) {
-      const int st = idx % S;
-      mbar_wait(&sm.full[st], (idx / S) & 1);
-      float s[BK / 2];
-      wgmma_fence();
-      wgmma_ss_kmajor<D, BK>(s, &sm.q[0][0][0], HALF, &sm.k[st][0][0][0], HALF);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      mbar_arrive(&sm.empty[st]);
-      const int m0 = (tl.pe0 + idx) * BK;
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = m0 + 8 * n + 2 * t + (e & 1);
-          if (col < two_l) tab[col * TS + rl + 8 * (e >> 1)] = s[4 * n + e] * c2;
-        }
-    }
-    named_barrier(1, 256);   // the table is complete
-    if (tl.nk > 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        band_lo[r] = tl.pe0 == 0 ? tab[rl + 8 * r] : 0.f;
-        band_hi[r] = (tl.pe0 + tl.npe) * BK >= two_l ? tab[(two_l - 1) * TS + rl + 8 * r] : 0.f;
-      }
+  float band_lo[2] = {0.f, 0.f}, band_hi[2] = {0.f, 0.f};   // the edge columns, c2-scaled
+  float* band = &sm.band[MASK_ONLY ? 0 : w][0][0];
+  if (nk > 0) {
+    if constexpr (!MASK_ONLY) {
+      BandEdges<D> edges;
+      edges.load(pe, two_l, t);   // under the wait for Q and dO
+      mbar_wait(&sm.qg_full, 0);
+      edges.dot(band_lo, band_hi, &sm.q[0][0][0], HALF, c2, rl, t);
+    } else {
+      mbar_wait(&sm.qg_full, 0);
     }
   }
 
-  // the key tiles: s = q.k^T, dp = g.v^T, p and ds in registers, the
-  // band's interior cells overwritten with ds in place (form 0's rule),
-  // dq += bf16(ds).k with K read MN-major from the same tile
-  for (int idx = tl.npe + ((w + tl.npe) & 1); idx < n_items; idx += wg::DQ_W) {
-    const int st = idx % S, k0 = (idx - tl.npe) * BK;
+  // the key tiles: the band's window (hopper.cuh), s = q.k^T, dp = g.v^T,
+  // p and ds in registers, the window's interior cells overwritten with ds
+  // in place (form 0's rule), dq += bf16(ds).k with K read MN-major from
+  // the same tile.  One loop body (B1 walks three runs of tiles instead):
+  // the window's product is waited for at once, so a branch around it
+  // costs nothing, and three inlined bodies spilled 52 / 184 bytes at
+  // D = 64 / 128 and ran 7 / 16 % slower (PERF.md §6)
+  for (int idx = w; idx < nk; idx += wg::DQ_W) {
+    const int st = idx % S, k0 = idx * BK;
+    const bool window = !MASK_ONLY && !band_clipped(q0, k0, L);
     mbar_wait(&sm.full[st], (idx / S) & 1);
+    const int m_lo = MASK_ONLY ? 0 : band_first(q0, k0, L);
+    if (window) {   // in turn with s and dp: their 64 registers and the band's would not fit
+      float sb[BAND_ROWS / 2];
+      wgmma_fence();
+      band_product<D>(sb, &sm.q[0][0][0], HALF, &sm.pe[st][0][0][0]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sb);
+      band_store<LD>(band, sb, c2, rl, t);
+      __syncwarp();   // the warp's window rows are written
+    }
     float s[BK / 2], dp[BK / 2];
     wgmma_fence();
     wgmma_ss_kmajor<D, BK>(s, &sm.q[0][0][0], HALF, &sm.k[st][0][0][0], HALF);
@@ -1130,6 +1062,7 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       constexpr int PATH = decltype(path)::value;
       constexpr bool CHECK = decltype(check)::value;
       const bool high = d_min >= L - 1;   // path 1's column: 2L - 1, else 0
+      float* base = band + rl * LD + (r0 - k0 - 2 * t + L - m_lo);
 #pragma unroll
       for (int n = 0; n < NB; ++n)
 #pragma unroll
@@ -1141,14 +1074,14 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
           const int d = i - j;
           float* cell = nullptr;
           bool own = false;   // the pair's cell is interior: it takes ds
-          if constexpr (!MASK_ONLY && PATH == 0) {   // column d + L, row rl + 8r
-            cell = tab + (r0 - k0 - 2 * t + L) * TS + rl + (8 * r - 8 * n - (e & 1)) * TS + 8 * r;
+          if constexpr (!MASK_ONLY && PATH == 0) {   // column d + L - m_lo, row rl + 8r
+            cell = base + 8 * r * LD + 8 * r - 8 * n - (e & 1);
             x += *cell;
           } else if constexpr (!MASK_ONLY && PATH == 1) {
             x += high ? band_hi[r] : band_lo[r];
           } else if constexpr (!MASK_ONLY) {
             const int col = clip(d, L) + L;
-            cell = tab + col * TS + rl + 8 * r;
+            cell = band + (rl + 8 * r) * LD + col - m_lo;
             x += *cell;
             own = col == d + L && col != 0 && col != two_l - 1;
           }
@@ -1168,24 +1101,23 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
           }
         }
     };
-    const int path = MASK_ONLY || (d_min > -L && d_max < L - 1) ? 0
-                     : d_min >= L - 1 || d_max <= -L            ? 1
-                                                                : 2;
-    if (all_valid) {
-      if (path == 0) ds_tile(std::integral_constant<int, 0>{}, std::false_type{});
-      else if (path == 1) ds_tile(std::integral_constant<int, 1>{}, std::false_type{});
-      else ds_tile(std::integral_constant<int, 2>{}, std::false_type{});
-    } else {
-      if (path == 0) ds_tile(std::integral_constant<int, 0>{}, std::true_type{});
-      else if (path == 1) ds_tile(std::integral_constant<int, 1>{}, std::true_type{});
-      else ds_tile(std::integral_constant<int, 2>{}, std::true_type{});
-    }
+    auto by_path = [&](auto check) {
+      if constexpr (MASK_ONLY) {
+        ds_tile(std::integral_constant<int, 0>{}, check);
+      } else {
+        if (d_min > -L && d_max < L - 1) ds_tile(std::integral_constant<int, 0>{}, check);
+        else if (d_min >= L - 1 || d_max <= -L) ds_tile(std::integral_constant<int, 1>{}, check);
+        else ds_tile(std::integral_constant<int, 2>{}, check);
+      }
+    };
+    if (all_valid) by_path(std::false_type{});
+    else by_path(std::true_type{});
     uint32_t ds16[BK / 16][4];
     pack_bf16_a(ds16, s);   // ds rounded to bf16 (the JAX kernel's astype)
     wgmma_fence();
     wgmma_rs_mnmajor<D, BK / 16>(acc, ds16, &sm.k[st][0][0][0], HALF);
     wgmma_commit();
-    if constexpr (!MASK_ONLY) {
+    if (!MASK_ONLY && window) {
       // the tile's dqpe cells, final now, while dq's product runs: row i's
       // columns i - k0 - 63 + L .. i - k0 + L (not the clip columns), 4 rows
       // at a time, 8 consecutive columns a row; a warp writes its own rows
@@ -1199,7 +1131,7 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
         for (int c = mi; c < BK; c += 8) {
           const int m = m0 + c;
-          if (i < Tq && m > 0 && m < two_l - 1) row[m] = tab[m * TS + rr];
+          if (i < Tq && m > 0 && m < two_l - 1) row[m] = band[rr * LD + m - m_lo];
         }
       }
     }
@@ -1212,29 +1144,32 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   float lo_sum[2], hi_sum[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) lo_sum[r] = quad_sum(lo[r]), hi_sum[r] = quad_sum(hi[r]);
-  named_barrier(1, 256);   // every item is done: the rings are free, the table final
-  constexpr int LDP = D + 8;   // f32 row stride of warpgroup 1's dq in K's ring
+  named_barrier(1, 256);   // every item is done: the ring is free
+  // warpgroup 1's dq, then both warpgroups' clip-column sums, through the ring
+  constexpr int LDP = D + 8;   // f32 row stride of warpgroup 1's dq
   float* part = reinterpret_cast<float*>(&sm.k[0][0][0][0]);
-  static_assert(BQ * LDP * sizeof(float) <= sizeof(sm.k) + sizeof(sm.v), "dq's partial sums");
-  if (w == 1) wg::store_acc<D>(part, LDP, acc, 1.f, rl, BQ, t);
+  float* clip_sums = part + BQ * LDP;   // [warpgroup][lo, hi][BQ]
+  static_assert((BQ * LDP + 2 * wg::DQ_W * BQ) * sizeof(float) <= sizeof(sm.k) + sizeof(sm.v),
+                "dq's partial sums and the clip columns'");
+  if (w == 1) store_acc<D>(part, LDP, acc, 1.f, rl, BQ, t);
   if (!MASK_ONLY && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      sm.clip[w][0][rl + 8 * r] = lo_sum[r];
-      sm.clip[w][1][rl + 8 * r] = hi_sum[r];
+      clip_sums[(2 * w) * BQ + rl + 8 * r] = lo_sum[r];
+      clip_sums[(2 * w + 1) * BQ + rl + 8 * r] = hi_sum[r];
     }
   }
   named_barrier(1, 256);
   if (w == 0) {
-    wg::add_acc<D>(acc, part, LDP, rl, t);
-    wg::store_acc<D>(dq + b * dq_b + h * dq_h + q0 * dq_t, dq_t, acc, scale, rl, Tq - q0, t);
+    add_acc<D>(acc, part, LDP, rl, t);
+    store_acc<D>(dq + b * dq_b + h * dq_h + q0 * dq_t, dq_t, acc, scale, rl, Tq - q0, t);
   }
   if (MASK_ONLY) return;
 
   // the rest of dqpe: 0 in each row's interior columns that no processed
   // pair (j < nk * BK) reaches, 4 rows at a time a warp, 8 columns a row;
   // the clip columns from both warpgroups' sums.  So every cell is written
-  const int jproc = tl.nk * BK;
+  const int jproc = nk * BK;
   const int w8 = threadIdx.x / 32, sub = lane >> 3, mi = lane & 7;
   for (int rr = 8 * w8 + sub; rr < 8 * w8 + 8; rr += 4) {
     const int i = q0 + rr;
@@ -1247,8 +1182,8 @@ flash_rel_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   if (threadIdx.x < BQ && q0 + (int)threadIdx.x < Tq) {
     const int rr = threadIdx.x;
     float* row = dqpe + ((long long)bh * Tq + q0 + rr) * two_l;
-    row[0] = sm.clip[0][0][rr] + sm.clip[1][0][rr];
-    row[two_l - 1] = sm.clip[0][1][rr] + sm.clip[1][1][rr];
+    row[0] = clip_sums[rr] + clip_sums[2 * BQ + rr];
+    row[two_l - 1] = clip_sums[BQ + rr] + clip_sums[3 * BQ + rr];
   }
 }
 
@@ -1321,8 +1256,8 @@ flash_rel_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
           tma_load_4d(&sm.q[st][hf][0][0], &mq, &sm.full[st], 64 * hf, q0, h, b);
           tma_load_4d(&sm.g[st][hf][0][0], &mg, &sm.full[st], 64 * hf, q0, h, b);
           if (!MASK_ONLY) {
-            const int m_lo = wg::band_first(q0, k0, L);
-            for (int part = 0; part < wg::BAND_ROWS / 64; ++part)
+            const int m_lo = band_first(q0, k0, L);
+            for (int part = 0; part < BAND_ROWS / 64; ++part)
               tma_load_4d(&sm.pe[st][hf][64 * part][0], &mpe, &sm.full[st], 64 * hf,
                           m_lo + 64 * part, 0, 0);
           }
@@ -1360,18 +1295,17 @@ flash_rel_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     // 64 accumulator registers a thread and s^T's and dp^T's 64 are live in
     // turn: together, beside dk and dv, they would not fit the 168 a
     // consumer thread has
-    const int m_lo = MASK_ONLY ? 0 : wg::band_first(q0, k0, L);
+    const int m_lo = MASK_ONLY ? 0 : band_first(q0, k0, L);
     if constexpr (!MASK_ONLY) {
-      float sb[wg::BAND_ROWS / 2];
+      float sb[BAND_ROWS / 2];
       wgmma_fence();
-      wgmma_ss_kmajor<D, wg::BAND_ROWS>(sb, &sm.q[st][0][0][0], HALF, &sm.pe[st][0][0][0],
-                                        2 * HALF);
+      band_product<D>(sb, &sm.q[st][0][0][0], HALF, &sm.pe[st][0][0][0]);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sb);
       named_barrier(2 + w, 128);   // the last tile's band is read
 #pragma unroll
-      for (int j = 0; j < wg::BAND_ROWS / 8; ++j)
+      for (int j = 0; j < BAND_ROWS / 8; ++j)
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           *reinterpret_cast<float2*>(band + (16 * wi + g + 8 * r) * BLD + 8 * j + 2 * t) =
@@ -1437,23 +1371,23 @@ flash_rel_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     static_assert(2 * BK * LDP * sizeof(float) <= sizeof(sm.q) + sizeof(sm.g), "dk/dv's sums");
     named_barrier(1, 256);   // every tile is done: the rings are free
     if (w == 1) {
-      wg::store_acc<D>(part, LDP, dka, 1.f, kr, BK, t);
-      wg::store_acc<D>(part + BK * LDP, LDP, dva, 1.f, kr, BK, t);
+      store_acc<D>(part, LDP, dka, 1.f, kr, BK, t);
+      store_acc<D>(part + BK * LDP, LDP, dva, 1.f, kr, BK, t);
     }
     named_barrier(1, 256);
     if (w == 1) return;
-    wg::add_acc<D>(dka, part, LDP, kr, t);
-    wg::add_acc<D>(dva, part + BK * LDP, LDP, kr, t);
+    add_acc<D>(dka, part, LDP, kr, t);
+    add_acc<D>(dva, part + BK * LDP, LDP, kr, t);
   }
-  wg::store_acc<D>(dkb, dk_t, dka, scale, kr, Tk - k0, t);
-  wg::store_acc<D>(dvb, dv_t, dva, 1.f, kr, Tk - k0, t);
+  store_acc<D>(dkb, dk_t, dka, scale, kr, Tk - k0, t);
+  store_acc<D>(dvb, dv_t, dva, 1.f, kr, Tk - k0, t);
 }
 
 // The wgmma form's launch as computed on the host: the grids' second
 // dims (B3's query tiles, B4's key blocks) and the tensor maps of q, k, v,
 // g and pe: dims (D, T, H, B) innermost first (pe: (D, 2L, 1, 1)), byte
 // strides of the outer three; every box is 64 columns x 64 rows.
-// flash_attention.py's wgmma_backward_plan mirrors it;
+// tests/test_torch_flash_rel_bwd_wgmma.py's wgmma_backward_plan mirrors it;
 // loco_flash_rel_bwd_wgmma_plan returns it.
 struct BwdPlan {
   int dq_tiles, dkv_blocks;
@@ -1466,26 +1400,15 @@ BwdPlan bwd_plan(const Strides& st, int B, int H, int Tq, int Tk, int D, int two
   p.dkv_blocks = (Tk + wg::BK - 1) / wg::BK;
   const int ops[4] = {IQ, IK, IV, IG};
   const int T[4] = {Tq, Tk, Tk, Tq};
-  for (int i = 0; i < 4; ++i) {
-    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)T[i], (uint64_t)H, (uint64_t)B};
-    // in bytes; an axis of size 1 is never stepped and takes the packed stride
-    uint64_t* s = p.strides[i];
-    s[0] = dims[1] == 1 ? 2ull * D : 2ull * st.t[ops[i]];
-    s[1] = dims[2] == 1 ? s[0] * dims[1] : 2ull * st.h[ops[i]];
-    s[2] = dims[3] == 1 ? s[1] * dims[2] : 2ull * st.b[ops[i]];
-    for (int j = 0; j < 4; ++j) p.dims[i][j] = dims[j];
-  }
-  const uint64_t pe_dims[4] = {(uint64_t)D, (uint64_t)two_l, 1, 1};
-  for (int j = 0; j < 4; ++j) p.dims[4][j] = pe_dims[j];
-  p.strides[4][0] = 2ull * D;
-  p.strides[4][1] = p.strides[4][2] = 2ull * D * two_l;
+  for (int i = 0; i < 4; ++i)
+    bhtd_map(p.dims[i], p.strides[i], D, T[i], H, B, st.t[ops[i]], st.h[ops[i]], st.b[ops[i]]);
+  table_map(p.dims[4], p.strides[4], D, two_l);
   return p;
 }
 
 template <bool MASK_ONLY, int D>
-size_t dq_wgmma_smem_bytes(int two_l) {   // + room to align to 1024
-  return 1024 + wg::dq_tab_offset<D>() +
-         (MASK_ONLY ? 0 : (size_t)two_l * wg::TS * sizeof(float));
+constexpr size_t dq_wgmma_smem_bytes() {   // + room to align to 1024
+  return 1024 + sizeof(wg::DqSmem<MASK_ONLY, D>);
 }
 
 template <bool MASK_ONLY, int D>
@@ -1502,8 +1425,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   static std::atomic<unsigned long long> dq_done{0}, dkv_done{0};
   static std::atomic<int> dq_regs{-1}, dkv_regs{-1};
   constexpr int DKV_THREADS = wg::dkv_threads<D>();
-  // B3's table varies with L: its limit is the most a block may opt in to
-  cudaError_t e = allow_smem_once(flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>, 0, dq_done);
+  cudaError_t e = allow_smem_once(flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>,
+                                  (int)dq_wgmma_smem_bytes<MASK_ONLY, D>(), dq_done);
   if (e == cudaSuccess)
     e = check_handover_regs(flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>, 384, 128,
                             wg::PRODUCER_REGS, wg::CONSUMER_REGS, dq_regs);
@@ -1522,9 +1445,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
     if (e != cudaSuccess) return e;
   }
   flash_rel_bwd_dq_wgmma_kernel<MASK_ONLY, D>
-      <<<dim3(B * H, p.dq_tiles), 384, dq_wgmma_smem_bytes<MASK_ONLY, D>(two_l), stream>>>(
-          maps[0], maps[1], maps[2], maps[3], maps[4], valid_len, lse, delta, dq, st.b[IDQ],
-          st.h[IDQ], st.t[IDQ], dqpe, H, Tq, Tk, two_l, causal, scale);
+      <<<dim3(B * H, p.dq_tiles), 384, dq_wgmma_smem_bytes<MASK_ONLY, D>(), stream>>>(
+          maps[0], maps[1], maps[2], maps[3], maps[4], (const bf16*)pe, valid_len, lse, delta,
+          dq, st.b[IDQ], st.h[IDQ], st.t[IDQ], dqpe, H, Tq, Tk, two_l, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   flash_rel_bwd_dkv_wgmma_kernel<MASK_ONLY, D>
@@ -1585,7 +1508,7 @@ constexpr int form_of() { return !std::is_same<T, float>::value && D >= 64 ? 1 :
 template <typename T, bool MASK_ONLY, int D>
 size_t smem_bytes(int two_l, int kernel) {
   if constexpr (form_of<T, D>() == 1)
-    return kernel == 0 ? dq_wgmma_smem_bytes<MASK_ONLY, D>(two_l)
+    return kernel == 0 ? dq_wgmma_smem_bytes<MASK_ONLY, D>()
                        : dkv_wgmma_smem_bytes<MASK_ONLY, D>();
   else
     return kernel == 0 ? dq_smem_bytes<T, MASK_ONLY, D>(two_l) : dkv_smem_bytes<T, MASK_ONLY, D>();
@@ -1711,7 +1634,8 @@ extern "C" int loco_flash_rel_bwd(const void* q, const void* k, const void* v,
 
 // The wgmma form's plan (BwdPlan and the tiles its blocks take) for these
 // arguments and the host's valid_len[B], into out[47]: B3's blocks, key
-// tiles and pe tiles over all blocks; B4's blocks, query tiles and pe rows
+// tiles over all blocks and the band windows they load (tiles not wholly
+// past a clip edge; 0 when mask_only); B4's blocks, query tiles and pe rows
 // reached over all tile pairs (band_rows; 0 when mask_only); for q, k, v,
 // g and pe in turn dims[4] and byte strides[3]; then B3's and B4's dynamic
 // shared memory, threads and stages (D in {64, 128}).
@@ -1728,15 +1652,16 @@ extern "C" void loco_flash_rel_bwd_wgmma_plan(const long long* strides, int B, i
   for (int b = 0; b < B; ++b) {
     const int vl = imax(0, imin(valid_len[b], Tk));
     for (int y = 0; y < p.dq_tiles; ++y) {
-      const wg::DqTiles t = wg::dq_tiles(y * wg::BQ, vl, two_l, causal, mask_only != 0);
-      tiles[0] += t.nk;
-      tiles[1] += t.npe;
+      const int nk = wg::dq_key_tiles(y * wg::BQ, vl, causal);
+      tiles[0] += nk;
+      for (int i = 0; i < nk && !mask_only; ++i)
+        tiles[1] += !band_clipped(y * wg::BQ, i * wg::BK, L);
     }
     for (int y = 0; y < p.dkv_blocks; ++y) {
       const wg::DkvTiles t = wg::dkv_tiles(y * wg::BK, vl, Tq, causal);
       tiles[2] += t.n;
       for (int i = 0; i < t.n && !mask_only; ++i)
-        tiles[3] += wg::band_rows((t.qt0 + i) * wg::BQ, y * wg::BK, L);
+        tiles[3] += band_rows((t.qt0 + i) * wg::BQ, y * wg::BK, L);
     }
   }
   out[0] = (long long)B * H * p.dq_tiles;
@@ -1751,10 +1676,9 @@ extern "C" void loco_flash_rel_bwd_wgmma_plan(const long long* strides, int B, i
     for (int j = 0; j < 3; ++j) o[4 + j] = (long long)p.strides[i][j];
   }
   const bool d64 = D == 64;
-  out[41] = mask_only ? (d64 ? dq_wgmma_smem_bytes<true, 64>(two_l)
-                             : dq_wgmma_smem_bytes<true, 128>(two_l))
-                      : (d64 ? dq_wgmma_smem_bytes<false, 64>(two_l)
-                             : dq_wgmma_smem_bytes<false, 128>(two_l));
+  out[41] = mask_only ? (d64 ? dq_wgmma_smem_bytes<true, 64>() : dq_wgmma_smem_bytes<true, 128>())
+                      : (d64 ? dq_wgmma_smem_bytes<false, 64>()
+                             : dq_wgmma_smem_bytes<false, 128>());
   out[42] = mask_only ? (d64 ? dkv_wgmma_smem_bytes<true, 64>() : dkv_wgmma_smem_bytes<true, 128>())
                       : (d64 ? dkv_wgmma_smem_bytes<false, 64>()
                              : dkv_wgmma_smem_bytes<false, 128>());

@@ -1,9 +1,10 @@
 // Hopper helpers of the bf16 wgmma forms of the causal flash forward
-// (csrc/flash_causal.cu) and of the rel-pos flash backward
-// (csrc/flash_rel_bwd.cu): mbarriers, TMA tensor copies, warpgroup matrix
-// products (wgmma) and their shared-memory descriptors, register handover
-// between warpgroups (setmaxnreg), and the host-side tensor-map encoder.
-// Included, never compiled on its own; sm_90a only (wgmma, setmaxnreg).
+// (csrc/flash_causal.cu) and of the rel-pos flash forward and backward
+// (csrc/flash_rel.cu, csrc/flash_rel_bwd.cu): mbarriers, TMA tensor copies,
+// warpgroup matrix products (wgmma) and their shared-memory descriptors,
+// register handover between warpgroups (setmaxnreg), the band window of a
+// rel-pos tile, and the host-side tensor-map encoder.  Included, never
+// compiled on its own; sm_90a only (wgmma, setmaxnreg).
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // [rows][64] bf16 "halves" (one 128-byte row each), written by TMA with
@@ -25,8 +26,14 @@
 #include <atomic>
 
 #include "bf16_mma.cuh"   // bf16, round_pair
+#include "tf32_mma.cuh"   // quad_sum
 
 namespace {
+
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+// the rel-pos table's column of i - j is clip(i - j, L) + L
+__host__ __device__ constexpr int clip(int d, int L) { return imin(imax(d, -L), L - 1); }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -306,6 +313,150 @@ __device__ __forceinline__ void wgmma_rs_mnmajor(float (&d)[D / 2], const uint32
   }
 }
 
+// ---- the band window of a rel-pos tile (B1 and B3 form 1; B4's transposed)
+//
+// The band term of a tile of 64 query rows from q0 and 64 keys from k0 is
+// c2 * q_i . pe[clip(i - j, L) + L]: i - j spans 127 values, so the pairs
+// reach at most 127 consecutive pe rows.  The window is the 128 rows from
+// the first one they reach (band_first, clipped, so a TMA copy never starts
+// before row 0; rows past 2L - 1 are TMA's zero fill and never read).  Its
+// product with the tile's Q is one ss wgmma (m64n128, band_product), whose
+// accumulators go, scaled by c2 = scale * log2 e, to a row-major f32 window
+// [64][LD] in shared memory (band_store): a warp writes rows
+// 16 w .. 16 w + 15 of it, the rows its own s fragment holds, so a
+// __syncwarp orders a warp's stores before its reads.  The pair (i, j)
+// reads column clip(i - j, L) + L - band_first.  A tile whose every pair is
+// past one clip edge (band_clipped) needs no window: each of its rows reads
+// one of the two edge columns c2 * q_i . pe[0] and c2 * q_i . pe[2L - 1]
+// (BandEdges, computed once a block).  So a block's shared memory is the
+// same at every L.
+
+constexpr int BAND_ROWS = 128;   // pe rows of a window: >= 64 + 64 - 1
+// f32 row strides of a window in shared memory: BAND_LD (= 8 mod 32) makes
+// band_store's float2 stores conflict-free (a quarter warp's 8 rows at
+// banks 8g + 2t); BAND_LD_TIGHT where shared memory is short (2-4 way)
+constexpr int BAND_LD = 136, BAND_LD_TIGHT = 130;
+
+__host__ __device__ inline int band_first(int q0, int k0, int L) {
+  return clip(q0 - (k0 + 63), L) + L;
+}
+
+// pe rows the tile's pairs reach (from band_first), <= 127
+__host__ __device__ inline int band_rows(int q0, int k0, int L) {
+  return clip(q0 + 63 - k0, L) + L - band_first(q0, k0, L) + 1;
+}
+
+// every pair of the tile past one clip edge: i - j >= L - 1 or <= -L
+__host__ __device__ inline bool band_clipped(int q0, int k0, int L) {
+  return q0 - (k0 + 63) >= L - 1 || q0 + 63 - k0 <= -L;
+}
+
+// acc = Q.PE^T over a tile's 64 rows and its window's 128 pe rows (both
+// K-major; q's halves q_half bytes apart, pe's 2 * 64 * 128), issued after
+// the caller's wgmma_fence, committed by the caller
+template <int D>
+__device__ __forceinline__ void band_product(float (&acc)[64], const void* q, int q_half,
+                                             const void* pe) {
+  wgmma_ss_kmajor<D, BAND_ROWS>(acc, q, q_half, pe, 2 * 64 * 128);
+}
+
+// the window's rows rl and rl + 8 from band_product's accumulators (the
+// fragment layout above: d[4j + e] is row rl + 8 (e / 2), column
+// 8j + 2t + e % 2), times c2, at row stride LD
+template <int LD>
+__device__ __forceinline__ void band_store(float* band, const float (&acc)[64], float c2, int rl,
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < BAND_ROWS / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(band + (rl + 8 * r) * LD + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * r] * c2, acc[4 * j + 2 * r + 1] * c2);
+}
+
+// The edge columns of rows rl and rl + 8 of a tile: c2 * q . pe[0] (lo) and
+// c2 * q . pe[two_l - 1] (hi) in f32.  The 4 lanes of a quad take a quarter
+// of the head dim each: load() reads their chunks of the two pe rows from
+// device memory (issued before the wait for Q, so the wait hides it), dot()
+// multiplies them with q read from its 128-byte-swizzled tile in shared
+// memory (halves q_half bytes apart).
+template <int D>
+struct BandEdges {
+  static constexpr int N = D / 32;   // 16-byte chunks a lane: t and t + 4 of each half
+  uint4 lo[N], hi[N];
+
+  __device__ __forceinline__ void load(const bf16* __restrict__ pe, int two_l, int t) {
+    const bf16* last = pe + (long long)(two_l - 1) * D;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int col = 64 * (i / 2) + 8 * (t + 4 * (i % 2));
+      lo[i] = *reinterpret_cast<const uint4*>(pe + col);
+      hi[i] = *reinterpret_cast<const uint4*>(last + col);
+    }
+  }
+
+  __device__ __forceinline__ void dot(float (&lo_c)[2], float (&hi_c)[2], const void* q,
+                                      int q_half, float c2, int rl, int t) const {
+    const char* tile = static_cast<const char*>(q);
+    auto fma8 = [](float acc, const uint4& a, const uint4& b) {
+      const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc = fmaf(__uint_as_float(x[k] << 16), __uint_as_float(y[k] << 16), acc);
+        acc = fmaf(__uint_as_float(x[k] & 0xffff0000u), __uint_as_float(y[k] & 0xffff0000u),
+                   acc);
+      }
+      return acc;
+    };
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int c = t + 4 * (i % 2);   // 16-byte chunk of the half row
+        const uint4 x = *reinterpret_cast<const uint4*>(tile + (i / 2) * q_half + row * 128 +
+                                                        ((c ^ (row & 7)) * 16));
+        a = fma8(a, x, lo[i]);
+        b = fma8(b, x, hi[i]);
+      }
+      lo_c[r] = quad_sum(a) * c2;
+      hi_c[r] = quad_sum(b) * c2;
+    }
+  }
+};
+
+// rows (r0, r0 + 8) of a warp's accumulator fragment [D / 2] (hopper.cuh's
+// layout), times mul, to a row-major block at base (row stride ld); rows
+// >= n are not stored
+template <int D>
+__device__ __forceinline__ void store_acc(float* base, long long ld, const float (&acc)[D / 2],
+                                          float mul, int r0, int n, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r0 + 8 * r >= n) continue;
+    float* o = base + (r0 + 8 * r) * ld + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// acc += the same fragment's cells of a row-major block at base
+template <int D>
+__device__ __forceinline__ void add_acc(float (&acc)[D / 2], const float* base, int ld, int r0,
+                                        int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(base + (r0 + 8 * r) * ld + 8 * j + 2 * t);
+      acc[4 * j + 2 * r] += x.x;
+      acc[4 * j + 2 * r + 1] += x.y;
+    }
+}
+
 // ---- host: register handover -------------------------------------------
 
 // A kernel whose warpgroups hand registers over with setmaxnreg: producer
@@ -352,6 +503,25 @@ inline EncodeTiledFn encode_tiled() {
                                                                       : (EncodeTiledFn) nullptr;
   }();
   return fn;
+}
+
+// The 4-D map of a bf16 [B, H, T, D] operand read through (batch, head,
+// time) element strides: dims (D, T, H, B) innermost first and the byte
+// strides of T, H and B; an axis of size 1 is never stepped and takes the
+// packed stride.
+inline void bhtd_map(uint64_t (&dims)[4], uint64_t (&strides)[3], int D, int T, int H, int B,
+                     long long st, long long sh, long long sb) {
+  dims[0] = D, dims[1] = T, dims[2] = H, dims[3] = B;
+  strides[0] = T == 1 ? 2ull * D : 2ull * st;
+  strides[1] = H == 1 ? strides[0] * T : 2ull * sh;
+  strides[2] = B == 1 ? strides[1] * H : 2ull * sb;
+}
+
+// the map of a contiguous [two_l, D] bf16 rel-pos table: dims (D, 2L, 1, 1)
+inline void table_map(uint64_t (&dims)[4], uint64_t (&strides)[3], int D, int two_l) {
+  dims[0] = D, dims[1] = two_l, dims[2] = dims[3] = 1;
+  strides[0] = 2ull * D;
+  strides[1] = strides[2] = 2ull * D * two_l;
 }
 
 // A 4-D bf16 view (innermost first) with byte strides of dims 1-3, read

@@ -42,12 +42,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu: (argtypes, restype).  The
 # kernels of B1-B6 take their operand type as an int after their other
-# arguments (0: float32, 1: bfloat16; ``bf16_flag``); B5/B6's and B3/B4's
-# take their form (``flash_causal.FORMS``) just before it.
+# arguments (0: float32, 1: bfloat16; ``bf16_flag``); B1's, B3/B4's and
+# B5/B6's take their form (``flash_causal.FORMS``) just before it.
 _SIGNATURES = {
-    "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _I, _P], _I),
+    "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _I, _I, _P], _I),
     "loco_flash_rel_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     "loco_flash_rel_blocks_per_sm": ([_I] * 4, _I),
+    "loco_flash_rel_fwd_wgmma_plan": ([_P] + [_I] * 8 + [_P, _P], None),
     "loco_flash_rel_bwd": ([_P] * 13 + [_I] * 8 + [_F, _I, _I, _P], _I),
     "loco_flash_rel_bwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "loco_flash_rel_bwd_blocks_per_sm": ([_I] * 5, _I),
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "loco_logmel_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "loco_logmel_blocks_per_sm": ([_I, _I, _I], _I),
     "loco_error_string": ([_I], ctypes.c_char_p),
+    "loco_tensor_map_encode_us": ([_P, _I], ctypes.c_double),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -28,13 +28,15 @@ takes q's dtype (an exact upcast for a bf16 table under float32 q; a
 float32 table under bf16 q raises on the card, where the bf16 form would
 round it).  A bf16 CUDA tensor reaches the bf16 forms or raises.
 
-B3 + B4 come in two forms (``flash_causal.kernel_form``): ``"wgmma"``,
-Hopper's warpgroup products fed by TMA, for bf16 at kernel head dims 64
-and 128; ``"mma_sync"`` for every float32 launch and bf16 at 8-32.  A CUDA
-launch runs its form or raises; ``flash_rel_backward.launches_by_form``
-counts them.  The wgmma B3 keeps the f32 table [2L][68] in shared memory
-for L up to 272 at head dim 64 and 242 at 128; past that the wrapper
-raises before the launch, as form 0 does past its own limit.
+B1 and B3 + B4 come in two forms (``flash_causal.kernel_form``):
+``"wgmma"``, Hopper's warpgroup products fed by TMA, for bf16 at kernel
+head dims 64 and 128; ``"mma_sync"`` for every float32 launch and bf16 at
+8-32.  A CUDA launch runs its form or raises; ``launches_by_form`` on
+:func:`flash_rel_forward` and :func:`flash_rel_backward` counts them.
+The wgmma forms bring in the band window of each 64 x 64 tile and take the
+same shared memory at every L; the mma.sync forms keep an f32 table of the
+2L rows in shared memory, and past the L that fits a block the wrapper
+raises before the launch.
 
 :func:`flash_rel_forward` is differentiable through one
 ``torch.autograd.Function``: its forward is B1, its backward
@@ -163,6 +165,9 @@ def _smem_bytes(fn: str, *args) -> int:
 
 
 def _check_smem(what: str, smem: int, two_l: int) -> None:
+    """Raise before the launch when the mma.sync form's table of ``two_l``
+    rows leaves a block too little shared memory (the wgmma forms' does
+    not depend on L: their launches skip this)."""
     if smem > SMEM_LIMIT:
         raise ValueError(f"{what}: a rel-pos table of {two_l} rows needs {smem} B "
                          f"of shared memory, more than the {SMEM_LIMIT} B a "
@@ -205,9 +210,12 @@ def _heads_view_buffer(b: int, h: int, t: int, d: int, device,
 
 
 def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
-    """B1 on the current stream (counted): q, k, v read through their
-    strides, out written into a [B, Tq, H, D] buffer and returned as a
-    [B, H, Tq, D] view (of the first D columns where D was padded)."""
+    """B1 on the current stream (counted, and by form): q, k, v read
+    through their strides, out written into a [B, Tq, H, D] buffer and
+    returned as a [B, H, Tq, D] view (of the first D columns where D was
+    padded).  The form is ``flash_causal.kernel_form``'s: the wgmma kernel
+    for bf16 at kernel head dims 64 and 128, the mma.sync one otherwise; the
+    C entry launches it or returns an error, which raises."""
     what = "flash_rel_forward"
     b, h, tq, d = q.shape
     kd = _kernel_head_dim(what, q)
@@ -215,9 +223,11 @@ def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
     q, k, v, pe = (flash_causal.pad_head_dim(x, kd) for x in (q, k, v, pe))
     strides = flash_causal.operand_strides((("q", q), ("k", k), ("v", v)), 2, what)
     bf16 = _build.bf16_flag(q.dtype, what)
+    form = flash_causal.kernel_form(q.dtype, kd)
     two_l = pe.shape[0]
-    _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only), kd,
-                                  bf16), two_l)
+    if form == "mma_sync":
+        _check_smem(what, _smem_bytes("loco_flash_rel_smem_bytes", two_l, int(mask_only), kd,
+                                      bf16), two_l)
     vl = valid_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = _heads_view_buffer(b, h, tq, kd, q.device, q.dtype)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -226,9 +236,11 @@ def _launch_forward(q, k, v, pe, valid_len, causal, scale, *, mask_only: bool):
         _build.library().loco_flash_rel_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(), vl.data_ptr(),
         out.data_ptr(), lse.data_ptr(), flash_causal.stride_buffer(tuple(strides)),
-        b, h, tq, k.shape[2], kd, two_l, int(causal), int(mask_only), float(scale), bf16)
+        b, h, tq, k.shape[2], kd, two_l, int(causal), int(mask_only), float(scale),
+        flash_causal.FORMS.index(form), bf16)
     _build.check(code, what)
     flash_rel_forward.launches += 1
+    flash_rel_forward.launches_by_form[form] += 1
     return out[..., :d], lse
 
 
@@ -280,9 +292,10 @@ def _launch_backward(q, k, v, pe, valid_len, lse, delta, g, causal, scale, *,
     dev = q.device
     lse, delta = (_contiguous(what, n, t, dev) for n, t in (("lse", lse), ("delta", delta)))
     tk, two_l = k.shape[2], pe.shape[0]
-    _check_smem(what, max(_smem_bytes("loco_flash_rel_bwd_smem_bytes", two_l,
-                                      int(mask_only), kernel, kd, bf16) for kernel in (0, 1)),
-                two_l)
+    if form == "mma_sync":
+        _check_smem(what, max(_smem_bytes("loco_flash_rel_bwd_smem_bytes", two_l,
+                                          int(mask_only), kernel, kd, bf16)
+                              for kernel in (0, 1)), two_l)
     vl = valid_len.to(device=dev, dtype=torch.int32).contiguous()
     dq = _heads_view_buffer(b, h, tq, kd, dev)
     dk = _heads_view_buffer(b, h, tk, kd, dev)
@@ -403,6 +416,7 @@ def flash_rel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_rel_forward.launches = 0
+flash_rel_forward.launches_by_form = dict.fromkeys(flash_causal.FORMS, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -27,8 +27,7 @@ The source holds two kernels, the launch's *form* (:func:`kernel_form`):
 ``"wgmma"``, Hopper's warpgroup products fed by TMA, for bf16 operands at
 head dims 64 and 128; ``"mma_sync"`` for every float32 call and bf16 at
 head dims 8-32.  A CUDA call launches its form or raises; it never tries
-the other one.  :func:`wgmma_plan` mirrors the wgmma form's host-side
-launch plan (blocks, key tiles, tensor maps).
+the other one.
 
 The kernel addresses q, k, v and out through (batch, head, time) strides
 with a contiguous head dim, so neither layout, nor the column slices of a
@@ -61,65 +60,14 @@ NEG_INF = -1e30
 BLOCK_K = 512                      # key block of the blockwise backward
 HEAD_DIMS = (8, 16, 32, 64, 128)   # instantiated in csrc/flash_causal.cu
 FORMS = ("mma_sync", "wgmma")      # the C entry's form argument is the index
-WGMMA_HEAD_DIMS = (64, 128)        # the wgmma form's instantiations (bf16)
-WGMMA_BLOCK_Q = 128                # query rows a block: two warpgroups of 64
-WGMMA_BOX = 64                     # head-dim columns a TMA box (128 bytes)
-WGMMA_THREADS = 384                # two consumer warpgroups and a producer one
-WGMMA_STAGES = 4                   # of the K and V rings
+WGMMA_HEAD_DIMS = (64, 128)        # the wgmma forms' instantiations (bf16)
 
 
 def kernel_form(dtype: torch.dtype, kd: int) -> str:
-    """The kernel a CUDA launch of operands of ``dtype`` at the instantiated
-    head dim ``kd`` takes: ``"wgmma"`` for bfloat16 at 64 and 128, else
-    ``"mma_sync"``."""
+    """The kernel a CUDA launch of B1, B3/B4 or B5/B6 with operands of
+    ``dtype`` at the instantiated head dim ``kd`` takes: ``"wgmma"`` for
+    bfloat16 at 64 and 128, else ``"mma_sync"``."""
     return "wgmma" if dtype is torch.bfloat16 and kd in WGMMA_HEAD_DIMS else "mma_sync"
-
-
-def wgmma_key_block(kd: int) -> int:
-    """Key rows a tile of the wgmma form at head dim ``kd``
-    (``wg::key_block``): 128 at 64, 64 at 128."""
-    return 128 if kd == 64 else 64
-
-
-def wgmma_key_tiles(q0: int, tq: int, tk: int, causal: bool, bk: int) -> int:
-    """Key tiles of ``bk`` rows the wgmma form reads for the query tile at
-    row ``q0``: every one below ``tk`` and, under ``causal``, none wholly
-    above the tile's last row below ``tq`` (``wg::key_tiles`` in
-    csrc/flash_causal.cu)."""
-    n = -(-tk // bk)
-    return min(n, (min(q0 + WGMMA_BLOCK_Q, tq) - 1) // bk + 1) if causal else n
-
-
-def wgmma_plan(b: int, h: int, tq: int, tk: int, kd: int, causal: bool,
-               strides) -> dict:
-    """The wgmma form's launch as the C code plans it (``wg_plan``), from
-    the dims and the element strides the wrapper passes (batch, head, time
-    of q, k, v, then out's, through which the kernel stores): the blocks
-    (one per (b*h, query tile), the longest tiles first), the key rows of a
-    tile, the key tiles of each query tile in launch order, the tiles
-    causal skips of one (b, h), and the tensor maps of q, k and v: dims
-    (D, T, H, B) innermost first, byte strides of T, H and B (an axis of
-    size 1 takes the packed stride: it is never stepped), the box; and a
-    block's threads, K/V stages and dynamic shared memory (Q, the rings,
-    the barriers, 1024 bytes to align the tiles)."""
-    bk = wgmma_key_block(kd)
-    nq = -(-tq // WGMMA_BLOCK_Q)
-    tiles = [wgmma_key_tiles(q0, tq, tk, causal, bk)
-             for q0 in range((nq - 1) * WGMMA_BLOCK_Q, -1, -WGMMA_BLOCK_Q)]
-    maps = {}
-    for i, (name, t) in enumerate((("q", tq), ("k", tk), ("v", tk))):
-        sb, sh, st = (2 * x for x in strides[3 * i:3 * i + 3])
-        s_t = 2 * kd if t == 1 else st
-        s_h = s_t * t if h == 1 else sh
-        s_b = s_h * h if b == 1 else sb
-        rows = bk if name in ("k", "v") else WGMMA_BLOCK_Q // 2
-        maps[name] = dict(dims=(kd, t, h, b), strides=(s_t, s_h, s_b),
-                          box=(WGMMA_BOX, rows, 1, 1))
-    smem = (WGMMA_BLOCK_Q * kd * 2 + 2 * WGMMA_STAGES * bk * kd * 2
-            + 8 * (1 + 4 * WGMMA_STAGES) + 1024)
-    return dict(blocks=b * h * nq, key_block=bk, tiles=tiles,
-                skipped=nq * -(-tk // bk) - sum(tiles), maps=maps,
-                threads=WGMMA_THREADS, stages=WGMMA_STAGES, smem_bytes=smem)
 
 
 def kernel_head_dim(d: int, what: str) -> int:

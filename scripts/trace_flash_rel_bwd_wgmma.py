@@ -10,9 +10,10 @@ of one B4 block, the (``--bh``, 64 keys from 64 ``--k-block``) one;
 ``trace_stamps.py`` builds the copy), and runs it, and the untraced
 kernels, at phase 16 (a)'s shape in bf16: [8, 12, 500, 64], L = 160, valid
 lengths 500 x 6, 430, 310, non-causal.  Prints, per kernel and warpgroup,
-the cycles of the block's phases: B3's wait for Q and dO, the table (its
-pe tiles and the barrier after them), then per key tile the wait for K and
-V, s = q.k^T and dp = g.v^T, p and ds (with the band's in-place gradient),
+the cycles of the block's phases: B3's wait for Q and dO, the band's edge
+columns, then per key tile the wait for its copies, the band's window (its
+product and stores) with s = q.k^T and dp = g.v^T, p and ds (with the
+band's in-place gradient),
 dq += ds.k with the tile's dqpe cells written under it, and the end (dq
 through shared memory, then the rest of dqpe); B4's wait for K and V, then
 per query tile the wait for its copies, the band (q.pe^T, its barriers and
@@ -44,10 +45,11 @@ MACROS = r'''
 #define TR4(k) tr_store(&g_trace[128 + 64 * w + (k)], TR_ON && blockIdx.y == TRACE_KY)
 '''
 # (line of the source, the same with its stamp).  B3: 0 start, 1 Q and dO
-# arrived, 2 table done; key tile c (of this warpgroup) at 4 + 6 (c % 8):
-# +0 waiting for K and V, +1 arrived, +2 s and dp done, +3 ds done, +4 dq
-# done (its dqpe cells written under the product); 60 loop done, 61 dq
-# stored, 62 the rest of dqpe stored.  B4: 0 start, 1 K and V arrived;
+# arrived, 2 the edge columns done; key tile c (of this warpgroup) at
+# 4 + 6 (c % 8): +0 waiting for its copies, +1 arrived, +2 the band's window
+# stored and s and dp done, +3 ds done, +4 dq done (its dqpe cells written
+# under the product); 60 loop done, 61 dq stored, 62 the rest of dqpe
+# stored.  B4: 0 start, 1 K and V arrived;
 # query tile c at 4 + 6 (c % 8): +0 waiting for its copies, +1 arrived, +2
 # the band's product done and stored, +3 s^T and dp^T done, +4 p^T and
 # ds^T done, +5 dv and dk done; 60 loop done, 61 dk and dv stored.
@@ -55,16 +57,14 @@ EDITS = [
     ("  const int rl = 16 * wi + g;            // rows rl and rl + 8 of the block's 64\n",
      "  const int rl = 16 * wi + g;            // rows rl and rl + 8 of the block's 64\n"
      "  TR3(0);\n"),
-    ("  if (n_items > 0) mbar_wait(&sm.qg_full, 0);\n",
-     "  if (n_items > 0) mbar_wait(&sm.qg_full, 0);\n  TR3(1);\n"),
-    ("    named_barrier(1, 256);   // the table is complete\n",
-     "    named_barrier(1, 256);   // the table is complete\n    TR3(2);\n"),
-    ("  for (int idx = tl.npe + ((w + tl.npe) & 1); idx < n_items; idx += wg::DQ_W) {\n"
-     "    const int st = idx % S, k0 = (idx - tl.npe) * BK;\n"
+    ("      mbar_wait(&sm.qg_full, 0);\n      edges.dot(",
+     "      mbar_wait(&sm.qg_full, 0);\n      TR3(1);\n      edges.dot("),
+    ("    } else {\n      mbar_wait(&sm.qg_full, 0);\n    }\n  }\n",
+     "    } else {\n      mbar_wait(&sm.qg_full, 0);\n      TR3(1);\n    }\n  }\n"
+     "  TR3(2);\n  int tr_c = 0;\n"),
+    ("    const bool window = !MASK_ONLY && !band_clipped(q0, k0, L);\n"
      "    mbar_wait(&sm.full[st], (idx / S) & 1);\n",
-     "  int tr_c = 0;\n"
-     "  for (int idx = tl.npe + ((w + tl.npe) & 1); idx < n_items; idx += wg::DQ_W) {\n"
-     "    const int st = idx % S, k0 = (idx - tl.npe) * BK;\n"
+     "    const bool window = !MASK_ONLY && !band_clipped(q0, k0, L);\n"
      "    TR3(4 + 6 * (tr_c & 7));\n"
      "    mbar_wait(&sm.full[st], (idx / S) & 1);\n"
      "    TR3(5 + 6 * (tr_c & 7));\n"),
@@ -78,8 +78,8 @@ EDITS = [
      "    mbar_arrive(&sm.empty[st]);\n  }\n  TR3(60);\n"),
     ("  if (MASK_ONLY) return;\n\n  // the rest of dqpe",
      "  TR3(61);\n  if (MASK_ONLY) return;\n\n  // the rest of dqpe"),
-    ("    row[two_l - 1] = sm.clip[0][1][rr] + sm.clip[1][1][rr];\n  }\n}\n",
-     "    row[two_l - 1] = sm.clip[0][1][rr] + sm.clip[1][1][rr];\n  }\n  TR3(62);\n}\n"),
+    ("    row[two_l - 1] = clip_sums[BQ + rr] + clip_sums[3 * BQ + rr];\n  }\n}\n",
+     "    row[two_l - 1] = clip_sums[BQ + rr] + clip_sums[3 * BQ + rr];\n  }\n  TR3(62);\n}\n"),
     ("  const int kr = 16 * wi + g;          // keys kr and kr + 8 of the block's 64\n",
      "  const int kr = 16 * wi + g;          // keys kr and kr + 8 of the block's 64\n"
      "  TR4(0);\n"),
@@ -105,11 +105,11 @@ EDITS = [
     ("    fence_regs(p16);\n    fence_regs(ds16);\n    mbar_arrive(&sm.empty[st]);\n  }\n",
      "    fence_regs(p16);\n    fence_regs(ds16);\n    TR4(9 + 6 * (tr_c & 7));\n    ++tr_c;\n"
      "    mbar_arrive(&sm.empty[st]);\n  }\n  TR4(60);\n"),
-    ("  wg::store_acc<D>(dvb, dv_t, dva, 1.f, kr, Tk - k0, t);\n}\n",
-     "  wg::store_acc<D>(dvb, dv_t, dva, 1.f, kr, Tk - k0, t);\n  TR4(61);\n}\n"),
+    ("  store_acc<D>(dvb, dv_t, dva, 1.f, kr, Tk - k0, t);\n}\n",
+     "  store_acc<D>(dvb, dv_t, dva, 1.f, kr, Tk - k0, t);\n  TR4(61);\n}\n"),
 ]
 
-B3_TILE = ("kv_wait", "s_dp", "ds", "dq")
+B3_TILE = ("kv_wait", "window_s_dp", "ds", "dq")
 B4_TILE = ("wait", "band", "s_dp", "p_ds", "dv_dk")
 
 
@@ -120,7 +120,7 @@ def phases(stamps: list, kernel: int) -> dict:
     names = B3_TILE if kernel == 0 else B4_TILE
     out = dict(start_wait=d(0, 1))
     if kernel == 0:
-        out["table"] = d(1, 2)
+        out["edges"] = d(1, 2)
     tiles = []
     for c in range(8):
         base = 4 + 6 * c

@@ -4,7 +4,7 @@ On the CPU: :func:`kernel_form` over operand type and head dim; the form
 that the launch path hands the C entry (a recording library in place of the
 built one, and tensors on the ``meta`` device to drive the public wrappers
 through their launch path), and the per-form launch counts; the mirror of
-the wgmma form's host-side plan (:func:`wgmma_plan`) against a plain
+the wgmma form's host-side plan (:func:`wgmma_plan`, kept here) against a plain
 enumeration: grid, key tiles per query tile, the tiles causal skips, and
 each tensor map's dims and byte strides against the element addresses of
 [B, H, T, D], [B, T, H, D], transposed, qkv-column and tensor-parallel
@@ -127,11 +127,66 @@ def test_wrappers_count_launches_by_form(recorder, dtype):
 # ---- the wgmma form's launch plan ---------------------------------------------
 
 
+# The mirror of the wgmma form's host-side plan (csrc/flash_causal.cu,
+# namespace wg, ``wg_plan``), kept here: only these tests read it.
+WGMMA_BLOCK_Q = 128                # query rows a block: two warpgroups of 64
+WGMMA_BOX = 64                     # head-dim columns a TMA box (128 bytes)
+WGMMA_THREADS = 384                # two consumer warpgroups and a producer one
+WGMMA_STAGES = 4                   # of the K and V rings
+
+
+def wgmma_key_block(kd: int) -> int:
+    """Key rows a tile of the wgmma form at head dim ``kd``
+    (``wg::key_block``): 128 at 64, 64 at 128."""
+    return 128 if kd == 64 else 64
+
+
+def wgmma_key_tiles(q0: int, tq: int, tk: int, causal: bool, bk: int) -> int:
+    """Key tiles of ``bk`` rows the wgmma form reads for the query tile at
+    row ``q0``: every one below ``tk`` and, under ``causal``, none wholly
+    above the tile's last row below ``tq`` (``wg::key_tiles`` in
+    csrc/flash_causal.cu)."""
+    n = -(-tk // bk)
+    return min(n, (min(q0 + WGMMA_BLOCK_Q, tq) - 1) // bk + 1) if causal else n
+
+
+def wgmma_plan(b: int, h: int, tq: int, tk: int, kd: int, causal: bool,
+               strides) -> dict:
+    """The wgmma form's launch as the C code plans it (``wg_plan``), from
+    the dims and the element strides the wrapper passes (batch, head, time
+    of q, k, v, then out's, through which the kernel stores): the blocks
+    (one per (b*h, query tile), the longest tiles first), the key rows of a
+    tile, the key tiles of each query tile in launch order, the tiles
+    causal skips of one (b, h), and the tensor maps of q, k and v: dims
+    (D, T, H, B) innermost first, byte strides of T, H and B (an axis of
+    size 1 takes the packed stride: it is never stepped), the box; and a
+    block's threads, K/V stages and dynamic shared memory (Q, the rings,
+    the barriers, 1024 bytes to align the tiles)."""
+    bk = wgmma_key_block(kd)
+    nq = -(-tq // WGMMA_BLOCK_Q)
+    tiles = [wgmma_key_tiles(q0, tq, tk, causal, bk)
+             for q0 in range((nq - 1) * WGMMA_BLOCK_Q, -1, -WGMMA_BLOCK_Q)]
+    maps = {}
+    for i, (name, t) in enumerate((("q", tq), ("k", tk), ("v", tk))):
+        sb, sh, st = (2 * x for x in strides[3 * i:3 * i + 3])
+        s_t = 2 * kd if t == 1 else st
+        s_h = s_t * t if h == 1 else sh
+        s_b = s_h * h if b == 1 else sb
+        rows = bk if name in ("k", "v") else WGMMA_BLOCK_Q // 2
+        maps[name] = dict(dims=(kd, t, h, b), strides=(s_t, s_h, s_b),
+                          box=(WGMMA_BOX, rows, 1, 1))
+    smem = (WGMMA_BLOCK_Q * kd * 2 + 2 * WGMMA_STAGES * bk * kd * 2
+            + 8 * (1 + 4 * WGMMA_STAGES) + 1024)
+    return dict(blocks=b * h * nq, key_block=bk, tiles=tiles,
+                skipped=nq * -(-tk // bk) - sum(tiles), maps=maps,
+                threads=WGMMA_THREADS, stages=WGMMA_STAGES, smem_bytes=smem)
+
+
 def _enumerated_tiles(tq, tk, causal, bk):
     """Key tiles of ``bk`` rows each query tile needs, longest first, from
     its (row, key) pairs: a tile is read when one of its keys below Tk
     meets one of the query tile's rows below Tq unmasked."""
-    bq = tfc.WGMMA_BLOCK_Q
+    bq = WGMMA_BLOCK_Q
     out = []
     for q0 in reversed(range(0, tq, bq)):
         rows = range(q0, min(q0 + bq, tq))
@@ -147,7 +202,7 @@ def _enumerated_tiles(tq, tk, causal, bk):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("kd,bk", [(64, 128), (128, 64)])
 def test_plan_blocks_and_tiles_match_enumeration(tq, tk, causal, kd, bk):
-    plan = tfc.wgmma_plan(3, 5, tq, tk, kd, causal, [0] * 12)
+    plan = wgmma_plan(3, 5, tq, tk, kd, causal, [0] * 12)
     tiles = _enumerated_tiles(tq, tk, causal, bk)
     n_q, n_k = -(-tq // 128), -(-tk // bk)
     assert plan["key_block"] == bk
@@ -165,7 +220,7 @@ def test_plan_blocks_and_tiles_match_enumeration(tq, tk, causal, kd, bk):
 def test_plan_shared_memory_fits_a_block(kd):
     """Q, four stages of K and V tiles and the barriers, aligned to 1024
     bytes, within the 227 KB a block may opt in to on an H100."""
-    plan = tfc.wgmma_plan(1, 1, 1024, 1024, kd, True, [0] * 12)
+    plan = wgmma_plan(1, 1, 1024, 1024, kd, True, [0] * 12)
     assert plan["threads"] == 384 and plan["stages"] == 4
     tile = plan["key_block"] * kd * 2
     assert plan["smem_bytes"] == 128 * kd * 2 + 2 * 4 * tile + 8 * 17 + 1024
@@ -211,7 +266,7 @@ def test_plan_maps_address_every_element(kind):
     strides = tfc.operand_strides((("q", q), ("k", k), ("v", v)), t_axis, "t")
     out = torch.empty_like(q)
     so = out.stride()
-    plan = tfc.wgmma_plan(b, h, tq, tk, kd, True, strides + [so[0], so[h_axis], so[t_axis]])
+    plan = wgmma_plan(b, h, tq, tk, kd, True, strides + [so[0], so[h_axis], so[t_axis]])
     assert set(plan["maps"]) == {"q", "k", "v"}   # out is stored through its strides
     for name, x in (("q", q), ("k", k), ("v", v)):
         m = plan["maps"][name]
@@ -231,7 +286,7 @@ def test_plan_maps_address_every_element(kind):
 def test_plan_strides_of_size_one_axes_are_packed():
     """An axis of size 1 is never stepped: the plan takes the packed stride
     whatever the tensor says (the slow path of operand_strides hands 0)."""
-    plan = tfc.wgmma_plan(1, 1, 1, 1, 128, False, [0] * 12)
+    plan = wgmma_plan(1, 1, 1, 1, 128, False, [0] * 12)
     for m in plan["maps"].values():
         assert m["strides"] == (256, 256, 256)
 
@@ -365,7 +420,7 @@ def test_cuda_plan_equals_the_c_plan(kind, cuda):
         _build.library().loco_flash_causal_wgmma_plan(tfc.stride_buffer(tuple(strides)), b, h,
                                                      tq, tk, kd, int(causal),
                                                      ctypes.addressof(got))
-        plan = tfc.wgmma_plan(b, h, tq, tk, kd, causal, strides)
+        plan = wgmma_plan(b, h, tq, tk, kd, causal, strides)
         want = [plan["blocks"], sum(plan["tiles"]), plan["key_block"]]
         for name in ("q", "k", "v"):
             m = plan["maps"][name]

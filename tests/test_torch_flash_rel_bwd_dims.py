@@ -114,7 +114,7 @@ class _PlainLibrary:
     loco_flash_rel_bwd_smem_bytes = loco_flash_rel_smem_bytes
 
     def loco_flash_rel_fwd(self, q, k, v, pe, vl, out, lse, strides, B, H, Tq, Tk, D,
-                           two_l, causal, mask_only, scale, bf16, stream):
+                           two_l, causal, mask_only, scale, form, bf16, stream):
         self.head_dims.append(D)
         st = _strides(strides, 12)
         qv, kv, vv = (torch.from_numpy(_view(p, torch.float32, (B, H, T, D), st[3 * i:3 * i + 3])

@@ -7,19 +7,20 @@ built one) and ``flash_rel_backward.launches_by_form`` (``meta`` tensors
 through the public wrapper); a mirror of the form's host-side plan, kept
 here (:func:`wgmma_backward_plan`), against a plain enumeration of the
 (query, key) pairs: grids, the key tiles of each B3 block and the query
-tiles of each B4 block under ``valid_len`` and ``causal``, the pe tiles a
-B3 block's table needs, the pe rows a B4 tile pair's band needs, each
-tensor map's dims and byte strides against the element addresses of
-[B, H, T, D], [B, T, H, D]-buffer, Ulysses head-block and
+tiles of each B4 block under ``valid_len`` and ``causal``, the key tiles
+of a B3 block that load a band window, the pe rows a B4 tile pair's band
+needs, each tensor map's dims and byte strides against the element
+addresses of [B, H, T, D], [B, T, H, D]-buffer, Ulysses head-block and
 tensor-parallel views, each kernel's shared memory within one block's
-limit, and the largest table B3 takes (L 272 at head dim 64, 242 at 128):
-one row pair more raises before the launch.  On a CUDA device (marker
-``cuda``): the form against the
+limit and the same at L = 160, 512 and 2048, and the wgmma launch at L
+past the 272 (head dim 64) and 242 (128) that B3's former table allowed,
+while the mma.sync form still raises past its own.  On a CUDA device
+(marker ``cuda``): the form against the
 plain version within ``2^-7 max|plain|`` (dq, dk, dv, dpe) with the band
 and mask-only, causal and not, head dims 64 and 128, Tq != Tk, ragged T,
-``valid_len`` 0 (whose rows get zero gradients), strided views, the
-largest L; the C plan against the mirror; the C entry refusing a form it
-has no kernel for.
+``valid_len`` 0 (whose rows get zero gradients), strided views, L past
+the former table's limit; the C plan against the mirror; the C entry
+refusing a form it has no kernel for.
 
 On a GPU machine without JAX, run the kernel tests alone:
 ``python -m pytest --noconftest tests/test_torch_flash_rel_bwd_wgmma.py -m cuda``."""
@@ -139,11 +140,13 @@ def test_backward_counts_launches_by_form(recorder, dtype):
 # The mirror of the wgmma form's host-side plan (csrc/flash_rel_bwd.cu,
 # namespace wg, ``bwd_plan``): B3 takes
 # 64 query rows a block over 64-key tiles, B4 64 keys a block over 64-query
-# tiles; B3's f32 table is [2L][68], B4's band [64][132] a consumer
-# warpgroup over the 128 pe rows a tile pair reads.
+# tiles; each reads the 128 pe rows a tile pair's band reaches (hopper.cuh),
+# B3's consumer warpgroup into an f32 window [64][136] ([64][130] at head
+# dim 128, for room; none for a tile whose pairs are all past one clip
+# edge), B4's into its band [64][132].
 TILE = 64
 BAND_ROWS = 128
-TABLE_STRIDE = TILE + 4
+WINDOW_STRIDE = {64: 136, 128: 130}
 BAND_STRIDE = BAND_ROWS + 4
 
 
@@ -152,21 +155,20 @@ def _clip(d: int, half: int) -> int:
 
 
 def wgmma_dq_tiles(q0: int, vl: int, two_l: int, causal: bool, mask_only: bool):
-    """(key tiles, first pe tile, pe tiles) of the wgmma B3 block at query
-    row ``q0`` (``wg::dq_tiles``): every key tile below ``vl`` and, under
-    ``causal``, none past the block's last row; the 64-row pe tiles holding
-    the table columns the block's unmasked pairs reach (none for the
-    mask-only variant or without a key tile)."""
+    """(key tiles, band windows) of the wgmma B3 block at query row ``q0``
+    (``wg::dq_key_tiles``): every key tile below ``vl`` and, under
+    ``causal``, none past the block's last row; of those, the tiles not
+    wholly past one clip edge (``band_clipped`` in hopper.cuh) load a
+    window (none for the mask-only variant)."""
     n = TILE
     nk = -(-vl // n)
     if causal:
         nk = min(nk, (q0 + n - 1) // n + 1)
-    if mask_only or nk == 0:
-        return nk, 0, 0
     half = two_l // 2
-    j_lo = min(vl - 1, q0) if causal else vl - 1
-    pe0 = (_clip(q0 - j_lo, half) + half) // n
-    return nk, pe0, (min(q0 + n - 1, half - 1) + half) // n - pe0 + 1
+    windows = 0 if mask_only else sum(
+        not (q0 - (k0 + n - 1) >= half - 1 or q0 + n - 1 - k0 <= -half)
+        for k0 in range(0, nk * n, n))
+    return nk, windows
 
 
 def wgmma_dkv_tiles(k0: int, vl: int, tq: int, causal: bool):
@@ -203,8 +205,8 @@ def wgmma_backward_plan(b: int, h: int, tq: int, tk: int, kd: int, two_l: int, c
     for bi in range(b):
         vl = max(0, min(int(valid_len[bi]), tk))
         for y in range(nq):
-            nk, pe0, npe = wgmma_dq_tiles(y * n, vl, two_l, causal, mask_only)
-            dq_blocks.append(dict(b=bi, q0=y * n, key_tiles=nk, pe0=pe0, pe_tiles=npe))
+            nk, windows = wgmma_dq_tiles(y * n, vl, two_l, causal, mask_only)
+            dq_blocks.append(dict(b=bi, q0=y * n, key_tiles=nk, windows=windows))
         for y in range(nkb):
             qt0, nt = wgmma_dkv_tiles(y * n, vl, tq, causal)
             bands = [] if mask_only else [wgmma_band((qt0 + i) * n, y * n, two_l)
@@ -221,9 +223,9 @@ def wgmma_backward_plan(b: int, h: int, tq: int, tk: int, kd: int, two_l: int, c
     halves = kd // 64
     tile = halves * n * 64 * 2                      # one 64-row tile of bf16
     dq_stages = 4 if kd == 64 else 2
-    dq_struct = 2 * tile + 2 * dq_stages * tile + 2 * 2 * n * 4 + 8 * (1 + 2 * dq_stages)
-    dq_smem = 1024 + -(-dq_struct // 16) * 16 + (
-        0 if mask_only else two_l * TABLE_STRIDE * 4)
+    dq_windows = (halves * 8 * 64 * 2 + 8 if mask_only
+                  else dq_stages * 2 * tile + 2 * n * WINDOW_STRIDE[kd] * 4)
+    dq_smem = 1024 + 2 * tile + 2 * dq_stages * tile + dq_windows + 8 * (1 + 2 * dq_stages)
     dkv_w, dkv_stages = (2, 4) if kd == 64 else (1, 2)
     pe_bytes = halves * 8 * 64 * 2 if mask_only else dkv_stages * 2 * tile
     band_bytes = 16 if mask_only else dkv_w * n * BAND_STRIDE * 4
@@ -234,7 +236,7 @@ def wgmma_backward_plan(b: int, h: int, tq: int, tk: int, kd: int, two_l: int, c
                 dkv=dict(grid=(b * h, nkb), threads=128 * (dkv_w + 1), stages=dkv_stages,
                          smem_bytes=dkv_smem),
                 key_tiles=h * sum(x["key_tiles"] for x in dq_blocks),
-                pe_tiles=h * sum(x["pe_tiles"] for x in dq_blocks),
+                windows=h * sum(x["windows"] for x in dq_blocks),
                 query_tiles=h * sum(x["query_tiles"] for x in dkv_blocks),
                 band_rows=h * sum(r for x in dkv_blocks for _, r in x["bands"]))
 
@@ -247,10 +249,11 @@ def _pairs(tq, tk, vl, causal, rows, keys):
 
 
 def _enumerated(b_vls, tq, tk, two_l, causal, mask_only):
-    """B3's key tiles and pe tiles, and B4's query tiles and tile pairs'
-    pe rows, of each block from its pairs.  B3 takes the rows of its whole
-    64-row tile (padding rows past Tq get zero gradients, as in form 0); B4
-    the queries below Tq."""
+    """B3's key tiles and band windows (the tiles whose pairs reach more
+    than one table column), and B4's query tiles and tile pairs' pe rows,
+    of each block from its pairs.  B3 takes the rows of its whole 64-row
+    tile (padding rows past Tq get zero gradients, as in form 0); B4 the
+    queries below Tq."""
     half = two_l // 2
     dq, dkv = [], []
     for vl in b_vls:
@@ -260,11 +263,10 @@ def _enumerated(b_vls, tq, tk, two_l, causal, mask_only):
                      for k0 in range(0, tk, TILE)]
             nk = sum(tiles)
             assert tiles == sorted(tiles, reverse=True)   # a prefix of the key tiles
-            cols = {min(max(i - j, -half), half - 1) + half
-                    for i, j in _pairs(tq, tk, vl, causal, rows, range(nk * TILE))}
-            pe = sorted({c // TILE for c in cols}) if not mask_only else []
-            assert pe == list(range(pe[0], pe[-1] + 1)) if pe else True
-            dq.append((nk, pe[0] if pe else 0, len(pe)))
+            cols = [{min(max(i - j, -half), half - 1) + half
+                     for i in rows for j in range(k0, k0 + TILE)}
+                    for k0 in range(0, nk * TILE, TILE)]
+            dq.append((nk, 0 if mask_only else sum(len(c) > 1 for c in cols)))
         for k0 in range(0, tk, TILE):
             keys = range(k0, k0 + TILE)
             tiles = [bool(_pairs(tq, tk, vl, causal, range(q0, min(q0 + TILE, tq)), keys))
@@ -293,7 +295,7 @@ PLAN_CASES = [  # (Tq, Tk, valid lengths, 2L)
 @pytest.mark.parametrize("mask_only", [False, True])
 def test_plan_tiles_match_enumeration(tq, tk, vls, two_l, causal, mask_only):
     """The key tiles the wgmma B3 skips past valid_len and the diagonal,
-    the query tiles B4 skips, the pe tiles of B3's table and the pe rows of
+    the query tiles B4 skips, the band windows B3 loads and the pe rows of
     B4's band: from the formulas as from the pairs themselves (a
     valid_len of 0, or a key block at or past it, takes no tile)."""
     plan = wgmma_backward_plan(len(vls), 3, tq, tk, 64, two_l, causal, mask_only, vls,
@@ -301,7 +303,7 @@ def test_plan_tiles_match_enumeration(tq, tk, vls, two_l, causal, mask_only):
     dq, dkv = _enumerated(vls, tq, tk, two_l, causal, mask_only)
     assert plan["dq"]["grid"] == (3 * len(vls), -(-tq // TILE))
     assert plan["dkv"]["grid"] == (3 * len(vls), -(-tk // TILE))
-    assert [(x["key_tiles"], x["pe0"], x["pe_tiles"]) for x in plan["dq_blocks"]] == dq
+    assert [(x["key_tiles"], x["windows"]) for x in plan["dq_blocks"]] == dq
     assert [(x["qt0"] if x["query_tiles"] else None, x["query_tiles"], x["bands"])
             for x in plan["dkv_blocks"]] == dkv
     for x in plan["dkv_blocks"]:
@@ -310,7 +312,7 @@ def test_plan_tiles_match_enumeration(tq, tk, vls, two_l, causal, mask_only):
     assert plan["key_tiles"] == 3 * sum(t[0] for t in dq)
     assert plan["band_rows"] == 3 * sum(r for t in dkv for _, r in t[2])
     if any(v == 0 for v in vls):
-        assert any(x["key_tiles"] == 0 and x["pe_tiles"] == 0 for x in plan["dq_blocks"])
+        assert any(x["key_tiles"] == 0 and x["windows"] == 0 for x in plan["dq_blocks"])
 
 
 def _views(kind, d=64):
@@ -374,18 +376,23 @@ def test_plan_maps_address_every_element(kind, d):
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("mask_only", [False, True])
-def test_plan_shared_memory_fits_a_block(d, mask_only):
-    """At L = 160: B3's tiles and f32 table [2L][68], B4's tiles, rings and
-    bands, within the 227 KB a block may opt in to on an H100; with the
-    threads and stages each kernel takes."""
-    plan = wgmma_backward_plan(1, 1, 500, 500, d, 320, False, mask_only, [500], [0] * 21)
+@pytest.mark.parametrize("L", [160, 512, 2048])
+def test_plan_shared_memory_fits_a_block(d, mask_only, L):
+    """B3's tiles, ring and f32 windows, B4's tiles, rings and bands,
+    within the 227 KB a block may opt in to on an H100 and the same at
+    every L (B3 held a table of the whole 2L rows until the windows came);
+    with the threads and stages each kernel takes."""
+    plan = wgmma_backward_plan(1, 1, 500, 500, d, 2 * L, False, mask_only, [500], [0] * 21)
+    at_160 = wgmma_backward_plan(1, 1, 500, 500, d, 320, False, mask_only, [500], [0] * 21)
+    for kernel in ("dq", "dkv"):
+        assert plan[kernel]["smem_bytes"] == at_160[kernel]["smem_bytes"]
     tile = d * TILE * 2
     dq, dkv = plan["dq"], plan["dkv"]
     assert (dq["threads"], dq["stages"]) == (384, 4 if d == 64 else 2)
     assert dq["stages"] % 2 == 0   # each stage serves one of the two warpgroups
     assert (dkv["threads"], dkv["stages"]) == ((384, 4) if d == 64 else (256, 2))
-    table = 0 if mask_only else 320 * 68 * 4
-    assert dq["smem_bytes"] >= 2 * tile + 2 * dq["stages"] * tile + table
+    windows = 0 if mask_only else dq["stages"] * 2 * tile + 2 * 64 * WINDOW_STRIDE[d] * 4
+    assert dq["smem_bytes"] >= 2 * tile + 2 * dq["stages"] * tile + windows
     rings = 2 * dkv["stages"] * tile + (0 if mask_only else dkv["stages"] * 2 * tile)
     bands = 0 if mask_only else (dkv["threads"] // 128 - 1) * 64 * 132 * 4
     assert dkv["smem_bytes"] >= 2 * tile + rings + bands
@@ -398,41 +405,42 @@ def test_plan_strides_of_size_one_axes_are_packed():
         assert plan["maps"][name]["strides"] == (256, 256, 256)
 
 
-# The largest L of the band variant by head dim: past it B3's f32 table
-# [2L][68] and its tiles and rings need more shared memory than a block has.
+# The largest L of the band variant by head dim while B3's wgmma form kept
+# an f32 table [2L][68] beside its tiles and rings; its windows lift it.
 TABLE_L_LIMIT = {64: 272, 128: 242}
-
 
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_launch_raises_past_the_table_limit(recorder, monkeypatch, d):
-    """With the shared memory of the mirror's plan: a band launch at the
-    largest L reaches the C entry; one row pair more raises, naming the
-    table's rows, and calls nothing."""
+    """The wgmma form's launch past the former table's limit, at L = 512
+    and at 2048, reaches the C entry and asks no shared memory of the
+    library (its windows take the same bytes at every L); the mma.sync form
+    (float32 at the same head dim, its table growing with L) still raises
+    before the launch past its own limit, naming the table's rows, and
+    calls nothing."""
     def smem(fn, two_l, mask_only, kernel, kd, bf16):
-        assert fn == "loco_flash_rel_bwd_smem_bytes" and bf16 == 1
-        plan = wgmma_backward_plan(1, 1, 64, 64, kd, two_l, False, bool(mask_only), [64],
-                                   [0] * 21)
-        return plan["dkv" if kernel else "dq"]["smem_bytes"]
+        assert fn == "loco_flash_rel_bwd_smem_bytes" and bf16 == 0
+        return 1024 + two_l * (TILE + 4) * 4   # a table of two_l rows
 
     monkeypatch.setattr(tfa, "_smem_bytes", smem)
-    q, k, v, g = (torch.zeros(1, 2, 64, d, dtype=BF16) for _ in range(4))
     lse = torch.zeros(1, 2, 64)
 
-    def launch(L):
-        pe = torch.zeros(2 * L, d, dtype=BF16)
+    def launch(L, dtype):
+        q, k, v, g = (torch.zeros(1, 2, 64, d, dtype=dtype) for _ in range(4))
+        pe = torch.zeros(2 * L, d, dtype=dtype)
         return tfa._launch_backward(q, k, v, pe, torch.tensor([64]), lse, lse, g, False, 0.125,
                                     mask_only=False)
 
-    L = TABLE_L_LIMIT[d]
-    launch(L)
-    assert [name for name, _ in recorder.calls] == ["loco_flash_rel_bwd"]
-    with pytest.raises(ValueError, match=rf"flash_rel_backward: a rel-pos table of {2 * L + 2} "
-                                         rf"rows needs \d+ B of shared memory, more than the "
+    for L in (TABLE_L_LIMIT[d] + 1, 512, 2048):
+        launch(L, BF16)
+    assert [name for name, _ in recorder.calls] == ["loco_flash_rel_bwd"] * 3
+    assert [a[-7] for _, a in recorder.calls] == [2 * (TABLE_L_LIMIT[d] + 1), 1024, 4096]
+    assert tfa.flash_rel_backward.launches_by_form == {"mma_sync": 0, "wgmma": 3}
+    with pytest.raises(ValueError, match=r"flash_rel_backward: a rel-pos table of 1024 "
+                                         r"rows needs \d+ B of shared memory, more than the "
                                          rf"{SMEM_LIMIT} B a block may use"):
-        launch(L + 1)
-    assert len(recorder.calls) == 1
-    assert tfa.flash_rel_backward.launches_by_form == {"mma_sync": 0, "wgmma": 1}
+        launch(512, torch.float32)
+    assert len(recorder.calls) == 3
 
 
 # ---- on the card ---------------------------------------------------------------
@@ -546,20 +554,16 @@ def test_cuda_wgmma_fully_masked_rows_get_zero_gradients(d, mask_only, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_wgmma_table_limit(d, cuda):
-    """The band variant at the largest L holds to the plain version; one
-    row pair more raises before the launch and launches nothing."""
+    """The band variant at the former table's largest L, one row pair past
+    it and at L = 512 and 2048 (T = 700 reaches past 512) holds to the plain
+    version: no L raises any more."""
     rng = np.random.default_rng(70 + d)
     L = TABLE_L_LIMIT[d]
-    q, k, v = (_bf16(rng, (1, 2, 96, d), cuda) for _ in range(3))
-    vl = torch.tensor([96], dtype=torch.int32, device=cuda)
-    _, ratios = _held(q, k, v, _bf16(rng, (2 * L, d), cuda), vl, False, False)
-    assert max(ratios) <= 1, ratios
-    pe = _bf16(rng, (2 * L + 2, d), cuda)
-    out, lse = tfa.flash_rel_forward(q, k, v, pe, vl, causal=False, scale=0.125)
-    before = dict(tfa.flash_rel_backward.launches_by_form)
-    with pytest.raises(ValueError, match=f"a rel-pos table of {2 * L + 2} rows"):
-        tfa.flash_rel_backward(q, k, v, pe, vl, out, lse, q, causal=False, scale=0.125)
-    assert tfa.flash_rel_backward.launches_by_form == before
+    q, k, v = (_bf16(rng, (1, 2, 700, d), cuda) for _ in range(3))
+    vl = torch.tensor([650], dtype=torch.int32, device=cuda)
+    for two_l in (2 * L, 2 * L + 2, 1024, 4096):
+        _, ratios = _held(q, k, v, _bf16(rng, (two_l, d), cuda), vl, False, False)
+        assert max(ratios) <= 1, (two_l, ratios)
 
 
 @pytest.mark.cuda
@@ -595,7 +599,7 @@ def test_cuda_plan_equals_the_c_plan(kind, d, cuda):
             int(mask_only), (ctypes.c_int * b)(*vls), ctypes.addressof(got))
         plan = wgmma_backward_plan(b, h, tq, tk, d, two_l, causal, mask_only, vls, strides)
         want = [plan["dq"]["grid"][0] * plan["dq"]["grid"][1], plan["key_tiles"],
-                plan["pe_tiles"], plan["dkv"]["grid"][0] * plan["dkv"]["grid"][1],
+                plan["windows"], plan["dkv"]["grid"][0] * plan["dkv"]["grid"][1],
                 plan["query_tiles"], plan["band_rows"]]
         for name in ("q", "k", "v", "g", "pe"):
             want += [*plan["maps"][name]["dims"], *plan["maps"][name]["strides"]]
