@@ -769,12 +769,15 @@ def sass_counts(lib_path: str, patterns) -> dict:
 
 
 def b2_b7_build_records(build) -> list:
-    """B2's two kernels and B7's warp kernels: registers and spill (ptxas),
+    """B2's kernels and B7's warp kernels: registers and spill (ptxas),
     shared memory and blocks an SM at the main path's shapes (CUDA's
     occupancy API; B2's statistics at [16, 80000]'s 1024-frame chunk, B7 at
     80 mel bins of stride 25), no clusters, and the static SASS count: for
-    B2's output kernel over the 2 x 64 outputs of a thread's two unrolled
-    bodies (full tile, edge tile; prologue included), for B7 a whole kernel."""
+    form 0's output kernel (f32) over the 2 x 64 outputs of a thread's two
+    unrolled bodies (full tile, edge tile; prologue included), for form 1's
+    (bf16, ``conv_out_mma_kernel``) over the 4 x 16 outputs of a thread's
+    tile (prologue, staging and both store paths included), for B7 a whole
+    kernel."""
     import torch
     from loco_asr_tpu_torch.ops.cuda import conv_frontend as cf
     from loco_asr_tpu_torch.ops.cuda import logmel
@@ -786,10 +789,20 @@ def b2_b7_build_records(build) -> list:
     def b2(m):
         phase = int(m.group(1) == "out")
         return dict(kernel="B2", phase=("statistics", "output")[phase],
+                    dtype=("float32", "bfloat16")[m.group(2) != "f"],
+                    form=(None, "ffma")[phase],
                     shape=(f"256 threads, {chunk}-frame chunks at [16, 80000]",
                            "8 warps x 16 channels x 4 frames a thread, 128-frame tiles")[phase],
                     dynamic_smem_bytes=((chunk * 5 + 5) * 4, 0)[phase], cluster=None,
                     blocks_per_sm=lib.loco_conv_frontend_blocks_per_sm(phase, chunk))
+
+    def b2_mma(m):
+        return dict(kernel="B2", phase="output", dtype="bfloat16", form="mma_sync",
+                    shape="8 warps x 16 channels (one alignment class mod 8 a warp) x 128 "
+                          "frames, a bf16 m16n8k16 per 16 channels x 8 frames, each warp's "
+                          "rows staged and written 256 bytes a row a lane group",
+                    dynamic_smem_bytes=B2_MMA_STAGE_BYTES, cluster=None,
+                    blocks_per_sm=lib.loco_conv_frontend_blocks_per_sm(2, chunk))
 
     def b7(m):
         log2_m = int(m.group(1))
@@ -798,13 +811,18 @@ def b2_b7_build_records(build) -> list:
                     blocks_per_sm_80_mels=lib.loco_logmel_blocks_per_sm(log2_m, 80, stride),
                     cluster=None)
 
-    recs = (kernel_build_records(build, r"conv_(stats|out)_kernelILi10EfE", b2, 2)
+    recs = (kernel_build_records(build, r"conv_(stats|out)_kernelILi10E" + ELEM + "E", b2, 3)
+            + kernel_build_records(build, r"conv_out_mma_kernel", b2_mma, 1)
             + kernel_build_records(build, r"logmel_warp_kernelILi(\d)E", b7, 5))
-    sass = sass_counts(build.library_path(), ("conv_out_kernelILi10EfE", "logmel_warp_kernelILi9E"))
+    sass = sass_counts(build.library_path(), ("conv_out_kernelILi10EfE", "conv_out_mma_kernel",
+                                              "logmel_warp_kernelILi9E"))
     for name, n in sass.items():
         if "conv_out_kernel" in name:
-            recs.append(dict(kernel="B2", sass_instructions_output_kernel=n,
+            recs.append(dict(kernel="B2", form="ffma", sass_instructions_output_kernel=n,
                              sass_per_output=n / 128))
+        elif "conv_out_mma_kernel" in name:
+            recs.append(dict(kernel="B2", form="mma_sync", sass_instructions_output_kernel=n,
+                             sass_per_output=n / 64))
         else:
             recs.append(dict(kernel="B7", sass_instructions_m512=n))
     return recs
@@ -818,6 +836,9 @@ def b2_work(wav, c, k, f):
     return nbytes, flops
 
 
+# conv_frontend.cu's MT_STAGE_BYTES: the bf16 output kernel's dynamic
+# shared memory (8 warps x 16 rows x 128 bf16 frames)
+B2_MMA_STAGE_BYTES = 32768
 B2_CASES = (("main", 16, 80000), ("s2s", 8, 160000), ("pipeline", 4, 64000),
             ("odd", 3, 23457))
 
@@ -2554,9 +2575,11 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         for fn in (fc.flash_forward, fc.flash_forward_nhd, fa.flash_rel_forward,
                    fa.flash_rel_backward):
             fn.launches_by_form = dict.fromkeys(fc.FORMS, 0)
+        cf.conv1_instance_norm_gelu.launches_by_form = dict.fromkeys(cf.FORMS, 0)
 
     def by_form():
         return {"B1": dict(fa.flash_rel_forward.launches_by_form),
+                "B2": dict(cf.conv1_instance_norm_gelu.launches_by_form),
                 "B5": dict(fc.flash_forward.launches_by_form),
                 "B6": dict(fc.flash_forward_nhd.launches_by_form),
                 "B3/B4": dict(fa.flash_rel_backward.launches_by_form)}
@@ -2721,29 +2744,48 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
         print(f"[bf16] {json.dumps(rec)}")
         del q, k, v, qs, ks, vs, f32
 
-    # B2 at the encoder's [16, 80000]
-    wav = randn(16, 80000, sc=0.1)
-    w, sc_, bi = randn(512, 1, 10), randn(512, sc=0.2) + 1.0, randn(512, sc=0.1)
+    # B2 in its bf16 form ("mma_sync") at the B2_CASES shapes, at the
+    # conversation-length row of a sequence-parallel step and at 200
+    # channels, each held against its plain version; f32, plain and conv1d
+    # beside the main shape's
+    b2_cases = []
+    for name, b, t in B2_CASES + (("conversation", 1, 2624080),):
+        b2_cases += [(name, b, t, 512)] + ([("c200", 4, 64000, 200)] if name == "pipeline" else [])
+    for name, b, t, c in b2_cases:
+        wav = randn(b, t, sc=0.1)
+        w, sc_, bi = randn(c, 1, 10), randn(c, sc=0.2) + 1.0, randn(c, sc=0.1)
 
-    def run():
-        return cf.conv1_instance_norm_gelu(wav, w, sc_, bi)
+        def run():
+            return cf.conv1_instance_norm_gelu(wav, w, sc_, bi)
 
-    rec = hold_b2("B2 bf16", wav, w, sc_, bi)
-    nbytes, flops = b2_work(wav, 512, 10, 15999)
-    bms, by = bound(nbytes, flops)
-    f32 = [t.float() for t in (wav, w, sc_, bi)]
-    ms = time_ms(run)
-    split = kernel_device_ms(run, ("conv_stats", "conv_out"), optional=("Memset",))
-    rec.update(kernel="B2 bf16", case="main", shape=[16, 80000], ms=ms,
-               device_ms=sum(split.values()), device_ms_by_launch=split,
-               f32_ms=time_ms(lambda: cf.conv1_instance_norm_gelu(*f32)),
-               plain_ms=time_ms(lambda: cf.conv1_instance_norm_gelu_plain(wav, w, sc_, bi)),
-               library_ms=None,
-               partial_library_ms=time_ms(lambda: F.conv1d(wav[:, None], w, stride=5)),
-               bound_ms=bms, bound_by=by, bound_share=bms / ms, card=smi)
-    recs["B2"] = rec
-    print(f"[bf16] {json.dumps(rec)}")
-    del wav, f32
+        before = dict(cf.conv1_instance_norm_gelu.launches_by_form)
+        rec = hold_b2(f"B2 bf16 {name}", wav, w, sc_, bi)
+        now = cf.conv1_instance_norm_gelu.launches_by_form
+        check(now["mma_sync"] == before["mma_sync"] + 1 and now["ffma"] == before["ffma"],
+              f"B2 bf16 {name}: forms {before} -> {now}")
+        f = (t - 10) // 5 + 1
+        nbytes, flops = b2_work(wav, c, 10, f)
+        bms, by = bound(nbytes, flops)
+        ms = time_ms(run)
+        split = kernel_device_ms(run, ("conv_stats", "conv_out_mma"), optional=("Memset",))
+        dev_ms = sum(split.values())
+        rec.update(kernel="B2 bf16", case=name, shape=[b, t], channels=c,
+                   form=cf.kernel_form(bf), ms=ms, device_ms=dev_ms, device_ms_by_launch=split,
+                   bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   device_bound_share=bms / dev_ms, card=smi)
+        if name == "main":
+            f32 = [t_.float() for t_ in (wav, w, sc_, bi)]
+            rec.update(f32_ms=time_ms(lambda: cf.conv1_instance_norm_gelu(*f32)),
+                       plain_ms=time_ms(lambda: cf.conv1_instance_norm_gelu_plain(wav, w, sc_,
+                                                                                 bi)),
+                       library_ms=None, partial_library_ms=time_ms(
+                           lambda: F.conv1d(wav[:, None], w, stride=5)))
+            recs["B2"] = rec
+            del f32
+        else:
+            recs["B2"].setdefault("cases", []).append(rec)
+        print(f"[bf16] {json.dumps(rec)}")
+        del wav
 
     # (b) the full-width ASR step under the JAX README's realistic
     # fine-tuning flags: bf16 compute, frozen feature encoder, flash.  The
@@ -2800,6 +2842,8 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
           f"bf16 step B5 forms {asr_forms['B5']}")
     check(asr_forms["B3/B4"] == {"mma_sync": 0, "wgmma": n_enc + n_dec},
           f"bf16 step B3/B4 forms {asr_forms['B3/B4']}")
+    # and its one B2 launch the bf16 form on the tensor cores
+    check(asr_forms["B2"] == {"ffma": 0, "mma_sync": 1}, f"bf16 step B2 forms {asr_forms['B2']}")
     check(all(v == 0 for v in cd.values()), f"dense bf16 launched {cd}")
     # every captured form: B1 with the band (encoder) and mask-only over
     # Tq != Tk (the decoder's cross-attention), their B3/B4, B5 (decoder), B2
@@ -3006,10 +3050,11 @@ def mixed_precision_phase(corpus: dict, host_batches: list, smi: str, dev) -> di
 
 # the bf16 forms in the kernels line: (name, phase 16's record, launches
 # key, source, the TPU kernel's line); B1, B3/B4, B5 and B6 at head dim 64
-# are the wgmma form's, their launches its own count
+# are the wgmma form's, B2 the mma_sync form's, their launches its own count
 BF16_FORMS = (
     ("flash_rel_forward (bf16, wgmma)", "B1", ("asr_forms", "B1"), "flash_rel.cu", 518),
-    ("conv1_instance_norm_gelu (bf16)", "B2", ("asr_step", "B2"), "conv_frontend.cu", None),
+    ("conv1_instance_norm_gelu (bf16, mma_sync)", "B2", ("asr_forms", "B2"), "conv_frontend.cu",
+     None),
     ("flash_rel_backward (B3, bf16, wgmma)", "B3", ("asr_forms", "B3/B4"), "flash_rel_bwd.cu",
      799),
     ("flash_rel_backward (B4, bf16, wgmma)", "B4", ("asr_forms", "B3/B4"), "flash_rel_bwd.cu",
@@ -3034,8 +3079,7 @@ def bf16_entries(mixed: dict) -> list:
         e = dict(name=name, route="cuda", source=f"loco_asr_tpu_torch/csrc/{src}",
                  replaces=replaces, launches=launches, max_abs_err=rec["max_abs_err"],
                  ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=rec["library_ms"])
-        if kern in ("B1", "B3", "B4", "B5", "B6"):
-            e["form"] = rec["form"]
+        e["form"] = rec["form"]
         step = [r["max_abs_err"] for r in mixed["step_kernels"]
                 if r["kernel"] == ("B3/B4" if kern in ("B3", "B4") else kern)]
         if step:   # the same form replayed on the ASR step's own inputs

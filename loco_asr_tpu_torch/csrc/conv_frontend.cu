@@ -56,10 +56,66 @@
 // 1.5e-7) rearranged as max(z, 0) - |z|/2 P(t) exp(-z^2/2): one
 // approximate reciprocal, one ex2 and a five-term polynomial, 13
 // instructions an output.
+//
+// Two forms of the output kernel (the C entry's `form`; a pairing of form
+// and operand type with no kernel returns cudaErrorNotSupported):
+// - form 0, "ffma": (2) above, the float32 kernel.
+// - form 1, "mma_sync": the bf16 kernel, conv_out_mma_kernel below.  In
+//   bf16 the output is half as large (262 MB at [16, 80000], 0.079 ms), and
+//   form 0's ~27 instructions an output (10 FMA, the GELU, a conversion, a
+//   scalar 2-byte store) took longer to issue than the write.  So:
+//   - The conv runs on the tensor cores: one mma.sync.m16n8k16 bf16 with
+//     f32 accumulation per 16 channels x 8 frames, the 10 taps padded to
+//     16 with zero weights (raw bf16, exact; products of bf16 values are
+//     exact in f32, so only the order of the sums differs from the plain
+//     version).  Gain and offset follow as one f32 FMA, not folded into
+//     bf16 weights, which would round them.
+//   - The tap operand is a Hankel matrix (B[k][n] = x[5n + k]), which no
+//     wgmma shared-memory descriptor expresses, so its fragments come from
+//     the block's staged waveform.  A lane's pair (x[5n + 2t], x[5n + 2t +
+//     1]) is 4-byte aligned only for even n, so the slice is staged twice,
+//     the second copy one sample on: 2 x 1.4 KB and one 4-byte load a
+//     pair, where a [frames][16] tap tile would take 16 bytes a frame and
+//     eight stores to build.  The second copy starts 16 words (mod 32) past
+//     the first; the loads of a fragment meet 2-way bank conflicts at most.
+//   - Stores: F is odd at the main shapes, so a channel row's start takes
+//     every alignment mod 8 elements in turn, but rows c and c + 8 share it
+//     (8F = 0 mod 8).  Warp r takes the channels r, r + 8, ..., r + 120 of
+//     the block's 128, so its 16 rows share one alignment, and it places
+//     its frames where that row class's 16-byte chunks fall: lane t's
+//     columns of four 8-frame products are frames 8t .. 8t + 7 of a chunk,
+//     rounded with packed cvt.rn.bf16x2.f32 into one 16-byte value.  A
+//     tile owns the chunks that start in its 128 frames shifted back by
+//     the class's alignment, so no chunk is computed twice and only the
+//     two at a row's ends are partial, written an element at a time.
+//   - Each warp stages its 16 rows x 128 frames in shared memory (4 KB,
+//     chunk k of an odd row at k ^ 4, so that a quarter warp's 16-byte
+//     stores of rows g and g + 1 fall in opposite halves of the banks) and
+//     then writes each row's 256 bytes with one 16-byte store a lane, two
+//     rows an instruction.  Written straight from the fragments instead
+//     (64 bytes of each of 8 rows an instruction, a row's pieces a group's
+//     work apart) the kernel was slower than form 0 (PERF.md;
+//     scripts/b2_variants.py's "direct").  TMA stores cannot do this: the
+//     channel stride, F x 2 bytes, is not a multiple of 16.
+//   - A block takes one tile, 128 channels x 128 frames: with ranges of
+//     tiles a block, weights and gains loaded once a range, the barriers
+//     around each tile's staging held its warps in lock step and the
+//     kernel was slower.  Its samples are staged with two 2-byte loads a
+//     word and a shuffle inside the row.  Stores are streaming
+//     (st.global.cs), and the launch bound holds a thread to 40 registers,
+//     six blocks an SM.  One bounds test a tile: only a row's first and
+//     last tiles, and a channel tile past C, test each chunk.
+//   - The PDL overlap stays: the tile's waveform and the weights are
+//     staged before griddepcontrol.wait.
+//   What is left is ~16 instructions an output, the GELU's 13 with its two
+//   MUFU operations first: about 0.07 ms of issue at [16, 80000], near the
+//   write's 0.079 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -381,6 +437,183 @@ conv_out_kernel(const E* __restrict__ wav, const E* __restrict__ w,
   }
 }
 
+// The bf16 form's output kernel (form 1; the design is in the header).
+constexpr int MT_FRAMES = 128;                 // frames an output tile
+constexpr int MT_GROUPS = MT_FRAMES / 32;      // 32-frame groups a warp walks
+constexpr int MT_CHUNKS = MT_FRAMES / 8;       // 16-byte chunks of a row of the tile
+constexpr int MT_ROWS = 32 / MT_CHUNKS;        // rows a warp's 16-byte store covers
+// words of one staged copy of the tile's samples: frames f0 - 8 .. f0 +
+// MT_FRAMES - 2, 16 taps each
+constexpr int MT_WORDS = MT_FRAMES * 5 / 2 + 23;
+constexpr int MT_COPY1 = MT_WORDS + ((48 - MT_WORDS % 32) % 32);   // = 16 mod 32
+// the output tile staged a warp at a time: 16 rows of MT_CHUNKS chunks
+constexpr int MT_STAGE_BYTES = OUT_WARPS * 16 * MT_CHUNKS * 16;
+// blocks an SM: 40 registers a thread, 6 x (32 + 2.8) KB of shared memory
+constexpr int MT_BLOCKS_PER_SM = 6;
+static_assert(MT_FRAMES % 32 == 0 && MT_COPY1 % 32 == 16, "tile geometry");
+static_assert(MT_CHUNKS >= 8 && MT_CHUNKS <= 32 && 32 % MT_CHUNKS == 0, "store geometry");
+static_assert(MT_STAGE_BYTES <= 48 * 1024, "the stage needs no opt-in to shared memory");
+// (lo, hi) rounded to bf16 by one packed conversion, lo in the low half
+__device__ __forceinline__ unsigned cvt_pair(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// the bits of sample i of a row, 0 outside [0, T)
+__device__ __forceinline__ unsigned sample_bits(const unsigned short* x, long long i, int T) {
+  return i >= 0 && i < T ? (unsigned)__ldg(x + i) : 0u;
+}
+
+// w[c][k], w[c][k + 1] of the [C, 10] bf16 weights as one register (0
+// past C); two 2-byte loads, as the tensor may start at an odd element
+__device__ __forceinline__ unsigned weight_pair(const unsigned short* w, int c, int k, bool in) {
+  return in ? (unsigned)__ldg(w + c * 10 + k) | (unsigned)__ldg(w + c * 10 + k + 1) << 16 : 0u;
+}
+
+// d = a.b, one m16n8k16 bf16 product with f32 accumulation from zero
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// One 32-frame group of a warp's 16 rows: four products over the frames
+// whose columns give lane t frames 8t .. 8t + 7 (sb: this lane's tap pairs
+// of the group's first product), then gain, offset, GELU and the packed
+// rounding: va holds row g's 8 frames, vb row g + 8's.
+__device__ __forceinline__ void mma_group(const unsigned* sb, const unsigned (&a)[4], float ga,
+                                          float oa, float gb, float ob, uint4& va, uint4& vb) {
+  unsigned lo[4], hi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {   // frames 8t + 2j, 8t + 2j + 1 of the chunk
+    float d[4];
+    mma_bf16_zero(d, a, sb[5 * j], sb[5 * j + 4]);
+    lo[j] = cvt_pair(gelu_as(fmaf(d[0], ga, oa)), gelu_as(fmaf(d[1], ga, oa)));
+    hi[j] = cvt_pair(gelu_as(fmaf(d[2], gb, ob)), gelu_as(fmaf(d[3], gb, ob)));
+  }
+  va = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  vb = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+}
+
+// A chunk of 8 frames from frame f at out[i] of a row of F frames: one
+// 16-byte store when it lies inside the row, else its frames in [0, F)
+// one at a time.
+__device__ __forceinline__ void store_chunk(unsigned short* out, long long i, int f, int F,
+                                            const uint4& v) {
+  if (f >= 0 && f + 8 <= F) {
+    *reinterpret_cast<uint4*>(out + i) = v;
+    return;
+  }
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (f + k >= 0 && f + k < F) out[i + k] = (unsigned short)(w[k / 2] >> (16 * (k & 1)));
+}
+
+// A tile's samples into sx: word i holds samples (2i, 2i + 1) of s0 on,
+// word MT_COPY1 + i samples (2i + 1, 2i + 2), 0 outside [0, T).  Inside
+// the row two 2-byte loads a word and the next lane's first sample; at a
+// row's ends one bounds test a sample.
+__device__ __forceinline__ void stage_samples(unsigned* sx, const unsigned short* x,
+                                              long long s0, int T) {
+  if (s0 >= 0 && s0 + 2 * MT_WORDS + 1 < T) {
+#pragma unroll
+    for (int i0 = 0; i0 < MT_WORDS; i0 += OUT_THREADS) {   // the same trips in every lane
+      const int i = i0 + threadIdx.x;
+      const unsigned short* xs = x + s0 + 2 * i;
+      unsigned x0 = 0, x1 = 0;
+      if (i <= MT_WORDS) x0 = __ldg(xs), x1 = __ldg(xs + 1);
+      unsigned x2 = __shfl_down_sync(0xffffffffu, x0, 1);
+      if ((threadIdx.x & 31) == 31 && i < MT_WORDS) x2 = __ldg(xs + 2);
+      if (i < MT_WORDS) sx[i] = x0 | x1 << 16, sx[MT_COPY1 + i] = x1 | x2 << 16;
+    }
+  } else {
+    for (int i = threadIdx.x; i < MT_WORDS; i += OUT_THREADS) {
+      const long long s = s0 + 2 * i;
+      const unsigned x0 = sample_bits(x, s, T), x1 = sample_bits(x, s + 1, T);
+      const unsigned x2 = sample_bits(x, s + 2, T);
+      sx[i] = x0 | x1 << 16;
+      sx[MT_COPY1 + i] = x1 | x2 << 16;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(OUT_THREADS, MT_BLOCKS_PER_SM)
+conv_out_mma_kernel(const __nv_bfloat16* __restrict__ wav, const __nv_bfloat16* __restrict__ w,
+                    const float* __restrict__ gain_off, __nv_bfloat16* __restrict__ out_,
+                    int T, int C, int F) {
+  __shared__ unsigned sx[MT_COPY1 + MT_WORDS];   // word i: samples 2i, 2i + 1; then 2i + 1, 2i + 2
+  extern __shared__ uint4 stage[];               // [OUT_WARPS][16 rows][MT_CHUNKS], swizzled
+
+  const int b = blockIdx.z;
+  const int f0 = blockIdx.x * MT_FRAMES, c0 = blockIdx.y * CT;
+  const unsigned short* x = reinterpret_cast<const unsigned short*>(wav) + (size_t)b * T;
+  const long long s0 = 5LL * (f0 - 8);   // the sample of tap 0 of frame f0 - 8
+  stage_samples(sx, x, s0, T);
+  // warp r: channels c0 + r + 8i; lane (g, t): rows g and g + 8 of the A
+  // fragment, channels ca and cb, taps 2t, 2t + 1 and (t = 0) 8, 9
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int ca = c0 + r + 8 * g, cb = ca + 64;
+  const bool ina = ca < C, inb = cb < C;
+  const unsigned short* wb = reinterpret_cast<const unsigned short*>(w);
+  const unsigned a[4] = {weight_pair(wb, ca, 2 * t, ina), weight_pair(wb, cb, 2 * t, inb),
+                         weight_pair(wb, ca, 8, ina && t == 0),
+                         weight_pair(wb, cb, 8, inb && t == 0)};
+  // the statistics' gains and offsets are complete and visible past here
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const float* gain = gain_off + (size_t)b * 2 * C;
+  const float ga = ina ? gain[ca] : 0.f, oa = ina ? gain[C + ca] : 0.f;
+  const float gb = inb ? gain[cb] : 0.f, ob = inb ? gain[C + cb] : 0.f;
+  __syncthreads();
+
+  // the rows' 16-byte chunks start at frames = dl mod 8; this warp's first
+  // one at o (o < 0 in a row's first tile)
+  const int e = (int)(((unsigned)b * (unsigned)C + (unsigned)(c0 + r)) * ((unsigned)F & 7u) & 7u);
+  const int dl = (8 - e) & 7;
+  const int o = f0 - 8 + dl;
+  // this lane's B column in product j of group q: frame o + 32q + 8(g >> 1)
+  // + 2j + (g & 1), its tap pair from the copy where it is 4-byte aligned
+  const int sl = 5 * (dl + 8 * (g >> 1) + (g & 1));
+  const unsigned* sb = (sl & 1 ? sx + MT_COPY1 + (sl - 1) / 2 : sx + sl / 2) + t;
+  // the warp's 16 rows: row h of the stage is channel c0 + r + 8(h & 7) +
+  // 64(h >> 3); chunk k of an odd row sits at k ^ 4, so that the two rows
+  // of a quarter warp's 16-byte stores fall in opposite halves of the banks
+  uint4* st = stage + r * 16 * MT_CHUNKS;
+  const int sw = (g & 1) << 2;
+#pragma unroll
+  for (int q = 0; q < MT_GROUPS; ++q) {
+    uint4 va, vb;
+    mma_group(sb + 80 * q, a, ga, oa, gb, ob, va, vb);
+    st[g * MT_CHUNKS + ((4 * q + t) ^ sw)] = va;
+    st[(g + 8) * MT_CHUNKS + ((4 * q + t) ^ sw)] = vb;
+  }
+  __syncwarp();
+  // each row's MT_FRAMES frames in one store instruction of MT_CHUNKS lanes
+  const int k = lane % MT_CHUNKS, hs = lane / MT_CHUNKS;
+  unsigned short* out = reinterpret_cast<unsigned short*>(out_);
+  const long long row0 = (long long)b * C + c0 + r;
+  const int f = o + 8 * k;
+  if (blockIdx.x > 0 && f0 + MT_FRAMES - 1 <= F && c0 + CT <= C) {   // every chunk whole
+#pragma unroll
+    for (int i = 0; i < 16 / MT_ROWS; ++i) {
+      const int h = i * MT_ROWS + hs;
+      const uint4 v = st[h * MT_CHUNKS + (k ^ ((h & 1) << 2))];
+      __stcs(reinterpret_cast<uint4*>(out + (row0 + 8 * (h & 7) + 64 * (h >> 3)) * F + f), v);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < 16 / MT_ROWS; ++i) {
+      const int h = i * MT_ROWS + hs;
+      const int c = c0 + r + 8 * (h & 7) + 64 * (h >> 3);
+      const uint4 v = st[h * MT_CHUNKS + (k ^ ((h & 1) << 2))];
+      if (c < C) store_chunk(out, (row0 + 8 * (h & 7) + 64 * (h >> 3)) * F + f, f, F, v);
+    }
+  }
+}
+
 template <typename E>
 int launch(const void* wav, const void* w, const void* scale, const void* bias,
            void* scratch, void* out, int B, int T, int C, int K, int S, int F, int chunk,
@@ -398,16 +631,25 @@ int launch(const void* wav, const void* w, const void* scale, const void* bias,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((F + FT - 1) / FT, (C + CT - 1) / CT, B);
+  // float: form 0's output kernel; bf16: form 1's, whose tiles own the
+  // chunks that start in their frames, shifted back by up to 8
+  cfg.gridDim = std::is_same<E, float>::value
+                    ? dim3((F + FT - 1) / FT, (C + CT - 1) / CT, B)
+                    : dim3((F + 7) / MT_FRAMES + 1, (C + CT - 1) / CT, B);
   cfg.blockDim = dim3(OUT_THREADS);
+  cfg.dynamicSmemBytes = std::is_same<E, float>::value ? 0 : MT_STAGE_BYTES;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, conv_out_kernel<10, E>, (const E*)wav, (const E*)w,
-                         (const float*)gain_off, (E*)out, T, C, F);
+  if constexpr (std::is_same<E, float>::value)
+    e = cudaLaunchKernelEx(&cfg, conv_out_kernel<10, float>, (const float*)wav, (const float*)w,
+                           (const float*)gain_off, (float*)out, T, C, F);
+  else
+    e = cudaLaunchKernelEx(&cfg, conv_out_mma_kernel, (const E*)wav, (const E*)w,
+                           (const float*)gain_off, (E*)out, T, C, F);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -417,24 +659,30 @@ int launch(const void* wav, const void* w, const void* scale, const void* bias,
 // wav [B,T], w [C,1,K], scale/bias [C] (float32, or bfloat16 when
 // bf16_io is nonzero; contiguous); scratch of B*chunks*65 + B*2*C floats
 // then B int32 counters, chunks = ceil(F / chunk); out [B,C,F] of wav's
-// type (the statistics, the norm and the GELU are f32 either way).  K must
-// be 10 (stride 5).
+// type (the statistics, the norm and the GELU are f32 either way), 16-byte
+// aligned for form 1.  K must be 10 (stride 5).  form 0 ("ffma") takes
+// float32, form 1 ("mma_sync") bfloat16; any other pairing returns
+// cudaErrorNotSupported.
 extern "C" int loco_conv_frontend(const void* wav, const void* w,
                                   const void* scale, const void* bias,
                                   void* scratch, void* out, int B, int T,
                                   int C, int K, int S, int F, int chunk,
-                                  float eps, int bf16_io, void* stream) {
+                                  float eps, int form, int bf16_io, void* stream) {
   if (K != 10 || S != 5 || chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16_io ? launch<__nv_bfloat16>(wav, w, scale, bias, scratch, out, B, T, C, K, S, F,
-                                         chunk, eps, st)
-                 : launch<float>(wav, w, scale, bias, scratch, out, B, T, C, K, S, F, chunk,
+  if (form == 0 && !bf16_io)
+    return launch<float>(wav, w, scale, bias, scratch, out, B, T, C, K, S, F, chunk, eps, st);
+  if (form == 1 && bf16_io) {
+    if ((size_t)out % 16) return (int)cudaErrorMisalignedAddress;
+    return launch<__nv_bfloat16>(wav, w, scale, bias, scratch, out, B, T, C, K, S, F, chunk,
                                  eps, st);
+  }
+  return (int)cudaErrorNotSupported;
 }
 
-// Blocks of B2's statistics kernel (phase 0, at `chunk` frames) or output
-// kernel (phase 1) that fit on one SM of the current device; negative on a
-// CUDA error.
+// Blocks of B2's statistics kernel (phase 0, at `chunk` frames), form 0's
+// output kernel (phase 1) or form 1's (phase 2) that fit on one SM of the
+// current device; negative on a CUDA error.
 extern "C" int loco_conv_frontend_blocks_per_sm(int phase, int chunk) {
   int n = 0;
   const size_t smem = ((size_t)chunk * 5 + 5) * sizeof(float);
@@ -442,7 +690,10 @@ extern "C" int loco_conv_frontend_blocks_per_sm(int phase, int chunk) {
       phase == 0
           ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_stats_kernel<10, float>,
                                                           STAT_THREADS, smem)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_out_kernel<10, float>,
-                                                          OUT_THREADS, 0);
+      : phase == 1
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_out_kernel<10, float>,
+                                                          OUT_THREADS, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_out_mma_kernel, OUT_THREADS,
+                                                          MT_STAGE_BYTES);
   return e == cudaSuccess ? n : -(int)e;
 }

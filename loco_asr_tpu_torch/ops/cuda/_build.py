@@ -43,7 +43,8 @@ _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu: (argtypes, restype).  The
 # kernels of B1-B6 take their operand type as an int after their other
 # arguments (0: float32, 1: bfloat16; ``bf16_flag``); B1's, B3/B4's and
-# B5/B6's take their form (``flash_causal.FORMS``) just before it.
+# B5/B6's take their form (``flash_causal.FORMS``) just before it, B2's
+# its own (``conv_frontend.FORMS``).
 _SIGNATURES = {
     "loco_flash_rel_fwd": ([_P] * 8 + [_I] * 8 + [_F, _I, _I, _P], _I),
     "loco_flash_rel_smem_bytes": ([_I] * 4, ctypes.c_size_t),
@@ -53,7 +54,7 @@ _SIGNATURES = {
     "loco_flash_rel_bwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "loco_flash_rel_bwd_blocks_per_sm": ([_I] * 5, _I),
     "loco_flash_rel_bwd_wgmma_plan": ([_P] + [_I] * 8 + [_P, _P], None),
-    "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _I, _P], _I),
+    "loco_conv_frontend": ([_P] * 6 + [_I] * 7 + [_F, _I, _I, _P], _I),
     "loco_conv_frontend_blocks_per_sm": ([_I, _I], _I),
     "loco_flash_causal_fwd": ([_P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),

@@ -16,14 +16,30 @@ the cancellation a DC offset brings).
 Bfloat16 inputs (waveform, weight, scale and bias, one dtype) take the
 TPU kernel's bf16 path: the conv's products are exact in float32, the
 statistics, the norm and the GELU run in float32, and the output is
-rounded to bf16 once.  The kernel has a form for each type; a bf16 CUDA
-tensor reaches the bf16 form or raises.
+rounded to bf16 once.
+
+The statistics kernel is shared; the output kernel has two *forms*
+(:func:`kernel_form`), one for each type:
+
+* ``"ffma"`` (float32): the conv as ten FMA an output on the CUDA cores,
+  gain folded into the weights in f32, scalar stores.  The output's bytes
+  bind it (524 MB at B=16 x 5 s).
+* ``"mma_sync"`` (bfloat16): the conv on the tensor cores (one bf16
+  ``mma.sync`` per 16 channels x 8 frames, the 10 taps padded to 16 with
+  zero weights), gain and offset after the product in f32, packed bf16
+  pairs staged a warp at a time in shared memory and written as aligned
+  16-byte chunks, a row's 128 frames of a tile in one store instruction.
+  The output is half as large, so the GELU's instructions (two of them on
+  the special-function unit) become the rival of the write.
+
+A CUDA call launches its dtype's form or raises; it never tries the other
+form nor the plain version.
 
 :func:`conv1_instance_norm_gelu` launches the kernel for a CUDA tensor
 and takes the plain version only for a CPU tensor; ``launches`` counts
-kernel launches.  The kernel has no backward, as the Pallas one has none:
-on CUDA with an input that requires grad the wrapper raises rather than
-return a detached output.
+kernel launches, ``launches_by_form`` the same by form.  The kernel has no
+backward, as the Pallas one has none: on CUDA with an input that requires
+grad the wrapper raises rather than return a detached output.
 """
 
 from __future__ import annotations
@@ -39,6 +55,13 @@ from . import _build
 EPS = 1e-5
 MAX_CHUNK = 2048      # frames of a statistics block, its waveform in shared memory
 N_STATS = 65          # 10 tap sums and the 55 distinct products of the tap gram
+FORMS = ("ffma", "mma_sync")   # the C entry's form argument is the index
+
+
+def kernel_form(dtype: torch.dtype) -> str:
+    """The output kernel a CUDA launch with operands of ``dtype`` takes:
+    ``"mma_sync"`` for bfloat16, ``"ffma"`` for float32."""
+    return "mma_sync" if dtype is torch.bfloat16 else "ffma"
 
 
 def stat_chunk(b: int, f: int, sm_count: int) -> int:
@@ -101,6 +124,7 @@ def conv1_instance_norm_gelu(wav: torch.Tensor, weight: torch.Tensor,
             "(models/speecht5/prenets.conv1_instance_norm_gelu_gram)")
     out = _launch(wav, weight, scale, bias, k, stride)
     conv1_instance_norm_gelu.launches += 1
+    conv1_instance_norm_gelu.launches_by_form[kernel_form(wav.dtype)] += 1
     return out
 
 
@@ -137,9 +161,10 @@ def _launch(wav, weight, scale, bias, k: int, stride: int) -> torch.Tensor:
     code = _build.call_on_stream(
         _build.library().loco_conv_frontend, dev, wav.data_ptr(), weight.data_ptr(),
         scale.data_ptr(), bias.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        b, t, c, k, stride, f, chunk, EPS, bf16)
+        b, t, c, k, stride, f, chunk, EPS, FORMS.index(kernel_form(wav.dtype)), bf16)
     _build.check(code, "conv_frontend")
     return out
 
 
 conv1_instance_norm_gelu.launches = 0
+conv1_instance_norm_gelu.launches_by_form = dict.fromkeys(FORMS, 0)
